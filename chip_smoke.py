@@ -3,17 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from csrc/ with nvcc, holds each against its
-plain PyTorch version on the card, runs every Wycheproof and
-malleability vector through the kernel path, then drives the main path:
-strict ed25519 `verify_batch` at bench.py's shape (8192 lanes x 1232-byte
-messages) and the verify tile (synth -> shm ring -> VerifyTile(batch=2048)
--> out ring). Any mismatch raises. The last line of output is
+Builds the CUDA kernels from csrc/ with nvcc (one process per source,
+started together), holds each against its plain PyTorch version on the
+card, runs every Wycheproof and malleability vector through the kernel
+path, then drives the port's paths at bench.py's shape (8192 lanes x
+1232-byte messages), each with the launch counts set to 0 just before it
+and read just after:
+
+  strict    phases 6-7: `verify_batch`, and the verify tile
+            (synth -> shm ring -> VerifyTile(batch=2048) -> out ring);
+  RLC       phase 8c: `rlc_verify_batch` on valid, forged, structurally
+            masked and torsion batches (phases 8a-8b hold the two MSM
+            kernels to their plain versions, 8d times them);
+  flood     phase 9: the front door, VerifyTile(mode="bulk_prefilter",
+            coalesce_us=150000) on forged-flood chunks, a mix with 256
+            valid txns, and torsion forgeries.
+
+Any mismatch raises. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 and the line before it a JSON object with each kernel's launches on the
-main path, error against its plain version, time, plain time and bound.
+paths, error against its plain version, time, plain time and bound.
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -34,6 +45,8 @@ TILE_BATCH = 2048        # bench.py e2e tile batch
 TILE_UNIQUE = 256
 TILE_CORRUPT = 1024
 TILE_FRAMES = 16384
+FLOOD_CHUNKS = 4          # all-forged chunks of TILE_BATCH frames (phase 9)
+FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
 ITERS = 20
 N_UNIQUE = 256          # distinct signatures behind the 8192 lanes
 DEVICE = "cuda"
@@ -124,26 +137,76 @@ def k64_of(sig, pub, msg, ln):
         for i in range(len(sig))])
 
 
-def field_muls_per_verify() -> int:
-    """Field multiplies of one verify, counted on the plain version (the
-    kernel performs the same sequence) over one lane on the CPU."""
-    from firedancer_tpu_torch.ops import ed25519 as ed
+def count_field_muls(fn, *args):
+    """(fn(*args), the field multiplies it performed): a plain version
+    computes every product with fe25519.mul on (..., 10) limb tensors,
+    and a kernel performs the same sequence, so the count is the number
+    of limb rows multiplied."""
     from firedancer_tpu_torch.ops import fe25519 as fe
-    from firedancer_tpu_torch.ops.params import fixed_base_tables
-    sig, pub, msg, ln = signed_batch(1, 1, 32, 99)
-    k64 = torch.from_numpy(k64_of(sig, pub, msg, ln))
     count, mul = [0], fe.mul
 
     def counted(f, g):
-        count[0] += 1
+        count[0] += int(np.prod(torch.broadcast_shapes(f.shape, g.shape)[:-1]))
         return mul(f, g)
     fe.mul = counted
     try:
-        ed.verify_core(torch.from_numpy(sig), torch.from_numpy(pub), k64,
-                       fixed_base_tables("cpu"))
+        out = fn(*args)
     finally:
         fe.mul = mul
-    return count[0]
+    return out, count[0]
+
+
+def field_muls_per_verify() -> int:
+    """Field multiplies of one verify, counted on the plain version over
+    one lane on the CPU."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.ops.params import fixed_base_tables
+    sig, pub, msg, ln = signed_batch(1, 1, 32, 99)
+    k64 = torch.from_numpy(k64_of(sig, pub, msg, ln))
+    return count_field_muls(ed.verify_core, torch.from_numpy(sig),
+                            torch.from_numpy(pub), k64,
+                            fixed_base_tables("cpu"))[1]
+
+
+def stats_of(ms, plain_ms, ops, nbytes) -> dict:
+    """A kernel's time beside its bound: the larger of INT32 operations
+    over the INT32 rate and bytes over the memory rate."""
+    ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=ops, bytes=nbytes, ops_ms=ops_ms, bytes_ms=bytes_ms)
+
+
+def run_tile(frames, depth, **kw):
+    """synth -> shm ring -> VerifyTile(**kw) -> out ring, in-process: the
+    ring is pre-filled, then the tile polls until idle and flushes.
+    -> (out-ring payloads, metrics, seconds of polling)."""
+    from firedancer_tpu_torch.runtime import Ring, Tcache, Workspace
+    from firedancer_tpu_torch.tiles.synth import SynthTile
+    from firedancer_tpu_torch.tiles.verify import VerifyTile
+    w = Workspace(f"/fdtt_smoke_{os.getpid()}", 1 << 26)
+    try:
+        in_ring = Ring.create(w, depth=depth, mtu=1280)
+        out_ring = Ring.create(w, depth=1024, mtu=1280)
+        tile = VerifyTile(in_ring, out_ring, Tcache(w, depth=4096),
+                          batch=TILE_BATCH, device=DEVICE, **kw)
+        SynthTile(in_ring, frames).run(len(frames))
+        t0 = time.perf_counter()
+        while tile.poll_once():
+            pass
+        tile.flush()
+        sec = time.perf_counter() - t0
+        out, seq = [], 0
+        while True:
+            rc, frag = out_ring.consume(seq)
+            if rc != 0:
+                break
+            out.append(bytes(out_ring.payload(frag)))
+            seq += 1
+    finally:
+        w.close()
+        w.unlink()
+    return out, dict(tile.metrics), sec
 
 
 def load_vectors(root):
@@ -182,13 +245,21 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from firedancer_tpu_torch.ops import _build, cuda_ed, cuda_sha
+    from firedancer_tpu_torch.ops import _build, cuda_ed, cuda_msm, cuda_sha
     from firedancer_tpu_torch.ops import ed25519 as ed
-    from firedancer_tpu_torch.ops import sha2
+    from firedancer_tpu_torch.ops import msm, sha2
     from firedancer_tpu_torch.ops.params import fixed_base_tables
-    from firedancer_tpu_torch.runtime import Ring, Tcache, Workspace
-    from firedancer_tpu_torch.tiles.synth import SynthTile, make_signed_txns
-    from firedancer_tpu_torch.tiles.verify import VerifyTile
+    from firedancer_tpu_torch.tiles.synth import make_signed_txns
+    from firedancer_tpu_torch.utils.chaos import (
+        attack_frames, torsion_sign, undecodable_point)
+
+    def counts() -> dict:
+        return {"sha512": cuda_sha.launches,
+                "ed25519_verify": cuda_ed.launches, **cuda_msm.launches}
+
+    def reset_counts():
+        cuda_sha.launches = cuda_ed.launches = 0
+        cuda_msm.launches.update(msm_stage1=0, msm_stage2=0)
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -200,7 +271,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
 
-    # 2. build both kernels (one nvcc per source, started together)
+    # 2. build every kernel source (one nvcc per source, started together)
     log("== 2. build")
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -286,37 +357,32 @@ def main() -> int:
              lambda: ed.verify_core(vs_d, vp_d, vk_d, fixed_base_tables(dev)),
              ITERS, B * muls * OPS_PER_FIELD_MUL,
              B * (64 + 32 + 64 + 4) + fixed_base_tables(dev).numel() * 4)):
-        ms = cuda_ms(fn, iters)
-        plain_ms = cuda_ms(pfn, 1)
-        ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, \
-            nbytes / BYTES_PER_S * 1e3
-        stats[name] = dict(ms=ms, plain_ms=plain_ms,
-                           bound_ms=max(ops_ms, bytes_ms),
-                           bound_by="operations" if ops_ms >= bytes_ms
-                           else "bytes", ops=ops, bytes=nbytes)
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-            f"{max(ops_ms, bytes_ms):.4f} ms ({ops:.4g} int32 ops -> "
-            f"{ops_ms:.4f} ms, {nbytes} B -> {bytes_ms:.4f} ms), "
-            f"{ms / max(ops_ms, bytes_ms):.1f}x the bound {card}")
+        st = stats[name] = stats_of(cuda_ms(fn, iters), cuda_ms(pfn, 1), ops,
+                                    nbytes)
+        log(f"{name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.2f} "
+            f"ms, bound {st['bound_ms']:.4f} ms ({ops:.4g} int32 ops -> "
+            f"{st['ops_ms']:.4f} ms, {nbytes} B -> {st['bytes_ms']:.4f} ms), "
+            f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
     log(f"field multiplies per verify: {muls}; sha512 blocks per batch: "
         f"{sha_blocks}")
     assert torch.equal(cuda_ed.verify_core(vs_d, vp_d, vk_d),
                        torch.ones(B, dtype=torch.int32, device=dev))
 
-    # 6. main path: verify_batch at 8192 x 1232, all valid
-    cuda_sha.launches = cuda_ed.launches = 0
-    log("== 6. main path: verify_batch 8192 x 1232 " + card)
+    # 6. strict path: verify_batch at 8192 x 1232, all valid
+    reset_counts()
+    log(f"== 6. strict path: verify_batch {B} x {MSG_LEN} {card}")
     ins = [torch.from_numpy(x).to(dev) for x in (sig, pub, msg, ln)]
     ok = cuda_ed.verify_batch(*ins, device=DEVICE)
     assert bool(ok.all()), f"{int((~ok).sum())} valid lanes rejected"
     ms = cuda_ms(lambda: cuda_ed.verify_batch(*ins, device=DEVICE),
                  ITERS)
-    launches6 = (cuda_sha.launches, cuda_ed.launches)
+    strict_ms = ms
+    launches6 = counts()
     log(f"verify_batch: {ms:.3f} ms per {B}-lane batch, "
         f"{B / ms * 1e3:.0f} verifies/s over {ITERS} iterations {card}")
 
     # 7. the verify tile over real shm rings
-    log("== 7. tile: synth -> ring -> VerifyTile(batch=2048) -> ring")
+    log(f"== 7. tile: synth -> ring -> VerifyTile(batch={TILE_BATCH}) -> ring")
     t0 = time.perf_counter()
     txns = make_signed_txns(TILE_UNIQUE, seed=7)
     frames = list(txns)
@@ -330,29 +396,7 @@ def main() -> int:
     frames = [frames[i] for i in prng.permutation(len(frames))]
     log(f"{len(frames)} frames ({TILE_UNIQUE} unique valid, {TILE_CORRUPT} "
         f"corrupt) built in {time.perf_counter() - t0:.1f} s")
-    w = Workspace(f"/fdtt_smoke_{os.getpid()}", 1 << 26)
-    try:
-        in_ring = Ring.create(w, depth=TILE_FRAMES, mtu=1280)
-        out_ring = Ring.create(w, depth=1024, mtu=1280)
-        tile = VerifyTile(in_ring, out_ring, Tcache(w, depth=4096),
-                          batch=TILE_BATCH, device=DEVICE)
-        SynthTile(in_ring, frames).run(len(frames))
-        t0 = time.perf_counter()
-        while tile.poll_once():
-            pass
-        tile.flush()
-        sec = time.perf_counter() - t0
-        out, seq = [], 0
-        while True:
-            rc, frag = out_ring.consume(seq)
-            if rc != 0:
-                break
-            out.append(bytes(out_ring.payload(frag)))
-            seq += 1
-    finally:
-        w.close()
-        w.unlink()
-    m = tile.metrics
+    out, m, sec = run_tile(frames, TILE_FRAMES)
     log(f"tile metrics {json.dumps(m)}")
     log(f"tile: {len(frames)} frames in {sec:.3f} s, {len(frames) / sec:.0f} "
         f"frames/s, {m['batches']} device batches {card}")
@@ -362,21 +406,202 @@ def main() -> int:
     for key, val in want_m.items():
         assert m[key] == val, f"tile {key} = {m[key]}, expected {val}"
     assert sorted(out) == sorted(txns), "out ring != the unique valid txns"
-    launches = (cuda_sha.launches, cuda_ed.launches)
-    log(f"launches: verify_batch phase {launches6}, with the tile "
-        f"{launches} (sha512, ed25519_verify)")
-    assert min(launches6) > 0 and min(launches[0] - launches6[0],
-                                      launches[1] - launches6[1]) > 0
+    strict_path = counts()
+    log(f"strict path launches: verify_batch phase {launches6}, with the "
+        f"tile {strict_path}")
+    assert launches6["sha512"] > 0 and launches6["ed25519_verify"] > 0
+    assert strict_path["sha512"] > launches6["sha512"] and \
+        strict_path["ed25519_verify"] > launches6["ed25519_verify"]
+
+    # 8a. MSM stage 1, kernel vs plain, at 8192 lanes with every lane
+    # class: valid, non-decodable R (lane % 64 == 1) and A (== 5), S >= l
+    # (== 2) and small-order A (== 3) masked by the glue, z = 0 (== 6)
+    log(f"== 8a. msm_stage1 kernel vs plain ({B} x {MSG_LEN}, every lane "
+        f"class)")
+    cls = np.arange(B) % 64
+    csig, cpub = sig.copy(), pub.copy()
+    csig[cls == 1, :32] = undecodable_point(11)
+    csig[cls == 2, 32:] = np.frombuffer((ed.L + 5).to_bytes(32, "little"),
+                                        np.uint8)
+    cpub[cls == 3] = ed._small_order_encodings()[1]
+    cpub[cls == 5] = undecodable_point(12)
+    zb = np.random.default_rng(9).integers(0, 256, (B, 16), np.uint8)
+    zb[cls == 6] = 0
+    captured = {}
+
+    def recorded(key, fn):
+        def f(*a):
+            captured[key] = a
+            return fn(*a)
+        return f
+    c_ins = [torch.from_numpy(x).to(dev) for x in (csig, cpub, msg, ln)]
+    z_d = torch.from_numpy(zb).to(dev)
+    ok, pre = ed.rlc_verify(*c_ins, z_d, cuda_sha.sha512,
+                            recorded("s1", cuda_msm.msm_stage1),
+                            recorded("s2", cuda_msm.msm_stage2))
+    want_pre = ~np.isin(cls, (1, 2, 3, 5))
+    assert bool(ok) and np.array_equal(pre.cpu().numpy(), want_pre), \
+        "rlc verdict on the lane-class batch"
+    w_k, ok_k = cuda_msm.msm_stage1(*captured["s1"])
+    w_p, ok_p = msm.msm_stage1(*captured["s1"])
+    torch.cuda.synchronize()
+    s1_err = max(int((w_k - w_p).abs().max()), int((ok_k - ok_p).abs().max()))
+    assert s1_err == 0, f"msm_stage1 kernel != plain (max err {s1_err})"
+    log(f"msm_stage1: {B} lanes, {w_k.shape[0]} blocks x 64 window sums, "
+        f"kernel == plain in every limb, lane_ok equal, max_abs_err 0")
+
+    # 8b. MSM stage 2, kernel vs plain: the verdict and the sum's limbs,
+    # for the batch's s (it verifies) and for s + 1 (it does not)
+    log("== 8b. msm_stage2 kernel vs plain (verdict and canonical sum)")
+    tab = fixed_base_tables(dev)
+    wsum, s_sum = captured["s2"]
+    s_bad = ed.sc_sum_mod_l(torch.stack([s_sum, torch.tensor(
+        [1] + [0] * 31, dtype=torch.uint8, device=dev)]))
+    s2_err = 0
+    for s_in, verdict in ((s_sum, 1), (s_bad, 0)):
+        ok_k, pt_k = cuda_msm.msm_stage2(wsum, s_in)
+        ok_p, pt_p = msm.msm_stage2(wsum, s_in, tab)
+        torch.cuda.synchronize()
+        s2_err = max(s2_err, abs(int(ok_k) - int(ok_p)),
+                     int((pt_k - pt_p).abs().max()))
+        assert int(ok_k) == verdict, f"msm_stage2 verdict {int(ok_k)}"
+        if verdict:                    # the identity: X = 0, Y = Z
+            assert not pt_k[0].any() and torch.equal(pt_k[1], pt_k[2])
+    assert s2_err == 0, f"msm_stage2 kernel != plain (max err {s2_err})"
+    log("msm_stage2: verdicts 1 and 0 as expected, kernel == plain "
+        "(verdict and every canonical limb), max_abs_err 0")
+
+    # 8c. RLC path: rlc_verify_batch at 8192 x 1232 through the kernels,
+    # each verdict equal to the plain version's on the card
+    log(f"== 8c. RLC path: rlc_verify_batch {B} x {MSG_LEN} {card}")
+    reset_counts()
+    zv = np.random.default_rng(10).integers(0, 256, (B, 16), np.uint8)
+    fmsg = msg.copy()
+    fmsg[3, 0] ^= 1                    # lane 3's message forged
+    ssig, spub = sig.copy(), pub.copy()
+    ssig[10, 32:] = np.frombuffer((ed.L + 5).to_bytes(32, "little"),
+                                  np.uint8)
+    spub[20] = ed._small_order_encodings()[1]
+    ssig[30, :32] = undecodable_point(13)
+    tsig, tpub = sig.copy(), pub.copy()
+    t_pub, t_sig = torsion_sign(b"\x33" * 32, msg[0].tobytes())
+    tpub[0], tsig[0] = np.frombuffer(t_pub, np.uint8), \
+        np.frombuffer(t_sig, np.uint8)
+    z0, z1 = zv.copy(), zv.copy()
+    z0[0, 0] &= 0xF8                   # z_0 = 0 mod 8
+    z1[0, 0] |= 1                      # z_0 odd
+    all_pre = np.ones(B, bool)
+    cases = (("all valid", (sig, pub, msg), zv, True, all_pre),
+             ("lane 3 forged", (sig, pub, fmsg), zv, False, all_pre),
+             ("S >= l, small-order A, non-decodable R", (ssig, spub, msg),
+              zv, True, ~np.isin(np.arange(B), (10, 20, 30))),
+             ("torsion lane, z_0 = 0 mod 8", (tsig, tpub, msg), z0, True,
+              all_pre),
+             ("torsion lane, z_0 odd", (tsig, tpub, msg), z1, False, None))
+    for label, (cs, cp, cm), cz, want_ok, want_pre in cases:
+        c_in = [torch.from_numpy(x).to(dev) for x in (cs, cp, cm, ln, cz)]
+        ok, pre = cuda_msm.rlc_verify_batch(*c_in, device=DEVICE)
+        ok_p, pre_p = ed.rlc_verify_batch(*c_in, device=DEVICE)
+        assert bool(ok) == bool(ok_p) == want_ok, f"rlc {label}: {bool(ok)}"
+        assert torch.equal(pre, pre_p), f"rlc {label}: lane_pre != plain"
+        if want_pre is not None:
+            assert np.array_equal(pre.cpu().numpy(), want_pre), label
+        log(f"rlc {label}: batch_ok {bool(ok)}, lane_pre false on "
+            f"{int((~pre).sum())} lanes, kernels == plain")
+    rlc_path = counts()
+    log(f"RLC path launches {rlc_path}")
+    assert min(rlc_path[k] for k in ("sha512", "msm_stage1",
+                                     "msm_stage2")) > 0
+
+    # 8d. each MSM kernel's own time at the RLC path's shape (all valid),
+    # the plain version's, the bound; and the whole rlc_verify_batch
+    log(f"== 8d. MSM kernel times at {B} x {MSG_LEN} {card}")
+    v_in = [torch.from_numpy(x).to(dev) for x in (sig, pub, msg, ln, zv)]
+    ed.rlc_verify(*v_in[:4], v_in[4], cuda_sha.sha512,
+                  recorded("v1", cuda_msm.msm_stage1),
+                  recorded("v2", cuda_msm.msm_stage2))
+    nblk = -(-B // msm.LANES)
+    wbytes = nblk * 64 * 160
+    _, muls1 = count_field_muls(msm.msm_stage1, *captured["v1"])
+    _, muls2 = count_field_muls(msm.msm_stage2, *captured["v2"], tab)
+    for name, fn, pfn, muls, nbytes in (
+            ("msm_stage1", lambda: cuda_msm.msm_stage1(*captured["v1"]),
+             lambda: msm.msm_stage1(*captured["v1"]), muls1,
+             B * (32 + 64 + 32 + 16 + 4 + 4) + wbytes),
+            ("msm_stage2", lambda: cuda_msm.msm_stage2(*captured["v2"]),
+             lambda: msm.msm_stage2(*captured["v2"], tab), muls2,
+             wbytes + 32 + 64 * 120 + 41 * 4)):
+        st = stats[name] = stats_of(cuda_ms(fn, ITERS), cuda_ms(pfn, 1),
+                                    muls * OPS_PER_FIELD_MUL, nbytes)
+        log(f"{name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.2f} "
+            f"ms, bound {st['bound_ms']:.4f} ms ({muls} field multiplies -> "
+            f"{st['ops_ms']:.4f} ms, {nbytes} B -> {st['bytes_ms']:.4f} ms), "
+            f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
+    log(f"field multiplies: stage 1 {muls1} ({muls1 / B:.1f} per lane), "
+        f"stage 2 {muls2}")
+    ms = cuda_ms(lambda: cuda_msm.rlc_verify_batch(*v_in, device=DEVICE),
+                 ITERS)
+    log(f"rlc_verify_batch: {ms:.3f} ms per {B}-lane batch, "
+        f"{B / ms * 1e3:.0f} lanes/s over {ITERS} iterations; strict "
+        f"verify_batch (phase 6) {strict_ms:.3f} ms, "
+        f"{B / strict_ms * 1e3:.0f} verifies/s {card}")
+
+    # 9. the flood front door: the verify tile in bulk_prefilter mode with
+    # the coalescing window of cfg/flood-demo.toml
+    log(f"== 9. tile: synth -> ring -> VerifyTile(batch={TILE_BATCH}, "
+        f"mode=bulk_prefilter, coalesce_us=150000) -> ring")
+    t0 = time.perf_counter()
+    pool = attack_frames("flood_forged", 8, seed=3)
+
+    def forged(k):
+        # a forged pool frame made unique: bytes 8..11 of S carry k, so
+        # every frame has its own dedup tag and its own device lane
+        f = bytearray(pool[k % len(pool)])
+        f[1 + 40:1 + 44] = k.to_bytes(4, "little")
+        return bytes(f)
+    n_flood = FLOOD_CHUNKS * TILE_BATCH
+    torsion = attack_frames("flood_torsion", 8, seed=21)
+    assert len(set(torsion)) == 8
+    frames = [forged(k) for k in range(n_flood)] + list(txns) \
+        + [forged(n_flood + k) for k in range(FLOOD_MIX_FORGED)] + torsion
+    log(f"{len(frames)} frames ({n_flood} forged in {FLOOD_CHUNKS} full "
+        f"chunks, then {TILE_UNIQUE} valid, {FLOOD_MIX_FORGED} forged, 8 "
+        f"torsion) built in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    out, m, sec = run_tile(frames, 16384, mode="bulk_prefilter",
+                           coalesce_us=150000)
+    flood_path = counts()
+    log(f"tile metrics {json.dumps(m)}")
+    log(f"flood tile: {len(frames)} frames in {sec:.3f} s, "
+        f"{len(frames) / sec:.0f} frames/s, {m['rlc_batches']} RLC "
+        f"equations ({m['rlc_ns'] / 1e6:.1f} ms), {m['batches']} strict "
+        f"batches {card}")
+    want_m = dict(rx=len(frames), parse_fail=0, dedup_drop=0, tx=TILE_UNIQUE,
+                  rlc_shed=n_flood,
+                  verify_fail=n_flood + FLOOD_MIX_FORGED + 8)
+    for key, val in want_m.items():
+        assert m[key] == val, f"flood tile {key} = {m[key]}, expected {val}"
+    assert sorted(out) == sorted(txns), "out ring != the unique valid txns"
+    assert not set(out) & set(torsion), "a torsion forgery was forwarded"
+    log(f"flood path launches {flood_path}")
+    assert min(flood_path.values()) > 0
 
     kernels = []
-    for name, src, rep, n, err in (
+    paths = (strict_path, rlc_path, flood_path)
+    for name, src, rep, err in (
             ("sha512", "firedancer_tpu_torch/csrc/sha512.cu",
-             "firedancer_tpu/ops/pallas_sha.py:35", launches[0], sha_err),
+             "firedancer_tpu/ops/pallas_sha.py:35", sha_err),
             ("ed25519_verify", "firedancer_tpu_torch/csrc/ed25519_verify.cu",
-             "firedancer_tpu/ops/pallas_ed.py:634", launches[1], ver_err)):
+             "firedancer_tpu/ops/pallas_ed.py:634", ver_err),
+            ("msm_stage1", "firedancer_tpu_torch/csrc/ed25519_msm.cu",
+             "firedancer_tpu/ops/pallas_msm.py:136", s1_err),
+            ("msm_stage2", "firedancer_tpu_torch/csrc/ed25519_msm.cu",
+             "firedancer_tpu/ops/pallas_msm.py:210", s2_err)):
         st = stats[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": n, "max_abs_err": err,
+                        "replaces": rep,
+                        "launches": sum(p[name] for p in paths),
+                        "max_abs_err": err,
                         "ms": st["ms"], "plain_ms": st["plain_ms"],
                         "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": None})

@@ -1,13 +1,14 @@
 """Build of the CUDA sources under csrc/ with nvcc at first use, and
 their ctypes loader.
 
-Each `csrc/<name>.cu` has a plain C entry point and becomes
+Each `csrc/<name>.cu` has plain C entry points and becomes
 `build/lib<name>.so`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source is newer. `build_all` starts one
+A library is rebuilt when its source, or a header under csrc/, is
+newer. `build_all` starts one
 nvcc per source at once and waits for all of them; ptxas's register and
 spill report lands in `build/<name>.log`. Nothing here is imported or
 run on the CPU path."""
@@ -22,7 +23,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("sha512", "ed25519_verify")
+SOURCES = ("sha512", "ed25519_verify", "ed25519_msm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,8 +47,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, so, _ = _paths(name)
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
     return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src))
+            or os.path.getmtime(so) < max(map(os.path.getmtime, deps)))
 
 
 def _start(name: str):
@@ -77,18 +80,18 @@ def build_all(names=SOURCES) -> dict:
     return done
 
 
-def lib(name: str, argtypes) -> ct.CDLL:
-    """The loaded library of csrc/<name>.cu (built first if needed), with
-    `argtypes` set on its entry point fdtt_<name>."""
-    if name not in _libs:
+def lib(name: str, argtypes, entry: str | None = None):
+    """Entry point `entry` (default fdtt_<name>) of the library of
+    csrc/<name>.cu, built first if needed, with `argtypes` set."""
+    entry = entry or f"fdtt_{name}"
+    if (name, entry) not in _libs:
         if _stale(name):
             build_all((name,))
-        so = ct.CDLL(_paths(name)[1])
-        fn = getattr(so, f"fdtt_{name}")
+        fn = getattr(ct.CDLL(_paths(name)[1]), entry)
         fn.restype = ct.c_int
         fn.argtypes = argtypes
-        _libs[name] = fn
-    return _libs[name]
+        _libs[name, entry] = fn
+    return _libs[name, entry]
 
 
 def check_launch(name: str, rc: int):

@@ -1,10 +1,13 @@
-"""Strict ed25519 verification as plain PyTorch (the port's CPU path and
-the plain version of the fused verify kernel).
+"""Strict and RLC batch ed25519 verification as plain PyTorch (the port's
+CPU path, the plain version of the fused verify kernel, and the glue
+around the kernels).
 
 Counterpart of the JAX package's ops/ed25519.py (scalars, decompression,
-small-order encodings, fixed-base table) and of the strict glue plus
-kernel body of ops/pallas_ed.py (`verify_batch`, `_verify_core`). Field
-arithmetic is ops/fe25519.py, in the kernel's own limb scheme.
+small-order encodings, fixed-base table, `rlc_verify_batch`,
+`verify_batch_rlc`) and of the strict glue plus kernel body of
+ops/pallas_ed.py (`verify_batch`, `_verify_core`). Field arithmetic is
+ops/fe25519.py, in the kernel's own limb scheme; the plain versions of
+the two MSM kernels are ops/msm.py.
 
 Semantics (RFC 8032 with the reference's strict rules,
 ref: src/ballet/ed25519/fd_ed25519_user.c:136-230): S < l, A.y < p, A
@@ -12,8 +15,9 @@ and R not of small order, cofactorless [S]B + [k](-A) == R compared as
 canonical encodings.
 
 Scalars are 32-byte little-endian tensors. `sc_reduce64` folds a 512-bit
-hash mod l in 21-bit digits with int64 sums (the ref10 fold constants),
-which is what the kernel does per thread.
+value mod l in 21-bit digits with int64 sums (the ref10 fold constants),
+which is what the kernel does per thread; the RLC products z k, z S and
+the lane sum are formed in the same 21-bit digits and folded by it.
 """
 from __future__ import annotations
 
@@ -50,7 +54,23 @@ def _carry21(s: list, lo: int, hi: int):
         s[i + 1] = s[i + 1] + c
 
 
+def _digits21(b: torch.Tensor, n: int) -> list:
+    """(..., m) uint8 LE -> n int64 digits of 21 bits, the last one
+    holding every bit from 21 (n - 1) up."""
+    x = b.to(torch.int64)
+    x = torch.cat([x, torch.zeros_like(x[..., :5])], dim=-1)
+    s = []
+    for i in range(n):
+        a, r = divmod(21 * i, 8)
+        v = (x[..., a] | (x[..., a + 1] << 8) | (x[..., a + 2] << 16)
+             | (x[..., a + 3] << 24) | (x[..., a + 4] << 32))
+        s.append((v >> r) & ((1 << 21) - 1) if i < n - 1 else v >> r)
+    return s
+
+
 def _digits_to_bytes(s: list, nbytes: int) -> torch.Tensor:
+    """Non-negative 21-bit digits -> (..., nbytes) uint8 LE, zero-filled
+    past the digits' last bit."""
     out, acc, nb = [], torch.zeros_like(s[0]), 0
     for dgt in s:
         acc = acc | (dgt << nb)
@@ -59,6 +79,9 @@ def _digits_to_bytes(s: list, nbytes: int) -> torch.Tensor:
             out.append(acc & 0xFF)
             acc = acc >> 8
             nb -= 8
+    while len(out) < nbytes:
+        out.append(acc & 0xFF)
+        acc = acc >> 8
     return torch.stack(out, dim=-1).to(torch.uint8)
 
 
@@ -70,14 +93,7 @@ def sc_reduce64(b: torch.Tensor) -> torch.Tensor:
     |s12| < 2^12. Two more fold+carry rounds leave it in (-delta, l),
     and one conditional add of l (when s12 = -1) makes it canonical.
     Every sum stays below 2^53 in magnitude."""
-    x = b.to(torch.int64)
-    x = torch.cat([x, torch.zeros_like(x[..., :4])], dim=-1)
-    s = []
-    for n in range(24):
-        a, r = divmod(21 * n, 8)
-        v = (x[..., a] | (x[..., a + 1] << 8) | (x[..., a + 2] << 16)
-             | (x[..., a + 3] << 24) | (x[..., a + 4] << 32))
-        s.append((v >> r) & ((1 << 21) - 1) if n < 23 else v >> r)
+    s = _digits21(b, 24)
     for n in range(23, 17, -1):
         _fold(s, n)
     _carry21(s, 6, 17)
@@ -93,6 +109,33 @@ def sc_reduce64(b: torch.Tensor) -> torch.Tensor:
     s[12] = s[12] - t                    # + 2^252
     _carry21(s, 0, 12)
     return _digits_to_bytes(s[:13], 32)
+
+
+def sc_mul_mod_l(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """(..., 32) uint8 scalar (any value below 2^256) times (..., 16)
+    uint8 z, mod l -> (..., 32) uint8 canonical (the JAX sc_mul_mod_l).
+
+    13 x 7 digit products of 21 bits, each below 2^42; a column sums at
+    most 7 of them, below 2^45 in int64. The product, below 2^384, is
+    carried to 21-bit digits and folded by sc_reduce64."""
+    ad, zd = _digits21(a, 13), _digits21(z, 7)
+    p = [torch.zeros_like(ad[0]) for _ in range(20)]
+    for i, x in enumerate(ad):
+        for j, y in enumerate(zd):
+            p[i + j] = p[i + j] + x * y
+    _carry21(p, 0, 19)
+    return sc_reduce64(_digits_to_bytes(p, 64))
+
+
+def sc_sum_mod_l(s: torch.Tensor) -> torch.Tensor:
+    """(B, 32) uint8 scalars -> (32,) uint8, their sum mod l (the JAX
+    sc_sum_mod_l over axis 0). A digit column sums B values below 2^21,
+    below 2^63 for B < 2^42; the sum, below B 2^256, is carried to 21-bit
+    digits and folded by sc_reduce64 (B < 2^256)."""
+    d = [x.sum(0) for x in _digits21(s, 13)]
+    d += [torch.zeros_like(d[0]) for _ in range(12)]
+    _carry21(d, 0, 24)
+    return sc_reduce64(_digits_to_bytes(d, 64))
 
 
 def _bytes_lt(b: torch.Tensor, const_int: int,
@@ -284,6 +327,25 @@ def _to_pre(p):
             fe.mul_const(t, fe.D2_LIMBS))
 
 
+def _neg_table(x, y, t):
+    """[w(-P) for w = 0..15], extended, for P = (x, y, 1, t): the
+    identity, -P, then 14 affine precomputed adds of -P (the kernels'
+    ge_neg_start and table loop)."""
+    nx, nt = fe.neg(x), fe.neg(t)
+    q = (fe.sub(y, nx), fe.add(y, nx), fe.mul_const(nt, fe.D2_LIMBS))
+    ident = _identity(y)
+    full = [ident, (nx, y, ident[1], nt)]
+    for _ in range(14):
+        full.append(_madd_aff(full[-1], q))
+    return full
+
+
+def _pre_table(full):
+    """A _neg_table as precomputed entries; entry 0 is (1, 1, 2, 0)."""
+    one, zero = full[0][1], full[0][0]
+    return [(one, one, fe.mul2(one), zero)] + [_to_pre(p) for p in full[1:]]
+
+
 def _recover_x(y, sign):
     """RFC 8032 5.1.3 on exact y limbs and the sign bit -> (x, ok).
     y < p is NOT checked here (the strict glue's byte compare does)."""
@@ -305,6 +367,14 @@ def _recover_x(y, sign):
     return torch.where(flip.unsqueeze(-1), fe.neg(x), x), ok
 
 
+def _decode_xyt(b: torch.Tensor):
+    """(..., 32) uint8 -> (x, y, t = xy, ok): the kernels' ge_decompress,
+    that is decompress without its y < p byte compare."""
+    y = fe.frombytes(b)
+    x, ok = _recover_x(y, (b[..., 31] >> 7).to(torch.int64))
+    return x, y, fe.mul(x, y), ok
+
+
 def decompress(b: torch.Tensor):
     """(..., 32) uint8 -> ((x, y, 1, xy) limbs, ok). Rejects y >= p,
     non-square x^2 and x = 0 with the sign set."""
@@ -315,8 +385,8 @@ def decompress(b: torch.Tensor):
     return (x, y, fe.const(ONE_LIMBS, y), fe.mul(x, y)), ok
 
 
-def _nibbles(b: torch.Tensor) -> torch.Tensor:
-    """(..., 32) uint8 -> (..., 64) int64 4-bit windows, LSB first."""
+def sc_windows4(b: torch.Tensor) -> torch.Tensor:
+    """(..., n) uint8 LE -> (..., 2n) int64 4-bit windows, LSB first."""
     x = b.to(torch.int64)
     return torch.stack([x & 15, x >> 4], dim=-1).flatten(-2)
 
@@ -330,24 +400,16 @@ def verify_core(sig: torch.Tensor, pub: torch.Tensor, k64: torch.Tensor,
     (64, 16, 3, 10) int32 (ops/params.py). Returns (B,) int32 verdicts
     (the glue's S/A/R canonicity and small-order masks not applied)."""
     rb, sb = sig[:, :32], sig[:, 32:]
-    ay = fe.frombytes(pub)
-    ax, dec_ok = _recover_x(ay, (pub[:, 31] >> 7).to(torch.int64))
-    at = fe.mul(ax, ay)
-    kw = _nibbles(sc_reduce64(k64))
-    sw = _nibbles(sb)
+    ax, ay, at, dec_ok = _decode_xyt(pub)
+    kw = sc_windows4(sc_reduce64(k64))
+    sw = sc_windows4(sb)
     tab = fb_tab.to(torch.int64)
 
-    nx, nt = fe.neg(ax), fe.neg(at)
-    a_neg_pre = (fe.sub(ay, nx), fe.add(ay, nx), fe.mul_const(nt, fe.D2_LIMBS))
-    ident = _identity(ay)
-    one, zero = ident[1], ident[0]
-    full = [ident, (nx, ay, one, nt)]
-    for _ in range(14):
-        full.append(_madd_aff(full[-1], a_neg_pre))
-    vbtab = [(one, one, fe.mul2(one), zero)] + [_to_pre(p) for p in full[1:]]
+    vbtab = _pre_table(_neg_table(ax, ay, at))
     vbtab = torch.stack([torch.stack(e, dim=1) for e in vbtab], dim=1)
     lanes = torch.arange(ay.shape[0], device=ay.device)
 
+    ident = _identity(ay)
     vacc, facc = ident, ident
     for j in range(63, -1, -1):
         vacc = _dbl(_dbl(_dbl(vacc, False), False), False)
@@ -401,3 +463,76 @@ def verify_batch(sig, pub, msg, msg_len, device="cuda"):
     tab = fixed_base_tables(sig.device)
     return strict_verify(sig, pub, msg, msg_len, sha512,
                          lambda s, p, k: verify_core(s, p, k, tab))
+
+
+# ---------------------------------------------------------------------------
+# RLC batch verification (the bulk pre-filter)
+# ---------------------------------------------------------------------------
+
+def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
+               stage2_fn):
+    """The RLC glue around the two MSM stages (counterpart of the scalar
+    side of the JAX rlc_verify_batch, ed25519.py:548-649, and of
+    pallas_msm.rlc_verify_batch_tpu). Checks
+
+        sum_i z_i ([S_i]B - [k_i]A_i - R_i) == identity
+
+    over the lanes that pass lane_pre: S < l, A.y < p, R.y < p, A and R
+    not small-order encodings, A and R decompress. z is zero on every
+    other lane, decompression failures included: stage 1 reports those
+    in its lane_ok and contributes the identity for them, and the sum
+    s = sum_i z_i S_i is taken over lane_pre lanes only.
+
+    COFACTORED semantics, as the JAX function documents: a lane whose
+    residual is a nonzero pure 8-torsion point is invisible when
+    z_i = 0 mod 8, so the strict kernel stays the accept authority.
+
+    All tensors on one device; -> (batch_ok () bool, lane_pre (B,) bool)."""
+    if sig.shape[0] == 0:
+        raise ValueError("rlc_verify: empty batch")
+    rb, sb = sig[:, :32], sig[:, 32:]
+    host_pre = (_bytes_lt(sb, L) & _bytes_lt(pub, P, mask_top7=True)
+                & _bytes_lt(rb, P, mask_top7=True)
+                & ~is_small_order_encoding(pub)
+                & ~is_small_order_encoding(rb))
+    k = sc_reduce64(sha512_fn(torch.cat([rb, pub, msg], dim=-1),
+                              msg_len.to(torch.int32) + 64))
+    z = torch.where(host_pre[:, None], z_bytes, torch.zeros_like(z_bytes))
+    wsum, lane_ok = stage1_fn(pub, sig, sc_mul_mod_l(k, z), z,
+                              host_pre.to(torch.int32))
+    lane_pre = lane_ok != 0
+    z = torch.where(lane_pre[:, None], z, torch.zeros_like(z))
+    ok, _ = stage2_fn(wsum, sc_sum_mod_l(sc_mul_mod_l(sb, z)))
+    return ok != 0, lane_pre
+
+
+def rlc_verify_batch(sig, pub, msg, msg_len, z_bytes, device="cuda"):
+    """RLC batch verification, plain PyTorch throughout (no kernels).
+
+    sig (B, 64), pub (B, 32), msg (B, L) uint8, msg_len (B,) int32,
+    z_bytes (B, 16) uint8 random coefficients from the caller, secret
+    from txn senders. -> (batch_ok () bool, lane_pre (B,) bool) on
+    `device`: batch_ok means every lane_pre lane verified under the
+    cofactored equation (whp); lane_pre False lanes are invalid."""
+    from . import msm
+    from .params import fixed_base_tables
+    from .sha2 import sha512
+    sig, pub, msg, msg_len = as_inputs(sig, pub, msg, msg_len, device)
+    z = torch.as_tensor(z_bytes, dtype=torch.uint8,
+                        device=sig.device).contiguous()
+    tab = fixed_base_tables(sig.device)
+    return rlc_verify(sig, pub, msg, msg_len, z, sha512, msm.msm_stage1,
+                      lambda w, s: msm.msm_stage2(w, s, tab))
+
+
+def verify_batch_rlc(sig, pub, msg, msg_len, rng=None, device="cuda"):
+    """RLC fast path with strict fallback (the JAX verify_batch_rlc):
+    lane_pre when the batch equation holds, else verify_batch's verdicts.
+    Equal to verify_batch except on the torsion class rlc_verify
+    documents. -> (B,) bool on `device`."""
+    rng = rng or np.random.default_rng()
+    z = rng.integers(0, 256, (sig.shape[0], 16), dtype=np.uint8)
+    ok, lane_pre = rlc_verify_batch(sig, pub, msg, msg_len, z, device)
+    if bool(ok):
+        return lane_pre
+    return verify_batch(sig, pub, msg, msg_len, device)

@@ -1,8 +1,11 @@
 """Verify tile on the card: the port of firedancer_tpu/tiles/verify.py.
 
-  in ring (txn payloads) --C++ gather--> one pinned staging buffer
-    --one H2D copy, cuda_ed.verify_batch (SHA-512 + fused verify
-      kernels)--> verdicts --tcache dedup on first sig--> out ring
+  in ring (txn payloads) --C++ gather--> (coalescing window)
+    --> one pinned staging buffer --one H2D copy-->
+    [bulk_prefilter: cuda_msm.rlc_verify_batch, the RLC batch equation
+     (SHA-512 + MSM kernels), may shed an all-garbage chunk]
+    --> cuda_ed.verify_batch (SHA-512 + fused verify kernels) -->
+    verdicts --tcache dedup on first sig--> out ring
 
 The host logic is the reference's, unchanged (ref:
 src/disco/verify/fd_verify_tile.h:60-111): native batched parse and
@@ -22,9 +25,27 @@ keys. Only the device seam differs:
     readiness test, `event.synchronize()` the blocking wait. A staging
     set is not reused until its event has completed.
 
+Coalescing (`coalesce_us` > 0, the reference's tiles/verify.py:243-251,
+671-716): sub-full gathers are held until one chunk's lane budget
+fills, the window deadline passes, or ingest idles with no batch in
+flight; a full gather with nothing held dispatches directly.
+
+Bulk RLC pre-filter (`mode="bulk_prefilter"`, the reference's
+tiles/verify.py:439-518, 801-814; the flood front door): a full chunk,
+or any chunk while the ingest-saturation window is open, is first gated
+by one random-linear-combination batch equation with a secret per-chunk
+z. It runs on the staging set's device buffer from the one H2D copy,
+which the strict dispatch then reuses; lanes outside the tested range
+carry z = 0. A chunk that fails while ingest is saturated is bisected,
+and only when both halves fail too (an all-garbage chunk) is it shed
+without a strict dispatch; any other chunk goes to the strict kernels,
+which stay the only accept authority (the RLC equation is cofactored).
+The boot warmup of the RLC path raises on failure: there is no silent
+switch to strict mode.
+
 Out of scope in this slice, and refused with NotImplementedError naming
-the ROADMAP.md item: mode="bulk_prefilter", devices > 1, coalesce_us,
-chaos and trace. There is no CPU fallback: a device error propagates.
+the ROADMAP.md item: devices > 1, chaos and trace. There is no CPU
+fallback: a device error propagates.
 """
 from __future__ import annotations
 
@@ -38,7 +59,7 @@ import torch
 
 from .. import device as _device
 from ..disco.metrics import HistAccum
-from ..ops import cuda_ed
+from ..ops import cuda_ed, cuda_msm
 from ..protocol.txn import MTU
 from ..runtime import CNC_RUN, Ring, Tcache
 from ..runtime.tango import lib as _lib
@@ -115,6 +136,21 @@ class _Verdicts:
         return self.bs.ok_host.numpy().copy()
 
 
+class _Shed:
+    """A chunk the prefilter shed: every lane failed, nothing in flight."""
+
+    __slots__ = ("ok",)
+
+    def __init__(self, batch: int):
+        self.ok = np.zeros(batch, bool)
+
+    def ready(self) -> bool:
+        return True
+
+    def result(self) -> np.ndarray:
+        return self.ok
+
+
 class VerifyTile:
     def __init__(self, in_ring: Ring, out_ring: Ring, tcache: Tcache,
                  batch: int = 256, max_len: int = MTU, out_fseqs=None,
@@ -122,21 +158,21 @@ class VerifyTile:
                  rr_cnt: int = 1, rr_idx: int = 0, devices: int = 1,
                  chaos: dict | None = None, trace=None,
                  coalesce_us: float = 0.0, mode: str = "strict",
-                 device="cuda"):
-        if mode == "bulk_prefilter":
-            raise NotImplementedError(
-                f"mode='bulk_prefilter' (RLC kernels 3-4) is {_ROADMAP} "
-                f"item 3")
-        if mode != "strict":
+                 prefilter_shed: bool = True, device="cuda"):
+        if mode not in ("strict", "bulk_prefilter"):
             raise ValueError(f"unknown verify mode {mode!r} "
                              f"(strict | bulk_prefilter)")
         if int(devices) > 1:
             raise NotImplementedError(f"devices > 1 is {_ROADMAP} item 7 "
                                       f"(multi-GPU)")
-        if chaos or trace is not None or float(coalesce_us):
+        if chaos or trace is not None:
             raise NotImplementedError(
-                f"chaos, trace and coalesce_us are {_ROADMAP} item 2")
+                f"chaos and trace are {_ROADMAP} item 2")
         self.dev = _device.resolve(device)
+        self.mode = mode
+        # False: the prefilter counts but never sheds (every chunk goes
+        # to strict); the reference steers it at run time (fdtune)
+        self.prefilter_shed = bool(prefilter_shed)
         self.in_ring, self.out_ring, self.tcache = in_ring, out_ring, tcache
         # horizontal sharding: tile rr_idx owns frags with
         # seq % rr_cnt == rr_idx (ref: src/disco/verify/fd_verify_tile.c)
@@ -167,6 +203,22 @@ class VerifyTile:
         self._deferred: dict[int, list[bytes]] = {}
         self._deferred_n = 0
         self._deferred_cap = 256          # bounds attacker-driven parking
+        # per-tile secret RLC coefficient stream: the batch equation's
+        # soundness rests on z being unpredictable to txn senders (tests
+        # rig _draw_z to reach the torsion class)
+        self._rlc_rng = np.random.default_rng(
+            int.from_bytes(os.urandom(16), "little"))
+        # ingest-saturation clock: a full gather opens the window inside
+        # which the prefilter may shed all-garbage chunks
+        self._hot_until = 0
+        self._hot_hold_ns = 100_000_000
+        # coalescing window (0: every gather dispatches as it is)
+        self._coalesce_ns = max(0, int(float(coalesce_us) * 1e3))
+        self._hold_buf = np.zeros((batch, max_len), np.uint8) \
+            if self._coalesce_ns else None
+        self._hold_sizes = np.zeros(batch, np.uint32)
+        self._hold_n = 0
+        self._hold_deadline = 0
         # device-attributed time: dispatch + readback, per batch
         self.tpu_hist = HistAccum()
         self.inflight = max(1, int(os.environ.get(
@@ -180,22 +232,37 @@ class VerifyTile:
         # kernels (nvcc) and loads them, which must not stall poll_once
         warmup_t0 = monotonic_ns()
         self._device_verify(self._bufsets[0]).result()
+        if mode == "bulk_prefilter":
+            # the RLC path builds and runs once too (on the buffer the
+            # strict warmup uploaded), and raises here if it cannot: the
+            # prefilter never turns itself off
+            self._rlc_ok(self._bufsets[0], 0, min(2, batch))
         self.compile_ns = monotonic_ns() - warmup_t0
 
-    def _device_verify(self, bs: _StageBuf) -> _Verdicts:
-        """One H2D copy of the whole staging set, the lanes split by
-        slicing, the kernels, the verdicts' D2H copy and an event after
-        it. Never waits; the staging set stays untouched until the event
-        completes (the _bufset_fut guard)."""
+    def _upload(self, bs: _StageBuf):
+        """The one H2D copy of the whole staging set."""
+        bs.dev.copy_(bs.host, non_blocking=True)
+
+    def _lanes(self, bs: _StageBuf):
+        """(sig, pub, msg, msg_len) views of the staging set's device
+        buffer."""
         b, mlen = self.batch, self.max_len
         dev = bs.dev
-        dev.copy_(bs.host, non_blocking=True)
         o_sig, o_pub = 4 * b, (4 + 64) * b
         o_msg = o_pub + 32 * b
-        ln = dev[:o_sig].view(torch.int32)       # little-endian int32
-        ok = cuda_ed.verify_batch(
-            dev[o_sig:o_pub].view(b, 64), dev[o_pub:o_msg].view(b, 32),
-            dev[o_msg:].view(b, mlen), ln, device=self.dev)
+        return (dev[o_sig:o_pub].view(b, 64), dev[o_pub:o_msg].view(b, 32),
+                dev[o_msg:].view(b, mlen),
+                dev[:o_sig].view(torch.int32))   # little-endian int32
+
+    def _device_verify(self, bs: _StageBuf,
+                       uploaded: bool = False) -> _Verdicts:
+        """The H2D copy (unless the prefilter made it), the kernels, the
+        verdicts' D2H copy and an event after it. Never waits; the
+        staging set stays untouched until the event completes (the
+        _bufset_fut guard)."""
+        if not uploaded:
+            self._upload(bs)
+        ok = cuda_ed.verify_batch(*self._lanes(bs), device=self.dev)
         bs.ok_host.copy_(ok, non_blocking=True)
         event = None
         if self.dev.type == "cuda":
@@ -203,22 +270,70 @@ class VerifyTile:
             event.record()
         return _Verdicts(bs, event)
 
-    def _dispatch(self, bs: _StageBuf) -> _Verdicts:
+    def _dispatch(self, bs: _StageBuf, uploaded: bool) -> _Verdicts:
         t0 = monotonic_ns()
-        fut = self._device_verify(bs)
+        fut = self._device_verify(bs, uploaded)
         self.tpu_hist.add(monotonic_ns() - t0)
         return fut
+
+    def _draw_z(self, n: int) -> np.ndarray:
+        """Secret per-chunk RLC coefficients (n, 16) uint8."""
+        return self._rlc_rng.integers(0, 256, (n, 16), dtype=np.uint8)
+
+    def _rlc_ok(self, bs: _StageBuf, start: int, stop: int) -> bool:
+        """One cofactored RLC batch equation over the uploaded lanes
+        [start, stop) of the staging set. Every other lane carries z = 0,
+        an identity contribution whatever its stale bytes decode to.
+
+        Lanes failing the structural prechecks are masked out of the sum,
+        so a range whose every lane is structural garbage passes
+        vacuously: that counts as a failure here (nothing survived the
+        prechecks), while a mixed range keeps its masked pass."""
+        z = np.zeros((self.batch, 16), np.uint8)
+        z[start:stop] = self._draw_z(stop - start)
+        ok, pre = cuda_msm.rlc_verify_batch(*self._lanes(bs), z,
+                                            device=self.dev)
+        return bool(ok) and bool(pre[start:stop].any())
+
+    def _rlc_prefilter(self, bs: _StageBuf, lanes: int) -> bool:
+        """The flood front door, before the strict dispatch. False only
+        when the chunk is to be SHED: the equation failed (the caller
+        attested saturation: a full chunk, or the hot window open) and
+        both bisection halves failed too. A mixed chunk (either half
+        clean) always goes to the strict kernels."""
+        t0 = monotonic_ns()
+        self.metrics["rlc_batches"] += 1
+        self.metrics["rlc_lanes"] += lanes
+        keep = True
+        if self._rlc_ok(bs, 0, lanes):
+            self.metrics["rlc_pass"] += 1
+        elif self.prefilter_shed and lanes >= 2:
+            h = lanes // 2
+            self.metrics["rlc_batches"] += 2
+            keep = self._rlc_ok(bs, 0, h) or self._rlc_ok(bs, h, lanes)
+        self.metrics["rlc_ns"] += monotonic_ns() - t0
+        return keep
 
     def poll_once(self) -> int:
         """Gather -> parse -> ha-dedup -> async device verify -> (queue)
         -> publish. Returns the number of frags consumed (0 only when
         the ring was idle)."""
         self._drain(block=False)
+        want = self.batch - self._hold_n
         n, self.seq, buf, sizes, sigs, ovr, seqs = self.in_ring.gather(
-            self.seq, self.batch, self.max_len, want_seqs=True)
+            self.seq, want, self.max_len, want_seqs=True)
         self.metrics["overruns"] += ovr
+        if self.mode != "strict" and (n >= want or ovr):
+            # ingest outpaces the tile: open (or refresh) the window in
+            # which the prefilter may shed
+            self._hot_until = monotonic_ns() + self._hot_hold_ns
         if not n:
-            # idle ingest: in-flight batches always retire
+            # idle ingest: a held window dispatches unless batches are in
+            # flight and its deadline is ahead; in-flight batches always
+            # retire
+            if self._hold_n and (not self._pending or
+                                 monotonic_ns() >= self._hold_deadline):
+                self._flush_hold()
             if self._pending:
                 self._drain(block=True)
             return 0
@@ -232,8 +347,39 @@ class VerifyTile:
         else:
             buf, sizes = buf[:n], sizes[:n]
         self.metrics["rx"] += n
-        self._process_batch(buf, sizes, n)
+        if not self._coalesce_ns or (not self._hold_n and n >= self.batch):
+            # no window, or a full gather with nothing held: dispatch the
+            # gather buffer as it is
+            self._process_batch(buf, sizes, n)
+            return consumed
+        if not self._hold_n:
+            self._hold_deadline = monotonic_ns() + self._coalesce_ns
+        self._hold_buf[self._hold_n:self._hold_n + n] = buf
+        self._hold_sizes[self._hold_n:self._hold_n + n] = sizes
+        self._hold_n += n
+        if self._hold_n >= self.batch or \
+                monotonic_ns() >= self._hold_deadline:
+            self._flush_hold()
         return consumed
+
+    def _flush_hold(self):
+        """Dispatch the held window; the record keeps its own copy, since
+        the hold buffer is reused."""
+        n, self._hold_n = self._hold_n, 0
+        self._process_batch(self._hold_buf[:n].copy(),
+                            self._hold_sizes[:n].copy(), n)
+
+    def set_coalesce_ns(self, ns: int):
+        """Steer the coalescing window at run time. Narrowing to 0 flushes
+        what is held; widening from 0 allocates the hold buffer."""
+        ns = max(0, int(ns))
+        if ns == self._coalesce_ns:
+            return
+        if ns == 0 and self._hold_n:
+            self._flush_hold()
+        if ns and self._hold_buf is None:
+            self._hold_buf = np.zeros((self.batch, self.max_len), np.uint8)
+        self._coalesce_ns = ns
 
     def _process_batch(self, buf, sizes, n: int):
         """Parse -> tag -> ha-dedup + batched in-flight reservation ->
@@ -298,7 +444,19 @@ class VerifyTile:
                 bs.txn.ctypes.data_as(_i32p))
             if not lanes:
                 break
-            fut = self._dispatch(bs)
+            uploaded = False
+            if self.mode == "bulk_prefilter" and (
+                    lanes >= self.batch or monotonic_ns() < self._hot_until):
+                self._upload(bs)
+                uploaded = True
+                if not self._rlc_prefilter(bs, lanes):
+                    # an all-garbage chunk under saturation: shed at MSM
+                    # cost, every lane failed, no strict dispatch (the
+                    # staging set is free again)
+                    self.metrics["rlc_shed"] += lanes
+                    chunks.append((_Shed(self.batch), bs.txn[:lanes].copy()))
+                    continue
+            fut = self._dispatch(bs, uploaded)
             self._bufset_fut[k] = fut
             self._disp += 1
             self.metrics["batches"] += 1
@@ -421,7 +579,10 @@ class VerifyTile:
         return True
 
     def flush(self):
-        """Retire every in-flight batch (halt path)."""
+        """Dispatch a held window, then retire every in-flight batch (halt
+        path)."""
+        if self._hold_n:
+            self._flush_hold()
         self._drain(block=True)
 
     def on_halt(self):

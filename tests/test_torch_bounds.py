@@ -220,3 +220,41 @@ def test_sc_reduce64_sums_fit_int64_and_corners():
     for v, g in zip(vals, got):
         assert int.from_bytes(bytes(g.numpy()), "little") == \
             int.from_bytes(v, "little") % ed.L
+
+
+def test_rlc_scalar_digit_products_and_sums_fit_int64():
+    """sc_mul_mod_l and sc_sum_mod_l (the RLC glue): interval walk over
+    their 21-bit digit arithmetic, then extreme operands exactly.
+
+    A 32-byte scalar is 12 digits of 21 bits and a top one of 4, z 6 of
+    21 and a top one of 2; a product column sums at most 7 digit
+    products. The lane sum adds B digits per column."""
+    a = [(0, (1 << 21) - 1)] * 12 + [(0, 15)]
+    zd = [(0, (1 << 21) - 1)] * 6 + [(0, 3)]
+    p = [(0, 0)] * 20
+    for i, x in enumerate(a):
+        for j, y in enumerate(zd):
+            p[i + j] = add(p[i + j], mul(x, y))
+    assert max(hi for _, hi in p) < 2 ** 45
+    for i in range(19):                       # _carry21(p, 0, 19)
+        c = shr(p[i], 21)
+        p[i] = low(p[i], 21)
+        p[i + 1] = add(p[i + 1], c)
+    assert all(fits(x, I64) for x in p)
+    assert all(hi < 2 ** 21 for _, hi in p[:19])
+    # the lane sum: B digit values per column, B up to 2^20 here
+    assert fits(scale(a[0], 1 << 20), I64) and (1 << 42) * a[0][1] < 2 ** 63
+
+    ints = [0, 1, ed.L - 1, (1 << 256) - 1]
+    zs = [0, 1, (1 << 128) - 1]
+    av = torch.tensor([list(x.to_bytes(32, "little")) for x in ints
+                       for _ in zs], dtype=torch.uint8)
+    zv = torch.tensor([list(z.to_bytes(16, "little")) for _ in ints
+                       for z in zs], dtype=torch.uint8)
+    got = ed.sc_mul_mod_l(av, zv)
+    for k, (x, z) in enumerate((x, z) for x in ints for z in zs):
+        assert int.from_bytes(bytes(got[k].numpy()), "little") \
+            == x * z % ed.L
+    top = torch.full((300, 32), 255, dtype=torch.uint8)
+    assert int.from_bytes(bytes(ed.sc_sum_mod_l(top).numpy()), "little") \
+        == 300 * ((1 << 256) - 1) % ed.L

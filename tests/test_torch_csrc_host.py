@@ -1,13 +1,15 @@
 """The kernels' C++ sources compiled for the host and held against their
 plain PyTorch versions lane by lane.
 
-csrc/sha512.cu and csrc/ed25519_verify.cu compile as plain C++ when nvcc
-is absent (__CUDACC__ unset): each kernel becomes a host function of one
-lane. That checks the sources' arithmetic (padding, big-endian loads,
-limb carries, scalar reduction, window walk, canonical compare) here,
-where there is no card; launch, memory and timing are checked on the
-card by chip_smoke.py and tests/test_torch_cuda.py. Exact: digests and
-verdicts are integers."""
+csrc/sha512.cu, csrc/ed25519_verify.cu and csrc/ed25519_msm.cu compile
+as plain C++ when nvcc is absent (__CUDACC__ unset): each kernel's
+per-lane part becomes a host function (the MSM stage 2 runs its threads
+one after another). That checks the sources' arithmetic (padding,
+big-endian loads, limb carries, scalar reduction, decompression, tables,
+window walk, Horner, canonical compare) here, where there is no card;
+launch, shared-memory reduction, memory and timing are checked on the
+card by chip_smoke.py and tests/test_torch_cuda.py. Exact: digests,
+verdicts and limbs are integers."""
 import ctypes as ct
 import hashlib
 import os
@@ -19,9 +21,10 @@ import pytest
 import torch
 
 from firedancer_tpu_torch.ops import ed25519 as ed
-from firedancer_tpu_torch.ops import params, sha2
+from firedancer_tpu_torch.ops import msm, params, sha2
 from firedancer_tpu_torch.ops._build import CSRC
 from firedancer_tpu_torch.utils import ed25519_ref as ref
+from torch_rlc_cases import stage_inputs
 
 VP = ct.c_void_p
 
@@ -96,3 +99,47 @@ def test_verify_source_matches_plain(host_lib):
                           params.fixed_base_tables("cpu")).numpy()
     np.testing.assert_array_equal(got, want)
     assert want.any() and not want.all()
+
+
+def test_msm_lane_source_matches_plain(host_lib):
+    """Stage 1's per-lane part: decompression of A and R (flags) and the
+    64 window contributions, limb for limb, over valid, non-decodable,
+    masked and z = 0 lanes."""
+    fn = host_lib("ed25519_msm").msm_lane_host
+    fn.argtypes = [VP] * 5 + [ct.c_int, VP, VP]
+    (pub, sig, zk, z, mask), _ = stage_inputs(12, 61)
+    want, a_ok, r_ok, ok = msm.lane_contributions(
+        *(torch.from_numpy(x) for x in (pub, sig, zk, z, mask)))
+    for lane in range(len(pub)):
+        flags = np.zeros(3, np.int32)
+        contrib = np.zeros((64, 4, 10), np.int32)
+        fn(pub.ctypes.data, sig.ctypes.data, zk.ctypes.data, z.ctypes.data,
+           mask.ctypes.data, lane, flags.ctypes.data, contrib.ctypes.data)
+        assert flags.tolist() == [int(a_ok[lane]), int(r_ok[lane]),
+                                  int(ok[lane])], lane
+        np.testing.assert_array_equal(contrib, want[lane].numpy())
+    assert ok.tolist() == [i not in (1, 2, 3) for i in range(len(pub))]
+
+
+def test_msm_stage2_source_matches_plain(host_lib):
+    """Stage 2 (block sums, Horner, fixed-base sum, identity test) over
+    the plain stage 1 of 70 lanes (two blocks, the second ragged): the
+    verdict and the canonical limbs of the sum, for the right s (the
+    batch verifies) and a wrong one."""
+    fn = host_lib("ed25519_msm").msm_stage2_host
+    fn.argtypes = [VP, ct.c_int, VP, VP, VP]
+    ins, s = stage_inputs(70, 62)
+    wsum, _ = msm.msm_stage1(*(torch.from_numpy(x) for x in ins))
+    assert wsum.shape == (2, 64, 4, 10)
+    w = np.ascontiguousarray(wsum.numpy())
+    fb = np.ascontiguousarray(params.own_tables())
+    wrong = (int.from_bytes(bytes(s), "little") + 1) % ed.L
+    for s_sum, verdict in ((s, 1), (np.frombuffer(
+            wrong.to_bytes(32, "little"), np.uint8).copy(), 0)):
+        out = np.zeros(41, np.int32)
+        fn(w.ctypes.data, 2, s_sum.ctypes.data, fb.ctypes.data,
+           out.ctypes.data)
+        ok, point = msm.msm_stage2(wsum, torch.from_numpy(s_sum),
+                                   params.fixed_base_tables("cpu"))
+        assert out[0] == int(ok) == verdict
+        np.testing.assert_array_equal(out[1:].reshape(4, 10), point.numpy())

@@ -14,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from firedancer_tpu_torch.ops import cuda_ed, cuda_sha, params, sha2
+from firedancer_tpu_torch.ops import cuda_ed, cuda_msm, cuda_sha, msm
 from firedancer_tpu_torch.ops import ed25519 as ed
+from firedancer_tpu_torch.ops import params, sha2
 from firedancer_tpu_torch.utils import ed25519_ref as ref
+from firedancer_tpu_torch.utils.chaos import undecodable_point
+from torch_rlc_cases import signed, stage_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +100,68 @@ def test_wrappers_refuse_bad_tensors(dev):
                                             device=dev))
     with pytest.raises(ValueError):
         cuda_ed.verify_core(m, m[:, :31], m)
+
+
+def test_msm_stage1_kernel_matches_plain(dev):
+    """200 lanes (four blocks, the last ragged) with valid, non-decodable,
+    masked and z = 0 lanes: every limb of every window sum."""
+    ins, _ = stage_inputs(200, 54)
+    ins = [torch.from_numpy(x).to(dev) for x in ins]
+    before = cuda_msm.launches["msm_stage1"]
+    wsum, lane_ok = cuda_msm.msm_stage1(*ins)
+    assert cuda_msm.launches["msm_stage1"] == before + 1
+    want_w, want_ok = msm.msm_stage1(*ins)
+    torch.cuda.synchronize()
+    assert wsum.shape == (4, 64, 4, 10)
+    assert torch.equal(wsum, want_w) and torch.equal(lane_ok, want_ok)
+
+
+def test_msm_stage2_kernel_matches_plain(dev):
+    ins, s = stage_inputs(130, 55)
+    wsum, _ = msm.msm_stage1(*(torch.from_numpy(x).to(dev) for x in ins))
+    tab = params.fixed_base_tables(dev)
+    wrong = (int.from_bytes(bytes(s), "little") + 1) % ed.L
+    for s_sum, verdict in ((s, 1), (np.frombuffer(
+            wrong.to_bytes(32, "little"), np.uint8).copy(), 0)):
+        s_d = torch.from_numpy(s_sum).to(dev)
+        before = cuda_msm.launches["msm_stage2"]
+        ok, point = cuda_msm.msm_stage2(wsum, s_d)
+        assert cuda_msm.launches["msm_stage2"] == before + 1
+        want_ok, want_pt = msm.msm_stage2(wsum, s_d, tab)
+        torch.cuda.synchronize()
+        assert int(ok) == int(want_ok) == verdict
+        assert torch.equal(point, want_pt)
+
+
+def test_rlc_verify_batch_on_card_matches_cpu(dev):
+    """A failing batch (corrupt R, message and small-order A lanes) and a
+    passing one with a non-decodable R lane: the kernels' verdicts equal
+    the plain versions'."""
+    bad = _signed(40, 64, 56)
+    good = signed(24, 64, 57)
+    good[0][5, :32] = undecodable_point(58)
+    z = np.random.default_rng(59).integers(0, 256, (40, 16), np.uint8)
+    for (sig, pub, msg, ln), verdict in ((bad, False), (good, True)):
+        zz = z[:len(sig)]
+        ok, pre = cuda_msm.rlc_verify_batch(sig, pub, msg, ln, zz,
+                                            device="cuda")
+        want_ok, want_pre = cuda_msm.rlc_verify_batch(sig, pub, msg, ln, zz,
+                                                      device="cpu")
+        assert pre.device.type == "cuda"
+        assert bool(ok) == bool(want_ok) == verdict
+        assert torch.equal(pre.cpu(), want_pre)
+    assert want_pre.tolist() == [i != 5 for i in range(24)]
+
+
+def test_msm_wrappers_refuse_bad_tensors(dev):
+    u8 = dict(dtype=torch.uint8, device=dev)
+    pub, sig = torch.zeros((4, 32), **u8), torch.zeros((4, 64), **u8)
+    z, mask = torch.zeros((4, 16), **u8), torch.ones(4, dtype=torch.int32,
+                                                     device=dev)
+    with pytest.raises(ValueError):
+        cuda_msm.msm_stage1(pub, sig, pub, z, mask.long())
+    with pytest.raises(ValueError):
+        cuda_msm.msm_stage1(pub, sig[:, :32], pub, z, mask)
+    with pytest.raises(ValueError):
+        cuda_msm.msm_stage2(torch.zeros((1, 64, 4, 10), dtype=torch.int32,
+                                        device=dev).transpose(0, 1), pub[0])

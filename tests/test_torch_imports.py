@@ -64,3 +64,14 @@ def test_verify_batch_without_device_raises_without_a_card(entry):
     z = np.zeros((2, 64), np.uint8)
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.verify_batch(z, z[:, :32], z, np.zeros(2, np.int32))
+
+
+@pytest.mark.parametrize("entry", ["ed25519", "cuda_msm"])
+def test_rlc_verify_batch_without_device_raises_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    mod = __import__(f"firedancer_tpu_torch.ops.{entry}", fromlist=["x"])
+    z = np.zeros((2, 64), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.rlc_verify_batch(z, z[:, :32], z, np.zeros(2, np.int32),
+                             z[:, :16])
