@@ -14,11 +14,14 @@ and read just after:
             (synth -> shm ring -> VerifyTile(batch=2048) -> out ring);
   RLC       phase 8c: `rlc_verify_batch` on valid, forged, structurally
             masked and torsion batches (phases 8a-8b hold the two MSM
-            kernels to their plain versions, 8d times them);
+            kernels to their plain versions on every lane class, 8d
+            times them at 8192 and 2048 lanes);
   flood     phase 9: the front door, VerifyTile(mode="bulk_prefilter",
             coalesce_us=150000) on forged-flood chunks, a mix with 256
             valid txns, and torsion forgeries.
 
+Phase 6a times the verify kernel at 8192 and 2048 lanes too, and phase
+2 prints ptxas's registers, stack and shared memory per entry point.
 Any mismatch raises. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -68,6 +71,12 @@ SHA_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 16
 # operations each. Adds, carries and table loads are not counted, so the
 # bound stays below the true least time.
 OPS_PER_FIELD_MUL = 200
+# MSM stage 1's scalar work per lane, in int64 multiplies: sc_reduce64
+# (14 folds of 6 and a final 6: 90) of k64, and sc_mul_mod_l of z k and
+# z S (91 digit products and a sc_reduce64 each), counted at 4 INT32
+# operations an int64 multiply.
+SCALAR_OPS_PER_LANE = 4 * (90 + 2 * (91 + 90))
+SMALL_B = TILE_BATCH     # the second timed size: the tile's chunk
 
 
 def log(*a):
@@ -279,7 +288,8 @@ def main() -> int:
     for name, (sec, out) in sorted(built.items()):
         log(f"  {name}: {sec:.2f} s")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "stack frame")):
                 log(f"    {line.strip()}")
 
     # 3. SHA-512: kernel == plain == hashlib, R||A||M lengths 64..1296
@@ -349,6 +359,8 @@ def main() -> int:
     stats = {}
     sha_blocks = int(sha2.nblocks(hl_d.long()).sum())
     muls = field_muls_per_verify()
+    sv, pv, kv = vs_d[:SMALL_B], vp_d[:SMALL_B], vk_d[:SMALL_B]
+    fb_bytes = fixed_base_tables(dev).numel() * 4
     for name, fn, pfn, iters, ops, nbytes in (
             ("sha512", lambda: cuda_sha.sha512(hv_d, hl_d),
              lambda: sha2.sha512(hv_d, hl_d), ITERS,
@@ -356,7 +368,12 @@ def main() -> int:
             ("ed25519_verify", lambda: cuda_ed.verify_core(vs_d, vp_d, vk_d),
              lambda: ed.verify_core(vs_d, vp_d, vk_d, fixed_base_tables(dev)),
              ITERS, B * muls * OPS_PER_FIELD_MUL,
-             B * (64 + 32 + 64 + 4) + fixed_base_tables(dev).numel() * 4)):
+             B * (64 + 32 + 64 + 4) + fb_bytes),
+            (f"ed25519_verify@{SMALL_B}",
+             lambda: cuda_ed.verify_core(sv, pv, kv),
+             lambda: ed.verify_core(sv, pv, kv, fixed_base_tables(dev)),
+             ITERS, SMALL_B * muls * OPS_PER_FIELD_MUL,
+             SMALL_B * (64 + 32 + 64 + 4) + fb_bytes)):
         st = stats[name] = stats_of(cuda_ms(fn, iters), cuda_ms(pfn, 1), ops,
                                     nbytes)
         log(f"{name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.2f} "
@@ -415,18 +432,25 @@ def main() -> int:
 
     # 8a. MSM stage 1, kernel vs plain, at 8192 lanes with every lane
     # class: valid, non-decodable R (lane % 64 == 1) and A (== 5), S >= l
-    # (== 2) and small-order A (== 3) masked by the glue, z = 0 (== 6)
+    # (== 2), small-order A (== 3) and R (== 4), A.y >= p (== 7) and
+    # R.y >= p (== 9) out of lane_ok; z = 0 (== 6) and z = 2^128 - 1
+    # (== 8) kept
     log(f"== 8a. msm_stage1 kernel vs plain ({B} x {MSG_LEN}, every lane "
         f"class)")
     cls = np.arange(B) % 64
     csig, cpub = sig.copy(), pub.copy()
+    p1 = np.frombuffer(((1 << 255) - 18).to_bytes(32, "little"), np.uint8)
     csig[cls == 1, :32] = undecodable_point(11)
     csig[cls == 2, 32:] = np.frombuffer((ed.L + 5).to_bytes(32, "little"),
                                         np.uint8)
     cpub[cls == 3] = ed._small_order_encodings()[1]
+    csig[cls == 4, :32] = ed._small_order_encodings()[3]
     cpub[cls == 5] = undecodable_point(12)
+    cpub[cls == 7] = p1
+    csig[cls == 9, :32] = p1
     zb = np.random.default_rng(9).integers(0, 256, (B, 16), np.uint8)
     zb[cls == 6] = 0
+    zb[cls == 8] = 0xFF
     captured = {}
 
     def recorded(key, fn):
@@ -439,28 +463,31 @@ def main() -> int:
     ok, pre = ed.rlc_verify(*c_ins, z_d, cuda_sha.sha512,
                             recorded("s1", cuda_msm.msm_stage1),
                             recorded("s2", cuda_msm.msm_stage2))
-    want_pre = ~np.isin(cls, (1, 2, 3, 5))
+    want_pre = ~np.isin(cls, (1, 2, 3, 4, 5, 7, 9))
     assert bool(ok) and np.array_equal(pre.cpu().numpy(), want_pre), \
         "rlc verdict on the lane-class batch"
-    w_k, ok_k = cuda_msm.msm_stage1(*captured["s1"])
-    w_p, ok_p = msm.msm_stage1(*captured["s1"])
+    got1 = cuda_msm.msm_stage1(*captured["s1"])
+    want1 = msm.msm_stage1(*captured["s1"])
     torch.cuda.synchronize()
-    s1_err = max(int((w_k - w_p).abs().max()), int((ok_k - ok_p).abs().max()))
+    s1_err = max(int((g.long() - w.long()).abs().max())
+                 for g, w in zip(got1, want1))
     assert s1_err == 0, f"msm_stage1 kernel != plain (max err {s1_err})"
-    log(f"msm_stage1: {B} lanes, {w_k.shape[0]} blocks x 64 window sums, "
-        f"kernel == plain in every limb, lane_ok equal, max_abs_err 0")
+    log(f"msm_stage1: {B} lanes, {got1[0].shape[0]} blocks x 64 window "
+        f"sums, kernel == plain in every limb, lane_ok and sdig equal, "
+        f"max_abs_err 0")
 
     # 8b. MSM stage 2, kernel vs plain: the verdict and the sum's limbs,
-    # for the batch's s (it verifies) and for s + 1 (it does not)
+    # for the batch's digit sums (it verifies) and with one digit raised
+    # by 1 (it does not)
     log("== 8b. msm_stage2 kernel vs plain (verdict and canonical sum)")
     tab = fixed_base_tables(dev)
-    wsum, s_sum = captured["s2"]
-    s_bad = ed.sc_sum_mod_l(torch.stack([s_sum, torch.tensor(
-        [1] + [0] * 31, dtype=torch.uint8, device=dev)]))
+    wsum, sdig = captured["s2"]
+    sdig_bad = sdig.clone()
+    sdig_bad[0, 0] += 1
     s2_err = 0
-    for s_in, verdict in ((s_sum, 1), (s_bad, 0)):
-        ok_k, pt_k = cuda_msm.msm_stage2(wsum, s_in)
-        ok_p, pt_p = msm.msm_stage2(wsum, s_in, tab)
+    for d_in, verdict in ((sdig, 1), (sdig_bad, 0)):
+        ok_k, pt_k = cuda_msm.msm_stage2(wsum, d_in)
+        ok_p, pt_p = msm.msm_stage2(wsum, d_in, tab)
         torch.cuda.synchronize()
         s2_err = max(s2_err, abs(int(ok_k) - int(ok_p)),
                      int((pt_k - pt_p).abs().max()))
@@ -513,36 +540,49 @@ def main() -> int:
     assert min(rlc_path[k] for k in ("sha512", "msm_stage1",
                                      "msm_stage2")) > 0
 
-    # 8d. each MSM kernel's own time at the RLC path's shape (all valid),
-    # the plain version's, the bound; and the whole rlc_verify_batch
-    log(f"== 8d. MSM kernel times at {B} x {MSG_LEN} {card}")
+    # 8d. each MSM kernel's own time at the RLC path's shape (all valid)
+    # and at the tile's chunk, the plain version's, the bound; and the
+    # whole rlc_verify_batch
+    log(f"== 8d. MSM kernel times at {B} and {SMALL_B} lanes {card}")
     v_in = [torch.from_numpy(x).to(dev) for x in (sig, pub, msg, ln, zv)]
-    ed.rlc_verify(*v_in[:4], v_in[4], cuda_sha.sha512,
-                  recorded("v1", cuda_msm.msm_stage1),
-                  recorded("v2", cuda_msm.msm_stage2))
-    nblk = -(-B // msm.LANES)
-    wbytes = nblk * 64 * 160
-    _, muls1 = count_field_muls(msm.msm_stage1, *captured["v1"])
-    _, muls2 = count_field_muls(msm.msm_stage2, *captured["v2"], tab)
-    for name, fn, pfn, muls, nbytes in (
-            ("msm_stage1", lambda: cuda_msm.msm_stage1(*captured["v1"]),
-             lambda: msm.msm_stage1(*captured["v1"]), muls1,
-             B * (32 + 64 + 32 + 16 + 4 + 4) + wbytes),
-            ("msm_stage2", lambda: cuda_msm.msm_stage2(*captured["v2"]),
-             lambda: msm.msm_stage2(*captured["v2"], tab), muls2,
-             wbytes + 32 + 64 * 120 + 41 * 4)):
-        st = stats[name] = stats_of(cuda_ms(fn, ITERS), cuda_ms(pfn, 1),
-                                    muls * OPS_PER_FIELD_MUL, nbytes)
-        log(f"{name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.2f} "
-            f"ms, bound {st['bound_ms']:.4f} ms ({muls} field multiplies -> "
-            f"{st['ops_ms']:.4f} ms, {nbytes} B -> {st['bytes_ms']:.4f} ms), "
-            f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
-    log(f"field multiplies: stage 1 {muls1} ({muls1 / B:.1f} per lane), "
-        f"stage 2 {muls2}")
+    sha_ms = stats["sha512"]["ms"]
+    for b in (B, SMALL_B):
+        ed.rlc_verify(*(x[:b] for x in v_in), cuda_sha.sha512,
+                      recorded("v1", cuda_msm.msm_stage1),
+                      recorded("v2", cuda_msm.msm_stage2))
+        nblk = -(-b // msm.LANES)
+        wbytes = nblk * 64 * 160
+        _, muls1 = count_field_muls(msm.msm_stage1, *captured["v1"])
+        _, muls2 = count_field_muls(msm.msm_stage2, *captured["v2"], tab)
+        sc_ops = b * SCALAR_OPS_PER_LANE
+        tag = "" if b == B else f"@{b}"
+        for name, fn, pfn, ops, nbytes in (
+                ("msm_stage1", lambda: cuda_msm.msm_stage1(*captured["v1"]),
+                 lambda: msm.msm_stage1(*captured["v1"]),
+                 muls1 * OPS_PER_FIELD_MUL + sc_ops,
+                 b * (32 + 64 + 64 + 16 + 4) + wbytes + nblk * 13 * 8),
+                ("msm_stage2", lambda: cuda_msm.msm_stage2(*captured["v2"]),
+                 lambda: msm.msm_stage2(*captured["v2"], tab),
+                 muls2 * OPS_PER_FIELD_MUL,
+                 wbytes + nblk * 13 * 8 + 64 * 120 + 41 * 4)):
+            st = stats[name + tag] = stats_of(cuda_ms(fn, ITERS),
+                                              cuda_ms(pfn, 1), ops, nbytes)
+            log(f"{name}{tag}: kernel {st['ms']:.4f} ms, plain "
+                f"{st['plain_ms']:.2f} ms, bound {st['bound_ms']:.4f} ms "
+                f"({ops:.4g} int32 ops -> {st['ops_ms']:.4f} ms, {nbytes} "
+                f"B -> {st['bytes_ms']:.4f} ms), "
+                f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
+        log(f"{b} lanes: field multiplies stage 1 {muls1} ({muls1 / b:.1f} "
+            f"per lane), stage 2 {muls2}; stage 1's scalar work {sc_ops} "
+            f"int32 ops, {100 * sc_ops / (muls1 * OPS_PER_FIELD_MUL):.2f}% "
+            f"of its field multiplies'")
     ms = cuda_ms(lambda: cuda_msm.rlc_verify_batch(*v_in, device=DEVICE),
                  ITERS)
+    kern = sha_ms + stats["msm_stage1"]["ms"] + stats["msm_stage2"]["ms"]
     log(f"rlc_verify_batch: {ms:.3f} ms per {B}-lane batch, "
-        f"{B / ms * 1e3:.0f} lanes/s over {ITERS} iterations; strict "
+        f"{B / ms * 1e3:.0f} lanes/s over {ITERS} iterations; the three "
+        f"kernels {kern:.4f} ms, the rest (glue and launches) "
+        f"{ms - kern:.4f} ms = {100 * (ms - kern) / ms:.1f}%; strict "
         f"verify_batch (phase 6) {strict_ms:.3f} ms, "
         f"{B / strict_ms * 1e3:.0f} verifies/s {card}")
 

@@ -29,7 +29,6 @@ typedef int64_t i64;
 struct fe { i32 v[10]; };
 struct ge { fe X, Y, Z, T; };            // extended coordinates
 struct pre_aff { fe ymx, ypx, t2d; };    // affine precomputed, Z = 1
-struct pre_proj { fe ymx, ypx, z2, t2d; };
 
 #define W_(i) (((i) & 1) ? 25 : 26)
 #define M_(i) ((((i) & 1) ? (1 << 25) : (1 << 26)) - 1)
@@ -308,7 +307,112 @@ FD_DEV int nibble(const uint64_t w[4], int j) {
   return (int)((w[j >> 4] >> (4 * (j & 15))) & 15);
 }
 
-// ---- points (ed25519.py _dbl / _madd_aff / _add_pre / _add_full) ---------
+// 21-bit digit n of an nw-word LE value; `last` keeps every bit from
+// 21 n up (ed25519._digits21)
+FD_DEV i64 sc_digit(const uint64_t *w, int nw, int n, bool last) {
+  const int k = (21 * n) >> 6, sh = (21 * n) & 63;
+  uint64_t v = w[k] >> sh;
+  if (sh + 21 > 64 && k + 1 < nw) v |= w[k + 1] << (64 - sh);
+  return last ? (i64)v : (i64)(v & ((1u << 21) - 1));
+}
+
+// non-negative 21-bit digits (the last may be wider) -> nw LE words,
+// bits past the last word dropped (ed25519._digits_to_bytes)
+FD_DEV void sc_pack(uint64_t *w, int nw, const i64 *s, int nd) {
+  for (int k = 0; k < nw; k++) w[k] = 0;
+  for (int n = 0; n < nd; n++) {
+    const int k = (21 * n) >> 6, sh = (21 * n) & 63;
+    const uint64_t v = (uint64_t)s[n];
+    if (k < nw) w[k] |= v << sh;
+    if (sh && k + 1 < nw) w[k + 1] |= v >> (64 - sh);
+  }
+}
+
+// a (4 words, below 2^256) times z (2 words) mod l -> 4 words canonical
+// (ed25519.sc_mul_mod_l): 13 x 7 digit products, carry, sc_reduce64
+FD_NOINLINE void sc_mul_mod_l(uint64_t out[4], const uint64_t a[4],
+                              const uint64_t z[2]) {
+  i64 ad[13], zd[7], p[20];
+  uint64_t w[8];
+#pragma unroll
+  for (int n = 0; n < 13; n++) ad[n] = sc_digit(a, 4, n, n == 12);
+#pragma unroll
+  for (int n = 0; n < 7; n++) zd[n] = sc_digit(z, 2, n, n == 6);
+#pragma unroll
+  for (int n = 0; n < 20; n++) p[n] = 0;
+#pragma unroll
+  for (int i = 0; i < 13; i++)
+#pragma unroll
+    for (int j = 0; j < 7; j++) p[i + j] += ad[i] * zd[j];
+  sc_carry21(p, 0, 19);
+  sc_pack(w, 8, p, 20);
+  sc_reduce64(out, w);
+}
+
+// ---- the strict prechecks on encodings (ed25519._bytes_lt and
+// is_small_order_encoding), on 4 LE words ----------------------------------
+
+#ifdef __CUDACC__
+#define FD_CONST __constant__
+#else
+#define FD_CONST static const
+#endif
+
+FD_CONST uint64_t SC_L[4] = {0x5812631a5cf5d3edULL, 0x14def9dea2f79cd6ULL,
+                             0x0000000000000000ULL, 0x1000000000000000ULL};
+FD_CONST uint64_t FE_P[4] = {0xffffffffffffffedULL, 0xffffffffffffffffULL,
+                             0xffffffffffffffffULL, 0x7fffffffffffffffULL};
+// every encoding of an 8-torsion point (ed25519._small_order_encodings,
+// in its order; tests/test_torch_csrc_host.py holds the two equal)
+#define N_SMALL_ORDER 11
+FD_CONST uint64_t SMALL_ORDER[N_SMALL_ORDER][4] = {
+    {0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+     0x0000000000000000ULL},
+    {0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+     0x8000000000000000ULL},
+    {0x0000000000000001ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+     0x0000000000000000ULL},
+    {0xb027b2c28f95e826ULL, 0xf098eff289f4c345ULL, 0x3933c6d305acdfd5ULL,
+     0x05fc536d880238b1ULL},
+    {0xb027b2c28f95e826ULL, 0xf098eff289f4c345ULL, 0x3933c6d305acdfd5ULL,
+     0x85fc536d880238b1ULL},
+    {0x4fd84d3d706a17c7ULL, 0x0f67100d760b3cbaULL, 0xc6cc392cfa53202aULL,
+     0x7a03ac9277fdc74eULL},
+    {0x4fd84d3d706a17c7ULL, 0x0f67100d760b3cbaULL, 0xc6cc392cfa53202aULL,
+     0xfa03ac9277fdc74eULL},
+    {0xffffffffffffffecULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
+     0x7fffffffffffffffULL},
+    {0xffffffffffffffedULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
+     0x7fffffffffffffffULL},
+    {0xffffffffffffffedULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
+     0xffffffffffffffffULL},
+    {0xffffffffffffffeeULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
+     0x7fffffffffffffffULL}};
+
+// w < c as 256-bit LE integers; top7: bit 255 of w (a sign) ignored
+FD_DEV bool words_lt(const uint64_t w[4], const uint64_t c[4], bool top7) {
+  bool lt = false, done = false;
+#pragma unroll
+  for (int k = 3; k >= 0; k--) {
+    const uint64_t v = (k == 3 && top7) ? w[k] & 0x7fffffffffffffffULL : w[k];
+    if (!done && v != c[k]) {
+      lt = v < c[k];
+      done = true;
+    }
+  }
+  return lt;
+}
+
+FD_DEV bool is_small_order(const uint64_t w[4]) {
+  bool hit = false;
+#pragma unroll 1
+  for (int i = 0; i < N_SMALL_ORDER; i++)
+    hit |= w[0] == SMALL_ORDER[i][0] && w[1] == SMALL_ORDER[i][1] &&
+           w[2] == SMALL_ORDER[i][2] && w[3] == SMALL_ORDER[i][3];
+  return hit;
+}
+
+// ---- points, one thread (ed25519.py _dbl / _madd_aff / _add_full) -------
 
 FD_DEV void ge_identity(ge &p) {
   fe_set(p.X, 0); fe_set(p.Y, 1); fe_set(p.Z, 1); fe_set(p.T, 0);
@@ -357,17 +461,6 @@ FD_NOINLINE void ge_madd_aff(ge &p, const pre_aff &q) {
   ge_add_tail(p, a, b, c, d);
 }
 
-FD_NOINLINE void ge_add_pre(ge &p, const pre_proj &q) {
-  fe a, b, c, d;
-  fe_sub(a, p.Y, p.X);
-  fe_mul(a, a, q.ymx);
-  fe_add(b, p.Y, p.X);
-  fe_mul(b, b, q.ypx);
-  fe_mul(c, p.T, q.t2d);
-  fe_mul(d, p.Z, q.z2);
-  ge_add_tail(p, a, b, c, d);
-}
-
 FD_DEV void ge_add_full(ge &p, const ge &q) {
   fe a, b, c, d, t;
   fe_sub(a, p.Y, p.X);
@@ -384,15 +477,6 @@ FD_DEV void ge_add_full(ge &p, const ge &q) {
   ge_add_tail(p, a, b, c, d);
 }
 
-FD_DEV void ge_to_pre(pre_proj &o, const ge &p) {
-  fe d2;
-  fe_sub(o.ymx, p.Y, p.X);
-  fe_add(o.ypx, p.Y, p.X);
-  fe_mul2(o.z2, p.Z);
-  fe_d2(d2);
-  fe_mul(o.t2d, p.T, d2);
-}
-
 // fixed-base table entry [j][w] of the (64, 16, 3, 10) int32 table in
 // global memory (ops/params.py), read through the read-only cache
 FD_DEV void fb_entry(pre_aff &q, const i32 *fb, int j, int w) {
@@ -403,28 +487,6 @@ FD_DEV void fb_entry(pre_aff &q, const i32 *fb, int j, int w) {
     q.ypx.v[i] = FD_LDG(e + 10 + i);
     q.t2d.v[i] = FD_LDG(e + 20 + i);
   }
-}
-
-FD_DEV void pre_identity(pre_proj &o) {
-  fe_set(o.ymx, 1);
-  fe_set(o.ypx, 1);
-  fe_set(o.z2, 2);
-  fe_set(o.t2d, 0);
-}
-
-// p = -(x, y, 1, t) and q its affine precomputed form: the first entry of
-// a per-lane table of w(-P), and the step that builds the rest
-// (ed25519._neg_table)
-FD_DEV void ge_neg_start(ge &p, pre_aff &q, const fe &x, const fe &y,
-                         const fe &t) {
-  fe_neg(p.X, x);
-  p.Y = y;
-  fe_set(p.Z, 1);
-  fe_neg(p.T, t);
-  fe_sub(q.ymx, y, p.X);
-  fe_add(q.ypx, y, p.X);
-  fe_d2(q.t2d);
-  fe_mul(q.t2d, p.T, q.t2d);
 }
 
 // ---- decompression -------------------------------------------------------
@@ -477,4 +539,242 @@ FD_DEV bool ge_decompress(fe &x, fe &y, fe &t, const uint8_t *b) {
   const bool ok = recover_x(x, y, (int)(w[3] >> 63));
   fe_mul(t, x, y);
   return ok;
+}
+
+// ---- one signature on a group of four threads ----------------------------
+//
+// Four consecutive threads of a warp carry one signature. Thread c of the
+// group owns coordinate c (X, Y, Z, T) of each extended point, and
+// component c of each precomputed table entry: c = 0 Y-X, 1 Y+X, 2 2dT,
+// 3 2Z (projective entries; affine ones have no component 3). Each step
+// of the point formulas is a round in which every thread performs at most
+// one field multiply, with operands chosen by c through selects (no
+// branch, so the warp does not diverge) and fetched inside the group with
+// __shfl_sync. The group performs exactly the field operations of the
+// one-thread functions above, operand order included, so every limb
+// equals theirs and the plain versions' (ed25519.py _dbl, _madd_aff,
+// _add_pre, _add_full, _to_pre, _neg_table).
+//
+// g4v<T> is a value each thread of the group holds its own copy of, and
+// g4_each(f) runs f(c) for the calling thread's c. The host build (no
+// nvcc) holds the four copies in an array and runs c = 0..3 one after
+// another, so a round must read one g4v and write another: that proves
+// the arithmetic here, and only the card proves the shuffles.
+
+#ifdef __CUDACC__
+template <class T> struct g4v {
+  T v;
+  FD_DEV T &operator[](int) { return v; }
+  FD_DEV const T &operator[](int) const { return v; }
+};
+
+template <class F> FD_DEV void g4_each(F f) { f((int)(threadIdx.x & 3)); }
+
+// o = thread `from`'s copy of s (`from` may differ across the group)
+FD_DEV void g4_get(fe &o, const g4v<fe> &s, int from) {
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    o.v[i] = __shfl_sync(0xffffffffu, s.v.v[i], from, 4);
+}
+
+FD_DEV i32 g4_get_i(const g4v<i32> &s, int from) {
+  return __shfl_sync(0xffffffffu, s.v, from, 4);
+}
+#else
+template <class T> struct g4v {
+  T v[4];
+  T &operator[](int c) { return v[c]; }
+  const T &operator[](int c) const { return v[c]; }
+};
+
+template <class F> static inline void g4_each(F f) {
+  for (int c = 0; c < 4; c++) f(c);
+}
+
+static inline void g4_get(fe &o, const g4v<fe> &s, int from) {
+  o = s.v[from];
+}
+
+static inline i32 g4_get_i(const g4v<i32> &s, int from) { return s.v[from]; }
+#endif
+
+typedef g4v<fe> g4pt;     // an extended point, coordinate c on thread c
+
+FD_DEV void g4_identity(g4pt &p) {
+  g4_each([&](int c) { fe_set(p[c], (c == 1 || c == 2) ? 1 : 0); });
+}
+
+// precomputed identity (1, 1, 2, 0) as components (Y-X, Y+X, 2dT, 2Z)
+FD_DEV void g4_pre_identity(g4v<fe> &o) {
+  g4_each([&](int c) { fe_set(o[c], c == 3 ? 2 : (c == 2 ? 0 : 1)); });
+}
+
+// the second round of every formula: from (a, b, c, d) of round one,
+// e = b - a, f = d - c, g = d + c, h = b + a (or, for a doubling,
+// h = a + b, e = h - e', g = a - b, f = c + g); thread c then forms
+// coordinate c: X = ef, Y = gh, Z = fg, T = eh
+FD_DEV void g4_pick(fe &l, fe &m, const fe &e, const fe &f, const fe &g,
+                    const fe &h, int c) {
+  l = e;
+  fe_cmov(l, g, c == 1);
+  fe_cmov(l, f, c == 2);
+  m = h;
+  fe_cmov(m, f, c == 0);
+  fe_cmov(m, g, c == 2);
+}
+
+FD_DEV void g4_tail(g4pt &p, const g4pt &r) {
+  g4_each([&](int c) {
+    fe a, b, cc, d, e, f, g, h, l, m;
+    g4_get(a, r, 0);
+    g4_get(b, r, 1);
+    g4_get(cc, r, 2);
+    g4_get(d, r, 3);
+    fe_sub(e, b, a);
+    fe_sub(f, d, cc);
+    fe_add(g, d, cc);
+    fe_add(h, b, a);
+    g4_pick(l, m, e, f, g, h, c);
+    fe_mul(p[c], l, m);
+  });
+}
+
+// ge_dbl: round one X^2, Y^2, 2 Z^2, (X + Y)^2; round two as the tail
+FD_DEV void g4_dbl(g4pt &p, bool with_t) {
+  g4pt r;
+  g4_each([&](int c) {
+    fe x, y, s, u;
+    g4_get(x, p, c == 3 ? 0 : c);
+    g4_get(y, p, 1);
+    fe_add(s, x, y);
+    fe_cmov(x, s, c == 3);
+    fe_sq(u, x);
+    fe_mul2(s, u);
+    fe_cmov(u, s, c == 2);
+    r[c] = u;
+  });
+  g4_each([&](int c) {
+    fe a, b, cc, e, f, g, h, l, m;
+    g4_get(a, r, 0);
+    g4_get(b, r, 1);
+    g4_get(cc, r, 2);
+    g4_get(e, r, 3);
+    fe_add(h, a, b);
+    fe_sub(e, h, e);
+    fe_sub(g, a, b);
+    fe_add(f, cc, g);
+    g4_pick(l, m, e, f, g, h, c);
+    fe_mul(a, l, m);
+    fe_cmov(p[c], a, c < 3 || with_t);
+  });
+}
+
+// ge_madd_aff (affine: thread 3 forms d = 2Z) and _add_pre (thread 3
+// forms d = Z 2Z'): round one (Y-X) q0, (Y+X) q1, T q2, d; then the tail
+FD_DEV void g4_add_q(g4pt &p, const g4v<fe> &q, bool affine) {
+  g4pt r;
+  g4_each([&](int c) {
+    fe x, y, w, l, u;
+    g4_get(x, p, 0);
+    g4_get(y, p, 1);
+    g4_get(w, p, c == 2 ? 3 : 2);        // T on thread 2, Z on thread 3
+    fe_sub(l, y, x);
+    fe_add(u, y, x);
+    fe_cmov(l, u, c == 1);
+    fe_cmov(l, w, c >= 2);
+    fe_mul(u, l, q[c]);
+    fe_mul2(l, w);
+    fe_cmov(u, l, affine && c == 3);
+    r[c] = u;
+  });
+  g4_tail(p, r);
+}
+
+FD_DEV void g4_madd_aff(g4pt &p, const g4v<fe> &q) { g4_add_q(p, q, true); }
+FD_DEV void g4_add_pre(g4pt &p, const g4v<fe> &q) { g4_add_q(p, q, false); }
+
+// ge_add_full: round one (Y1-X1)(Y2-X2), (Y1+X1)(Y2+X2), T1 2d, Z1 Z2;
+// round two (T1 2d) T2 on thread 2 and 2 Z1 Z2 on thread 3; then the tail
+FD_DEV void g4_add_full(g4pt &p, const g4pt &q) {
+  g4pt r;
+  g4_each([&](int c) {
+    fe x, y, w, x2, y2, w2, l, m, u;
+    g4_get(x, p, 0);
+    g4_get(y, p, 1);
+    g4_get(w, p, c == 2 ? 3 : 2);
+    g4_get(x2, q, 0);
+    g4_get(y2, q, 1);
+    g4_get(w2, q, c == 2 ? 3 : 2);
+    fe_sub(l, y, x);
+    fe_sub(m, y2, x2);
+    fe_add(u, y, x);
+    fe_cmov(l, u, c == 1);
+    fe_add(u, y2, x2);
+    fe_cmov(m, u, c == 1);
+    fe_cmov(l, w, c >= 2);
+    fe_d2(u);
+    fe_cmov(m, u, c == 2);
+    fe_cmov(m, w2, c == 3);
+    fe_mul(u, l, m);
+    fe_mul(l, u, w2);
+    fe_cmov(u, l, c == 2);
+    fe_mul2(l, u);
+    fe_cmov(u, l, c == 3);
+    r[c] = u;
+  });
+  g4_tail(p, r);
+}
+
+// component c of the precomputed form of p (ed25519._to_pre)
+FD_DEV void g4_to_pre(g4v<fe> &o, const g4pt &p) {
+  g4_each([&](int c) {
+    fe x, y, w, l, u;
+    g4_get(x, p, 0);
+    g4_get(y, p, 1);
+    g4_get(w, p, c == 2 ? 3 : 2);
+    fe_sub(l, y, x);
+    fe_add(u, y, x);
+    fe_cmov(l, u, c == 1);
+    fe_d2(u);
+    fe_mul(u, w, u);
+    fe_cmov(l, u, c == 2);
+    fe_mul2(u, w);
+    fe_cmov(l, u, c == 3);
+    o[c] = l;
+  });
+}
+
+// p = -(x, y, 1, t) and q its affine precomputed form, from thread
+// `src`'s decompressed (x, y, t): the first entry of a table of w(-P),
+// and the step that builds the rest (ed25519._neg_table)
+FD_DEV void g4_neg_start(g4pt &p, g4v<fe> &q, const g4v<fe> &xs,
+                         const g4v<fe> &ys, const g4v<fe> &ts, int src) {
+  g4_each([&](int c) {
+    fe x, y, t, nx, nt, l, u;
+    g4_get(x, xs, src);
+    g4_get(y, ys, src);
+    g4_get(t, ts, src);
+    fe_neg(nx, x);
+    fe_neg(nt, t);
+    l = nx;
+    fe_cmov(l, y, c == 1);
+    fe_set(u, 1);
+    fe_cmov(l, u, c == 2);
+    fe_cmov(l, nt, c == 3);
+    p[c] = l;
+    fe_sub(l, y, nx);
+    fe_add(u, y, nx);
+    fe_cmov(l, u, c == 1);
+    fe_d2(u);
+    fe_mul(u, nt, u);
+    fe_cmov(l, u, c >= 2);
+    q[c] = l;
+  });
+}
+
+// component c (< 3) of fixed-base entry [j][w] (fb_entry)
+FD_DEV void fb_comp(fe &o, const i32 *fb, int j, int w, int c) {
+  const i32 *e = fb + (int64_t)(j * 16 + w) * 30 + 10 * c;
+#pragma unroll
+  for (int i = 0; i < 10; i++) o.v[i] = FD_LDG(e + i);
 }

@@ -1,54 +1,70 @@
 // RLC batch verification as one multi-scalar multiplication: two kernels,
-// stage 1 with one thread per signature, stage 2 in one block.
+// stage 1 with a group of four threads per signature, stage 2 in one
+// block.
 //
 // Replaces the Pallas kernels firedancer_tpu/ops/pallas_msm.py
-// `_msm_stage1_kernel` and `_msm_stage2_kernel`. Together they test
+// `_msm_stage1_kernel` and `_msm_stage2_kernel`, and the scalar glue
+// around them (pallas_msm.py:307-327). Together they test
 //
 //   sum_i ( [zk_i](-A_i) + [z_i](-R_i) ) + [s]B == identity,
 //   zk_i = z_i k_i mod l,  s = sum_i z_i S_i mod l,
 //
-// which is sum_i z_i ([S_i]B - [k_i]A_i - R_i) == identity. The scalars
-// (k = SHA-512(R || A || M) mod l, z k, the lane sum s, the lane masks)
-// are the glue's, ops/ed25519.py `rlc_verify`, as they were outside the
-// Pallas kernels.
+// which is sum_i z_i ([S_i]B - [k_i]A_i - R_i) == identity, over the
+// lanes that pass lane_ok: S < l, A.y < p, R.y < p, A and R not
+// small-order encodings, A and R decompress. z counts as zero elsewhere.
 //
-// Stage 1 (a grid of blocks of MSM_T lanes): decompress A and R (a lane
-// that fails, or that the glue masked, contributes the identity and
-// reports 0 in lane_ok); build per-lane tables of w(-A), extended, and
-// w(-R), precomputed, w = 0..15, in local memory; then for each of the 64
-// 4-bit windows j each thread forms its contribution
-// [zk_j](-A) + [z_j](-R) with one add, and the block sums the MSM_T
-// contributions in shared memory (a 6-level tree over MSM_T x 160 B).
-// One thread writes the block's sum of window j: out (blocks, 64) points.
+// Stage 1 (a grid of blocks of MSM_L lanes, four threads a lane): per
+// lane the prechecks, k = k64 mod l, zk = z k mod l and zs = z S mod l;
+// A and R decompressed on one thread each (the block's first 2 MSM_L
+// threads) and handed over in shared memory to threads 0 and 2 of the
+// group (A) and 1 and 3 (R); tables of w(-A), extended, and w(-R),
+// precomputed, w = 0..15,
+// built with the group's point code (ed25519_common.cuh), component c on
+// thread c. The windows are then summed over the block's lanes without a
+// tree: in passes of MSM_W windows every group writes its lane's
+// contributions [zk_j](-A) + [z_j](-R) to shared memory; group g then sums
+// window g / MSM_C of the pass over the MSM_S lanes of chunk g % MSM_C,
+// one add after another, into a partial in shared memory; after the last
+// pass group g sums window g's MSM_C partials. Every group adds at every
+// step; two barriers per pass. Out: lane_ok, the block's 64 window sums,
+// and the block's column sums of zs's thirteen 21-bit digits over its
+// lane_ok lanes (sdig, int64, each below 2^27).
 //
 // Stage 2 (one block of 64 threads): thread j sums window j over the
-// blocks; then thread 0 runs the Horner over the 64 window sums (252
-// doublings, 63 adds) while thread 32, in another warp, sums the
-// fixed-base terms table[j][s_j] (64 adds and no doubling: row j of the
-// table carries the factor 16^j); then one add and the identity test
-// X = 0, Y = Z on canonical limbs.
+// blocks; thread 32 sums sdig over the blocks, carries and folds it with
+// sc_reduce64 into s, then sums the fixed-base terms table[j][s_j]
+// (64 adds and no doubling: row j of the table carries the factor 16^j)
+// while thread 0 runs the Horner over the 64 window sums (252 doublings,
+// 63 adds); then one add and the identity test X = 0, Y = Z on canonical
+// limbs.
 //
 // What differs from the TPU kernels: the TPU merge-folds the windows into
 // bit-reversed lanes and runs a fold-Horner because pltpu.roll needs
 // power-of-two distances on a 128-lane vector unit. On Hopper blocks run
-// in no order and carry nothing between them, so stage 1 reduces inside
-// each block in shared memory and stage 2 sums the blocks' results; the
-// Horner is written as the plain reference (ops/ed25519.py of the JAX
-// package) writes it.
+// in no order and carry nothing between them, so stage 1 sums inside each
+// block in shared memory and stage 2 sums the blocks' results; the Horner
+// is written as the plain reference (ops/ed25519.py of the JAX package)
+// writes it.
 //
 // What bounds it on the H100: integer multiply-adds (field multiplies of
-// 100 IMAD.WIDE each). Stage 1 keeps two warps per block, and each
-// window's tree is 6 dependent adds: latency bound, as the strict kernel
-// is. Stage 2 is a fixed cost per batch whose tail (about 2,600 field
-// multiplies of the Horner) runs on one thread: latency bound. Both are
-// first versions, correct and simple.
+// 100 IMAD.WIDE each). Stage 1 runs 8 warps a block and one block an SM
+// (163,840 B of dynamic shared memory): every step has a multiply chain a
+// quarter as long as one thread's, and the sums over lanes keep every
+// group busy. Stage 2 is a fixed cost per batch whose tail (about 2,600
+// field multiplies of the Horner) runs on one thread: latency bound.
 //
 // Plain PyTorch versions: ops/msm.py `msm_stage1` and `msm_stage2`, which
 // perform the same limb operations in the same order on int64 tensors.
 // Field, scalar and point code: csrc/ed25519_common.cuh.
 #include "ed25519_common.cuh"
 
-#define MSM_T 64          // lanes per stage-1 block (ops/msm.py LANES)
+#define MSM_L 64          // lanes per stage-1 block (ops/msm.py LANES)
+#define MSM_S 8           // lanes per chunk of a window's first sum
+#define MSM_C (MSM_L / MSM_S)   // chunks per window
+#define MSM_W 8           // windows per pass
+static_assert(MSM_W * MSM_C == MSM_L, "one group per (window, chunk)");
+// contributions (MSM_W, MSM_L) and partials (64, MSM_C), 4 coordinates each
+#define MSM_SMEM ((MSM_W * MSM_L + 64 * MSM_C) * 4 * (int)sizeof(fe))
 
 FD_DEV void ge_store(i32 *o, const ge &p) {
 #pragma unroll
@@ -70,54 +86,72 @@ FD_DEV void ge_load(ge &p, const i32 *o) {
   }
 }
 
-// ---- stage 1, per lane (msm.lane_contributions) --------------------------
+// ---- stage 1, per lane (msm.lane_part) -----------------------------------
 
 struct msm_lane {
-  ge a[16];               // w(-A), extended
-  pre_proj r[16];         // w(-R), precomputed
-  uint64_t kw[4];         // zk: 64 windows
-  uint64_t zw[2];         // z: 32 windows (windows 32..63 are zero)
-  bool a_ok, r_ok, ok;
+  g4v<fe> a[16];          // w(-A), extended, coordinate c on thread c
+  g4v<fe> r[16];          // w(-R), precomputed, component c on thread c
+  uint64_t k[4];          // k = k64 mod l
+  uint64_t zk[4];         // z k mod l: 64 windows
+  uint64_t zs[4];         // z S mod l: the digits of s
+  uint64_t z[2];          // z: 32 windows (windows 32..63 are zero)
+  bool pre, a_ok, r_ok, ok;
 };
 
-FD_NOINLINE void msm_lane_setup(msm_lane &L, const uint8_t *pub,
-                                const uint8_t *sig, const uint8_t *zk,
-                                const uint8_t *z, i32 mask) {
-  fe x, y, t;
-  ge cur;
-  pre_aff q;
-  load_words(L.kw, zk, 4);
-  load_words(L.zw, z, 2);
-  L.a_ok = ge_decompress(x, y, t, pub);
-  ge_neg_start(cur, q, x, y, t);
-  ge_identity(L.a[0]);
+// the prechecks and the scalars, on every thread of the group
+FD_DEV void msm_lane_scalars(msm_lane &L, const uint8_t *pub,
+                             const uint8_t *sig, const uint8_t *k64,
+                             const uint8_t *z) {
+  uint64_t aw[4], rw[4], sw[4], hw[8];
+  load_words(aw, pub, 4);
+  load_words(rw, sig, 4);
+  load_words(sw, sig + 32, 4);
+  load_words(hw, k64, 8);
+  load_words(L.z, z, 2);
+  L.pre = words_lt(sw, SC_L, false) && words_lt(aw, FE_P, true) &&
+          words_lt(rw, FE_P, true) && !is_small_order(aw) &&
+          !is_small_order(rw);
+  sc_reduce64(L.k, hw);
+  sc_mul_mod_l(L.zk, L.k, L.z);
+  sc_mul_mod_l(L.zs, sw, L.z);
+}
+
+// the tables, from A decompressed as (x, y, t) with verdict dec on
+// threads 0 and 2 of the group and R on threads 1 and 3
+FD_DEV void msm_lane_tables(msm_lane &L, const g4v<fe> &x, const g4v<fe> &y,
+                            const g4v<fe> &t, const g4v<i32> &dec) {
+  g4v<fe> q;
+  g4pt cur;
+  L.a_ok = g4_get_i(dec, 0) != 0;
+  L.r_ok = g4_get_i(dec, 1) != 0;
+  L.ok = L.pre && L.a_ok && L.r_ok;
+  g4_neg_start(cur, q, x, y, t, 0);
+  g4_identity(L.a[0]);
   L.a[1] = cur;
 #pragma unroll 1
   for (int w = 2; w < 16; w++) {
-    ge_madd_aff(cur, q);
+    g4_madd_aff(cur, q);
     L.a[w] = cur;
   }
-  L.r_ok = ge_decompress(x, y, t, sig);          // R: the first 32 bytes
-  ge_neg_start(cur, q, x, y, t);
-  pre_identity(L.r[0]);
-  ge_to_pre(L.r[1], cur);
+  g4_neg_start(cur, q, x, y, t, 1);
+  g4_pre_identity(L.r[0]);
+  g4_to_pre(L.r[1], cur);
 #pragma unroll 1
   for (int w = 2; w < 16; w++) {
-    ge_madd_aff(cur, q);
-    ge_to_pre(L.r[w], cur);
+    g4_madd_aff(cur, q);
+    g4_to_pre(L.r[w], cur);
   }
-  L.ok = mask != 0 && L.a_ok && L.r_ok;
 }
 
 // window j's contribution [zk_j](-A) + [z_j](-R); the identity when the
-// lane is masked
-FD_DEV void msm_lane_window(ge &c, const msm_lane &L, int j) {
-  if (!L.ok) {
-    ge_identity(c);
-    return;
-  }
-  c = L.a[nibble(L.kw, j)];
-  ge_add_pre(c, L.r[j < 32 ? nibble(L.zw, j) : 0]);
+// lane is not ok (computed all the same: the group's shuffles need every
+// thread)
+FD_DEV void msm_lane_window(g4pt &o, const msm_lane &L, int j) {
+  g4pt id;
+  o = L.a[nibble(L.zk, j)];
+  g4_add_pre(o, L.r[j < 32 ? nibble(L.z, j) : 0]);
+  g4_identity(id);
+  g4_each([&](int c) { fe_cmov(o[c], id[c], !L.ok); });
 }
 
 // ---- stage 2 (msm.msm_stage2) --------------------------------------------
@@ -131,6 +165,22 @@ FD_DEV void msm_window_total(ge &acc, const i32 *wsum, int nblk, int j) {
     ge_load(q, wsum + ((int64_t)g * 64 + j) * 40);
     ge_add_full(acc, q);
   }
+}
+
+// s = (sum over the blocks of sdig) mod l: digit sums, carried to 25
+// 21-bit digits, folded by sc_reduce64 (ed25519.sc_reduce_digits)
+FD_DEV void msm_scalar_s(uint64_t s[4], const i64 *sdig, int nblk) {
+  i64 d[25];
+  uint64_t w[8];
+#pragma unroll
+  for (int i = 0; i < 25; i++) d[i] = 0;
+#pragma unroll 1
+  for (int g = 0; g < nblk; g++)
+#pragma unroll
+    for (int i = 0; i < 13; i++) d[i] += sdig[(int64_t)g * 13 + i];
+  sc_carry21(d, 0, 24);
+  sc_pack(w, 8, d, 25);
+  sc_reduce64(s, w);
 }
 
 // h = sum_j 16^j W[j]: msb-first, 4 doublings and one add per window
@@ -147,10 +197,8 @@ FD_NOINLINE void msm_horner(ge &h, const ge *W) {
 }
 
 // f = [s]B = sum_j table[j][s_j], doubling-free
-FD_NOINLINE void msm_fixed_base(ge &f, const uint8_t *s, const i32 *fb) {
-  uint64_t sw[4];
+FD_NOINLINE void msm_fixed_base(ge &f, const uint64_t sw[4], const i32 *fb) {
   pre_aff q;
-  load_words(sw, s, 4);
   ge_identity(f);
 #pragma unroll 1
   for (int j = 0; j < 64; j++) {
@@ -174,48 +222,90 @@ FD_DEV void msm_finish(i32 *out, ge &h, const ge &f) {
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(MSM_T)
+__global__ void __launch_bounds__(MSM_L * 4, 1)
 msm_stage1_kernel(const uint8_t *__restrict__ pub,
                   const uint8_t *__restrict__ sig,
-                  const uint8_t *__restrict__ zk,
-                  const uint8_t *__restrict__ z,
-                  const i32 *__restrict__ mask, i32 *__restrict__ wsum,
-                  i32 *__restrict__ lane_ok, int n) {
-  __shared__ ge sh[MSM_T];
-  const int tid = threadIdx.x;
-  const int lane = blockIdx.x * MSM_T + tid;
+                  const uint8_t *__restrict__ k64,
+                  const uint8_t *__restrict__ z, i32 *__restrict__ wsum,
+                  i32 *__restrict__ lane_ok, i64 *__restrict__ sdig, int n) {
+  extern __shared__ fe smem[];
+  fe *cb = smem;                        // [MSM_W][MSM_L][4] contributions
+  fe *pb = smem + MSM_W * MSM_L * 4;    // [64][MSM_C][4] partials
+  __shared__ unsigned long long sd[13];
+  __shared__ int sok[2 * MSM_L];
+  const int tid = threadIdx.x, g = tid >> 2, c = tid & 3;
+  const int lane0 = blockIdx.x * MSM_L + g;
+  const int lane = lane0 < n ? lane0 : n - 1;   // the ragged edge
+  if (tid < 13) sd[tid] = 0;
+  // decompression on one thread a point (threads < MSM_L: A of lane tid,
+  // the next MSM_L: R of lane tid - MSM_L), into the contributions'
+  // space before the passes use it
+  if (tid < 2 * MSM_L) {
+    const int q = blockIdx.x * MSM_L + tid % MSM_L;
+    const int ql = q < n ? q : n - 1;
+    sok[tid] = ge_decompress(cb[tid], cb[2 * MSM_L + tid],
+                             cb[4 * MSM_L + tid],
+                             tid < MSM_L ? pub + (int64_t)ql * 32
+                                         : sig + (int64_t)ql * 64);
+  }
   msm_lane L;
-  L.ok = false;                           // the ragged edge: identity
-  if (lane < n) {
-    msm_lane_setup(L, pub + (int64_t)lane * 32, sig + (int64_t)lane * 64,
-                   zk + (int64_t)lane * 32, z + (int64_t)lane * 16,
-                   mask[lane]);
-    lane_ok[lane] = L.ok ? 1 : 0;
-  }
-  i32 *out = wsum + (int64_t)blockIdx.x * 64 * 40;
-#pragma unroll 1
-  for (int j = 0; j < 64; j++) {
-    ge c;
-    msm_lane_window(c, L, j);
-    sh[tid] = c;
+  msm_lane_scalars(L, pub + (int64_t)lane * 32, sig + (int64_t)lane * 64,
+                   k64 + (int64_t)lane * 64, z + (int64_t)lane * 16);
+  __syncthreads();
+  {
+    const int src = (c & 1) * MSM_L + g;   // A on threads 0 and 2, R on 1, 3
+    g4v<fe> x, y, t;
+    g4v<i32> dec;
+    x.v = cb[src];
+    y.v = cb[2 * MSM_L + src];
+    t.v = cb[4 * MSM_L + src];
+    dec.v = sok[src];
     __syncthreads();
+    msm_lane_tables(L, x, y, t, dec);
+  }
+  if (lane0 >= n) L.ok = false;         // contributes the identity
+  if (c == 0) {
+    if (lane0 < n) lane_ok[lane0] = L.ok ? 1 : 0;
+    if (L.ok)
+      for (int d = 0; d < 13; d++)
+        atomicAdd(&sd[d], (unsigned long long)sc_digit(L.zs, 4, d, d == 12));
+  }
+  const int cw = g / MSM_C, ck = g % MSM_C;    // this group's (window, chunk)
 #pragma unroll 1
-    for (int s = MSM_T / 2; s > 0; s >>= 1) {
-      if (tid < s) {
-        ge p = sh[tid];
-        ge_add_full(p, sh[tid + s]);
-        sh[tid] = p;
-      }
-      __syncthreads();
+  for (int p = 0; p < 64 / MSM_W; p++) {
+#pragma unroll 1
+    for (int w = 0; w < MSM_W; w++) {
+      g4pt o;
+      msm_lane_window(o, L, p * MSM_W + w);
+      cb[(w * MSM_L + g) * 4 + c] = o.v;
     }
-    if (tid == 0) ge_store(out + j * 40, sh[0]);
+    __syncthreads();
+    g4pt acc, q;
+    acc.v = cb[(cw * MSM_L + ck * MSM_S) * 4 + c];
+#pragma unroll 1
+    for (int i = 1; i < MSM_S; i++) {
+      q.v = cb[(cw * MSM_L + ck * MSM_S + i) * 4 + c];
+      g4_add_full(acc, q);
+    }
+    pb[((p * MSM_W + cw) * MSM_C + ck) * 4 + c] = acc.v;
     __syncthreads();
   }
+  g4pt acc, q;                          // group g: window g's partials
+  acc.v = pb[(g * MSM_C) * 4 + c];
+#pragma unroll 1
+  for (int k = 1; k < MSM_C; k++) {
+    q.v = pb[(g * MSM_C + k) * 4 + c];
+    g4_add_full(acc, q);
+  }
+  i32 *o = wsum + (((int64_t)blockIdx.x * 64 + g) * 4 + c) * 10;
+#pragma unroll
+  for (int i = 0; i < 10; i++) o[i] = acc.v.v[i];
+  if (tid < 13) sdig[(int64_t)blockIdx.x * 13 + tid] = (i64)sd[tid];
 }
 
 __global__ void __launch_bounds__(64)
 msm_stage2_kernel(const i32 *__restrict__ wsum, int nblk,
-                  const uint8_t *__restrict__ s_sum,
+                  const i64 *__restrict__ sdig,
                   const i32 *__restrict__ fb, i32 *__restrict__ out) {
   __shared__ ge W[64];
   __shared__ ge F;
@@ -225,8 +315,10 @@ msm_stage2_kernel(const i32 *__restrict__ wsum, int nblk,
   W[j] = acc;
   __syncthreads();
   if (j == 32) {
+    uint64_t sw[4];
     ge f;
-    msm_fixed_base(f, s_sum, fb);
+    msm_scalar_s(sw, sdig, nblk);
+    msm_fixed_base(f, sw, fb);
     F = f;
   }
   if (j == 0) msm_horner(acc, W);
@@ -237,60 +329,94 @@ msm_stage2_kernel(const i32 *__restrict__ wsum, int nblk,
   }
 }
 
-// pub (n, 32), sig (n, 64), zk (n, 32), z (n, 16) uint8, mask (n,) int32
-// -> wsum (ceil(n / 64), 64, 4, 10) int32, lane_ok (n,) int32; device
-// pointers; launches on `stream` and returns cudaGetLastError().
+// pub (n, 32), sig (n, 64), k64 (n, 64), z (n, 16) uint8 -> wsum
+// (ceil(n / 64), 64, 4, 10) int32, lane_ok (n,) int32, sdig
+// (ceil(n / 64), 13) int64; device pointers; launches on `stream` and
+// returns the first CUDA error.
 extern "C" int fdtt_msm_stage1(const void *pub, const void *sig,
-                               const void *zk, const void *z,
-                               const void *mask, void *wsum, void *lane_ok,
-                               int n, void *stream) {
+                               const void *k64, const void *z, void *wsum,
+                               void *lane_ok, void *sdig, int n,
+                               void *stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      msm_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MSM_SMEM);
+  if (e != cudaSuccess) return (int)e;
   if (n > 0)
-    msm_stage1_kernel<<<(n + MSM_T - 1) / MSM_T, MSM_T, 0,
+    msm_stage1_kernel<<<(n + MSM_L - 1) / MSM_L, MSM_L * 4, MSM_SMEM,
                         (cudaStream_t)stream>>>(
-        (const uint8_t *)pub, (const uint8_t *)sig, (const uint8_t *)zk,
-        (const uint8_t *)z, (const i32 *)mask, (i32 *)wsum, (i32 *)lane_ok,
-        n);
+        (const uint8_t *)pub, (const uint8_t *)sig, (const uint8_t *)k64,
+        (const uint8_t *)z, (i32 *)wsum, (i32 *)lane_ok, (i64 *)sdig, n);
   return (int)cudaGetLastError();
 }
 
-// wsum (nblk, 64, 4, 10) int32, s_sum (32,) uint8, fb (64, 16, 3, 10)
+// wsum (nblk, 64, 4, 10) int32, sdig (nblk, 13) int64, fb (64, 16, 3, 10)
 // int32 -> out (41,) int32; one block.
-extern "C" int fdtt_msm_stage2(const void *wsum, int nblk, const void *s_sum,
+extern "C" int fdtt_msm_stage2(const void *wsum, int nblk, const void *sdig,
                                const void *fb, void *out, void *stream) {
   msm_stage2_kernel<<<1, 64, 0, (cudaStream_t)stream>>>(
-      (const i32 *)wsum, nblk, (const uint8_t *)s_sum, (const i32 *)fb,
+      (const i32 *)wsum, nblk, (const i64 *)sdig, (const i32 *)fb,
       (i32 *)out);
   return (int)cudaGetLastError();
 }
 #else
-// Host build: stage 1's per-lane part for one lane (flags = a_ok, r_ok,
-// ok; contrib = the 64 window contributions, (64, 4, 10)) and stage 2
-// with its threads run one after another.
+// Host build: stage 1's per-lane part for one lane, the group's four
+// threads in turn (flags = pre, a_ok, r_ok, ok; scal = k, zk, zs as 32
+// LE bytes each; contrib = the 64 window contributions, (64, 4, 10)),
+// and stage 2 with its threads run one after another.
+static void store_words(uint8_t *o, const uint64_t w[4]) {
+  for (int b = 0; b < 32; b++) o[b] = (uint8_t)(w[b >> 3] >> (8 * (b & 7)));
+}
+
+// the whole per-lane setup on the group (the kernel decompresses on one
+// thread a point instead; the arithmetic is the same)
+FD_DEV void msm_lane_setup(msm_lane &L, const uint8_t *pub,
+                           const uint8_t *sig, const uint8_t *k64,
+                           const uint8_t *z) {
+  g4v<fe> x, y, t;
+  g4v<i32> dec;
+  msm_lane_scalars(L, pub, sig, k64, z);
+  g4_each([&](int c) {
+    dec[c] = ge_decompress(x[c], y[c], t[c], (c & 1) ? sig : pub);
+  });
+  msm_lane_tables(L, x, y, t, dec);
+}
+
 extern "C" void msm_lane_host(const uint8_t *pub, const uint8_t *sig,
-                              const uint8_t *zk, const uint8_t *z,
-                              const i32 *mask, int lane, i32 *flags,
-                              i32 *contrib) {
+                              const uint8_t *k64, const uint8_t *z, int lane,
+                              i32 *flags, uint8_t *scal, i32 *contrib) {
   msm_lane L;
   msm_lane_setup(L, pub + (int64_t)lane * 32, sig + (int64_t)lane * 64,
-                 zk + (int64_t)lane * 32, z + (int64_t)lane * 16,
-                 mask[lane]);
-  flags[0] = L.a_ok;
-  flags[1] = L.r_ok;
-  flags[2] = L.ok;
+                 k64 + (int64_t)lane * 64, z + (int64_t)lane * 16);
+  flags[0] = L.pre;
+  flags[1] = L.a_ok;
+  flags[2] = L.r_ok;
+  flags[3] = L.ok;
+  store_words(scal, L.k);
+  store_words(scal + 32, L.zk);
+  store_words(scal + 64, L.zs);
   for (int j = 0; j < 64; j++) {
-    ge c;
-    msm_lane_window(c, L, j);
-    ge_store(contrib + j * 40, c);
+    g4pt o;
+    msm_lane_window(o, L, j);
+    for (int c = 0; c < 4; c++)
+      for (int i = 0; i < 10; i++) contrib[(j * 4 + c) * 10 + i] = o[c].v[i];
   }
 }
 
-extern "C" void msm_stage2_host(const i32 *wsum, int nblk,
-                                const uint8_t *s_sum, const i32 *fb,
-                                i32 *out) {
+// the small-order table of the prechecks, (N_SMALL_ORDER, 32) bytes
+extern "C" int small_order_host(uint8_t *out) {
+  for (int i = 0; i < N_SMALL_ORDER; i++) store_words(out + 32 * i,
+                                                      SMALL_ORDER[i]);
+  return N_SMALL_ORDER;
+}
+
+extern "C" void msm_stage2_host(const i32 *wsum, int nblk, const i64 *sdig,
+                                const i32 *fb, i32 *out) {
   ge W[64], h, f;
+  uint64_t sw[4];
   for (int j = 0; j < 64; j++) msm_window_total(W[j], wsum, nblk, j);
   msm_horner(h, W);
-  msm_fixed_base(f, s_sum, fb);
+  msm_scalar_s(sw, sdig, nblk);
+  msm_fixed_base(f, sw, fb);
   msm_finish(out, h, f);
 }
 #endif

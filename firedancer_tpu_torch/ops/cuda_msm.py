@@ -1,6 +1,7 @@
 """Wrappers of the two RLC MSM kernels (csrc/ed25519_msm.cu; they replace
 firedancer_tpu/ops/pallas_msm.py `_msm_stage1_kernel` and
-`_msm_stage2_kernel`), and the RLC batch verify that drives them
+`_msm_stage2_kernel`, with the scalar glue of pallas_msm.py:307-327
+inside them), and the RLC batch verify that drives them
 (counterpart of pallas_msm.rlc_verify_batch_tpu and
 verify_batch_rlc_tpu, pallas_msm.py:296-376).
 
@@ -32,54 +33,53 @@ def _check(fn, name, t, shape, dtype, dev):
                          f"{t.device}")
 
 
-def msm_stage1(pub, sig, zk, z, mask):
-    """pub (B, 32), sig (B, 64), zk (B, 32), z (B, 16) uint8, mask (B,)
-    int32 -> (wsum (ceil(B / 64), 64, 4, 10) int32, lane_ok (B,) int32)."""
+def msm_stage1(pub, sig, k64, z):
+    """pub (B, 32), sig (B, 64), k64 (B, 64), z (B, 16) uint8 -> (wsum
+    (ceil(B / 64), 64, 4, 10) int32, lane_ok (B,) int32, sdig
+    (ceil(B / 64), 13) int64)."""
     dev = pub.device
     if dev.type == "cpu":
-        return msm.msm_stage1(pub, sig, zk, z, mask)
+        return msm.msm_stage1(pub, sig, k64, z)
     if dev.type != "cuda":
         raise ValueError(f"msm_stage1: tensors on {dev}; expected CUDA")
     b = pub.shape[0]
     if b == 0:
         raise ValueError("msm_stage1: empty batch")
-    for name, t, shape, dtype in (("pub", pub, (b, 32), torch.uint8),
-                                  ("sig", sig, (b, 64), torch.uint8),
-                                  ("zk", zk, (b, 32), torch.uint8),
-                                  ("z", z, (b, 16), torch.uint8),
-                                  ("mask", mask, (b,), torch.int32)):
-        _check("msm_stage1", name, t, shape, dtype, dev)
+    for name, t, shape in (("pub", pub, (b, 32)), ("sig", sig, (b, 64)),
+                           ("k64", k64, (b, 64)), ("z", z, (b, 16))):
+        _check("msm_stage1", name, t, shape, torch.uint8, dev)
     fn = _build.lib("ed25519_msm", _ARGS1, "fdtt_msm_stage1")
     nblk = -(-b // msm.LANES)
     wsum = torch.empty((nblk, 64, 4, 10), dtype=torch.int32, device=dev)
     lane_ok = torch.empty(b, dtype=torch.int32, device=dev)
+    sdig = torch.empty((nblk, 13), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(pub.data_ptr(), sig.data_ptr(), zk.data_ptr(), z.data_ptr(),
-                mask.data_ptr(), wsum.data_ptr(), lane_ok.data_ptr(), b,
+        rc = fn(pub.data_ptr(), sig.data_ptr(), k64.data_ptr(), z.data_ptr(),
+                wsum.data_ptr(), lane_ok.data_ptr(), sdig.data_ptr(), b,
                 torch.cuda.current_stream().cuda_stream)
     _build.check_launch("msm_stage1", rc)
     launches["msm_stage1"] += 1
-    return wsum, lane_ok
+    return wsum, lane_ok, sdig
 
 
-def msm_stage2(wsum, s_sum):
-    """wsum (nblk, 64, 4, 10) int32, s_sum (32,) uint8 -> (ok () int32,
-    point (4, 10) int32 canonical limbs of the batch sum)."""
+def msm_stage2(wsum, sdig):
+    """wsum (nblk, 64, 4, 10) int32, sdig (nblk, 13) int64 -> (ok ()
+    int32, point (4, 10) int32 canonical limbs of the batch sum)."""
     dev = wsum.device
     tab = fixed_base_tables(dev)
     if dev.type == "cpu":
-        return msm.msm_stage2(wsum, s_sum, tab)
+        return msm.msm_stage2(wsum, sdig, tab)
     if dev.type != "cuda":
         raise ValueError(f"msm_stage2: tensors on {dev}; expected CUDA")
     nblk = wsum.shape[0]
     if nblk == 0:
         raise ValueError("msm_stage2: no blocks")
     _check("msm_stage2", "wsum", wsum, (nblk, 64, 4, 10), torch.int32, dev)
-    _check("msm_stage2", "s_sum", s_sum, (32,), torch.uint8, dev)
+    _check("msm_stage2", "sdig", sdig, (nblk, 13), torch.int64, dev)
     fn = _build.lib("ed25519_msm", _ARGS2, "fdtt_msm_stage2")
     out = torch.empty(41, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(wsum.data_ptr(), nblk, s_sum.data_ptr(), tab.data_ptr(),
+        rc = fn(wsum.data_ptr(), nblk, sdig.data_ptr(), tab.data_ptr(),
                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check_launch("msm_stage2", rc)
     launches["msm_stage2"] += 1
@@ -88,9 +88,9 @@ def msm_stage2(wsum, s_sum):
 
 def rlc_verify_batch(sig, pub, msg, msg_len, z_bytes, device="cuda"):
     """RLC batch verification through the kernels (SHA-512 and the two
-    MSM stages). Arguments and result as ops/ed25519.py
-    `rlc_verify_batch`; device="cpu" runs the plain versions, "cuda"
-    without a card raises."""
+    MSM stages, with no scalar work between them). Arguments and result
+    as ops/ed25519.py `rlc_verify_batch`; device="cpu" runs the plain
+    versions, "cuda" without a card raises."""
     sig, pub, msg, msg_len = ed.as_inputs(sig, pub, msg, msg_len, device)
     z = torch.as_tensor(z_bytes, dtype=torch.uint8,
                         device=sig.device).contiguous()

@@ -16,7 +16,7 @@ canonical encodings.
 
 Scalars are 32-byte little-endian tensors. `sc_reduce64` folds a 512-bit
 value mod l in 21-bit digits with int64 sums (the ref10 fold constants),
-which is what the kernel does per thread; the RLC products z k, z S and
+which is what the kernels do per thread; the RLC products z k, z S and
 the lane sum are formed in the same 21-bit digits and folded by it.
 """
 from __future__ import annotations
@@ -127,15 +127,27 @@ def sc_mul_mod_l(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return sc_reduce64(_digits_to_bytes(p, 64))
 
 
-def sc_sum_mod_l(s: torch.Tensor) -> torch.Tensor:
-    """(B, 32) uint8 scalars -> (32,) uint8, their sum mod l (the JAX
-    sc_sum_mod_l over axis 0). A digit column sums B values below 2^21,
-    below 2^63 for B < 2^42; the sum, below B 2^256, is carried to 21-bit
-    digits and folded by sc_reduce64 (B < 2^256)."""
-    d = [x.sum(0) for x in _digits21(s, 13)]
-    d += [torch.zeros_like(d[0]) for _ in range(12)]
+def sc_digit_sums(s: torch.Tensor) -> torch.Tensor:
+    """(B, 32) uint8 scalars -> (13,) int64: the column sums of their
+    21-bit digits (the last digit holds bits 252 and up). A column sums B
+    values below 2^21, below 2^63 for B < 2^42."""
+    return torch.stack([x.sum(0) for x in _digits21(s, 13)])
+
+
+def sc_reduce_digits(d: torch.Tensor) -> torch.Tensor:
+    """(13,) int64 digit sums (non-negative) -> (32,) uint8, their value
+    mod l: carried to 25 digits of 21 bits and folded by sc_reduce64
+    (value below 2^512). The MSM stage 2 kernel does the same."""
+    d = list(d.unbind(-1)) + [torch.zeros_like(d[..., 0]) for _ in range(12)]
     _carry21(d, 0, 24)
     return sc_reduce64(_digits_to_bytes(d, 64))
+
+
+def sc_sum_mod_l(s: torch.Tensor) -> torch.Tensor:
+    """(B, 32) uint8 scalars -> (32,) uint8, their sum mod l (the JAX
+    sc_sum_mod_l over axis 0): the digit sums, then their reduction
+    (B < 2^42)."""
+    return sc_reduce_digits(sc_digit_sums(s))
 
 
 def _bytes_lt(b: torch.Tensor, const_int: int,
@@ -469,19 +481,30 @@ def verify_batch(sig, pub, msg, msg_len, device="cuda"):
 # RLC batch verification (the bulk pre-filter)
 # ---------------------------------------------------------------------------
 
+def rlc_prechecks(sig: torch.Tensor, pub: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: S < l, A.y < p, R.y < p, A and R not small-order
+    encodings (the byte-level part of an RLC lane's lane_ok)."""
+    rb, sb = sig[:, :32], sig[:, 32:]
+    return (_bytes_lt(sb, L) & _bytes_lt(pub, P, mask_top7=True)
+            & _bytes_lt(rb, P, mask_top7=True)
+            & ~is_small_order_encoding(pub) & ~is_small_order_encoding(rb))
+
+
 def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
                stage2_fn):
-    """The RLC glue around the two MSM stages (counterpart of the scalar
-    side of the JAX rlc_verify_batch, ed25519.py:548-649, and of
+    """The RLC batch check around its three kernels (counterpart of the
+    JAX rlc_verify_batch, ed25519.py:548-649, and of
     pallas_msm.rlc_verify_batch_tpu). Checks
 
         sum_i z_i ([S_i]B - [k_i]A_i - R_i) == identity
 
-    over the lanes that pass lane_pre: S < l, A.y < p, R.y < p, A and R
-    not small-order encodings, A and R decompress. z is zero on every
-    other lane, decompression failures included: stage 1 reports those
-    in its lane_ok and contributes the identity for them, and the sum
-    s = sum_i z_i S_i is taken over lane_pre lanes only.
+    over the lanes that pass lane_ok: S < l, A.y < p, R.y < p, A and R
+    not small-order encodings, A and R decompress. z counts as zero on
+    every other lane. k64 = SHA-512(R || A || M) is the only input built
+    here; stage 1 (`stage1_fn(pub, sig, k64, z) -> (wsum, lane_ok,
+    sdig)`) runs the prechecks, k = k64 mod l, z k and z S mod l, and
+    stage 2 (`stage2_fn(wsum, sdig) -> (ok, point)`) folds the digit
+    sums of z S into s = sum_i z_i S_i mod l.
 
     COFACTORED semantics, as the JAX function documents: a lane whose
     residual is a nonzero pure 8-torsion point is invisible when
@@ -490,20 +513,11 @@ def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
     All tensors on one device; -> (batch_ok () bool, lane_pre (B,) bool)."""
     if sig.shape[0] == 0:
         raise ValueError("rlc_verify: empty batch")
-    rb, sb = sig[:, :32], sig[:, 32:]
-    host_pre = (_bytes_lt(sb, L) & _bytes_lt(pub, P, mask_top7=True)
-                & _bytes_lt(rb, P, mask_top7=True)
-                & ~is_small_order_encoding(pub)
-                & ~is_small_order_encoding(rb))
-    k = sc_reduce64(sha512_fn(torch.cat([rb, pub, msg], dim=-1),
-                              msg_len.to(torch.int32) + 64))
-    z = torch.where(host_pre[:, None], z_bytes, torch.zeros_like(z_bytes))
-    wsum, lane_ok = stage1_fn(pub, sig, sc_mul_mod_l(k, z), z,
-                              host_pre.to(torch.int32))
-    lane_pre = lane_ok != 0
-    z = torch.where(lane_pre[:, None], z, torch.zeros_like(z))
-    ok, _ = stage2_fn(wsum, sc_sum_mod_l(sc_mul_mod_l(sb, z)))
-    return ok != 0, lane_pre
+    k64 = sha512_fn(torch.cat([sig[:, :32], pub, msg], dim=-1),
+                    msg_len.to(torch.int32) + 64)
+    wsum, lane_ok, sdig = stage1_fn(pub, sig, k64, z_bytes)
+    ok, _ = stage2_fn(wsum, sdig)
+    return ok != 0, lane_ok != 0
 
 
 def rlc_verify_batch(sig, pub, msg, msg_len, z_bytes, device="cuda"):

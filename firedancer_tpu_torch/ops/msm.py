@@ -1,19 +1,27 @@
 """Plain PyTorch versions of the two RLC MSM kernels (csrc/ed25519_msm.cu;
 they replace firedancer_tpu/ops/pallas_msm.py `_msm_stage1_kernel` and
-`_msm_stage2_kernel`).
+`_msm_stage2_kernel`, and the scalar glue around them).
 
 Each function performs the kernel's limb operations in the kernel's
-order, on int64 tensors, so a kernel is held to it exactly:
+order, on int64 tensors, so a kernel is held to it exactly, window sums
+included (no comparison falls back to canonical affine points):
 
-  msm_stage1   per lane: decompress A and R, tables of w(-A) (extended)
-               and w(-R) (precomputed), one add per window; then per
-               block of LANES lanes, the shared-memory tree that sums
-               each window (level s: entry i += entry i + s, i < s).
+  msm_stage1   per lane: the prechecks, k = k64 mod l, z k and z S mod l,
+               decompression of A and R, tables of w(-A) (extended) and
+               w(-R) (precomputed), one add per window; then per block of
+               LANES lanes and per window, CHUNK lanes summed one after
+               another in each of LANES / CHUNK chunks, and the chunks'
+               sums one after another; and per block the column sums of
+               z S's 21-bit digits over the lane_ok lanes.
   msm_stage2   each window summed over the blocks in block order; the
-               Horner over the 64 window sums; the doubling-free
-               fixed-base sum of [s]B; one add and the identity test.
+               Horner over the 64 window sums; s from the digit sums;
+               the doubling-free fixed-base sum of [s]B; one add and the
+               identity test.
 
-A point is four (..., 10) limb tensors (X, Y, Z, T); the stage outputs
+The kernel runs a lane's point arithmetic on a group of four threads,
+one field multiply each per round; a group performs the same field
+operations as one thread, so the plain version is written per lane. A
+point is four (..., 10) limb tensors (X, Y, Z, T); the stage outputs
 stack them as (..., 4, 10) int32, the kernels' layout.
 """
 from __future__ import annotations
@@ -23,21 +31,28 @@ import torch
 from . import ed25519 as ed
 from . import fe25519 as fe
 
-LANES = 64          # lanes per stage-1 block (MSM_T in the kernel)
+LANES = 64          # lanes per stage-1 block (MSM_L in the kernel)
+CHUNK = 8           # lanes per chunk of a window's first sum (MSM_S)
 
 
 def _stack(p) -> torch.Tensor:
     return torch.stack(p, dim=-2)
 
 
-def lane_contributions(pub, sig, zk, z, mask):
-    """Stage 1's per-lane part. pub (B, 32), sig (B, 64), zk (B, 32),
-    z (B, 16) uint8, mask (B,) int32 -> (contrib (B, 64, 4, 10) int64,
-    a_ok, r_ok, ok (B,) bool). Window j's contribution is
-    [zk_j](-A) + [z_j](-R), the identity where ok is False."""
+def lane_part(pub, sig, k64, z):
+    """Stage 1's per-lane part. pub (B, 32), sig (B, 64), k64 (B, 64),
+    z (B, 16) uint8 -> dict: contrib (B, 64, 4, 10) int64 (window j's
+    contribution [zk_j](-A) + [z_j](-R), the identity where ok is
+    False); k, zk, zs (B, 32) uint8 (k64 mod l, z k and z S mod l); pre,
+    a_ok, r_ok, ok (B,) bool (prechecks, decompression of A and of R,
+    lane_ok)."""
+    pre = ed.rlc_prechecks(sig, pub)
+    k = ed.sc_reduce64(k64)
+    zk = ed.sc_mul_mod_l(k, z)
+    zs = ed.sc_mul_mod_l(sig[:, 32:], z)
     ax, ay, at, a_ok = ed._decode_xyt(pub)
     rx, ry, rt, r_ok = ed._decode_xyt(sig[:, :32])
-    ok = (mask != 0) & a_ok & r_ok
+    ok = pre & a_ok & r_ok
     tab_a = torch.stack([_stack(p) for p in ed._neg_table(ax, ay, at)], 1)
     tab_r = torch.stack([_stack(p) for p in
                          ed._pre_table(ed._neg_table(rx, ry, rt))], 1)
@@ -49,32 +64,42 @@ def lane_contributions(pub, sig, zk, z, mask):
     ident = ed._identity(c[0])
     keep = ok[:, None, None]
     c = tuple(torch.where(keep, x, i) for x, i in zip(c, ident))
-    return _stack(c), a_ok, r_ok, ok
+    return dict(contrib=_stack(c), k=k, zk=zk, zs=zs, pre=pre, a_ok=a_ok,
+                r_ok=r_ok, ok=ok)
 
 
-def msm_stage1(pub, sig, zk, z, mask):
+def msm_stage1(pub, sig, k64, z):
     """-> (wsum (ceil(B / LANES), 64, 4, 10) int32 per-block window sums,
-    lane_ok (B,) int32). The ragged last block is filled with
-    identities, as the kernel's idle threads contribute."""
-    c, _, _, ok = lane_contributions(pub, sig, zk, z, mask)
+    lane_ok (B,) int32, sdig (ceil(B / LANES), 13) int64 per-block
+    column sums of z S's 21-bit digits over the lane_ok lanes). The
+    ragged last block is filled with identities and zero digits, as the
+    kernel's idle groups contribute."""
+    lp = lane_part(pub, sig, k64, z)
+    c, ok = lp["contrib"], lp["ok"]
+    dig = torch.stack(ed._digits21(lp["zs"], 13), -1) * ok[:, None]
     b = c.shape[0]
     nblk = -(-b // LANES)
     if nblk * LANES > b:
         ident = _stack(ed._identity(c[:1, :, 0]))        # (1, 64, 4, 10)
         c = torch.cat([c, ident.expand(nblk * LANES - b, -1, -1, -1)])
-    x = c.view(nblk, LANES, 64, 4, fe.NLIMB)
-    s = LANES // 2
-    while s:
-        x = _stack(ed._add_full(x[:, :s].unbind(-2), x[:, s:2 * s].unbind(-2)))
-        s //= 2
-    return x[:, 0].to(torch.int32), ok.to(torch.int32)
+        dig = torch.cat([dig, dig.new_zeros(nblk * LANES - b, 13)])
+    x = c.view(nblk, LANES // CHUNK, CHUNK, 64, 4, fe.NLIMB)
+    acc = x[:, :, 0].unbind(-2)
+    for i in range(1, CHUNK):                 # each chunk, lane by lane
+        acc = ed._add_full(acc, x[:, :, i].unbind(-2))
+    acc = _stack(acc)                         # (nblk, chunks, 64, 4, 10)
+    tot = acc[:, 0].unbind(-2)
+    for k in range(1, LANES // CHUNK):        # the chunks, one by one
+        tot = ed._add_full(tot, acc[:, k].unbind(-2))
+    sdig = dig.view(nblk, LANES, 13).sum(1)
+    return _stack(tot).to(torch.int32), ok.to(torch.int32), sdig
 
 
-def msm_stage2(wsum, s_sum, fb_tab):
-    """wsum (nblk, 64, 4, 10) int32, s_sum (32,) uint8, fb_tab
+def msm_stage2(wsum, sdig, fb_tab):
+    """wsum (nblk, 64, 4, 10) int32, sdig (nblk, 13) int64, fb_tab
     (64, 16, 3, 10) int32 (ops/params.py) -> (ok () int32, point (4, 10)
     int32: canonical limbs of sum_j 16^j W_j + [s]B, the identity when
-    the batch verifies)."""
+    the batch verifies; s = the digit sums over the blocks, mod l)."""
     w = wsum.to(torch.int64)
     acc = w[0].unbind(-2)                                # 4 x (64, 10)
     for g in range(1, w.shape[0]):
@@ -88,7 +113,7 @@ def msm_stage2(wsum, s_sum, fb_tab):
         h = ed._add_full(h, win[j:j + 1].unbind(-2))
 
     tab = fb_tab.to(torch.int64)
-    sw = ed.sc_windows4(s_sum)
+    sw = ed.sc_windows4(ed.sc_reduce_digits(sdig.sum(0)))
     f = ed._identity(h[0])
     for j in range(64):
         f = ed._madd_aff(f, tab[j, sw[j]][None].unbind(-2))

@@ -3,13 +3,15 @@ plain PyTorch versions lane by lane.
 
 csrc/sha512.cu, csrc/ed25519_verify.cu and csrc/ed25519_msm.cu compile
 as plain C++ when nvcc is absent (__CUDACC__ unset): each kernel's
-per-lane part becomes a host function (the MSM stage 2 runs its threads
-one after another). That checks the sources' arithmetic (padding,
-big-endian loads, limb carries, scalar reduction, decompression, tables,
-window walk, Horner, canonical compare) here, where there is no card;
-launch, shared-memory reduction, memory and timing are checked on the
-card by chip_smoke.py and tests/test_torch_cuda.py. Exact: digests,
-verdicts and limbs are integers."""
+per-lane part becomes a host function, and the threads that work
+together on the card (the four threads of a group that carries one
+signature, the threads of MSM stage 2) run one after another. That
+checks the sources' arithmetic (padding, big-endian loads, limb carries,
+prechecks, scalar reduction, decompression, tables, window walk, Horner,
+canonical compare) here, where there is no card; launch, the group's
+shuffles, the shared-memory sums over lanes, memory and timing are
+checked on the card by chip_smoke.py and tests/test_torch_cuda.py.
+Exact: digests, verdicts and limbs are integers."""
 import ctypes as ct
 import hashlib
 import os
@@ -21,10 +23,11 @@ import pytest
 import torch
 
 from firedancer_tpu_torch.ops import ed25519 as ed
+from firedancer_tpu_torch.ops import fe25519 as fe
 from firedancer_tpu_torch.ops import msm, params, sha2
 from firedancer_tpu_torch.ops._build import CSRC
 from firedancer_tpu_torch.utils import ed25519_ref as ref
-from torch_rlc_cases import stage_inputs
+from torch_rlc_cases import KEPT_OUT, stage_inputs
 
 VP = ct.c_void_p
 
@@ -101,45 +104,81 @@ def test_verify_source_matches_plain(host_lib):
     assert want.any() and not want.all()
 
 
+def _extreme_lanes(pub, sig, k64):
+    """Lanes 7-11 of a stage_inputs batch of 12 made scalar and
+    encoding extremes: S = l - 1, k64 = 2^512 - 1, a small-order R, and
+    A.y and R.y equal to p + 1 (non-canonical)."""
+    p1 = np.frombuffer((fe.P + 1).to_bytes(32, "little"), np.uint8)
+    sig[7, 32:] = np.frombuffer((ed.L - 1).to_bytes(32, "little"), np.uint8)
+    k64[8] = 0xFF
+    sig[9, :32] = ed._small_order_encodings()[3]
+    pub[10] = p1
+    sig[11, :32] = p1
+
+
 def test_msm_lane_source_matches_plain(host_lib):
-    """Stage 1's per-lane part: decompression of A and R (flags) and the
-    64 window contributions, limb for limb, over valid, non-decodable,
-    masked and z = 0 lanes."""
+    """Stage 1's per-lane part, its group's four threads in turn: the
+    prechecks and decompression flags, k, z k and z S mod l, and the 64
+    window contributions, limb for limb, over every lane class of
+    stage_inputs and the extremes of _extreme_lanes (z = 2^128 - 1 is
+    lane 6)."""
     fn = host_lib("ed25519_msm").msm_lane_host
-    fn.argtypes = [VP] * 5 + [ct.c_int, VP, VP]
-    (pub, sig, zk, z, mask), _ = stage_inputs(12, 61)
-    want, a_ok, r_ok, ok = msm.lane_contributions(
-        *(torch.from_numpy(x) for x in (pub, sig, zk, z, mask)))
+    fn.argtypes = [VP] * 4 + [ct.c_int, VP, VP, VP]
+    (pub, sig, k64, z), _ = stage_inputs(12, 61)
+    _extreme_lanes(pub, sig, k64)
+    want = msm.lane_part(*(torch.from_numpy(x) for x in (pub, sig, k64, z)))
     for lane in range(len(pub)):
-        flags = np.zeros(3, np.int32)
+        flags = np.zeros(4, np.int32)
+        scal = np.zeros((3, 32), np.uint8)
         contrib = np.zeros((64, 4, 10), np.int32)
-        fn(pub.ctypes.data, sig.ctypes.data, zk.ctypes.data, z.ctypes.data,
-           mask.ctypes.data, lane, flags.ctypes.data, contrib.ctypes.data)
-        assert flags.tolist() == [int(a_ok[lane]), int(r_ok[lane]),
-                                  int(ok[lane])], lane
-        np.testing.assert_array_equal(contrib, want[lane].numpy())
-    assert ok.tolist() == [i not in (1, 2, 3) for i in range(len(pub))]
+        fn(pub.ctypes.data, sig.ctypes.data, k64.ctypes.data, z.ctypes.data,
+           lane, flags.ctypes.data, scal.ctypes.data, contrib.ctypes.data)
+        assert flags.tolist() == [int(want[k][lane]) for k in
+                                  ("pre", "a_ok", "r_ok", "ok")], lane
+        for i, k in enumerate(("k", "zk", "zs")):
+            np.testing.assert_array_equal(scal[i], want[k][lane].numpy())
+        np.testing.assert_array_equal(contrib, want["contrib"][lane].numpy())
+    assert want["ok"].tolist() == [i not in KEPT_OUT + (9, 10, 11)
+                                   for i in range(len(pub))]
+    assert want["pre"].tolist() == [i not in (3, 5, 9, 10, 11)
+                                    for i in range(len(pub))]
+    for lane, (zi, si) in ((6, ((1 << 128) - 1, None)), (7, (None, ed.L - 1))):
+        zi = zi or int.from_bytes(bytes(z[lane]), "little")
+        si = si or int.from_bytes(bytes(sig[lane, 32:]), "little")
+        assert int.from_bytes(bytes(want["zs"][lane].numpy()), "little") \
+            == zi * si % ed.L
+
+
+def test_small_order_table_matches_plain(host_lib):
+    """The kernels' __constant__ small-order encodings are the plain
+    version's, in its order."""
+    fn = host_lib("ed25519_msm").small_order_host
+    fn.argtypes, fn.restype = [VP], ct.c_int
+    out = np.zeros((32, 32), np.uint8)
+    n = fn(out.ctypes.data)
+    np.testing.assert_array_equal(out[:n], ed._small_order_encodings())
 
 
 def test_msm_stage2_source_matches_plain(host_lib):
-    """Stage 2 (block sums, Horner, fixed-base sum, identity test) over
-    the plain stage 1 of 70 lanes (two blocks, the second ragged): the
-    verdict and the canonical limbs of the sum, for the right s (the
-    batch verifies) and a wrong one."""
+    """Stage 2 (block sums, s from the digit sums, Horner, fixed-base
+    sum, identity test) over the plain stage 1 of 70 lanes (two blocks,
+    the second ragged): the verdict and the canonical limbs of the sum,
+    for the batch's digit sums (it verifies) and with one digit raised
+    by 1 (it does not)."""
     fn = host_lib("ed25519_msm").msm_stage2_host
     fn.argtypes = [VP, ct.c_int, VP, VP, VP]
     ins, s = stage_inputs(70, 62)
-    wsum, _ = msm.msm_stage1(*(torch.from_numpy(x) for x in ins))
-    assert wsum.shape == (2, 64, 4, 10)
+    wsum, _, sdig = msm.msm_stage1(*(torch.from_numpy(x) for x in ins))
+    assert wsum.shape == (2, 64, 4, 10) and sdig.shape == (2, 13)
+    assert bytes(ed.sc_reduce_digits(sdig.sum(0)).numpy()) == bytes(s)
     w = np.ascontiguousarray(wsum.numpy())
     fb = np.ascontiguousarray(params.own_tables())
-    wrong = (int.from_bytes(bytes(s), "little") + 1) % ed.L
-    for s_sum, verdict in ((s, 1), (np.frombuffer(
-            wrong.to_bytes(32, "little"), np.uint8).copy(), 0)):
+    bad = sdig.clone()
+    bad[1, 3] += 1
+    for d, verdict in ((sdig, 1), (bad, 0)):
+        dn = np.ascontiguousarray(d.numpy())
         out = np.zeros(41, np.int32)
-        fn(w.ctypes.data, 2, s_sum.ctypes.data, fb.ctypes.data,
-           out.ctypes.data)
-        ok, point = msm.msm_stage2(wsum, torch.from_numpy(s_sum),
-                                   params.fixed_base_tables("cpu"))
+        fn(w.ctypes.data, 2, dn.ctypes.data, fb.ctypes.data, out.ctypes.data)
+        ok, point = msm.msm_stage2(wsum, d, params.fixed_base_tables("cpu"))
         assert out[0] == int(ok) == verdict
         np.testing.assert_array_equal(out[1:].reshape(4, 10), point.numpy())

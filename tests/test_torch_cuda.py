@@ -69,7 +69,9 @@ def test_sha512_kernel_matches_plain(dev, width):
 
 
 def test_verify_kernel_matches_plain(dev):
-    sig, pub, msg, ln = _signed(48, 100, 52)
+    """45 signatures: the last warp holds three groups past the batch
+    edge, which repeat the last signature and write nothing."""
+    sig, pub, msg, ln = _signed(45, 100, 52)
     k64 = np.stack([np.frombuffer(hashlib.sha512(
         bytes(sig[i, :32]) + bytes(pub[i]) + bytes(msg[i])).digest(),
         np.uint8) for i in range(len(sig))])
@@ -103,31 +105,35 @@ def test_wrappers_refuse_bad_tensors(dev):
 
 
 def test_msm_stage1_kernel_matches_plain(dev):
-    """200 lanes (four blocks, the last ragged) with valid, non-decodable,
-    masked and z = 0 lanes: every limb of every window sum."""
+    """200 lanes (four blocks, the last ragged) with every lane class of
+    stage_inputs: every limb of every window sum, lane_ok and the digit
+    sums of z S."""
     ins, _ = stage_inputs(200, 54)
     ins = [torch.from_numpy(x).to(dev) for x in ins]
     before = cuda_msm.launches["msm_stage1"]
-    wsum, lane_ok = cuda_msm.msm_stage1(*ins)
+    got = cuda_msm.msm_stage1(*ins)
     assert cuda_msm.launches["msm_stage1"] == before + 1
-    want_w, want_ok = msm.msm_stage1(*ins)
+    want = msm.msm_stage1(*ins)
     torch.cuda.synchronize()
-    assert wsum.shape == (4, 64, 4, 10)
-    assert torch.equal(wsum, want_w) and torch.equal(lane_ok, want_ok)
+    assert got[0].shape == (4, 64, 4, 10) and got[2].shape == (4, 13)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_msm_stage2_kernel_matches_plain(dev):
-    ins, s = stage_inputs(130, 55)
-    wsum, _ = msm.msm_stage1(*(torch.from_numpy(x).to(dev) for x in ins))
+    """The batch's digit sums (it verifies) and the same with one digit
+    raised by 1 (it does not): verdict and canonical limbs."""
+    ins, _ = stage_inputs(130, 55)
+    wsum, _, sdig = msm.msm_stage1(*(torch.from_numpy(x).to(dev)
+                                     for x in ins))
     tab = params.fixed_base_tables(dev)
-    wrong = (int.from_bytes(bytes(s), "little") + 1) % ed.L
-    for s_sum, verdict in ((s, 1), (np.frombuffer(
-            wrong.to_bytes(32, "little"), np.uint8).copy(), 0)):
-        s_d = torch.from_numpy(s_sum).to(dev)
+    bad = sdig.clone()
+    bad[0, 5] += 1
+    for d, verdict in ((sdig, 1), (bad, 0)):
         before = cuda_msm.launches["msm_stage2"]
-        ok, point = cuda_msm.msm_stage2(wsum, s_d)
+        ok, point = cuda_msm.msm_stage2(wsum, d)
         assert cuda_msm.launches["msm_stage2"] == before + 1
-        want_ok, want_pt = msm.msm_stage2(wsum, s_d, tab)
+        want_ok, want_pt = msm.msm_stage2(wsum, d, tab)
         torch.cuda.synchronize()
         assert int(ok) == int(want_ok) == verdict
         assert torch.equal(point, want_pt)
@@ -156,12 +162,18 @@ def test_rlc_verify_batch_on_card_matches_cpu(dev):
 def test_msm_wrappers_refuse_bad_tensors(dev):
     u8 = dict(dtype=torch.uint8, device=dev)
     pub, sig = torch.zeros((4, 32), **u8), torch.zeros((4, 64), **u8)
-    z, mask = torch.zeros((4, 16), **u8), torch.ones(4, dtype=torch.int32,
-                                                     device=dev)
+    z = torch.zeros((4, 16), **u8)
     with pytest.raises(ValueError):
-        cuda_msm.msm_stage1(pub, sig, pub, z, mask.long())
+        cuda_msm.msm_stage1(pub, sig, sig.int(), z)
     with pytest.raises(ValueError):
-        cuda_msm.msm_stage1(pub, sig[:, :32], pub, z, mask)
+        cuda_msm.msm_stage1(pub, sig[:, :32], sig, z)
     with pytest.raises(ValueError):
         cuda_msm.msm_stage2(torch.zeros((1, 64, 4, 10), dtype=torch.int32,
-                                        device=dev).transpose(0, 1), pub[0])
+                                        device=dev).transpose(0, 1),
+                            torch.zeros((64, 13), dtype=torch.int64,
+                                        device=dev))
+    with pytest.raises(ValueError):
+        cuda_msm.msm_stage2(torch.zeros((1, 64, 4, 10), dtype=torch.int32,
+                                        device=dev),
+                            torch.zeros((1, 13), dtype=torch.int32,
+                                        device=dev))

@@ -6,7 +6,8 @@ The same numpy inputs go to both packages and every comparison is exact
 (booleans and integers). The JAX reference runs eagerly (one call per
 case; its Pallas counterpart in interpret mode takes hours, as
 tests/test_pallas_msm.py notes). Also here: the scalar ops against the
-JAX ones, the plain stage 1 against Python-int curve arithmetic, and the
+JAX ones, the plain stage 1 (window sums and the digit sums of z S)
+against Python-int arithmetic, the glue's aten operation count, and the
 RLC wrapper against the port's strict verify_batch.
 
 The non-decodable-R case pins a reference behaviour: a lane whose R has
@@ -29,7 +30,7 @@ from firedancer_tpu_torch.ops import fe25519 as fe
 from firedancer_tpu_torch.ops import cuda_msm, msm
 from firedancer_tpu_torch.utils import chaos
 from firedancer_tpu_torch.utils import ed25519_ref as ref
-from torch_rlc_cases import stage_inputs
+from torch_rlc_cases import KEPT_OUT, stage_inputs
 
 B, MLEN = 8, 48
 
@@ -120,30 +121,62 @@ def test_scalar_ops_match_jax():
 def test_plain_stage1_window_sums_match_python_ints():
     """Every window sum of the plain stage 1, in affine coordinates,
     equals sum over the kept lanes of [zk_j](-A) + [z_j](-R) computed
-    with Python integers."""
-    (pub, sig, zk, z, mask), _ = stage_inputs(10, 71)
-    wsum, lane_ok = msm.msm_stage1(*(torch.from_numpy(x)
-                                     for x in (pub, sig, zk, z, mask)))
-    assert lane_ok.tolist() == [int(i not in (1, 2, 3)) for i in range(10)]
-    kw = ed.sc_windows4(torch.from_numpy(zk)).numpy()
-    zw = ed.sc_windows4(torch.from_numpy(z)).numpy()
+    with Python integers (zk = z (k64 mod l) mod l), and the s that
+    stage 2 derives from the digit sums equals sum z S mod l over them."""
+    (pub, sig, k64, z), s = stage_inputs(10, 71)
+    wsum, lane_ok, sdig = msm.msm_stage1(*(torch.from_numpy(x)
+                                           for x in (pub, sig, k64, z)))
+    assert lane_ok.tolist() == [int(i not in KEPT_OUT) for i in range(10)]
+    kept = np.nonzero(lane_ok.numpy())[0]
+    zi = [int.from_bytes(bytes(z[i]), "little") for i in range(10)]
+    zk = [zi[i] * (int.from_bytes(bytes(k64[i]), "little") % ed.L) % ed.L
+          for i in range(10)]
+    want_s = sum(zi[i] * int.from_bytes(bytes(sig[i, 32:]), "little")
+                 for i in kept) % ed.L
+    got_s = ed.sc_reduce_digits(sdig.sum(0))
+    assert int.from_bytes(bytes(got_s.numpy()), "little") == want_s \
+        == int.from_bytes(bytes(s), "little")
 
     def neg(p):
         return (ref.P - p[0], p[1], p[2], ref.P - p[3])
 
     for j in range(64):
         acc = (0, 1, 1, 0)
-        for i in np.nonzero(lane_ok.numpy())[0]:
+        for i in kept:
             a = neg(ref.pt_decompress(bytes(pub[i])))
             r = neg(ref.pt_decompress(bytes(sig[i, :32])))
-            acc = ref.pt_add(acc, ref.pt_mul(int(kw[i, j]), a))
+            acc = ref.pt_add(acc, ref.pt_mul((zk[i] >> (4 * j)) & 15, a))
             if j < 32:
-                acc = ref.pt_add(acc, ref.pt_mul(int(zw[i, j]), r))
+                acc = ref.pt_add(acc, ref.pt_mul((zi[i] >> (4 * j)) & 15, r))
         got = [fe.limbs_to_int(wsum[0, j, c]) % ref.P for c in range(3)]
-        zi = pow(got[2], ref.P - 2, ref.P)
-        wi = pow(acc[2], ref.P - 2, ref.P)
-        assert (got[0] * zi % ref.P, got[1] * zi % ref.P) == \
-            (acc[0] * wi % ref.P, acc[1] * wi % ref.P), j
+        zinv = pow(got[2], ref.P - 2, ref.P)
+        winv = pow(acc[2], ref.P - 2, ref.P)
+        assert (got[0] * zinv % ref.P, got[1] * zinv % ref.P) == \
+            (acc[0] * winv % ref.P, acc[1] * winv % ref.P), j
+
+
+def test_rlc_glue_issues_few_aten_ops():
+    """rlc_verify outside its three kernel callables (stubbed here with
+    precomputed results) issues at most 16 aten operations: the
+    prechecks and every scalar mod l run inside the MSM stages."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    sig, pub, msg, ln, z = (torch.from_numpy(x) for x in _batch(3))
+    k64 = torch.zeros((B, 64), dtype=torch.uint8)
+    s1 = msm.msm_stage1(pub, sig, k64, z)
+    s2 = (torch.tensor(1, dtype=torch.int32), torch.zeros((4, 10)))
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        ok, pre = ed.rlc_verify(sig, pub, msg, ln, z, lambda m, n: k64,
+                                lambda *a: s1, lambda *a: s2)
+    assert bool(ok) and pre.tolist() == [True] * B
+    assert 0 < Count.n <= 16, Count.n
 
 
 @pytest.mark.parametrize("corrupt", [(), (0,), (2, 5)])

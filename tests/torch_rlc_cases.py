@@ -23,40 +23,37 @@ def signed(n: int, msg_len: int, seed: int):
     return sig, pub, msg, np.full(n, msg_len, np.int32)
 
 
-def k_scalars(sig, pub, msg, msg_len) -> np.ndarray:
-    """(n, 32) uint8: k = SHA-512(R || A || M) mod l per lane."""
-    out = np.zeros((len(sig), 32), np.uint8)
-    for i in range(len(sig)):
-        h = hashlib.sha512(bytes(sig[i, :32]) + bytes(pub[i])
-                           + bytes(msg[i, :msg_len[i]])).digest()
-        k = int.from_bytes(h, "little") % ed.L
-        out[i] = np.frombuffer(k.to_bytes(32, "little"), np.uint8)
-    return out
+def k64s(sig, pub, msg, msg_len) -> np.ndarray:
+    """(n, 64) uint8: SHA-512(R || A || M) per lane."""
+    return np.stack([np.frombuffer(hashlib.sha512(
+        bytes(sig[i, :32]) + bytes(pub[i])
+        + bytes(msg[i, :msg_len[i]])).digest(), np.uint8)
+        for i in range(len(sig))])
+
+
+KEPT_OUT = (1, 2, 3, 5)      # the lanes of stage_inputs outside lane_ok
 
 
 def stage_inputs(n: int, seed: int):
-    """Stage-1 inputs over n lanes with every lane class the kernel
+    """Stage-1 inputs over n >= 7 lanes with every lane class the kernel
     meets: valid signatures, a non-decodable R (lane 1), a non-decodable
-    A (lane 2), a masked lane (lane 3), a lane with z = 0 (lane 4).
-    -> (pub, sig, zk, z, mask) numpy arrays, and s (32,) uint8 with
-    s = sum z S mod l over the lanes the kernel keeps, so the batch
-    verifies."""
+    A (lane 2), S >= l (lane 3), z = 0 (lane 4), a small-order A (lane
+    5), z = 2^128 - 1 (lane 6). -> (pub, sig, k64, z) numpy arrays, and
+    s (32,) uint8 with s = sum z S mod l over the lanes the kernel keeps
+    (all but KEPT_OUT), so the batch verifies."""
     sig, pub, msg, ln = signed(n, 40, seed)
     sig[1, :32] = undecodable_point(seed + 1)
     pub[2] = undecodable_point(seed + 2)
+    sig[3, 32:] = np.frombuffer((ed.L + 5).to_bytes(32, "little"), np.uint8)
+    pub[5] = ed._small_order_encodings()[1]
     rng = np.random.default_rng(seed + 3)
     z = rng.integers(0, 256, (n, 16), np.uint8)
     z[4] = 0
-    mask = np.ones(n, np.int32)
-    mask[3] = 0
-    k = k_scalars(sig, pub, msg, ln)
-    zk, s = np.zeros((n, 32), np.uint8), 0
+    z[6] = 0xFF
+    s = 0
     for i in range(n):
-        zi = int.from_bytes(bytes(z[i]), "little")
-        ki = int.from_bytes(bytes(k[i]), "little")
-        zk[i] = np.frombuffer((zi * ki % ed.L).to_bytes(32, "little"),
-                              np.uint8)
-        if i not in (1, 2, 3):
-            s += zi * int.from_bytes(bytes(sig[i, 32:]), "little")
+        if i not in KEPT_OUT:
+            s += int.from_bytes(bytes(z[i]), "little") \
+                * int.from_bytes(bytes(sig[i, 32:]), "little")
     s = np.frombuffer((s % ed.L).to_bytes(32, "little"), np.uint8).copy()
-    return (pub, sig, zk, z, mask), s
+    return (pub, sig, k64s(sig, pub, msg, ln), z), s
