@@ -50,12 +50,6 @@
 // kernels.
 #include "ed25519_common.cuh"
 
-// Threads per block, four a signature; 0 chooses by batch size
-// (tools/torch_verify_variants.py builds each choice and times it).
-#ifndef VERIFY_T
-#define VERIFY_T 0
-#endif
-
 // the table of w(-A) and the 64 msb-first windows: vacc = [S]B + [k](-A)
 FD_DEV void verify_walk(g4pt &vacc, const uint64_t kw[4],
                         const uint64_t sw[4], const g4v<fe> &ax,
@@ -169,21 +163,17 @@ static void verify_launch(const void *sig, const void *pub, const void *k64,
 // sig (n, 64), pub (n, 32), k64 (n, 64) uint8, fb (64, 16, 3, 10) int32,
 // out (n,) int32; device pointers; launches on `stream` and returns
 // cudaGetLastError(). Blocks of 256 threads from 8192 signatures up (one
-// block an SM fills 128 SMs), else of 128 (measured on the H100:
-// tools/torch_verify_variants.py).
+// block an SM fills 128 SMs), else of 128: the faster of the two at 8192
+// and at 2048 signatures on the H100 (PERF.md).
 extern "C" int fdtt_ed25519_verify(const void *sig, const void *pub,
                                    const void *k64, const void *fb,
                                    void *out, int n, void *stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (n > 0) {
-#if VERIFY_T
-    verify_launch<VERIFY_T>(sig, pub, k64, fb, out, n, st);
-#else
     if (n >= 128 * 64)
       verify_launch<256>(sig, pub, k64, fb, out, n, st);
     else
       verify_launch<128>(sig, pub, k64, fb, out, n, st);
-#endif
   }
   return (int)cudaGetLastError();
 }

@@ -127,11 +127,12 @@ def sc_mul_mod_l(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return sc_reduce64(_digits_to_bytes(p, 64))
 
 
-def sc_digit_sums(s: torch.Tensor) -> torch.Tensor:
-    """(B, 32) uint8 scalars -> (13,) int64: the column sums of their
-    21-bit digits (the last digit holds bits 252 and up). A column sums B
-    values below 2^21, below 2^63 for B < 2^42."""
-    return torch.stack([x.sum(0) for x in _digits21(s, 13)])
+def sc_digit_sums(s: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """(..., 32) uint8 scalars -> int64 column sums of their 21-bit
+    digits over batch axis `dim`, digits last: (B, 32) -> (13,), and
+    (G, L, 32) with dim=1 -> (G, 13). The last digit holds bits 252 and
+    up. A column sums B values below 2^21, below 2^63 for B < 2^42."""
+    return torch.stack([x.sum(dim) for x in _digits21(s, 13)], -1)
 
 
 def sc_reduce_digits(d: torch.Tensor) -> torch.Tensor:

@@ -76,13 +76,13 @@ def msm_stage1(pub, sig, k64, z):
     kernel's idle groups contribute."""
     lp = lane_part(pub, sig, k64, z)
     c, ok = lp["contrib"], lp["ok"]
-    dig = torch.stack(ed._digits21(lp["zs"], 13), -1) * ok[:, None]
+    zs = torch.where(ok[:, None], lp["zs"], 0)
     b = c.shape[0]
     nblk = -(-b // LANES)
     if nblk * LANES > b:
         ident = _stack(ed._identity(c[:1, :, 0]))        # (1, 64, 4, 10)
         c = torch.cat([c, ident.expand(nblk * LANES - b, -1, -1, -1)])
-        dig = torch.cat([dig, dig.new_zeros(nblk * LANES - b, 13)])
+        zs = torch.cat([zs, zs.new_zeros(nblk * LANES - b, 32)])
     x = c.view(nblk, LANES // CHUNK, CHUNK, 64, 4, fe.NLIMB)
     acc = x[:, :, 0].unbind(-2)
     for i in range(1, CHUNK):                 # each chunk, lane by lane
@@ -91,7 +91,7 @@ def msm_stage1(pub, sig, k64, z):
     tot = acc[:, 0].unbind(-2)
     for k in range(1, LANES // CHUNK):        # the chunks, one by one
         tot = ed._add_full(tot, acc[:, k].unbind(-2))
-    sdig = dig.view(nblk, LANES, 13).sum(1)
+    sdig = ed.sc_digit_sums(zs.view(nblk, LANES, 32), dim=1)
     return _stack(tot).to(torch.int32), ok.to(torch.int32), sdig
 
 
