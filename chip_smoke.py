@@ -10,17 +10,22 @@ path, then drives the port's paths at bench.py's shape (8192 lanes x
 1232-byte messages), each with the launch counts set to 0 just before it
 and read just after:
 
-  strict    phases 6-7: `verify_batch`, and the verify tile
-            (synth -> shm ring -> VerifyTile(batch=2048) -> out ring);
+  strict    phases 6-7: `verify_batch` (SHA-512's in-place entry
+            `sha512_ram` with the prechecks, then the verify kernel), and
+            the verify tile (synth -> shm ring -> VerifyTile(batch=2048)
+            -> out ring);
   RLC       phase 8c: `rlc_verify_batch` on valid, forged, structurally
             masked and torsion batches (phases 8a-8b hold the two MSM
-            kernels to their plain versions on every lane class, 8d
-            times them at 8192 and 2048 lanes);
+            kernels to their plain versions on every lane class, stage 2
+            at 128, 32 and 79 blocks; 8d times them at 8192 and 2048
+            lanes);
   flood     phase 9: the front door, VerifyTile(mode="bulk_prefilter",
             coalesce_us=150000) on forged-flood chunks, a mix with 256
             valid txns, and torsion forgeries.
 
-Phase 6a times the verify kernel at 8192 and 2048 lanes too, and phase
+Phase 3 holds both SHA-512 entries to their plain versions (3b: every
+precheck class, at two row widths: the kernel's two copy paths);
+phase 6a times them and the verify kernel, at 8192 and 2048 lanes; phase
 2 prints ptxas's registers, stack and shared memory per entry point.
 Any mismatch raises. The last line of output is
 
@@ -77,6 +82,7 @@ OPS_PER_FIELD_MUL = 200
 # operations an int64 multiply.
 SCALAR_OPS_PER_LANE = 4 * (90 + 2 * (91 + 90))
 SMALL_B = TILE_BATCH     # the second timed size: the tile's chunk
+RAGGED_B = 5000          # stage 2 at 79 blocks, the last chunk ragged
 
 
 def log(*a):
@@ -263,11 +269,12 @@ def main() -> int:
         attack_frames, torsion_sign, undecodable_point)
 
     def counts() -> dict:
-        return {"sha512": cuda_sha.launches,
-                "ed25519_verify": cuda_ed.launches, **cuda_msm.launches}
+        return {**cuda_sha.launches, "ed25519_verify": cuda_ed.launches,
+                **cuda_msm.launches}
 
     def reset_counts():
-        cuda_sha.launches = cuda_ed.launches = 0
+        cuda_ed.launches = 0
+        cuda_sha.launches.update(sha512=0, sha512_ram=0)
         cuda_msm.launches.update(msm_stage1=0, msm_stage2=0)
 
     dev = torch.device(DEVICE)
@@ -312,14 +319,52 @@ def main() -> int:
     assert np.array_equal(got.cpu().numpy(), want), "sha512 != hashlib"
     log(f"sha512: {B} lanes, kernel == plain == hashlib, max_abs_err 0")
 
-    # 4. fused verify core: kernel == plain on mixed lanes, at 8192 (blocks
-    # of 256 threads), at the tile's 2048 and at a ragged 2045 (blocks of
-    # 128)
-    log("== 4. ed25519_verify kernel vs plain (mixed verdicts)")
+    # 3b. SHA-512's in-place entry: k64 and the prechecks, kernel == plain,
+    # on every precheck class (lane % 8: 0 and 7 valid, 1 S = l - 1, 2 S =
+    # l, 3 S = l + 5, 4 A.y >= p, 5 small-order A, 6 small-order R), at
+    # the main path's row width (staged 16-byte pieces) and at an
+    # unaligned one (each thread's own reads)
+    log("== 3b. sha512_ram kernel vs plain (R||A||M in place, prechecks)")
     t0 = time.perf_counter()
     sig, pub, msg, ln = signed_batch(N_UNIQUE, B, MSG_LEN, 2)
     log(f"signed {N_UNIQUE} unique messages in "
         f"{time.perf_counter() - t0:.1f} s")
+    pcls = np.arange(B) % 8
+    psig, ppub = sig.copy(), pub.copy()
+    for k, v in ((1, ed.L - 1), (2, ed.L), (3, ed.L + 5)):
+        psig[pcls == k, 32:] = np.frombuffer(v.to_bytes(32, "little"),
+                                             np.uint8)
+    ppub[pcls == 4] = np.frombuffer(((1 << 255) - 1).to_bytes(32, "little"),
+                                    np.uint8)
+    ppub[pcls == 5] = ed._small_order_encodings()[3]
+    psig[pcls == 6, :32] = ed._small_order_encodings()[6]
+    want_pre = np.isin(pcls, (0, 1, 7)).astype(np.int32)
+    ram_err = 0
+    for w in (MSG_LEN, MSG_LEN - 3):
+        plens = rng.integers(0, w + 1, B).astype(np.int32)
+        plens[:8] = [0, 47, 48, 111, 112, 175, 176, w]
+        pmsg = rng.integers(0, 256, (B, w), np.uint8)
+        ins = [torch.from_numpy(x).to(dev) for x in (psig, ppub, pmsg, plens)]
+        k_k, pre_k = cuda_sha.sha512_ram(*ins)
+        k_p, pre_p = sha2.sha512_ram(*ins)
+        torch.cuda.synchronize()
+        err = max(int((k_k.int() - k_p.int()).abs().max()),
+                  int((pre_k - pre_p).abs().max()))
+        assert err == 0, f"sha512_ram kernel != plain at width {w}"
+        assert np.array_equal(pre_k.cpu().numpy(), want_pre)
+        for i in (0, 7, 8, B - 1):
+            assert bytes(k_k[i].cpu().numpy()) == hashlib.sha512(
+                psig[i, :32].tobytes() + ppub[i].tobytes()
+                + pmsg[i, :plens[i]].tobytes()).digest()
+        ram_err = max(ram_err, err)
+        log(f"sha512_ram: {B} lanes, row width {w}, k64 and pre: kernel == "
+            f"plain (hashlib on 4 lanes), prechecks pass on "
+            f"{int(want_pre.sum())}, max_abs_err {err}")
+
+    # 4. fused verify core: kernel == plain on mixed lanes, at 8192 (blocks
+    # of 256 threads), at the tile's 2048 and at a ragged 2045 (blocks of
+    # 128)
+    log("== 4. ed25519_verify kernel vs plain (mixed verdicts)")
     msig, mpub, mmsg = sig.copy(), pub.copy(), msg.copy()
     expect = corrupt(msig, mpub, mmsg)
     k64 = k64_of(msig, mpub, mmsg, ln)
@@ -360,17 +405,29 @@ def main() -> int:
     hv[:, :32], hv[:, 32:64], hv[:, 64:] = sig[:, :32], pub, msg
     hv_d = torch.from_numpy(hv).to(dev)
     hl_d = torch.full((B,), width, dtype=torch.int32, device=dev)
-    vs_d, vp_d = torch.from_numpy(sig).to(dev), torch.from_numpy(pub).to(dev)
-    vk_d = cuda_sha.sha512(hv_d, hl_d)
+    vs_d, vp_d, vm_d, vl_d = (torch.from_numpy(x).to(dev)
+                              for x in (sig, pub, msg, ln))
+    vk_d = cuda_sha.sha512_ram(vs_d, vp_d, vm_d, vl_d)[0]
     stats = {}
     sha_blocks = int(sha2.nblocks(hl_d.long()).sum())
     muls = field_muls_per_verify()
     sv, pv, kv = vs_d[:SMALL_B], vp_d[:SMALL_B], vk_d[:SMALL_B]
+    sm, sl = vm_d[:SMALL_B], vl_d[:SMALL_B]
     fb_bytes = fixed_base_tables(dev).numel() * 4
+    # the in-place entry reads R, S, A and the message, writes k64 and pre
+    ram_bytes = B * (64 + 32 + MSG_LEN + 4 + 64 + 4)
     for name, fn, pfn, iters, ops, nbytes in (
             ("sha512", lambda: cuda_sha.sha512(hv_d, hl_d),
              lambda: sha2.sha512(hv_d, hl_d), ITERS,
              sha_blocks * SHA_OPS_PER_BLOCK, B * (width + 4 + 64)),
+            ("sha512_ram", lambda: cuda_sha.sha512_ram(vs_d, vp_d, vm_d, vl_d),
+             lambda: sha2.sha512_ram(vs_d, vp_d, vm_d, vl_d), ITERS,
+             sha_blocks * SHA_OPS_PER_BLOCK, ram_bytes),
+            (f"sha512_ram@{SMALL_B}",
+             lambda: cuda_sha.sha512_ram(sv, pv, sm, sl),
+             lambda: sha2.sha512_ram(sv, pv, sm, sl), ITERS,
+             sha_blocks * SHA_OPS_PER_BLOCK * SMALL_B // B,
+             ram_bytes * SMALL_B // B),
             ("ed25519_verify", lambda: cuda_ed.verify_core(vs_d, vp_d, vk_d),
              lambda: ed.verify_core(vs_d, vp_d, vk_d, fixed_base_tables(dev)),
              ITERS, B * muls * OPS_PER_FIELD_MUL,
@@ -388,6 +445,19 @@ def main() -> int:
             f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
     log(f"field multiplies per verify: {muls}; sha512 blocks per batch: "
         f"{sha_blocks}")
+    # is sha512_ram bound by the card's rate or by one lane's chain of
+    # blocks? the same rows at 4 x the lanes (4 x the work), and the same
+    # lanes with empty messages (one block each instead of 11)
+    big = [x.repeat(4, *([1] * (x.dim() - 1))) for x in (vs_d, vp_d, vm_d,
+                                                          vl_d)]
+    empty = torch.zeros_like(vl_d)
+    for label, args in ((f"{4 * B} lanes", big),
+                        (f"{B} lanes, empty messages",
+                         (vs_d, vp_d, vm_d, empty))):
+        ms = cuda_ms(lambda: cuda_sha.sha512_ram(*args), ITERS)
+        log(f"sha512_ram at {label}: {ms:.4f} ms (at {B} lanes, "
+            f"{MSG_LEN}-byte messages: {stats['sha512_ram']['ms']:.4f} ms) "
+            f"{card}")
     assert torch.equal(cuda_ed.verify_core(vs_d, vp_d, vk_d),
                        torch.ones(B, dtype=torch.int32, device=dev))
 
@@ -401,8 +471,11 @@ def main() -> int:
                  ITERS)
     strict_ms = ms
     launches6 = counts()
+    kern = stats["sha512_ram"]["ms"] + stats["ed25519_verify"]["ms"]
     log(f"verify_batch: {ms:.3f} ms per {B}-lane batch, "
-        f"{B / ms * 1e3:.0f} verifies/s over {ITERS} iterations {card}")
+        f"{B / ms * 1e3:.0f} verifies/s over {ITERS} iterations; the two "
+        f"kernels {kern:.4f} ms, the rest (glue and launches) "
+        f"{ms - kern:.4f} ms = {100 * (ms - kern) / ms:.1f}% {card}")
 
     # 7. the verify tile over real shm rings
     log(f"== 7. tile: synth -> ring -> VerifyTile(batch={TILE_BATCH}) -> ring")
@@ -466,7 +539,7 @@ def main() -> int:
         return f
     c_ins = [torch.from_numpy(x).to(dev) for x in (csig, cpub, msg, ln)]
     z_d = torch.from_numpy(zb).to(dev)
-    ok, pre = ed.rlc_verify(*c_ins, z_d, cuda_sha.sha512,
+    ok, pre = ed.rlc_verify(*c_ins, z_d, cuda_sha.sha512_ram,
                             recorded("s1", cuda_msm.msm_stage1),
                             recorded("s2", cuda_msm.msm_stage2))
     want_pre = ~np.isin(cls, (1, 2, 3, 4, 5, 7, 9))
@@ -484,25 +557,35 @@ def main() -> int:
 
     # 8b. MSM stage 2, kernel vs plain: the verdict and the sum's limbs,
     # for the batch's digit sums (it verifies) and with one digit raised
-    # by 1 (it does not)
+    # by 1 (it does not), over the lane-class batch's stage 1 at B = 8192
+    # lanes (128 blocks: chunks of 12), SMALL_B = 2048 (32: chunks of 6)
+    # and RAGGED_B = 5000 (79: chunks of 9, the last ragged)
     log("== 8b. msm_stage2 kernel vs plain (verdict and canonical sum)")
     tab = fixed_base_tables(dev)
-    wsum, sdig = captured["s2"]
-    sdig_bad = sdig.clone()
-    sdig_bad[0, 0] += 1
     s2_err = 0
-    for d_in, verdict in ((sdig, 1), (sdig_bad, 0)):
-        ok_k, pt_k = cuda_msm.msm_stage2(wsum, d_in)
-        ok_p, pt_p = msm.msm_stage2(wsum, d_in, tab)
-        torch.cuda.synchronize()
-        s2_err = max(s2_err, abs(int(ok_k) - int(ok_p)),
-                     int((pt_k - pt_p).abs().max()))
-        assert int(ok_k) == verdict, f"msm_stage2 verdict {int(ok_k)}"
-        if verdict:                    # the identity: X = 0, Y = Z
-            assert not pt_k[0].any() and torch.equal(pt_k[1], pt_k[2])
-    assert s2_err == 0, f"msm_stage2 kernel != plain (max err {s2_err})"
-    log("msm_stage2: verdicts 1 and 0 as expected, kernel == plain "
-        "(verdict and every canonical limb), max_abs_err 0")
+    for b in (B, SMALL_B, RAGGED_B):
+        if b == B:
+            wsum, sdig = captured["s2"]
+        else:
+            wsum, _, sdig = cuda_msm.msm_stage1(
+                *(x[:b] for x in captured["s1"]))
+        sdig_bad = sdig.clone()
+        sdig_bad[0, 0] += 1
+        for d_in, verdict in ((sdig, 1), (sdig_bad, 0)):
+            ok_k, pt_k = cuda_msm.msm_stage2(wsum, d_in)
+            ok_p, pt_p = msm.msm_stage2(wsum, d_in, tab)
+            torch.cuda.synchronize()
+            err = max(abs(int(ok_k) - int(ok_p)),
+                      int((pt_k - pt_p).abs().max()))
+            assert err == 0, f"msm_stage2 kernel != plain at {b} lanes"
+            assert int(ok_k) == verdict, f"msm_stage2 verdict {int(ok_k)}"
+            if verdict:                # the identity: X = 0, Y = Z
+                assert not pt_k[0].any() and torch.equal(pt_k[1], pt_k[2])
+            s2_err = max(s2_err, err)
+        log(f"msm_stage2: {b} lanes ({wsum.shape[0]} blocks, chunks of "
+            f"{msm.chunk_len(wsum.shape[0])}), verdicts 1 and 0 as "
+            f"expected, kernel == plain (verdict and every canonical "
+            f"limb), max_abs_err 0")
 
     # 8c. RLC path: rlc_verify_batch at 8192 x 1232 through the kernels,
     # each verdict equal to the plain version's on the card
@@ -551,15 +634,23 @@ def main() -> int:
     # whole rlc_verify_batch
     log(f"== 8d. MSM kernel times at {B} and {SMALL_B} lanes {card}")
     v_in = [torch.from_numpy(x).to(dev) for x in (sig, pub, msg, ln, zv)]
-    sha_ms = stats["sha512"]["ms"]
+    sha_ms = stats["sha512_ram"]["ms"]
+    ident = ed._identity(torch.zeros((1, 10), dtype=torch.int64))
+    add_muls = count_field_muls(ed._add_full, ident, ident)[1]
     for b in (B, SMALL_B):
-        ed.rlc_verify(*(x[:b] for x in v_in), cuda_sha.sha512,
+        ed.rlc_verify(*(x[:b] for x in v_in), cuda_sha.sha512_ram,
                       recorded("v1", cuda_msm.msm_stage1),
                       recorded("v2", cuda_msm.msm_stage2))
         nblk = -(-b // msm.LANES)
         wbytes = nblk * 64 * 160
         _, muls1 = count_field_muls(msm.msm_stage1, *captured["v1"])
         _, muls2 = count_field_muls(msm.msm_stage2, *captured["v2"], tab)
+        # the plain version also adds, and drops, the steps of its last
+        # chunk past the last block; the kernel's bound counts only the
+        # adds the sums need
+        S = msm.chunk_len(nblk)
+        C = -(-nblk // S)
+        muls2 -= (C * S - nblk) * 64 * add_muls
         sc_ops = b * SCALAR_OPS_PER_LANE
         tag = "" if b == B else f"@{b}"
         for name, fn, pfn, ops, nbytes in (
@@ -581,7 +672,9 @@ def main() -> int:
         log(f"{b} lanes: field multiplies stage 1 {muls1} ({muls1 / b:.1f} "
             f"per lane), stage 2 {muls2}; stage 1's scalar work {sc_ops} "
             f"int32 ops, {100 * sc_ops / (muls1 * OPS_PER_FIELD_MUL):.2f}% "
-            f"of its field multiplies'")
+            f"of its field multiplies'; stage 2's chain: {S - 1} + {C - 1} "
+            f"adds over {nblk} blocks (chunks of {S}), then 252 doublings "
+            f"and 63 adds on a group (693 rounds), then one add")
     ms = cuda_ms(lambda: cuda_msm.rlc_verify_batch(*v_in, device=DEVICE),
                  ITERS)
     kern = sha_ms + stats["msm_stage1"]["ms"] + stats["msm_stage2"]["ms"]
@@ -636,7 +729,9 @@ def main() -> int:
     paths = (strict_path, rlc_path, flood_path)
     for name, src, rep, err in (
             ("sha512", "firedancer_tpu_torch/csrc/sha512.cu",
-             "firedancer_tpu/ops/pallas_sha.py:35", sha_err),
+             "firedancer_tpu/ops/pallas_sha.py:35", max(sha_err, ram_err)),
+            ("sha512_ram", "firedancer_tpu_torch/csrc/sha512.cu",
+             "firedancer_tpu/ops/pallas_sha.py:35", ram_err),
             ("ed25519_verify", "firedancer_tpu_torch/csrc/ed25519_verify.cu",
              "firedancer_tpu/ops/pallas_ed.py:634", ver_err),
             ("msm_stage1", "firedancer_tpu_torch/csrc/ed25519_msm.cu",

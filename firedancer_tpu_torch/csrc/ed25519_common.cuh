@@ -7,21 +7,7 @@
 // (named beside each), so each kernel is held to its plain version bit
 // for bit.
 #pragma once
-#include <stdint.h>
-
-// Without nvcc (__CUDACC__ unset) the sources compile as plain C++: a
-// kernel's per-lane part becomes a host function, which the CPU tests
-// drive lane by lane against the plain PyTorch version.
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define FD_DEV __device__ __forceinline__
-#define FD_NOINLINE __device__ __noinline__
-#define FD_LDG(p) __ldg(p)
-#else
-#define FD_DEV static inline
-#define FD_NOINLINE static
-#define FD_LDG(p) (*(p))
-#endif
+#include "prechecks.cuh"   // the build macros, load_words, the prechecks
 
 typedef int32_t i32;
 typedef int64_t i64;
@@ -241,15 +227,6 @@ FD_DEV void fe_towords(uint64_t w[4], const fe &c) {
   }
 }
 
-FD_DEV void load_words(uint64_t *w, const uint8_t *p, int nwords) {
-  for (int k = 0; k < nwords; k++) {
-    uint64_t v = 0;
-#pragma unroll
-    for (int b = 7; b >= 0; b--) v = (v << 8) | p[8 * k + b];
-    w[k] = v;
-  }
-}
-
 // ---- scalars: k64 mod l (ed25519.sc_reduce64) ----------------------------
 
 #define SC_FOLD(n)                                                   \
@@ -349,91 +326,10 @@ FD_NOINLINE void sc_mul_mod_l(uint64_t out[4], const uint64_t a[4],
   sc_reduce64(out, w);
 }
 
-// ---- the strict prechecks on encodings (ed25519._bytes_lt and
-// is_small_order_encoding), on 4 LE words ----------------------------------
-
-#ifdef __CUDACC__
-#define FD_CONST __constant__
-#else
-#define FD_CONST static const
-#endif
-
-FD_CONST uint64_t SC_L[4] = {0x5812631a5cf5d3edULL, 0x14def9dea2f79cd6ULL,
-                             0x0000000000000000ULL, 0x1000000000000000ULL};
-FD_CONST uint64_t FE_P[4] = {0xffffffffffffffedULL, 0xffffffffffffffffULL,
-                             0xffffffffffffffffULL, 0x7fffffffffffffffULL};
-// every encoding of an 8-torsion point (ed25519._small_order_encodings,
-// in its order; tests/test_torch_csrc_host.py holds the two equal)
-#define N_SMALL_ORDER 11
-FD_CONST uint64_t SMALL_ORDER[N_SMALL_ORDER][4] = {
-    {0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
-     0x0000000000000000ULL},
-    {0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
-     0x8000000000000000ULL},
-    {0x0000000000000001ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
-     0x0000000000000000ULL},
-    {0xb027b2c28f95e826ULL, 0xf098eff289f4c345ULL, 0x3933c6d305acdfd5ULL,
-     0x05fc536d880238b1ULL},
-    {0xb027b2c28f95e826ULL, 0xf098eff289f4c345ULL, 0x3933c6d305acdfd5ULL,
-     0x85fc536d880238b1ULL},
-    {0x4fd84d3d706a17c7ULL, 0x0f67100d760b3cbaULL, 0xc6cc392cfa53202aULL,
-     0x7a03ac9277fdc74eULL},
-    {0x4fd84d3d706a17c7ULL, 0x0f67100d760b3cbaULL, 0xc6cc392cfa53202aULL,
-     0xfa03ac9277fdc74eULL},
-    {0xffffffffffffffecULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
-     0x7fffffffffffffffULL},
-    {0xffffffffffffffedULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
-     0x7fffffffffffffffULL},
-    {0xffffffffffffffedULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
-     0xffffffffffffffffULL},
-    {0xffffffffffffffeeULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL,
-     0x7fffffffffffffffULL}};
-
-// w < c as 256-bit LE integers; top7: bit 255 of w (a sign) ignored
-FD_DEV bool words_lt(const uint64_t w[4], const uint64_t c[4], bool top7) {
-  bool lt = false, done = false;
-#pragma unroll
-  for (int k = 3; k >= 0; k--) {
-    const uint64_t v = (k == 3 && top7) ? w[k] & 0x7fffffffffffffffULL : w[k];
-    if (!done && v != c[k]) {
-      lt = v < c[k];
-      done = true;
-    }
-  }
-  return lt;
-}
-
-FD_DEV bool is_small_order(const uint64_t w[4]) {
-  bool hit = false;
-#pragma unroll 1
-  for (int i = 0; i < N_SMALL_ORDER; i++)
-    hit |= w[0] == SMALL_ORDER[i][0] && w[1] == SMALL_ORDER[i][1] &&
-           w[2] == SMALL_ORDER[i][2] && w[3] == SMALL_ORDER[i][3];
-  return hit;
-}
-
-// ---- points, one thread (ed25519.py _dbl / _madd_aff / _add_full) -------
+// ---- points, one thread (ed25519.py _madd_aff / _add_full) --------------
 
 FD_DEV void ge_identity(ge &p) {
   fe_set(p.X, 0); fe_set(p.Y, 1); fe_set(p.Z, 1); fe_set(p.T, 0);
-}
-
-FD_NOINLINE void ge_dbl(ge &p, bool with_t) {
-  fe a, b, c, e, f, g, h;
-  fe_sq(a, p.X);
-  fe_sq(b, p.Y);
-  fe_sq(c, p.Z);
-  fe_mul2(c, c);
-  fe_add(h, a, b);
-  fe_add(e, p.X, p.Y);
-  fe_sq(e, e);
-  fe_sub(e, h, e);
-  fe_sub(g, a, b);
-  fe_add(f, c, g);
-  fe_mul(p.X, e, f);
-  fe_mul(p.Y, g, h);
-  fe_mul(p.Z, f, g);
-  if (with_t) fe_mul(p.T, e, h);
 }
 
 // e = b - a, f = d - c, g = d + c, h = b + a; p = (ef, gh, fg, eh)
@@ -639,7 +535,8 @@ FD_DEV void g4_tail(g4pt &p, const g4pt &r) {
   });
 }
 
-// ge_dbl: round one X^2, Y^2, 2 Z^2, (X + Y)^2; round two as the tail
+// ed25519._dbl: round one X^2, Y^2, 2 Z^2, (X + Y)^2; round two as the
+// tail
 FD_DEV void g4_dbl(g4pt &p, bool with_t) {
   g4pt r;
   g4_each([&](int c) {

@@ -1,6 +1,6 @@
 // RLC batch verification as one multi-scalar multiplication: two kernels,
-// stage 1 with a group of four threads per signature, stage 2 in one
-// block.
+// stage 1 with a group of four threads per signature, stage 2 with one
+// block a window and its tail on a group.
 //
 // Replaces the Pallas kernels firedancer_tpu/ops/pallas_msm.py
 // `_msm_stage1_kernel` and `_msm_stage2_kernel`, and the scalar glue
@@ -30,13 +30,17 @@
 // and the block's column sums of zs's thirteen 21-bit digits over its
 // lane_ok lanes (sdig, int64, each below 2^27).
 //
-// Stage 2 (one block of 64 threads): thread j sums window j over the
-// blocks; thread 32 sums sdig over the blocks, carries and folds it with
-// sc_reduce64 into s, then sums the fixed-base terms table[j][s_j]
-// (64 adds and no doubling: row j of the table carries the factor 16^j)
-// while thread 0 runs the Horner over the 64 window sums (252 doublings,
-// 63 adds); then one add and the identity test X = 0, Y = Z on canonical
-// limbs.
+// Stage 2 (a grid of 64 blocks of 128 threads, block j for window j):
+// window j summed over the stage-1 blocks in chunks (msm_chunk_sum: C
+// chunks of S blocks, S^2 >= nblk, one chunk a group, then the chunk sums
+// in order), its total written to a scratch; the last block to finish
+// takes the tail: warp 0 runs the Horner over the 64 totals on a group of
+// four (252 doublings, 63 adds), while one thread of warp 1 sums sdig over
+// the blocks, carries and folds it with sc_reduce64 into s and sums the
+// fixed-base terms table[j][s_j] (64 adds and no doubling: row j of the
+// table carries the factor 16^j); then one add and the identity test X =
+// 0, Y = Z on canonical limbs. One launch, not two: the tail starts as
+// the last window total lands, with no second launch's gap.
 //
 // What differs from the TPU kernels: the TPU merge-folds the windows into
 // bit-reversed lanes and runs a fold-Horner because pltpu.roll needs
@@ -50,8 +54,11 @@
 // 100 IMAD.WIDE each). Stage 1 runs 8 warps a block and one block an SM
 // (163,840 B of dynamic shared memory): every step has a multiply chain a
 // quarter as long as one thread's, and the sums over lanes keep every
-// group busy. Stage 2 is a fixed cost per batch whose tail (about 2,600
-// field multiplies of the Horner) runs on one thread: latency bound.
+// group busy. Stage 2 is a fixed cost per batch, latency bound: its chain
+// is the block sums ((S - 1) + (C - 1) adds of 3 rounds) and the Horner
+// (693 rounds of one field multiply a thread), so the design shortens
+// each round (four threads, not one) and spreads the block sums over 64
+// SMs.
 //
 // Plain PyTorch versions: ops/msm.py `msm_stage1` and `msm_stage2`, which
 // perform the same limb operations in the same order on int64 tensors.
@@ -73,16 +80,6 @@ FD_DEV void ge_store(i32 *o, const ge &p) {
     o[10 + i] = p.Y.v[i];
     o[20 + i] = p.Z.v[i];
     o[30 + i] = p.T.v[i];
-  }
-}
-
-FD_DEV void ge_load(ge &p, const i32 *o) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    p.X.v[i] = o[i];
-    p.Y.v[i] = o[10 + i];
-    p.Z.v[i] = o[20 + i];
-    p.T.v[i] = o[30 + i];
   }
 }
 
@@ -108,9 +105,7 @@ FD_DEV void msm_lane_scalars(msm_lane &L, const uint8_t *pub,
   load_words(sw, sig + 32, 4);
   load_words(hw, k64, 8);
   load_words(L.z, z, 2);
-  L.pre = words_lt(sw, SC_L, false) && words_lt(aw, FE_P, true) &&
-          words_lt(rw, FE_P, true) && !is_small_order(aw) &&
-          !is_small_order(rw);
+  L.pre = strict_prechecks(sw, aw, rw) && words_lt(rw, FE_P, true);
   sc_reduce64(L.k, hw);
   sc_mul_mod_l(L.zk, L.k, L.z);
   sc_mul_mod_l(L.zs, sw, L.z);
@@ -156,14 +151,54 @@ FD_DEV void msm_lane_window(g4pt &o, const msm_lane &L, int j) {
 
 // ---- stage 2 (msm.msm_stage2) --------------------------------------------
 
-// window j summed over the blocks, in block order
-FD_DEV void msm_window_total(ge &acc, const i32 *wsum, int nblk, int j) {
-  ge q;
-  ge_load(acc, wsum + j * 40);
+// Stage 2 sums window j over the nblk stage-1 blocks in C chunks of S
+// consecutive blocks (S = msm_chunk(nblk), the least S with S^2 >= nblk,
+// C = ceil(nblk / S)): each chunk in block order, then the C chunk sums
+// in chunk order: 11 + 10 dependent adds at 8192 lanes (128 blocks).
+static int msm_chunk(int nblk) {
+  int s = 1;
+  while (s * s < nblk) s++;
+  return s;
+}
+
+// coordinate c of window j's sum in stage-1 block b, on thread c
+FD_DEV void wsum_get(g4pt &q, const i32 *wsum, int b, int j) {
+  g4_each([&](int c) {
+    const i32 *s = wsum + (((int64_t)b * 64 + j) * 4 + c) * 10;
+#pragma unroll
+    for (int i = 0; i < 10; i++) q[c].v[i] = s[i];
+  });
+}
+
+// chunk k of window j: blocks k S .. min(k S + S, nblk) - 1 in block
+// order. Every group runs S - 1 steps (the group's shuffles need the
+// whole warp): a step past the last block adds a repeated block and
+// keeps acc. The next block's loads are issued before each add.
+FD_DEV void msm_chunk_sum(g4pt &acc, const i32 *wsum, int nblk, int S,
+                          int k, int j) {
+  const int b0 = k * S, last = nblk - 1;
+  g4pt q, qn, t;
+  wsum_get(acc, wsum, b0 < last ? b0 : last, j);
+  wsum_get(q, wsum, b0 + 1 < last ? b0 + 1 : last, j);
 #pragma unroll 1
-  for (int g = 1; g < nblk; g++) {
-    ge_load(q, wsum + ((int64_t)g * 64 + j) * 40);
-    ge_add_full(acc, q);
+  for (int i = 1; i < S; i++) {
+    wsum_get(qn, wsum, b0 + i + 1 < last ? b0 + i + 1 : last, j);
+    t = acc;
+    g4_add_full(t, q);
+    const bool in = b0 + i < nblk;
+    g4_each([&](int c) { fe_cmov(acc[c], t[c], in); });
+    q = qn;
+  }
+}
+
+// the window total from the C chunk sums cs[k][c], in chunk order
+FD_DEV void msm_chunks_total(g4pt &tot, const fe *cs, int C) {
+  g4pt q;
+  g4_each([&](int c) { tot[c] = cs[c]; });
+#pragma unroll 1
+  for (int k = 1; k < C; k++) {
+    g4_each([&](int c) { q[c] = cs[k * 4 + c]; });
+    g4_add_full(tot, q);
   }
 }
 
@@ -183,16 +218,20 @@ FD_DEV void msm_scalar_s(uint64_t s[4], const i64 *sdig, int nblk) {
   sc_reduce64(s, w);
 }
 
-// h = sum_j 16^j W[j]: msb-first, 4 doublings and one add per window
-FD_NOINLINE void msm_horner(ge &h, const ge *W) {
-  h = W[63];
+// h = sum_j 16^j W[j] over the window totals W[j][c], msb-first, on the
+// group: 4 doublings (2 rounds each) and one add (3 rounds) a window, 693
+// rounds of one field multiply a thread in all
+FD_DEV void g4_horner(g4pt &h, const fe *W) {
+  g4pt q;
+  g4_each([&](int c) { h[c] = W[63 * 4 + c]; });
 #pragma unroll 1
   for (int j = 62; j >= 0; j--) {
-    ge_dbl(h, false);
-    ge_dbl(h, false);
-    ge_dbl(h, false);
-    ge_dbl(h, true);
-    ge_add_full(h, W[j]);
+    g4_dbl(h, false);
+    g4_dbl(h, false);
+    g4_dbl(h, false);
+    g4_dbl(h, true);
+    g4_each([&](int c) { q[c] = W[j * 4 + c]; });
+    g4_add_full(h, q);
   }
 }
 
@@ -303,29 +342,64 @@ msm_stage1_kernel(const uint8_t *__restrict__ pub,
   if (tid < 13) sdig[(int64_t)blockIdx.x * 13 + tid] = (i64)sd[tid];
 }
 
-__global__ void __launch_bounds__(64)
-msm_stage2_kernel(const i32 *__restrict__ wsum, int nblk,
-                  const i64 *__restrict__ sdig,
-                  const i32 *__restrict__ fb, i32 *__restrict__ out) {
-  __shared__ ge W[64];
-  __shared__ ge F;
-  const int j = threadIdx.x;
-  ge acc;
-  msm_window_total(acc, wsum, nblk, j);
-  W[j] = acc;
+#define S2_T 128      // threads of a stage-2 block: 32 groups
+#define S2_TOT (64 * 4 * 10)   // the window totals in the scratch, int32
+
+// One block per window j (grid 64): the groups sum the window's chunks
+// (msm_chunk_sum) into shared memory, warp 0 sums the chunk sums and
+// group 0 writes the total to the scratch. The last block to finish (a
+// ticket taken after __threadfence) runs the tail: warp 0 the Horner on a
+// group, warp 1's first thread s and the fixed base meanwhile, then one
+// add and the identity test.
+__global__ void __launch_bounds__(S2_T)
+msm_stage2_kernel(const i32 *__restrict__ wsum, int nblk, int S, int C,
+                  const i64 *__restrict__ sdig, const i32 *__restrict__ fb,
+                  i32 *tot, unsigned *ticket, i32 *__restrict__ out) {
+  extern __shared__ fe cs[];          // [C][4] the window's chunk sums
+  __shared__ fe W[64 * 4], H[4];      // the tail: totals, the Horner's h
+  __shared__ ge F;                    // the tail: [s]B
+  __shared__ int last;
+  const int tid = threadIdx.x, g = tid >> 2, c = tid & 3, j = blockIdx.x;
+#pragma unroll 1
+  for (int k0 = 0; k0 < C; k0 += S2_T / 4) {
+    const int k = k0 + g;
+    g4pt acc;
+    msm_chunk_sum(acc, wsum, nblk, S, k < C ? k : C - 1, j);
+    if (k < C) cs[k * 4 + c] = acc.v;
+  }
   __syncthreads();
-  if (j == 32) {
+  if (tid < 32) {                     // every group of warp 0 alike
+    g4pt t;
+    msm_chunks_total(t, cs, C);
+    if (g == 0) {
+#pragma unroll
+      for (int i = 0; i < 10; i++) tot[(j * 4 + c) * 10 + i] = t.v.v[i];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < S2_TOT; i += S2_T) ((i32 *)W)[i] = __ldcg(tot + i);
+  __syncthreads();
+  if (tid < 32) {
+    g4pt h;
+    g4_horner(h, W);
+    if (g == 0) H[c] = h.v;
+  } else if (tid == 32) {
     uint64_t sw[4];
     ge f;
     msm_scalar_s(sw, sdig, nblk);
     msm_fixed_base(f, sw, fb);
     F = f;
   }
-  if (j == 0) msm_horner(acc, W);
   __syncthreads();
-  if (j == 0) {
+  if (tid == 0) {
+    ge h = {H[0], H[1], H[2], H[3]};
     const ge f = F;
-    msm_finish(out, acc, f);
+    msm_finish(out, h, f);
   }
 }
 
@@ -350,15 +424,29 @@ extern "C" int fdtt_msm_stage1(const void *pub, const void *sig,
 }
 
 // wsum (nblk, 64, 4, 10) int32, sdig (nblk, 13) int64, fb (64, 16, 3, 10)
-// int32 -> out (41,) int32; one block.
+// int32 -> out (41,) int32; scratch (S2_TOT + 1,) int32 holds the window
+// totals and the ticket, which is zeroed here on `stream`. Grid: one block
+// a window.
 extern "C" int fdtt_msm_stage2(const void *wsum, int nblk, const void *sdig,
-                               const void *fb, void *out, void *stream) {
-  msm_stage2_kernel<<<1, 64, 0, (cudaStream_t)stream>>>(
-      (const i32 *)wsum, nblk, (const i64 *)sdig, (const i32 *)fb,
-      (i32 *)out);
+                               const void *fb, void *scratch, void *out,
+                               void *stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int S = msm_chunk(nblk), C = (nblk + S - 1) / S;
+  const int smem = C * 4 * (int)sizeof(fe);
+  i32 *tot = (i32 *)scratch;
+  cudaError_t e = cudaFuncSetAttribute(
+      msm_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(tot + S2_TOT, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  msm_stage2_kernel<<<64, S2_T, smem, st>>>(
+      (const i32 *)wsum, nblk, S, C, (const i64 *)sdig, (const i32 *)fb, tot,
+      (unsigned *)(tot + S2_TOT), (i32 *)out);
   return (int)cudaGetLastError();
 }
 #else
+#include <vector>
+
 // Host build: stage 1's per-lane part for one lane, the group's four
 // threads in turn (flags = pre, a_ok, r_ok, ok; scal = k, zk, zs as 32
 // LE bytes each; contrib = the 64 window contributions, (64, 4, 10)),
@@ -409,12 +497,25 @@ extern "C" int small_order_host(uint8_t *out) {
   return N_SMALL_ORDER;
 }
 
+// stage 2: every window's chunks and their sum, then the Horner, each
+// group's four threads in turn
 extern "C" void msm_stage2_host(const i32 *wsum, int nblk, const i64 *sdig,
                                 const i32 *fb, i32 *out) {
-  ge W[64], h, f;
+  const int S = msm_chunk(nblk), C = (nblk + S - 1) / S;
+  std::vector<fe> cs(C * 4), W(64 * 4);
+  for (int j = 0; j < 64; j++) {
+    g4pt t;
+    for (int k = 0; k < C; k++) {
+      msm_chunk_sum(t, wsum, nblk, S, k, j);
+      for (int c = 0; c < 4; c++) cs[k * 4 + c] = t[c];
+    }
+    msm_chunks_total(t, cs.data(), C);
+    for (int c = 0; c < 4; c++) W[j * 4 + c] = t[c];
+  }
+  g4pt hg;
+  g4_horner(hg, W.data());
+  ge h = {hg[0], hg[1], hg[2], hg[3]}, f;
   uint64_t sw[4];
-  for (int j = 0; j < 64; j++) msm_window_total(W[j], wsum, nblk, j);
-  msm_horner(h, W);
   msm_scalar_s(sw, sdig, nblk);
   msm_fixed_base(f, sw, fb);
   msm_finish(out, h, f);

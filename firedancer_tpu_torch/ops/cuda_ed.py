@@ -1,7 +1,8 @@
 """Wrapper of the fused strict verify kernel (csrc/ed25519_verify.cu;
-replaces firedancer_tpu/ops/pallas_ed.py `_verify_kernel`), and the
-strict glue `verify_batch` that drives it (counterpart of
-pallas_ed.verify_batch, pallas_ed.py:719-744).
+replaces firedancer_tpu/ops/pallas_ed.py `_verify_kernel`), and
+`verify_batch` (counterpart of pallas_ed.verify_batch,
+pallas_ed.py:719-744), two launches: the SHA-512 kernel's in-place entry
+(k and the strict prechecks) and this kernel.
 
 A CPU tensor goes to the plain version (ops/ed25519.py `verify_core`); a
 CUDA tensor goes to the kernel, or the call raises. `launches` counts
@@ -63,5 +64,5 @@ def verify_batch(sig, pub, msg, msg_len, device="cuda"):
     `device`. device="cpu" runs the plain versions; "cuda" without a
     card raises."""
     sig, pub, msg, msg_len = ed.as_inputs(sig, pub, msg, msg_len, device)
-    return ed.strict_verify(sig, pub, msg, msg_len, cuda_sha.sha512,
+    return ed.strict_verify(sig, pub, msg, msg_len, cuda_sha.sha512_ram,
                             verify_core)

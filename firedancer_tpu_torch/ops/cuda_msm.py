@@ -22,7 +22,8 @@ from .params import fixed_base_tables
 launches = {"msm_stage1": 0, "msm_stage2": 0}
 
 _ARGS1 = [ct.c_void_p] * 7 + [ct.c_int, ct.c_void_p]
-_ARGS2 = [ct.c_void_p, ct.c_int] + [ct.c_void_p] * 4
+_ARGS2 = [ct.c_void_p, ct.c_int] + [ct.c_void_p] * 5
+_TOTALS = 64 * 4 * 10       # stage 2's window totals in its scratch
 
 
 def _check(fn, name, t, shape, dtype, dev):
@@ -77,10 +78,12 @@ def msm_stage2(wsum, sdig):
     _check("msm_stage2", "wsum", wsum, (nblk, 64, 4, 10), torch.int32, dev)
     _check("msm_stage2", "sdig", sdig, (nblk, 13), torch.int64, dev)
     fn = _build.lib("ed25519_msm", _ARGS2, "fdtt_msm_stage2")
-    out = torch.empty(41, dtype=torch.int32, device=dev)
+    buf = torch.empty(41 + _TOTALS + 1, dtype=torch.int32, device=dev)
+    out, scratch = buf[:41], buf[41:]      # scratch: totals and a ticket
     with torch.cuda.device(dev):
         rc = fn(wsum.data_ptr(), nblk, sdig.data_ptr(), tab.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                scratch.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
     _build.check_launch("msm_stage2", rc)
     launches["msm_stage2"] += 1
     return out[0], out[1:].view(4, 10)
@@ -94,7 +97,7 @@ def rlc_verify_batch(sig, pub, msg, msg_len, z_bytes, device="cuda"):
     sig, pub, msg, msg_len = ed.as_inputs(sig, pub, msg, msg_len, device)
     z = torch.as_tensor(z_bytes, dtype=torch.uint8,
                         device=sig.device).contiguous()
-    return ed.rlc_verify(sig, pub, msg, msg_len, z, cuda_sha.sha512,
+    return ed.rlc_verify(sig, pub, msg, msg_len, z, cuda_sha.sha512_ram,
                          msm_stage1, msm_stage2)
 
 

@@ -440,18 +440,24 @@ def verify_core(sig: torch.Tensor, pub: torch.Tensor, k64: torch.Tensor,
     return (dec_ok & match).to(torch.int32)
 
 
+def strict_prechecks(sig: torch.Tensor, pub: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: S < l, A.y < p, A and R not small-order encodings (the
+    strict verify's byte checks, pallas_ed.py:731-734; the SHA-512
+    kernel's `pre`)."""
+    return (_bytes_lt(sig[:, 32:], L) & _bytes_lt(pub, P, mask_top7=True)
+            & ~is_small_order_encoding(pub)
+            & ~is_small_order_encoding(sig[:, :32]))
+
+
 def strict_verify(sig, pub, msg, msg_len, sha512_fn, core_fn):
     """The strict glue (counterpart of pallas_ed.verify_batch,
-    pallas_ed.py:719-744): S < l and A.y < p byte compares, small-order
-    A and R rejection, k = SHA-512(R || A || M) over msg_len + 64 bytes,
-    then the fused core. All tensors on one device; -> (B,) bool."""
-    rb, sb = sig[:, :32], sig[:, 32:]
-    ok = _bytes_lt(sb, L)
-    ok = ok & _bytes_lt(pub, P, mask_top7=True)
-    ok = ok & ~is_small_order_encoding(pub) & ~is_small_order_encoding(rb)
-    k64 = sha512_fn(torch.cat([rb, pub, msg], dim=-1),
-                    msg_len.to(torch.int32) + 64)
-    return ok & (core_fn(sig, pub, k64) == 1)
+    pallas_ed.py:719-744) around its two kernels:
+    `sha512_fn(sig, pub, msg, msg_len) -> (k64, pre)` reads R || A || M in
+    place for k = SHA-512(R || A || M) and runs the prechecks
+    (strict_prechecks, as int32), and `core_fn(sig, pub, k64)` the fused
+    core. All tensors on one device; -> (B,) bool."""
+    k64, pre = sha512_fn(sig, pub, msg, msg_len)
+    return (pre & core_fn(sig, pub, k64)) != 0
 
 
 def as_inputs(sig, pub, msg, msg_len, device):
@@ -471,10 +477,10 @@ def verify_batch(sig, pub, msg, msg_len, device="cuda"):
     sig (B, 64), pub (B, 32), msg (B, L) uint8 (zero past each length),
     msg_len (B,) int32 -> (B,) bool on `device`."""
     from .params import fixed_base_tables
-    from .sha2 import sha512
+    from .sha2 import sha512_ram
     sig, pub, msg, msg_len = as_inputs(sig, pub, msg, msg_len, device)
     tab = fixed_base_tables(sig.device)
-    return strict_verify(sig, pub, msg, msg_len, sha512,
+    return strict_verify(sig, pub, msg, msg_len, sha512_ram,
                          lambda s, p, k: verify_core(s, p, k, tab))
 
 
@@ -483,12 +489,10 @@ def verify_batch(sig, pub, msg, msg_len, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def rlc_prechecks(sig: torch.Tensor, pub: torch.Tensor) -> torch.Tensor:
-    """(B,) bool: S < l, A.y < p, R.y < p, A and R not small-order
-    encodings (the byte-level part of an RLC lane's lane_ok)."""
-    rb, sb = sig[:, :32], sig[:, 32:]
-    return (_bytes_lt(sb, L) & _bytes_lt(pub, P, mask_top7=True)
-            & _bytes_lt(rb, P, mask_top7=True)
-            & ~is_small_order_encoding(pub) & ~is_small_order_encoding(rb))
+    """(B,) bool: strict_prechecks and R.y < p (the byte-level part of
+    an RLC lane's lane_ok)."""
+    return strict_prechecks(sig, pub) & _bytes_lt(sig[:, :32], P,
+                                                  mask_top7=True)
 
 
 def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
@@ -501,8 +505,9 @@ def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
 
     over the lanes that pass lane_ok: S < l, A.y < p, R.y < p, A and R
     not small-order encodings, A and R decompress. z counts as zero on
-    every other lane. k64 = SHA-512(R || A || M) is the only input built
-    here; stage 1 (`stage1_fn(pub, sig, k64, z) -> (wsum, lane_ok,
+    every other lane. `sha512_fn(sig, pub, msg, msg_len) -> (k64, pre)`
+    forms k64 = SHA-512(R || A || M) from the rows in place (its strict
+    `pre` is not used: stage 1 runs its own prechecks); stage 1 (`stage1_fn(pub, sig, k64, z) -> (wsum, lane_ok,
     sdig)`) runs the prechecks, k = k64 mod l, z k and z S mod l, and
     stage 2 (`stage2_fn(wsum, sdig) -> (ok, point)`) folds the digit
     sums of z S into s = sum_i z_i S_i mod l.
@@ -514,8 +519,7 @@ def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
     All tensors on one device; -> (batch_ok () bool, lane_pre (B,) bool)."""
     if sig.shape[0] == 0:
         raise ValueError("rlc_verify: empty batch")
-    k64 = sha512_fn(torch.cat([sig[:, :32], pub, msg], dim=-1),
-                    msg_len.to(torch.int32) + 64)
+    k64, _ = sha512_fn(sig, pub, msg, msg_len)
     wsum, lane_ok, sdig = stage1_fn(pub, sig, k64, z_bytes)
     ok, _ = stage2_fn(wsum, sdig)
     return ok != 0, lane_ok != 0
@@ -531,12 +535,12 @@ def rlc_verify_batch(sig, pub, msg, msg_len, z_bytes, device="cuda"):
     cofactored equation (whp); lane_pre False lanes are invalid."""
     from . import msm
     from .params import fixed_base_tables
-    from .sha2 import sha512
+    from .sha2 import sha512_ram
     sig, pub, msg, msg_len = as_inputs(sig, pub, msg, msg_len, device)
     z = torch.as_tensor(z_bytes, dtype=torch.uint8,
                         device=sig.device).contiguous()
     tab = fixed_base_tables(sig.device)
-    return rlc_verify(sig, pub, msg, msg_len, z, sha512, msm.msm_stage1,
+    return rlc_verify(sig, pub, msg, msg_len, z, sha512_ram, msm.msm_stage1,
                       lambda w, s: msm.msm_stage2(w, s, tab))
 
 

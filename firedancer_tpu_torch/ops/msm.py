@@ -13,9 +13,12 @@ included (no comparison falls back to canonical affine points):
                another in each of LANES / CHUNK chunks, and the chunks'
                sums one after another; and per block the column sums of
                z S's 21-bit digits over the lane_ok lanes.
-  msm_stage2   each window summed over the blocks in block order; the
-               Horner over the 64 window sums; s from the digit sums;
-               the doubling-free fixed-base sum of [s]B; one add and the
+  msm_stage2   each window summed over the nblk blocks in C chunks of
+               S = chunk_len(nblk) consecutive blocks (the least S with
+               S^2 >= nblk, C = ceil(nblk / S)): each chunk in block
+               order, then the C chunk sums in chunk order; the Horner
+               over the 64 window sums; s from the digit sums; the
+               doubling-free fixed-base sum of [s]B; one add and the
                identity test.
 
 The kernel runs a lane's point arithmetic on a group of four threads,
@@ -25,6 +28,8 @@ point is four (..., 10) limb tensors (X, Y, Z, T); the stage outputs
 stack them as (..., 4, 10) int32, the kernels' layout.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -95,16 +100,39 @@ def msm_stage1(pub, sig, k64, z):
     return _stack(tot).to(torch.int32), ok.to(torch.int32), sdig
 
 
+def chunk_len(nblk: int) -> int:
+    """Blocks a chunk of stage 2's sums over blocks: the least S with
+    S * S >= nblk (msm_chunk in the kernel)."""
+    return math.isqrt(nblk - 1) + 1
+
+
+def window_totals(wsum: torch.Tensor):
+    """(nblk, 64, 4, 10) int64 -> the 64 window totals as 4 x (64, 10):
+    chunks of chunk_len(nblk) blocks, each in block order, then the
+    chunk sums in chunk order."""
+    nblk = wsum.shape[0]
+    s = chunk_len(nblk)
+    c = -(-nblk // s)
+    idx = torch.arange(c * s, device=wsum.device).clamp(max=nblk - 1)
+    x = wsum[idx].view(c, s, 64, 4, fe.NLIMB)
+    acc = x[:, 0].unbind(-2)                       # 4 x (C, 64, 10)
+    first = torch.arange(c, device=wsum.device)[:, None, None] * s
+    for i in range(1, s):                          # every chunk at once
+        nxt = ed._add_full(acc, x[:, i].unbind(-2))
+        acc = tuple(torch.where(first + i < nblk, n, a)
+                    for n, a in zip(nxt, acc))
+    tot = tuple(a[0] for a in acc)
+    for k in range(1, c):                          # the chunk sums
+        tot = ed._add_full(tot, tuple(a[k] for a in acc))
+    return tot
+
+
 def msm_stage2(wsum, sdig, fb_tab):
     """wsum (nblk, 64, 4, 10) int32, sdig (nblk, 13) int64, fb_tab
     (64, 16, 3, 10) int32 (ops/params.py) -> (ok () int32, point (4, 10)
     int32: canonical limbs of sum_j 16^j W_j + [s]B, the identity when
     the batch verifies; s = the digit sums over the blocks, mod l)."""
-    w = wsum.to(torch.int64)
-    acc = w[0].unbind(-2)                                # 4 x (64, 10)
-    for g in range(1, w.shape[0]):
-        acc = ed._add_full(acc, w[g].unbind(-2))
-    win = _stack(acc)                                    # (64, 4, 10)
+    win = _stack(window_totals(wsum.to(torch.int64)))   # (64, 4, 10)
 
     h = win[63:].unbind(-2)                              # 4 x (1, 10)
     for j in range(62, -1, -1):

@@ -1,6 +1,7 @@
-"""Batched SHA-512 as plain PyTorch (the plain version of the SHA-512
-kernel, csrc/sha512.cu; counterpart of the JAX package's ops/sha2.py
-`sha512` and `_pad_message`).
+"""Batched SHA-512 as plain PyTorch (the plain versions of the SHA-512
+kernel's two entries, csrc/sha512.cu: `sha512` and `sha512_ram`;
+counterpart of the JAX package's ops/sha2.py `sha512` and
+`_pad_message`).
 
 A 64-bit word is a (hi, lo) pair of int64 tensors holding 32-bit halves,
 so every add, shift and rotate is exact without relying on wrapping
@@ -10,6 +11,8 @@ registers instead), and blocks past a lane's own count are masked.
 from __future__ import annotations
 
 import torch
+
+from . import ed25519 as ed
 
 _M32 = 0xFFFFFFFF
 
@@ -149,3 +152,15 @@ def sha512(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
             for sh in (24, 16, 8, 0):
                 out.append((word >> sh) & 0xFF)
     return torch.stack(out, dim=-1).to(torch.uint8)
+
+
+def sha512_ram(sig: torch.Tensor, pub: torch.Tensor, msg: torch.Tensor,
+               msg_len: torch.Tensor):
+    """Plain version of the SHA-512 kernel's in-place entry: sig (B, 64),
+    pub (B, 32), msg (B, L) uint8, msg_len (B,) int32 -> (k64 (B, 64)
+    uint8 = SHA-512(sig[:, :32] || pub || msg[:, :msg_len]), pre (B,)
+    int32 = ed25519.strict_prechecks). The kernel reads the three rows in
+    place; this concatenates them."""
+    k64 = sha512(torch.cat([sig[:, :32], pub, msg], dim=-1),
+                 msg_len.to(torch.int32) + 64)
+    return k64, ed.strict_prechecks(sig, pub).to(torch.int32)

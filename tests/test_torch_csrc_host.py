@@ -6,10 +6,11 @@ as plain C++ when nvcc is absent (__CUDACC__ unset): each kernel's
 per-lane part becomes a host function, and the threads that work
 together on the card (the four threads of a group that carries one
 signature, the threads of MSM stage 2) run one after another. That
-checks the sources' arithmetic (padding, big-endian loads, limb carries,
-prechecks, scalar reduction, decompression, tables, window walk, Horner,
+checks the sources' arithmetic (padding, big-endian loads of R || A || M
+from three rows, limb carries, prechecks, scalar reduction,
+decompression, tables, window walk, chunked sums over blocks, Horner,
 canonical compare) here, where there is no card; launch, the group's
-shuffles, the shared-memory sums over lanes, memory and timing are
+shuffles, the shared-memory staging and sums, memory and timing are
 checked on the card by chip_smoke.py and tests/test_torch_cuda.py.
 Exact: digests, verdicts and limbs are integers."""
 import ctypes as ct
@@ -27,7 +28,8 @@ from firedancer_tpu_torch.ops import fe25519 as fe
 from firedancer_tpu_torch.ops import msm, params, sha2
 from firedancer_tpu_torch.ops._build import CSRC
 from firedancer_tpu_torch.utils import ed25519_ref as ref
-from torch_rlc_cases import KEPT_OUT, stage_inputs
+from torch_rlc_cases import (KEPT_OUT, PRE_CLASSES, ram_inputs,
+                             spread_blocks, stage_inputs)
 
 VP = ct.c_void_p
 
@@ -48,25 +50,57 @@ def host_lib(tmp_path_factory):
     return build
 
 
+def _sha_host(host_lib):
+    fn = host_lib("sha512").sha512_lane_host
+    fn.argtypes = [VP, VP, VP, ct.c_int64, VP, VP, VP, ct.c_int, ct.c_int]
+    return fn
+
+
 def test_sha512_source_matches_plain_and_hashlib(host_lib):
-    lib = host_lib("sha512")
-    fn = lib.sha512_kernel
-    fn.argtypes = [VP, ct.c_int64, VP, VP, ct.c_int, ct.c_int, ct.c_int]
+    """The generic entry (no R || A prefix), lane by lane, at an aligned
+    row width and at one that is not a multiple of 8."""
+    fn = _sha_host(host_lib)
     rng = np.random.default_rng(41)
-    width = 1296
-    lens = np.array([0, 1, 111, 112, 127, 128, 239, 240, 1296]
-                    + list(rng.integers(0, width + 1, 15)), np.int32)
-    msg = rng.integers(0, 256, (len(lens), width), np.uint8)
-    msg[np.arange(width)[None, :] >= lens[:, None]] = 0
-    plain = sha2.sha512(torch.from_numpy(msg), torch.from_numpy(lens))
-    for aligned in (0, 1):
+    for width in (1296, 1229):
+        lens = np.array([0, 1, 111, 112, 127, 128, 239, 240, width]
+                        + list(rng.integers(0, width + 1, 15)), np.int32)
+        msg = rng.integers(0, 256, (len(lens), width), np.uint8)
+        msg[np.arange(width)[None, :] >= lens[:, None]] = 0
+        plain = sha2.sha512(torch.from_numpy(msg), torch.from_numpy(lens))
         out = np.zeros((len(lens), 64), np.uint8)
         for lane in range(len(lens)):
-            fn(msg.ctypes.data, width, lens.ctypes.data, out.ctypes.data,
-               len(lens), aligned, lane)
+            fn(None, None, msg.ctypes.data, width, lens.ctypes.data,
+               out.ctypes.data, None, 0, lane)
         np.testing.assert_array_equal(out, plain.numpy())
-    for i, n in enumerate(lens):
-        assert bytes(out[i]) == hashlib.sha512(bytes(msg[i, :n])).digest()
+        for i, n in enumerate(lens):
+            assert bytes(out[i]) == hashlib.sha512(bytes(msg[i, :n])).digest()
+
+
+@pytest.mark.parametrize("width", [1232, 1237])
+@pytest.mark.parametrize("msg_len", [0, 47, 48, 175, 176, 1232])
+def test_sha512_ram_source_matches_plain_and_hashlib(host_lib, msg_len,
+                                                     width):
+    """The in-place entry, lane by lane: k = SHA-512(R || A || M) from
+    the three rows (48 and 176 are the first message lengths whose
+    padding spills into one more block; 1237 is a row width that is not
+    a multiple of 8) and the prechecks, one lane per precheck class,
+    against hashlib and sha2.sha512_ram."""
+    fn = _sha_host(host_lib)
+    sig, pub, msg, lens = ram_inputs(msg_len, width, 43 + msg_len)
+    k64 = np.zeros((len(sig), 64), np.uint8)
+    pre = np.zeros(len(sig), np.int32)
+    for lane in range(len(sig)):
+        fn(sig.ctypes.data, pub.ctypes.data, msg.ctypes.data, width,
+           lens.ctypes.data, k64.ctypes.data, pre.ctypes.data, 64, lane)
+    want_k, want_pre = sha2.sha512_ram(
+        *(torch.from_numpy(x) for x in (sig, pub, msg, lens)))
+    np.testing.assert_array_equal(k64, want_k.numpy())
+    np.testing.assert_array_equal(pre, want_pre.numpy())
+    assert pre.tolist() == [ok for _, ok in PRE_CLASSES]
+    for i in range(len(sig)):
+        assert bytes(k64[i]) == hashlib.sha512(
+            bytes(sig[i, :32]) + bytes(pub[i])
+            + bytes(msg[i, :msg_len])).digest()
 
 
 def test_verify_source_matches_plain(host_lib):
@@ -159,26 +193,39 @@ def test_small_order_table_matches_plain(host_lib):
     np.testing.assert_array_equal(out[:n], ed._small_order_encodings())
 
 
-def test_msm_stage2_source_matches_plain(host_lib):
-    """Stage 2 (block sums, s from the digit sums, Horner, fixed-base
-    sum, identity test) over the plain stage 1 of 70 lanes (two blocks,
-    the second ragged): the verdict and the canonical limbs of the sum,
-    for the batch's digit sums (it verifies) and with one digit raised
-    by 1 (it does not)."""
-    fn = host_lib("ed25519_msm").msm_stage2_host
-    fn.argtypes = [VP, ct.c_int, VP, VP, VP]
+@pytest.fixture(scope="module")
+def stage1_two_blocks():
+    """The plain stage 1 of 70 lanes of stage_inputs (two blocks, the
+    second ragged) -> (wsum, sdig)."""
     ins, s = stage_inputs(70, 62)
     wsum, _, sdig = msm.msm_stage1(*(torch.from_numpy(x) for x in ins))
     assert wsum.shape == (2, 64, 4, 10) and sdig.shape == (2, 13)
     assert bytes(ed.sc_reduce_digits(sdig.sum(0)).numpy()) == bytes(s)
+    return wsum, sdig
+
+
+@pytest.mark.parametrize("nblk", [1, 2, 5, 32])
+def test_msm_stage2_source_matches_plain(host_lib, stage1_two_blocks, nblk):
+    """Stage 2 (the sums over blocks in chunks of msm.chunk_len(nblk)
+    blocks, then the chunk sums; s from the digit sums; the Horner on a
+    group; fixed-base sum; identity test) over the plain stage 1 of 70
+    lanes, as its two blocks or spread over nblk: the verdict and the
+    canonical limbs of the sum, for the batch's digit sums (it verifies)
+    and with one digit raised by 1 (it does not)."""
+    fn = host_lib("ed25519_msm").msm_stage2_host
+    fn.argtypes = [VP, ct.c_int, VP, VP, VP]
+    wsum, sdig = stage1_two_blocks
+    if nblk != 2:
+        wsum, sdig = spread_blocks(wsum, sdig, nblk)
     w = np.ascontiguousarray(wsum.numpy())
     fb = np.ascontiguousarray(params.own_tables())
     bad = sdig.clone()
-    bad[1, 3] += 1
+    bad[nblk - 1, 3] += 1
     for d, verdict in ((sdig, 1), (bad, 0)):
         dn = np.ascontiguousarray(d.numpy())
         out = np.zeros(41, np.int32)
-        fn(w.ctypes.data, 2, dn.ctypes.data, fb.ctypes.data, out.ctypes.data)
+        fn(w.ctypes.data, nblk, dn.ctypes.data, fb.ctypes.data,
+           out.ctypes.data)
         ok, point = msm.msm_stage2(wsum, d, params.fixed_base_tables("cpu"))
         assert out[0] == int(ok) == verdict
         np.testing.assert_array_equal(out[1:].reshape(4, 10), point.numpy())

@@ -19,7 +19,8 @@ from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import params, sha2
 from firedancer_tpu_torch.utils import ed25519_ref as ref
 from firedancer_tpu_torch.utils.chaos import undecodable_point
-from torch_rlc_cases import signed, stage_inputs
+from torch_rlc_cases import (PRE_CLASSES, ram_inputs, signed,
+                             spread_blocks, stage_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -57,15 +58,43 @@ def test_sha512_kernel_matches_plain(dev, width):
                     + list(rng.integers(0, width + 1, 300)), np.int32)
     msg = rng.integers(0, 256, (len(lens), width), np.uint8)
     m, ln = torch.from_numpy(msg).to(dev), torch.from_numpy(lens).to(dev)
-    before = cuda_sha.launches
+    before = dict(cuda_sha.launches)
     got = cuda_sha.sha512(m, ln)
-    assert cuda_sha.launches == before + 1
+    assert cuda_sha.launches == dict(before, sha512=before["sha512"] + 1)
     plain = sha2.sha512(m, ln)
     torch.cuda.synchronize()
     assert torch.equal(got, plain)
     for i in (0, 3, 8, len(lens) - 1):
         assert bytes(got[i].cpu().numpy()) == \
             hashlib.sha512(bytes(msg[i, :lens[i]])).digest()
+
+
+@pytest.mark.parametrize("width", [1232, 1229])
+def test_sha512_ram_kernel_matches_plain(dev, width):
+    """The in-place entry on 300 lanes (ten warps, the last ragged): every
+    precheck class, lengths at the padding edges and random ones, and
+    both copy paths (staged 16-byte pieces at width 1232, each thread's
+    own reads at 1229): k64 and pre equal the plain version's and
+    hashlib's."""
+    sig, pub, msg, _ = ram_inputs(width, width, 60)
+    rng = np.random.default_rng(61)
+    idx = np.arange(300) % len(PRE_CLASSES)
+    sig, pub = sig[idx].copy(), pub[idx].copy()
+    msg = rng.integers(0, 256, (300, width), np.uint8)
+    lens = rng.integers(0, width + 1, 300).astype(np.int32)
+    lens[:8] = [0, 47, 48, 111, 112, 175, 176, width]
+    ins = [torch.from_numpy(x).to(dev) for x in (sig, pub, msg, lens)]
+    before = dict(cuda_sha.launches)
+    k64, pre = cuda_sha.sha512_ram(*ins)
+    assert cuda_sha.launches == {k: v + 1 for k, v in before.items()}
+    want_k, want_pre = sha2.sha512_ram(*ins)
+    torch.cuda.synchronize()
+    assert torch.equal(k64, want_k) and torch.equal(pre, want_pre)
+    assert pre.cpu().tolist() == [PRE_CLASSES[i][1] for i in idx]
+    for i in (0, 5, 7, 299):
+        assert bytes(k64[i].cpu().numpy()) == hashlib.sha512(
+            bytes(sig[i, :32]) + bytes(pub[i])
+            + bytes(msg[i, :lens[i]])).digest()
 
 
 def test_verify_kernel_matches_plain(dev):
@@ -102,6 +131,13 @@ def test_wrappers_refuse_bad_tensors(dev):
                                             device=dev))
     with pytest.raises(ValueError):
         cuda_ed.verify_core(m, m[:, :31], m)
+    ln = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        cuda_sha.sha512_ram(m, m[:, :32], m, ln.long())
+    with pytest.raises(ValueError):
+        cuda_sha.sha512_ram(m, m[:, :31], m, ln)
+    with pytest.raises(ValueError):
+        cuda_sha.sha512_ram(m, m[:, :32], m.t(), ln)
 
 
 def test_msm_stage1_kernel_matches_plain(dev):
@@ -120,12 +156,17 @@ def test_msm_stage1_kernel_matches_plain(dev):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_msm_stage2_kernel_matches_plain(dev):
-    """The batch's digit sums (it verifies) and the same with one digit
-    raised by 1 (it does not): verdict and canonical limbs."""
-    ins, _ = stage_inputs(130, 55)
+@pytest.mark.parametrize("nblk", [1, 2, 5, 32, 79, 128])
+def test_msm_stage2_kernel_matches_plain(dev, nblk):
+    """The stage-1 sums of 70 lanes as their two blocks or spread over
+    nblk (chunks of 1, 2, 3, 6, 9 and 12 blocks, the last chunk ragged at
+    5, 32 and 79), with the batch's digit sums (it verifies) and with one
+    digit raised by 1 (it does not): verdict and canonical limbs."""
+    ins, _ = stage_inputs(70, 55)
     wsum, _, sdig = msm.msm_stage1(*(torch.from_numpy(x).to(dev)
                                      for x in ins))
+    if nblk != 2:
+        wsum, sdig = spread_blocks(wsum, sdig, nblk)
     tab = params.fixed_base_tables(dev)
     bad = sdig.clone()
     bad[0, 5] += 1

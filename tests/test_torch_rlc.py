@@ -155,28 +155,60 @@ def test_plain_stage1_window_sums_match_python_ints():
             (acc[0] * winv % ref.P, acc[1] * winv % ref.P), j
 
 
+class _CountOps:
+    """Counts the aten operations issued under it, by name."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        names = self.names = []
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                names.append(str(func.overloadpacket))
+                return func(*args, **(kwargs or {}))
+        self._mode = Count()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
 def test_rlc_glue_issues_few_aten_ops():
     """rlc_verify outside its three kernel callables (stubbed here with
-    precomputed results) issues at most 16 aten operations: the
-    prechecks and every scalar mod l run inside the MSM stages."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    precomputed results) issues 2 aten operations, the two compares of
+    its verdicts: R || A || M is read in place by the SHA-512 kernel (no
+    concat), and the prechecks and every scalar mod l run inside the MSM
+    stages."""
     sig, pub, msg, ln, z = (torch.from_numpy(x) for x in _batch(3))
     k64 = torch.zeros((B, 64), dtype=torch.uint8)
+    pre = torch.ones(B, dtype=torch.int32)
     s1 = msm.msm_stage1(pub, sig, k64, z)
     s2 = (torch.tensor(1, dtype=torch.int32), torch.zeros((4, 10)))
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        ok, pre = ed.rlc_verify(sig, pub, msg, ln, z, lambda m, n: k64,
+    with _CountOps() as ops:
+        ok, pre = ed.rlc_verify(sig, pub, msg, ln, z, lambda *a: (k64, pre),
                                 lambda *a: s1, lambda *a: s2)
     assert bool(ok) and pre.tolist() == [True] * B
-    assert 0 < Count.n <= 16, Count.n
+    assert "aten.cat" not in ops.names, ops.names
+    assert 0 < len(ops.names) <= 2, ops.names
+
+
+def test_strict_glue_issues_few_aten_ops():
+    """strict_verify outside its two kernel callables (stubbed here with
+    precomputed results) issues at most 4 aten operations (2: the and of
+    the prechecks with the core verdicts, and its compare), and no
+    concat: the SHA-512 kernel reads R || A || M in place and runs the
+    prechecks."""
+    sig, pub, msg, ln, _ = (torch.from_numpy(x) for x in _batch(4))
+    k64 = torch.zeros((B, 64), dtype=torch.uint8)
+    pre = torch.tensor([1, 0, 1, 1, 1, 1, 0, 1], dtype=torch.int32)
+    core = torch.tensor([1, 1, 0, 1, 1, 1, 1, 1], dtype=torch.int32)
+    with _CountOps() as ops:
+        ok = ed.strict_verify(sig, pub, msg, ln, lambda *a: (k64, pre),
+                              lambda *a: core)
+    assert ok.tolist() == [i not in (1, 2, 6) for i in range(B)]
+    assert "aten.cat" not in ops.names, ops.names
+    assert 0 < len(ops.names) <= 4, ops.names
 
 
 @pytest.mark.parametrize("corrupt", [(), (0,), (2, 5)])
