@@ -90,29 +90,39 @@ FD_DEV void sha512_init(uint64_t st[8]) {
   for (int i = 0; i < 8; i++) st[i] = h[i];
 }
 
+// schedule word t >= 16 of a block, in the 16-word ring w
+FD_DEV uint64_t sha512_sched(uint64_t w[16], int t) {
+  const uint64_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+  const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
+  const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
+  return w[t & 15] += s0 + w[(t - 7) & 15] + s1;
+}
+
+// round t on the working variables v = (a, ..., h) with schedule word wt
+FD_DEV void sha512_round(uint64_t v[8], int t, uint64_t wt) {
+  const uint64_t a = v[0], e = v[4];
+  const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+  const uint64_t ch = (e & v[5]) ^ (~e & v[6]);
+  const uint64_t t1 = v[7] + S1 + ch + kK512[t] + wt;
+  const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+  const uint64_t maj = (a & v[1]) ^ (a & v[2]) ^ (v[1] & v[2]);
+#pragma unroll
+  for (int i = 7; i > 0; i--) v[i] = v[i - 1];
+  v[4] += t1;
+  v[0] = t1 + S0 + maj;
+}
+
 // one 128-byte block: the 80 rounds over the message words w (consumed
 // as the schedule ring) and the state update
 FD_DEV void sha512_block(uint64_t st[8], uint64_t w[16]) {
-  uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
+  uint64_t v[8];
 #pragma unroll
-  for (int t = 0; t < 80; t++) {
-    if (t >= 16) {
-      uint64_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-      uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
-      uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
-      w[t & 15] += s0 + w[(t - 7) & 15] + s1;
-    }
-    uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-    uint64_t ch = (e & f) ^ (~e & g);
-    uint64_t t1 = h + S1 + ch + kK512[t] + w[t & 15];
-    uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-    uint64_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + S0 + maj;
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  for (int i = 0; i < 8; i++) v[i] = st[i];
+#pragma unroll
+  for (int t = 0; t < 80; t++)
+    sha512_round(v, t, t < 16 ? w[t] : sha512_sched(w, t));
+#pragma unroll
+  for (int i = 0; i < 8; i++) st[i] += v[i];
 }
 
 // blocks a stream of n bytes pads to (0x80 and the 16-byte length fit)
@@ -258,6 +268,92 @@ sha512_kernel(const uint8_t *__restrict__ sig, const uint8_t *__restrict__ pub,
   if (lane < n) sha512_store(out + (int64_t)lane * 64, st);
 }
 
+// Two warps a block of 32 lanes: warp 1 copies (stage_block), pads and
+// expands each lane's 80 schedule words of block b + 1 into shared memory
+// while warp 0 runs block b's 80 rounds from them; one barrier a block.
+#define SHA_SCHED (2 * 80 * 32 * 8)     // [2][80][32] schedule words
+#define SHA_SPLIT_SMEM (SHA_SCHED + 2 * 32 * SHA_ROW)
+
+__device__ __forceinline__ void sched_block(uint64_t *sch, const uint8_t *stg,
+                                            int t, int blk, int nh, int nb) {
+  const uint8_t *r = stg + t * SHA_ROW;
+  uint64_t w[16];
+#pragma unroll
+  for (int k = 0; k < 16; k++)
+    w[k] = pad_word(bswap64(*(const uint64_t *)(r + 8 * k)),
+                    blk * 128 + 8 * k, nh);
+  if (blk == nb - 1) w[15] = (uint64_t)nh << 3;
+#pragma unroll
+  for (int k = 0; k < 80; k++)
+    sch[k * 32 + t] = k < 16 ? w[k] : sha512_sched(w, k);
+}
+
+__global__ void __launch_bounds__(64)
+sha512_split_kernel(const uint8_t *__restrict__ sig,
+                    const uint8_t *__restrict__ pub,
+                    const uint8_t *__restrict__ msg, int64_t L,
+                    const int32_t *__restrict__ lens, uint8_t *__restrict__ out,
+                    int32_t *__restrict__ pre_out, int n, int pre) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t *sch = (uint64_t *)smem;
+  uint8_t *stg = smem + SHA_SCHED;
+  const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = blockIdx.x * 32, lane = base + t;
+  int len = 0;
+  if (lane < n) {
+    len = lens[lane];
+    len = len < 0 ? 0 : (len > L ? (int)L : len);
+  }
+  const int nh = pre + len;
+  const int nb = lane < n ? sha512_nblocks(nh) : 0;
+  const int nbw = __reduce_max_sync(0xffffffffu, nb);   // alike in both warps
+  if (warp == 1) {
+    if (pre_out && lane < n)
+      pre_out[lane] = ram_prechecks(sig + (int64_t)lane * 64,
+                                    pub + (int64_t)lane * 32);
+    stage_block(stg, sig, pub, msg, L, pre, base, n, len, 0);
+    if (nbw > 1)
+      stage_block(stg + 32 * SHA_ROW, sig, pub, msg, L, pre, base, n, len, 1);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();
+    sched_block(sch, stg, t, 0, nh, nb);
+    __syncwarp();
+  }
+  __syncthreads();
+  uint64_t st[8];
+  sha512_init(st);
+#pragma unroll 1
+  for (int blk = 0; blk < nbw; blk++) {
+    if (warp == 0) {
+      if (blk < nb) {
+        const uint64_t *w = sch + (blk & 1) * 80 * 32;
+        uint64_t v[8];
+#pragma unroll
+        for (int i = 0; i < 8; i++) v[i] = st[i];
+#pragma unroll
+        for (int k = 0; k < 80; k++) sha512_round(v, k, w[k * 32 + t]);
+#pragma unroll
+        for (int i = 0; i < 8; i++) st[i] += v[i];
+      }
+    } else if (blk + 1 < nbw) {
+      if (blk + 2 < nbw)
+        stage_block(stg + (blk & 1) * 32 * SHA_ROW, sig, pub, msg, L, pre,
+                    base, n, len, blk + 2);
+      else
+        asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);     // block blk + 1 is in
+      __syncwarp();
+      sched_block(sch + ((blk + 1) & 1) * 80 * 32,
+                  stg + ((blk + 1) & 1) * 32 * SHA_ROW, t, blk + 1, nh, nb);
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && lane < n) sha512_store(out + (int64_t)lane * 64, st);
+}
+
 static int launch(const void *sig, const void *pub, const void *msg,
                   long long L, const void *lens, void *out, void *pre_out,
                   int n, int pre, void *stream) {
@@ -294,6 +390,27 @@ extern "C" int fdtt_sha512_ram(const void *sig, const void *pub,
 extern "C" int fdtt_sha512(const void *msg, long long L, const void *lens,
                            void *out, int n, void *stream) {
   return launch(nullptr, nullptr, msg, L, lens, out, nullptr, n, 0, stream);
+}
+// variant 0: the entry's own choice; 1: the two-warp kernel (16-byte
+// aligned rows only). A measurement aid.
+extern "C" int fdtt_sha512_ram_variant(const void *sig, const void *pub,
+                                       const void *msg, long long L,
+                                       const void *lens, void *out,
+                                       void *pre_out, int n, int variant,
+                                       void *stream) {
+  if (variant == 0)
+    return launch(sig, pub, msg, L, lens, out, pre_out, n, 64, stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      sha512_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SHA_SPLIT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (n > 0)
+    sha512_split_kernel<<<(n + 31) / 32, 64, SHA_SPLIT_SMEM,
+                          (cudaStream_t)stream>>>(
+        (const uint8_t *)sig, (const uint8_t *)pub, (const uint8_t *)msg,
+        (int64_t)L, (const int32_t *)lens, (uint8_t *)out,
+        (int32_t *)pre_out, n, 64);
+  return (int)cudaGetLastError();
 }
 #else
 // Host build: lane `lane` of either entry (pre = 64: sha512_ram, with its
