@@ -162,7 +162,8 @@ FD_DEV void sha512_lane(uint64_t st[8], const uint8_t *r, const uint8_t *a,
   for (int blk = 0; blk < nb; blk++) {
     uint64_t w[16];
 #pragma unroll
-    for (int t = 0; t < 16; t++) w[t] = ram_word(r, a, m, pre, blk * 128 + 8 * t, n);
+    for (int t = 0; t < 16; t++)
+      w[t] = ram_word(r, a, m, pre, blk * 128 + 8 * t, n);
     if (blk == nb - 1) w[15] = (uint64_t)n << 3;
     sha512_block(st, w);
   }
@@ -268,92 +269,6 @@ sha512_kernel(const uint8_t *__restrict__ sig, const uint8_t *__restrict__ pub,
   if (lane < n) sha512_store(out + (int64_t)lane * 64, st);
 }
 
-// Two warps a block of 32 lanes: warp 1 copies (stage_block), pads and
-// expands each lane's 80 schedule words of block b + 1 into shared memory
-// while warp 0 runs block b's 80 rounds from them; one barrier a block.
-#define SHA_SCHED (2 * 80 * 32 * 8)     // [2][80][32] schedule words
-#define SHA_SPLIT_SMEM (SHA_SCHED + 2 * 32 * SHA_ROW)
-
-__device__ __forceinline__ void sched_block(uint64_t *sch, const uint8_t *stg,
-                                            int t, int blk, int nh, int nb) {
-  const uint8_t *r = stg + t * SHA_ROW;
-  uint64_t w[16];
-#pragma unroll
-  for (int k = 0; k < 16; k++)
-    w[k] = pad_word(bswap64(*(const uint64_t *)(r + 8 * k)),
-                    blk * 128 + 8 * k, nh);
-  if (blk == nb - 1) w[15] = (uint64_t)nh << 3;
-#pragma unroll
-  for (int k = 0; k < 80; k++)
-    sch[k * 32 + t] = k < 16 ? w[k] : sha512_sched(w, k);
-}
-
-__global__ void __launch_bounds__(64)
-sha512_split_kernel(const uint8_t *__restrict__ sig,
-                    const uint8_t *__restrict__ pub,
-                    const uint8_t *__restrict__ msg, int64_t L,
-                    const int32_t *__restrict__ lens, uint8_t *__restrict__ out,
-                    int32_t *__restrict__ pre_out, int n, int pre) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint64_t *sch = (uint64_t *)smem;
-  uint8_t *stg = smem + SHA_SCHED;
-  const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int base = blockIdx.x * 32, lane = base + t;
-  int len = 0;
-  if (lane < n) {
-    len = lens[lane];
-    len = len < 0 ? 0 : (len > L ? (int)L : len);
-  }
-  const int nh = pre + len;
-  const int nb = lane < n ? sha512_nblocks(nh) : 0;
-  const int nbw = __reduce_max_sync(0xffffffffu, nb);   // alike in both warps
-  if (warp == 1) {
-    if (pre_out && lane < n)
-      pre_out[lane] = ram_prechecks(sig + (int64_t)lane * 64,
-                                    pub + (int64_t)lane * 32);
-    stage_block(stg, sig, pub, msg, L, pre, base, n, len, 0);
-    if (nbw > 1)
-      stage_block(stg + 32 * SHA_ROW, sig, pub, msg, L, pre, base, n, len, 1);
-    else
-      asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncwarp();
-    sched_block(sch, stg, t, 0, nh, nb);
-    __syncwarp();
-  }
-  __syncthreads();
-  uint64_t st[8];
-  sha512_init(st);
-#pragma unroll 1
-  for (int blk = 0; blk < nbw; blk++) {
-    if (warp == 0) {
-      if (blk < nb) {
-        const uint64_t *w = sch + (blk & 1) * 80 * 32;
-        uint64_t v[8];
-#pragma unroll
-        for (int i = 0; i < 8; i++) v[i] = st[i];
-#pragma unroll
-        for (int k = 0; k < 80; k++) sha512_round(v, k, w[k * 32 + t]);
-#pragma unroll
-        for (int i = 0; i < 8; i++) st[i] += v[i];
-      }
-    } else if (blk + 1 < nbw) {
-      if (blk + 2 < nbw)
-        stage_block(stg + (blk & 1) * 32 * SHA_ROW, sig, pub, msg, L, pre,
-                    base, n, len, blk + 2);
-      else
-        asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);     // block blk + 1 is in
-      __syncwarp();
-      sched_block(sch + ((blk + 1) & 1) * 80 * 32,
-                  stg + ((blk + 1) & 1) * 32 * SHA_ROW, t, blk + 1, nh, nb);
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-  if (warp == 0 && lane < n) sha512_store(out + (int64_t)lane * 64, st);
-}
-
 static int launch(const void *sig, const void *pub, const void *msg,
                   long long L, const void *lens, void *out, void *pre_out,
                   int n, int pre, void *stream) {
@@ -390,27 +305,6 @@ extern "C" int fdtt_sha512_ram(const void *sig, const void *pub,
 extern "C" int fdtt_sha512(const void *msg, long long L, const void *lens,
                            void *out, int n, void *stream) {
   return launch(nullptr, nullptr, msg, L, lens, out, nullptr, n, 0, stream);
-}
-// variant 0: the entry's own choice; 1: the two-warp kernel (16-byte
-// aligned rows only). A measurement aid.
-extern "C" int fdtt_sha512_ram_variant(const void *sig, const void *pub,
-                                       const void *msg, long long L,
-                                       const void *lens, void *out,
-                                       void *pre_out, int n, int variant,
-                                       void *stream) {
-  if (variant == 0)
-    return launch(sig, pub, msg, L, lens, out, pre_out, n, 64, stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      sha512_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SHA_SPLIT_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  if (n > 0)
-    sha512_split_kernel<<<(n + 31) / 32, 64, SHA_SPLIT_SMEM,
-                          (cudaStream_t)stream>>>(
-        (const uint8_t *)sig, (const uint8_t *)pub, (const uint8_t *)msg,
-        (int64_t)L, (const int32_t *)lens, (uint8_t *)out,
-        (int32_t *)pre_out, n, 64);
-  return (int)cudaGetLastError();
 }
 #else
 // Host build: lane `lane` of either entry (pre = 64: sha512_ram, with its

@@ -507,8 +507,9 @@ def rlc_verify(sig, pub, msg, msg_len, z_bytes, sha512_fn, stage1_fn,
     not small-order encodings, A and R decompress. z counts as zero on
     every other lane. `sha512_fn(sig, pub, msg, msg_len) -> (k64, pre)`
     forms k64 = SHA-512(R || A || M) from the rows in place (its strict
-    `pre` is not used: stage 1 runs its own prechecks); stage 1 (`stage1_fn(pub, sig, k64, z) -> (wsum, lane_ok,
-    sdig)`) runs the prechecks, k = k64 mod l, z k and z S mod l, and
+    `pre` is not used: stage 1 runs its own prechecks); stage 1
+    (`stage1_fn(pub, sig, k64, z) -> (wsum, lane_ok, sdig)`) runs the
+    prechecks, k = k64 mod l, z k and z S mod l, and
     stage 2 (`stage2_fn(wsum, sdig) -> (ok, point)`) folds the digit
     sums of z S into s = sum_i z_i S_i mod l.
 
