@@ -21,7 +21,16 @@ and read just after:
             lanes);
   flood     phase 9: the front door, VerifyTile(mode="bulk_prefilter",
             coalesce_us=150000) on forged-flood chunks, a mix with 256
-            valid txns, and torsion forgeries.
+            valid txns, and torsion forgeries;
+  topology  phases 10a-10b: firedancer_tpu_torch/cfg/sigverify.toml
+            booted by the topology launcher, synth -> verify -> dedup ->
+            sink as four tile processes over shm (65,536 frames, 256
+            unique), then the same with mode="bulk_prefilter" (16,384
+            frames, the verify tile booted onto a full ingest ring, the
+            saturation under which the prefilter runs): the verify tile
+            runs the kernels in its own process, so its batch counts
+            stand for their launches; each prints the record bench.py's
+            _e2e_run prints.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -55,6 +64,8 @@ TILE_CORRUPT = 1024
 TILE_FRAMES = 16384
 FLOOD_CHUNKS = 4          # all-forged chunks of TILE_BATCH frames (phase 9)
 FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
+TOPO_FRAMES = 65536       # phase 10a: cfg/sigverify.toml's synth count
+TOPO_PREFILTER_FRAMES = 16384   # phase 10b, bulk_prefilter
 ITERS = 20
 N_UNIQUE = 256          # distinct signatures behind the 8192 lanes
 DEVICE = "cuda"
@@ -222,6 +233,129 @@ def run_tile(frames, depth, **kw):
         w.close()
         w.unlink()
     return out, dict(tile.metrics), sec
+
+
+def run_topology(root, tag, count, verify_last=False, **verify):
+    """Phase 10: boot the port's main path as four tile processes,
+    firedancer_tpu_torch/cfg/sigverify.toml with `count` frames and the
+    verify args `verify`, through app.config and TopologyRunner, with
+    FDTPU_VERIFY_INFLIGHT=3. verify_last boots the verify tile only once
+    the synth has filled the ingest ring (ingest saturation: its first
+    gather is full, which opens the bulk prefilter's window). Waits
+    until every tile runs, then until the sink has the unique frames and
+    verify has taken all `count`, and every frame is accounted for;
+    then halts the tiles and reads their flushed telemetry, each link's
+    producer and consumer counts held to the frames that crossed it.
+    -> (record as bench.py's _e2e_run prints it, verify metrics). Raises
+    on a count mismatch, a dead tile or a timeout."""
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.disco.metrics import (
+        link_lag, merge_hists, quantile_ns, read_hists, read_link_metrics)
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "sigverify.toml"),
+        overrides={"tile": [{"name": "synth", "count": count},
+                            {"name": "verify", "device": DEVICE,
+                             **verify}]})
+    unique = next(t["unique"] for t in cfg["tile"] if t["name"] == "synth")
+    env0 = os.environ.get("FDTPU_VERIFY_INFLIGHT")
+    os.environ["FDTPU_VERIFY_INFLIGHT"] = "3"
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke{tag}{os.getpid()}").build())
+    try:
+        t_boot = time.perf_counter()
+        if verify_last:
+            runner.start([tn for tn in runner.plan["tiles"]
+                          if tn != "verify"])
+            runner.wait_idle("synth", "tx", min(
+                count, runner.plan["links"]["ingest"]["depth"]),
+                timeout_s=300, poll_s=0.002)
+            runner.start(["verify"])
+        else:
+            runner.start()
+        runner.wait_running(timeout_s=300)
+        t0 = time.perf_counter()
+        runner.wait_idle("sink", "rx", unique, timeout_s=300, poll_s=0.002)
+        runner.wait_idle("verify", "rx", count, timeout_s=300, poll_s=0.002)
+        wall = time.perf_counter() - t0
+        deadline = time.time() + 60
+        while True:
+            runner.check_failures()
+            v, d = runner.metrics("verify"), runner.metrics("dedup")
+            if d["tx"] + v["dedup_drop"] + d["dup"] == count:
+                break
+            assert time.time() < deadline, \
+                f"frames unaccounted for: verify {v}, dedup {d}"
+            time.sleep(0.01)
+        snk = runner.metrics("sink")
+        for key, got, want in (("sink.rx", snk["rx"], unique),
+                               ("verify.rx", v["rx"], count),
+                               ("verify.verify_fail", v["verify_fail"], 0),
+                               ("verify.parse_fail", v["parse_fail"], 0),
+                               ("verify.device_errors",
+                                v["device_errors"], 0),
+                               ("dedup.tx", d["tx"], unique)):
+            assert got == want, f"{key} = {got}, expected {want}"
+        assert v["batches"] > 0, "no strict dispatch in the verify tile"
+        # every stem flushes its histograms and link counters on a clean
+        # exit; the workspace stays until close(), so what is read below
+        # is what the run did
+        runner.halt()
+        for tn, p in runner.procs.items():
+            assert p.exitcode == 0, f"tile {tn} exit code {p.exitcode}"
+        budget = {}
+        for tn in ("synth", "verify", "dedup", "sink"):
+            h = read_hists(runner.wksp, runner.plan, tn)
+            work, wait = h["work"], h["wait"]
+            busy = work["sum_ns"] + wait["sum_ns"]
+            budget[tn] = {
+                "work_p50_us": quantile_ns(work, 0.50) / 1e3,
+                "work_p99_us": quantile_ns(work, 0.99) / 1e3,
+                "occupancy": work["sum_ns"] / busy if busy else 0.0}
+        links = {}
+        for ln, rec in read_link_metrics(runner.wksp, runner.plan).items():
+            cons = rec["consumers"]
+            h = merge_hists(c["hist"] for c in cons.values())
+            links[ln] = {
+                "pub": rec["pub"],
+                "consumed": sum(c["consumed"] for c in cons.values()),
+                "lost": sum(link_lag(rec, tn) for tn in cons),
+                "backpressure": rec["backpressure"],
+                "consume_p99_us": quantile_ns(h, 0.99) / 1e3 if h else 0}
+        for ln, want in (("ingest", count),
+                         ("verify_dedup", count - v["dedup_drop"]),
+                         ("dedup_sink", unique)):
+            got = (links[ln]["pub"], links[ln]["consumed"],
+                   links[ln]["lost"])
+            assert got == (want, want, 0), \
+                f"link {ln} pub/consumed/lost {got}, expected {want}"
+        vh = read_hists(runner.wksp, runner.plan, "verify")
+        rec = {
+            "e2e_tps": count / wall, "e2e_count": count,
+            "e2e_wall_s": wall, "boot_s": t0 - t_boot,
+            "verify_work_p50_ms": quantile_ns(vh["work"], 0.50) / 1e6,
+            "verify_work_p99_ms": quantile_ns(vh["work"], 0.99) / 1e6,
+            "tpu_p50_ms": quantile_ns(vh["tpu"], 0.50) / 1e6,
+            "tpu_p99_ms": quantile_ns(vh["tpu"], 0.99) / 1e6,
+            "tpu_count": vh["tpu"]["count"],
+            # verify's productive polls by log2 bucket upper bound
+            "verify_work_polls_by_ms": {
+                f"{2 ** (i + 1) / 1e6:g}": c
+                for i, c in enumerate(vh["work"]["buckets"]) if c},
+            # the device seam's share of the verify tile's productive
+            # polls; dispatch and readback may also fall in idle polls
+            "device_seam_share": vh["tpu"]["sum_ns"] / vh["work"]["sum_ns"],
+            "device_seam_share_of_busy": vh["tpu"]["sum_ns"] / (
+                vh["work"]["sum_ns"] + vh["wait"]["sum_ns"]),
+            "stage_budget": budget, "link_budget": links}
+        return rec, v
+    finally:
+        runner.halt()
+        runner.close()
+        if env0 is None:
+            os.environ.pop("FDTPU_VERIFY_INFLIGHT", None)
+        else:
+            os.environ["FDTPU_VERIFY_INFLIGHT"] = env0
 
 
 def load_vectors(root):
@@ -724,6 +858,34 @@ def main() -> int:
     assert not set(out) & set(torsion), "a torsion forgery was forwarded"
     log(f"flood path launches {flood_path}")
     assert min(flood_path.values()) > 0
+
+    # 10. the main path as the system runs it: the topology launcher
+    # boots synth -> verify -> dedup -> sink as four tile processes over
+    # shm from the port's TOML; the verify tile's kernel launches happen
+    # in its own process, so its batch counts stand for them
+    for tag, count, verify in (("10a", TOPO_FRAMES, {}),
+                               ("10b", TOPO_PREFILTER_FRAMES,
+                                {"verify_last": True,
+                                 "mode": "bulk_prefilter"})):
+        log(f"== {tag}. topology: cfg/sigverify.toml, {count} frames, "
+            f"verify {verify or 'strict'}, four tile processes {card}")
+        rec, v = run_topology(root, tag, count, **verify)
+        log(f"{tag} verify metrics {json.dumps(v)}")
+        log(f"{tag} record {json.dumps(rec)}")
+        log(f"{tag}: e2e {rec['e2e_tps']:.0f} frames/s ({count} frames in "
+            f"{rec['e2e_wall_s']:.4f} s after every tile ran; boot "
+            f"{rec['boot_s']:.1f} s), verify work p50/p99 "
+            f"{rec['verify_work_p50_ms']:.4f}/{rec['verify_work_p99_ms']:.4f}"
+            f" ms, tpu p50/p99 {rec['tpu_p50_ms']:.4f}/"
+            f"{rec['tpu_p99_ms']:.4f} ms over {rec['tpu_count']} spans "
+            f"(verify polls by ms bucket {rec['verify_work_polls_by_ms']}), "
+            f"device seam {100 * rec['device_seam_share']:.2f}% of verify "
+            f"work, {v['batches']} strict batches, rlc_batches "
+            f"{v['rlc_batches']}, rlc_pass {v['rlc_pass']} {card}")
+        if "mode" in verify:
+            assert v["rlc_batches"] > 0, "no RLC equation in the tile"
+            assert v["rlc_pass"] == v["rlc_batches"] and \
+                v["rlc_shed"] == 0, "a valid chunk failed the RLC equation"
 
     kernels = []
     paths = (strict_path, rlc_path, flood_path)

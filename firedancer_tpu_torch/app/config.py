@@ -1,0 +1,193 @@
+"""Layered TOML configuration -> topology (copy of the JAX package's
+app/config.py:147-345).
+
+TOML layers deep-merge (later layers win), and the merged document
+declares the whole topology (links, tcaches, tiles with their args),
+which `build_topology` turns into a declarative `Topology`
+(disco/topo.py); ref: src/app/fdctl/config/default.toml,
+src/app/shared/fd_config.h.
+
+Schema (the reference's, cut to the kinds the port has):
+
+    [topology]
+    name = "demo"            # shm namespace (default: cfg + pid)
+    wksp_size = 67108864
+
+    [[link]]
+    name = "ingest"
+    depth = 8192             # frags (power of two)
+    mtu = 1280
+
+    [[tcache]]
+    name = "verify_tc"
+    depth = 8192
+
+    [[tile]]
+    name = "verify"
+    kind = "verify"          # synth | verify | dedup | sink
+    ins = ["ingest"]
+    outs = ["verify_dedup"]
+    batch = 2048             # every other key = tile arg, verbatim
+    # tile_cnt = 2           # rr-sharded scale-out: tiles verify0 and
+    # outs = ["vd0", "vd1"]  #  verify1, one out link per shard;
+    # tcache = ["tc0","tc1"] #  a list-valued tcache distributes one
+                             #  per shard
+
+    [tile.supervise]         # per-tile restart policy (supervise.py)
+    policy = "restart"       # "fail_fast" (default) | "restart"
+
+    [topology.supervise]     # topology-wide defaults, deep-merged
+    policy = "restart"       #  under each tile's table
+
+Where the copy differs from the reference:
+  * the tile-key gate (the reference's lint/registry.py, config.py:215)
+    is the port's own table `TILE_ARGS`: the reference's keys for synth,
+    verify, dedup and sink, plus `device` on verify (the card, "cuda",
+    unless "cpu");
+  * each top-level section the reference accepts but the port has not
+    ported (trace, slo, prof, shed, witness, funk, replay, snapshot,
+    flight, tune) raises NotImplementedError naming its ROADMAP.md
+    queue-A item, and so does FDTPU_TUNED_PROFILE (item 11); a known
+    kind without an adapter, and a gated key the port lacks (chaos,
+    core pinning, the lazy cadence), pass the gate and are refused by
+    `Topology.tile` (disco/unported.py);
+  * `cpu0` is handed to `Topology.tile` as it is, which refuses it
+    (the reference turns it into `cpu_idx`, config.py:323-335).
+"""
+from __future__ import annotations
+
+import difflib
+import os
+import tomllib
+
+from ..disco.topo import Topology
+from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
+
+_TOP_SECTIONS = {"topology", "link", "tcache", "tile", *UNPORTED_SECTIONS}
+
+# keys every tile understands (read by Topology.build, the launcher or
+# the stem)
+COMMON_KEYS = ("supervise", "chaos", "trace", "prof", "shed", "cpu_idx",
+               "sandbox", "sandbox_files", "lazy_ns", "lazy_auto")
+TILE_ARGS: dict[str, tuple[str, ...]] = {
+    "synth": ("count", "burst", "unique", "seed", "rate_tps"),
+    "verify": ("batch", "max_len", "tcache", "device_retries",
+               "device_timeout_s", "device_fail_limit", "rr_cnt",
+               "rr_idx", "devices", "coalesce_us", "tile_cnt", "cpu0",
+               "mode", "prefilter_shed", "device"),
+    "dedup": ("tcache", "batch"),
+    "sink": ("batch",),
+}
+
+
+def _deep_merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _merge_named_lists(base: list, over: list, where: str) -> list:
+    """[[link]]/[[tile]] arrays merge by `name`: same-name entries
+    deep-merge (override layer wins per key), new names append."""
+    out = {}
+    for src, entries in (("base", base), (where, over)):
+        for e in entries:
+            name = e.get("name")
+            if not isinstance(name, str):
+                raise ValueError(
+                    f"{src}: array-of-tables entry missing 'name': {e}")
+            out[name] = _deep_merge(out.get(name, {}), e)
+    return list(out.values())
+
+
+def load_config(*paths, overrides: dict | None = None) -> dict:
+    """Parse + deep-merge TOML layers left-to-right (later wins), then
+    apply the `overrides` dict (same by-name merge for link/tcache/tile
+    arrays as TOML layers)."""
+    cfg: dict = {}
+    layers = [(p, None) for p in paths]
+    if overrides:
+        layers.append(("<overrides>", overrides))
+    for p, preparsed in layers:
+        if preparsed is None:
+            with open(p, "rb") as f:
+                layer = tomllib.load(f)
+        else:
+            layer = preparsed
+        bad = set(layer) - _TOP_SECTIONS
+        if bad:
+            raise ValueError(f"{p}: unknown config sections {sorted(bad)}")
+        for key in ("link", "tcache", "tile"):
+            if key in layer:
+                cfg[key] = _merge_named_lists(cfg.get(key, []),
+                                              layer[key], str(p))
+        for key in _TOP_SECTIONS - {"link", "tcache", "tile"}:
+            if key in layer:
+                cfg[key] = _deep_merge(cfg.get(key, {}), layer[key])
+    return cfg
+
+
+def _suggest(key: str, candidates) -> str:
+    close = difflib.get_close_matches(key, sorted(candidates), n=1)
+    return f" (did you mean {close[0]!r}?)" if close else ""
+
+
+def _validate_tile_keys(t: dict):
+    """Reject unknown [[tile]] keys with a did-you-mean hint; a kind of
+    the reference the port lacks is left to Topology.tile's refusal."""
+    kind = t["kind"]
+    if kind in UNPORTED_KINDS:
+        return
+    if kind not in TILE_ARGS:
+        raise ValueError(
+            f"[[tile]] {t.get('name')!r}: unknown kind {kind!r}"
+            + _suggest(str(kind), [*TILE_ARGS, *UNPORTED_KINDS]))
+    known = {"name", "kind", "ins", "outs", *COMMON_KEYS, *TILE_ARGS[kind]}
+    bad = set(t) - known
+    if bad:
+        key = sorted(bad)[0]
+        raise ValueError(
+            f"[[tile]] {t.get('name')!r} (kind {kind!r}): unknown "
+            f"key(s) {sorted(bad)}" + _suggest(key, known))
+
+
+def build_topology(cfg: dict, name: str | None = None) -> Topology:
+    """Merged config -> Topology (unbuilt; caller runs .build())."""
+    for key, item in UNPORTED_SECTIONS.items():
+        if key in cfg:
+            refuse(f"the [{key}] section", item)
+    if os.environ.get("FDTPU_TUNED_PROFILE"):
+        refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
+    top = cfg.get("topology", {})
+    topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
+                    wksp_size=int(top.get("wksp_size", 1 << 26)))
+    for ln in cfg.get("link", []):
+        topo.link(ln["name"], depth=int(ln.get("depth", 128)),
+                  mtu=int(ln.get("mtu", 1280)))
+    for tc in cfg.get("tcache", []):
+        topo.tcache(tc["name"], depth=int(tc.get("depth", 4096)))
+    default_sup = top.get("supervise")
+    for t in cfg.get("tile", []):
+        if "kind" not in t:
+            raise ValueError(f"[[tile]] {t.get('name')!r}: missing 'kind'")
+        _validate_tile_keys(t)
+        args = {k: v for k, v in t.items()
+                if k not in ("name", "kind", "ins", "outs")}
+        if default_sup:
+            # topology-wide supervision defaults; the tile's own table
+            # wins per key
+            args["supervise"] = _deep_merge(default_sup,
+                                            args.get("supervise", {}))
+        tile_cnt = int(args.pop("tile_cnt", 1) or 1)
+        if tile_cnt > 1:
+            topo.sharded_tile(t["name"], t["kind"], tile_cnt,
+                              ins=t.get("ins", ()),
+                              outs=t.get("outs", ()), **args)
+        else:
+            topo.tile(t["name"], t["kind"], ins=t.get("ins", ()),
+                      outs=t.get("outs", ()), **args)
+    return topo

@@ -1,0 +1,150 @@
+"""Stem: the tile run loop (copy of the JAX package's disco/stem.py:30-377
+without the trace and profiler hooks, the adapters' housekeeping hook,
+which no ported adapter has, the chaos harness and the pinned or
+depth-derived housekeeping cadence (`lazy_ns`, `lazy_auto`); a tile
+arg asking for either is refused by `Topology.tile`, disco/unported.py).
+
+Re-expression of the reference's run loop (ref: src/disco/stem/
+fd_stem.c:1-168, :240 run1, :385 the main for(;;)). A tile object
+supplies the callbacks as methods:
+
+  poll_once() -> int      frags consumed this iteration (0 = idle)
+  metrics_items() -> dict optional, name -> int, flushed to shm metrics
+  in_seqs() -> dict       optional, consumer progress per in link
+  on_halt()               optional, called once on a clean exit
+
+The stem owns what every tile shares: cnc lifecycle (BOOT -> RUN ->
+HALT/FAIL), heartbeating, the lazy housekeeping interval with jitter,
+consumer-side fseq publication (so upstream producers can credit-gate),
+the wait/work/tpu histograms, and flushing tile metrics and the per-link
+telemetry counters into shared memory.
+"""
+from __future__ import annotations
+
+import random
+import time
+
+from ..runtime import CNC_RUN, CNC_HALT, CNC_FAIL
+from .metrics import HIST_U64, HistAccum
+
+
+class Stem:
+    def __init__(self, ctx, tile, hk_interval_s: float = 0.01,
+                 idle_sleep_s: float = 20e-6):
+        """ctx: TileCtx (cnc/metrics/fseqs); tile: the callback object."""
+        self.ctx, self.tile = ctx, tile
+        self.hk_interval_s = hk_interval_s
+        self.idle_sleep_s = idle_sleep_s
+        # slot-name ABI: the plan's names, in slot order
+        self._metrics_names = ctx.spec["metrics_names"]
+        # wait/work poll latency histograms, and the tile's own tpu
+        # histogram, seeded from shm so a supervised restart resumes the
+        # cumulative series
+        self._hists = {"wait": HistAccum(), "work": HistAccum()}
+        hv = ctx.hist_view()
+        self._hists["wait"].seed_from(hv[0:HIST_U64])
+        self._hists["work"].seed_from(hv[HIST_U64:2 * HIST_U64])
+        tpu = getattr(tile, "tpu_hist", None)
+        if tpu is not None:
+            tpu.seed_from(hv[2 * HIST_U64:3 * HIST_U64])
+        # per-link consume latency: each productive poll's duration is
+        # attributed to every in link whose consume counter advanced
+        self._link_hists = {ln: HistAccum() for ln in ctx.link_cons_views}
+        for ln, h in self._link_hists.items():
+            h.seed_from(ctx.link_cons_views[ln][3:3 + HIST_U64])
+        self._link_seen = {ln: ctx.in_rings[ln].m_consumed
+                           for ln in self._link_hists}
+
+    def _flush_metrics(self):
+        items = getattr(self.tile, "metrics_items", None)
+        if items is not None:
+            d = items()
+            view = self.ctx.metrics_view()
+            for i, k in enumerate(self._metrics_names):
+                view[i] = d.get(k, 0)
+        hv = self.ctx.hist_view()
+        self._hists["wait"].flush_into(hv[0:HIST_U64])
+        self._hists["work"].flush_into(hv[HIST_U64:2 * HIST_U64])
+        tpu = getattr(self.tile, "tpu_hist", None)
+        if tpu is not None:
+            tpu.flush_into(hv[2 * HIST_U64:3 * HIST_U64])
+        # the Ring joins' counters are the per-link truth for this tile;
+        # flushed wholesale, so the hot path writes no shm
+        for ln, view in self.ctx.link_cons_views.items():
+            r = self.ctx.in_rings[ln]
+            view[0] = r.m_consumed
+            view[1] = r.m_bytes
+            view[2] = r.m_overruns
+            self._link_hists[ln].flush_into(view[3:3 + HIST_U64])
+        for ln, view in self.ctx.link_prod_views.items():
+            r = self.ctx.out_rings[ln]
+            view[0] = r.m_pub
+            view[1] = r.m_pub_bytes
+            view[2] = r.m_backpressure
+
+    def _update_in_fseqs(self):
+        """Publish consumer progress so upstream producers see credits."""
+        seqs = getattr(self.tile, "in_seqs", None)
+        if seqs is None:
+            return
+        cur = seqs()
+        for ln, fs in self.ctx.in_fseqs.items():
+            if ln in cur:
+                fs.update(cur[ln])
+
+    def run(self, max_iters: int | None = None):
+        cnc = self.ctx.cnc
+        cnc.heartbeat()
+        cnc.state = CNC_RUN
+        # jittered lazy interval (fd_stem.c: avoid phase-locking tiles)
+        next_hk = 0.0
+        iters = 0
+        try:
+            while True:
+                now = time.perf_counter()
+                if now >= next_hk:
+                    cnc.heartbeat()
+                    st = cnc.state
+                    if st == CNC_HALT:
+                        break
+                    if st == CNC_FAIL:
+                        # externally failed (wedge watchdog): exit NOW,
+                        # leaving the FAIL state visible
+                        self._flush_metrics()
+                        return
+                    self._update_in_fseqs()
+                    self._flush_metrics()
+                    next_hk = now + self.hk_interval_s * (
+                        0.7 + 0.6 * random.random())
+                t0 = time.perf_counter_ns()
+                n = self.tile.poll_once()
+                t1 = time.perf_counter_ns()
+                # an idle poll is time spent waiting on upstream, a
+                # productive one is work
+                self._hists["work" if n else "wait"].add(t1 - t0)
+                if n:
+                    for ln, h in self._link_hists.items():
+                        c = self.ctx.in_rings[ln].m_consumed
+                        if c != self._link_seen[ln]:
+                            self._link_seen[ln] = c
+                            h.add(t1 - t0)
+                else:
+                    time.sleep(self.idle_sleep_s)
+                iters += 1
+                if max_iters is not None and iters >= max_iters:
+                    break
+        except Exception as e:
+            cnc.state = CNC_FAIL
+            self._flush_metrics()
+            from ..utils import log
+            log.err(f"tile failed: {e!r}")
+            raise
+        # drain-side bookkeeping before exit; the reference flushes
+        # before on_halt (stem.py:368-372), the copy after it, so what
+        # the halt path publishes is counted too
+        on_halt = getattr(self.tile, "on_halt", None)
+        if on_halt is not None:
+            on_halt()
+        self._update_in_fseqs()
+        self._flush_metrics()
+        cnc.state = CNC_HALT

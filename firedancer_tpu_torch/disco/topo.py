@@ -1,0 +1,348 @@
+"""Declarative topology: workspaces, links, tiles, objects (copy of the
+JAX package's disco/topo.py:64-639, cut to the main path).
+
+`Topology` declares the graph; `build()` materializes every object into one
+shared-memory workspace and returns a picklable `plan` dict of offsets,
+the inter-process ABI. Tile processes receive (plan, tile_name), join
+the workspace with create=False, and rebuild their rings, fseqs, cnc and
+metric views from offsets alone (ref: src/disco/topo/fd_topo.h:36-662,
+src/util/wksp/fd_wksp.h:27-47).
+
+Reliability: a tile input declared reliable gets an fseq; the upstream
+link's producer credit-gates on every reliable consumer's fseq
+(ref: src/tango/fctl/fd_fctl.h:4-10). Unreliable consumers are never
+waited on and must tolerate overruns.
+
+Where the copy differs from the reference:
+  * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
+    topo.py:256), so both packages' topologies can run side by side;
+  * `Topology()` takes none of the reference's section keywords
+    (topo.py:85-126: trace, slo, prof, shed, funk, replay, snapshot,
+    flight, tune); app.config refuses those sections;
+  * `tile` refuses, with NotImplementedError naming the ROADMAP.md
+    queue-A item that ports it (disco/unported.py), every tile kind
+    without an adapter here (the sign tile's keyswitch region,
+    :460-465, with it) and the per-tile args the port lacks: the
+    trace, prof and shed overrides (:366-459), chaos, and core pinning
+    (`cpu_idx`, and `cpu0` of `sharded_tile`, :153-220); a name that is
+    no kind at all is left to fail in its tile process, as in the
+    reference;
+  * the plan carries no trace, prof, funk, tune or slo regions, and
+    TileCtx has no trace, prof or knob handles.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..runtime import Workspace, Ring, Fseq, Cnc, Tcache
+from . import tiles as tiles_mod
+from .metrics import HIST_REGION_U64, LINK_CONS_U64, LINK_PROD_U64
+from .supervise import SUP_SLOT_MIN, normalize_policy
+from .unported import UNPORTED_KINDS, UNPORTED_TILE_ARGS, refuse
+
+METRICS_SLOTS = 64          # u64 counters per tile
+
+
+@dataclass
+class LinkSpec:
+    name: str
+    depth: int
+    mtu: int
+    external: bool = False        # producer/consumer outside the topo
+
+
+@dataclass
+class TileSpec:
+    name: str
+    kind: str
+    ins: list[dict] = field(default_factory=list)   # {link, reliable}
+    outs: list[str] = field(default_factory=list)
+    args: dict = field(default_factory=dict)
+
+
+class Topology:
+    """Declare links/tiles/objects, then build() into a wksp."""
+
+    def __init__(self, name: str, wksp_size: int = 1 << 26):
+        self.name = name
+        self.wksp_size = wksp_size
+        self.links: dict[str, LinkSpec] = {}
+        self.tiles: dict[str, TileSpec] = {}
+        self.tcaches: dict[str, int] = {}           # name -> depth
+
+    def link(self, name: str, depth: int = 128, mtu: int = 1280,
+             external: bool = False):
+        if name in self.links:
+            raise ValueError(f"duplicate link {name}")
+        self.links[name] = LinkSpec(name, depth, mtu, external)
+        return self
+
+    def tile(self, name: str, kind: str, ins=(), outs=(), **args):
+        """ins: link names (reliable) or (link, False) for unreliable."""
+        if name in self.tiles:
+            raise ValueError(f"duplicate tile {name}")
+        if kind in UNPORTED_KINDS:
+            refuse(f"tile kind {kind!r}", UNPORTED_KINDS[kind])
+        for key, item in UNPORTED_TILE_ARGS.items():
+            if key in args:
+                refuse(f"the tile arg {key!r}", item)
+        norm = []
+        for i in ins:
+            if isinstance(i, str):
+                norm.append({"link": i, "reliable": True})
+            else:
+                norm.append({"link": i[0], "reliable": bool(i[1])})
+        self.tiles[name] = TileSpec(name, kind, norm, list(outs), args)
+        return self
+
+    def tcache(self, name: str, depth: int = 4096):
+        self.tcaches[name] = depth
+        return self
+
+    def sharded_tile(self, name: str, kind: str, cnt: int, ins=(),
+                     outs=(), **args):
+        """Round-robin scale-out (the reference's multi-verify-tile
+        layout, fd_verify_tile.c:49-53): `cnt` shards of one consumer
+        kind. Shard i becomes tile f"{name}{i}" with rr_cnt=cnt /
+        rr_idx=i, consuming the SAME in links (frag ownership is disjoint
+        by seq % cnt) and producing outs[i]: one out link per shard,
+        since links are SPMC; the downstream stage fans in. A
+        list-valued `tcache` or `supervise` of length cnt distributes
+        one per shard; every other arg is shared.
+        The reference's per-shard in links (the exec family,
+        topo.py:173-203) are refused."""
+        cnt = int(cnt)
+        if cnt < 1:
+            raise ValueError(f"sharded tile {name}: cnt {cnt} < 1")
+        outs = list(outs)
+        if len(outs) != cnt:
+            raise ValueError(
+                f"sharded tile {name}: need one out link per shard "
+                f"({cnt}), got {outs}")
+        for e in ins:
+            if isinstance(e, (list, tuple)) and len(e) > 0 \
+                    and all(isinstance(x, str) for x in e):
+                refuse("per-shard in links (the exec tile family)", 5)
+        for i in range(cnt):
+            a = {}
+            for k, v in args.items():
+                if isinstance(v, (list, tuple)) and len(v) == cnt \
+                        and k in ("tcache", "supervise"):
+                    if v[i] is not None:
+                        a[k] = v[i]
+                else:
+                    a[k] = v
+            a["rr_cnt"] = cnt
+            a["rr_idx"] = i
+            self.tile(f"{name}{i}", kind, ins=ins, outs=[outs[i]], **a)
+        return self
+
+    def _validate(self):
+        producers: dict[str, str] = {}
+        consumed: set[str] = set()
+        for t in self.tiles.values():
+            for ln in t.outs:
+                if ln not in self.links:
+                    raise ValueError(f"tile {t.name}: unknown out link {ln}")
+                if ln in producers:
+                    raise ValueError(
+                        f"link {ln} has two producers "
+                        f"({producers[ln]}, {t.name}) — links are SPMC")
+                producers[ln] = t.name
+            for i in t.ins:
+                if i["link"] not in self.links:
+                    raise ValueError(
+                        f"tile {t.name}: unknown in link {i['link']}")
+                consumed.add(i["link"])
+        for ln, spec in self.links.items():
+            if ln not in producers and not spec.external:
+                raise ValueError(f"link {ln} has no producer")
+            if ln not in consumed and not spec.external:
+                raise ValueError(f"link {ln} has no consumer")
+
+    def build(self, wksp_name: str | None = None) -> dict:
+        """Materialize into a fresh workspace; return the picklable plan.
+
+        The caller is the single creator (replace mode); every tile
+        process joins with create=False."""
+        self._validate()
+        wksp_name = wksp_name or f"/fdtt_{self.name}"
+        w = Workspace(wksp_name, self.wksp_size)
+        plan: dict = {
+            "topology": self.name,
+            "wksp": {"name": wksp_name, "size": self.wksp_size},
+            # per-boot seed shared by verify (tag computation) and dedup
+            "seed": os.urandom(16).hex(),
+            "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
+        }
+
+        def zeroed(nbytes: int) -> int:
+            off = w.alloc(nbytes)
+            w.view(off, nbytes)[:] = 0
+            return off
+        try:
+            for ln, spec in self.links.items():
+                r = Ring.create(w, depth=spec.depth, mtu=spec.mtu)
+                plan["links"][ln] = {
+                    "ring_off": r.off, "arena_off": r.arena_off,
+                    "depth": spec.depth, "mtu": r.mtu,
+                    # producer telemetry block (single writer: the one
+                    # producing tile's stem)
+                    "prod_metrics_off": zeroed(LINK_PROD_U64 * 8),
+                }
+            for name, depth in self.tcaches.items():
+                tc = Tcache(w, depth=depth)
+                plan["tcaches"][name] = {"off": tc.off, "depth": depth}
+            for tn, t in self.tiles.items():
+                for i in t.ins:
+                    if i["reliable"]:
+                        plan["fseqs"][f"{i['link']}:{tn}"] = Fseq(w).off
+                cnc = Cnc(w)
+                names = list(getattr(tiles_mod.REGISTRY.get(t.kind),
+                                     "METRICS", []))
+                if len(names) > SUP_SLOT_MIN:
+                    raise ValueError(
+                        f"tile kind {t.kind}: {len(names)} metric slots "
+                        f"collide with supervisor slots (max "
+                        f"{SUP_SLOT_MIN})")
+                plan["tiles"][tn] = {
+                    "kind": t.kind,
+                    "ins": list(t.ins),
+                    "outs": list(t.outs),
+                    "args": dict(t.args),
+                    # per-(consumer, in-link) telemetry block, fed by
+                    # this tile's stem; readers match by (tile, link)
+                    "link_metrics": {i["link"]: zeroed(LINK_CONS_U64 * 8)
+                                     for i in t.ins},
+                    "supervise": normalize_policy(t.args.get("supervise")),
+                    "cnc_off": cnc.off,
+                    "metrics_off": zeroed(METRICS_SLOTS * 8),
+                    "hist_off": zeroed(HIST_REGION_U64 * 8),
+                    "hist_u64": HIST_REGION_U64,
+                    # explicit slot-name ABI: readers match by name
+                    "metrics_names": names,
+                }
+        except Exception:
+            w.close()
+            w.unlink()
+            raise
+        w.close()
+        return plan
+
+
+# ---------------------------------------------------------------------------
+# plan-side join helpers (used inside tile processes and by the monitor)
+# ---------------------------------------------------------------------------
+
+class TileCtx:
+    """A tile process's view of the plan: joined workspace, in/out rings,
+    fseqs (own consumer fseqs + downstream reliable fseqs for each out
+    link), tcaches, cnc, metric and per-link telemetry views."""
+
+    def __init__(self, plan: dict, tile_name: str):
+        self.plan, self.tile_name = plan, tile_name
+        self.spec = plan["tiles"][tile_name]
+        self.wksp = Workspace(plan["wksp"]["name"], plan["wksp"]["size"],
+                              create=False)
+        self.cnc = Cnc(self.wksp, off=self.spec["cnc_off"])
+        self.metrics_off = self.spec["metrics_off"]
+
+        def ring(ln):
+            li = plan["links"][ln]
+            return Ring(self.wksp, li["ring_off"], li["depth"],
+                        li["arena_off"], li["mtu"])
+
+        self.in_rings = {}
+        self.in_fseqs = {}
+        for i in self.spec["ins"]:
+            ln = i["link"]
+            self.in_rings[ln] = ring(ln)
+            key = f"{ln}:{tile_name}"
+            if i["reliable"] and key in plan["fseqs"]:
+                self.in_fseqs[ln] = Fseq(self.wksp, off=plan["fseqs"][key])
+
+        # ring rejoin: a RESTARTED consumer attaches at each producer's
+        # current seq instead of replaying from 0 (the supervisor sets
+        # rejoin_at_tail on the respawn plan); publishing the fseq here
+        # also clears the STALE sentinel
+        rejoin = bool(self.spec.get("rejoin_at_tail"))
+        self.in_seq0 = {}
+        for ln, r in self.in_rings.items():
+            self.in_seq0[ln] = int(r.seq) if rejoin else 0
+            fs = self.in_fseqs.get(ln)
+            if fs is not None and rejoin:
+                fs.update(self.in_seq0[ln])
+
+        self.out_rings = {}
+        self.out_fseqs = {}
+        for ln in self.spec["outs"]:
+            self.out_rings[ln] = ring(ln)
+            self.out_fseqs[ln] = [
+                Fseq(self.wksp, off=off)
+                for key, off in plan["fseqs"].items()
+                if key.split(":", 1)[0] == ln]
+
+        self.tcaches = {
+            name: Tcache(self.wksp, depth=tc["depth"], off=tc["off"])
+            for name, tc in plan["tcaches"].items()
+        }
+
+        # per-link telemetry views: consumer blocks for the in links,
+        # producer blocks for the out links, flushed by the stem
+        self.link_cons_views = {
+            ln: self.wksp.view(off, LINK_CONS_U64 * 8).view(np.uint64)
+            for ln, off in self.spec["link_metrics"].items()
+        }
+        self.link_prod_views = {
+            ln: self.wksp.view(plan["links"][ln]["prod_metrics_off"],
+                               LINK_PROD_U64 * 8).view(np.uint64)
+            for ln in self.spec["outs"]
+        }
+        # restart continuity: the stem flushes the Ring counters
+        # wholesale, so a respawned tile seeds them from shm (a fresh
+        # boot seeds zeros)
+        for ln, view in self.link_cons_views.items():
+            r = self.in_rings[ln]
+            r.m_consumed, r.m_bytes, r.m_overruns = (int(x)
+                                                     for x in view[:3])
+        for ln, view in self.link_prod_views.items():
+            r = self.out_rings[ln]
+            r.m_pub, r.m_pub_bytes, r.m_backpressure = (int(x)
+                                                        for x in view[:3])
+
+    def in_seqs0(self) -> dict[str, int]:
+        """Initial consume cursor per in link: 0 on a fresh boot, the
+        producer's current seq on a supervised restart (ring rejoin)."""
+        return dict(self.in_seq0)
+
+    def metrics_view(self):
+        return self.wksp.view(self.metrics_off, METRICS_SLOTS * 8) \
+            .view(np.uint64)
+
+    def hist_view(self):
+        """u64 view of this tile's wait/work/tpu histogram region."""
+        return self.wksp.view(self.spec["hist_off"],
+                              HIST_REGION_U64 * 8).view(np.uint64)
+
+    def close(self):
+        self.wksp.close()
+
+
+def read_metrics(wksp: Workspace, plan: dict, tile_name: str):
+    off = plan["tiles"][tile_name]["metrics_off"]
+    return wksp.view(off, METRICS_SLOTS * 8).view(np.uint64).copy()
+
+
+def read_heartbeat(wksp: Workspace, plan: dict, tile_name: str) -> int:
+    cnc = Cnc(wksp, off=plan["tiles"][tile_name]["cnc_off"])
+    return cnc.last_heartbeat
+
+
+def now_ticks() -> int:
+    # ONE clock for heartbeats and watchdog staleness (utils/tempo
+    # monotonic_ns == native fdtpu_ticks)
+    from ..utils.tempo import monotonic_ns
+    return monotonic_ns()

@@ -1,7 +1,8 @@
 """ctypes bindings for the port's own native runtime (see native/fdtpu.h).
 
-A copy of the JAX package's runtime/tango.py, trimmed to what the verify
-path uses: workspaces, frag rings, fseqs, cncs and tcaches. The library
+A copy of the JAX package's runtime/tango.py, trimmed to what the
+topology's main path uses: workspaces, frag rings with their per-join
+telemetry counters, fseqs, cncs and tcaches. The library
 is built from `firedancer_tpu_torch/native/` by `make` at first use.
 
 Layout convention: a Workspace is a named shm segment; objects (rings,
@@ -135,14 +136,31 @@ class Workspace:
     def unlink(self):
         lib.fdtpu_wksp_unlink(self.name.encode())
 
+    @staticmethod
+    def unlink_name(name: str):
+        lib.fdtpu_wksp_unlink(name.encode())
+
 
 class Ring:
-    """Single-producer frag ring + payload arena inside a workspace."""
+    """Single-producer frag ring + payload arena inside a workspace.
+
+    Every join carries its own telemetry counters (m_pub, m_pub_bytes,
+    m_backpressure on the publish side; m_consumed, m_bytes, m_overruns
+    on the gather side), plain Python ints bumped by the methods below.
+    Each tile process joins its own Ring per link, so they are that
+    tile's per-link counters; the stem flushes them into the link's shm
+    telemetry blocks (disco/metrics.py)."""
 
     def __init__(self, wksp: Workspace, off: int, depth: int,
                  arena_off: int = 0, mtu: int = 0, init: bool = False):
         self.wksp, self.off, self.depth = wksp, off, depth
         self.arena_off, self.mtu = arena_off, mtu
+        self.m_pub = 0
+        self.m_pub_bytes = 0
+        self.m_backpressure = 0
+        self.m_consumed = 0
+        self.m_bytes = 0
+        self.m_overruns = 0
         if init:
             rc = lib.fdtpu_ring_init(wksp.base, off, depth)
             if rc:
@@ -170,6 +188,8 @@ class Ring:
             payload, (bytes, bytearray)) else payload
         assert data.nbytes <= self.mtu
         self.wksp.view(slot_off, data.nbytes)[:] = data
+        self.m_pub += 1
+        self.m_pub_bytes += data.nbytes
         return lib.fdtpu_ring_publish(self.wksp.base, self.off, sig,
                                       slot_off, data.nbytes, ctl, orig)
 
@@ -199,13 +219,25 @@ class Ring:
             mask.ctypes.data_as(ct.POINTER(ct.c_uint8)),
             start, n, self.arena_off, self.mtu,
             offs, len(fseqs) if fseqs else 0, ct.byref(pub))
-        return int(stop), int(pub.value)
+        stop, pub = int(stop), int(pub.value)
+        if pub:
+            self.m_pub += pub
+            live = mask[start:stop] != 0
+            self.m_pub_bytes += int(sizes[start:stop][live].sum())
+        if stop < n:
+            self.m_backpressure += 1     # credits ran out mid-batch
+        return stop, pub
 
     def consume(self, seq: int):
         """-> (rc, Frag). rc 0=ok, 1=not yet, -1=overrun."""
         frag = Frag()
         rc = lib.fdtpu_ring_consume(self.wksp.base, self.off, seq,
                                     ct.byref(frag))
+        if rc == 0:
+            self.m_consumed += 1
+            self.m_bytes += frag.sz
+        elif rc == -1:
+            self.m_overruns += 1
         return rc, frag
 
     def payload(self, frag: Frag) -> np.ndarray:
@@ -230,14 +262,21 @@ class Ring:
             sigs.ctypes.data_as(ct.POINTER(ct.c_uint64)), ct.byref(ovr),
             seqs.ctypes.data_as(ct.POINTER(ct.c_uint64))
             if want_seqs else None)
+        if n:
+            self.m_consumed += int(n)
+            self.m_bytes += int(sizes[:n].sum())
+        self.m_overruns += int(ovr.value)
         if want_seqs:
             return n, seq_io.value, buf, sizes, sigs, ovr.value, seqs
         return n, seq_io.value, buf, sizes, sigs, ovr.value
 
     def credits(self, fseqs: list["Fseq"]) -> int:
         offs = (ct.c_uint64 * len(fseqs))(*[f.off for f in fseqs])
-        return lib.fdtpu_fctl_credits(self.wksp.base, self.off, offs,
-                                      len(fseqs))
+        c = lib.fdtpu_fctl_credits(self.wksp.base, self.off, offs,
+                                   len(fseqs))
+        if c <= 0:
+            self.m_backpressure += 1     # a blocked publish attempt
+        return c
 
 
 def u64_snapshot(view_u64):
@@ -259,6 +298,12 @@ class Fseq:
 
     def update(self, seq: int):
         lib.fdtpu_fseq_update(self.wksp.base, self.off, seq)
+
+    def mark_stale(self):
+        """Exclude this consumer from upstream credit flow (a dead or
+        restarting tile: the native fctl skips the sentinel). Cleared by
+        the next update()."""
+        lib.fdtpu_fseq_update(self.wksp.base, self.off, FSEQ_STALE)
 
 
 class Cnc:

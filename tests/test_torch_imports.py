@@ -1,10 +1,13 @@
 """The port stands alone: firedancer_tpu_torch and chip_smoke.py import
-neither jax nor the JAX package, and entry points refuse to run on a
-card that is not there."""
+neither jax nor the JAX package, nor does a tile process the port's
+launcher spawns, and entry points refuse to run on a card that is not
+there."""
 import ast
+import multiprocessing as mp
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -35,7 +38,7 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'firedancer_tpu'))\n"
         "print(len(mods), bad)\n"
-        "assert len(mods) >= 15 and not bad, bad\n")
+        "assert len(mods) >= 35 and not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -75,3 +78,47 @@ def test_rlc_verify_batch_without_device_raises_without_a_card(entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.rlc_verify_batch(z, z[:, :32], z, np.zeros(2, np.int32),
                              z[:, :16])
+
+
+def _tile_probe(plan, tile_name, q):
+    """Run a tile process's entry point, then report the forbidden
+    modules it holds."""
+    from firedancer_tpu_torch.disco.launch import tile_main
+    tile_main(plan, tile_name)
+    q.put(sorted(k for k in sys.modules if _forbidden(k)))
+
+
+def test_spawned_verify_tile_process_loads_no_jax():
+    from firedancer_tpu_torch.disco import Topology
+    from firedancer_tpu_torch.runtime import (CNC_HALT, CNC_RUN, Cnc,
+                                              Workspace)
+    topo = (Topology(f"ttimp{os.getpid()}", wksp_size=1 << 22)
+            .link("in", depth=16, external=True)
+            .link("out", depth=16, external=True)
+            .tcache("tc", depth=64)
+            .tile("verify", "verify", ins=["in"], outs=["out"], batch=16,
+                  device="cpu"))
+    plan = topo.build()
+    w = Workspace(plan["wksp"]["name"], plan["wksp"]["size"], create=False)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=_tile_probe, args=(plan, "verify", q),
+                    daemon=True)
+    p.start()
+    try:
+        cnc = Cnc(w, off=plan["tiles"]["verify"]["cnc_off"])
+        deadline = time.time() + 120
+        while cnc.state != CNC_RUN:
+            assert p.is_alive() and time.time() < deadline, \
+                "the verify tile never reached RUN"
+            time.sleep(0.02)
+        cnc.state = CNC_HALT
+        assert q.get(timeout=60) == []
+        p.join(30)
+        assert not p.is_alive() and p.exitcode == 0
+    finally:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+        w.close()
+        w.unlink()
