@@ -30,7 +30,21 @@ and read just after:
             saturation under which the prefilter runs): the verify tile
             runs the kernels in its own process, so its batch counts
             stand for their launches; each prints the record bench.py's
-            _e2e_run prints.
+            _e2e_run prints;
+  execution phases 11-12: the leader's execution leg. 11 holds the
+            wave-scan kernel (csrc/wave_scan.cu) to its plain version on
+            bank0's wave at bench.py's shape (8 microblocks x 31 synth
+            transfers from 16 signers) and on a random block of 4096
+            transfers over 768 accounts with u64 edge values, times it,
+            and runs the pipelined WaveExecutor (stage k+1 before
+            finalize k) against the serial oracle; 12 boots
+            firedancer_tpu_torch/cfg/leader.toml (bench.py's leader
+            topology without its shred leg: synth -> verify x2 -> dedup
+            -> pack -> bank0 -> poh -> sink, seven kinds in eight
+            processes, verify and bank on the card), waits until all
+            4096 frames are accounted for by bench.py's conservation
+            rule and prints the leader rate (bench.py's
+            e2e_leader_tps); the bank counts its own kernel launches.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -66,6 +80,18 @@ FLOOD_CHUNKS = 4          # all-forged chunks of TILE_BATCH frames (phase 9)
 FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
 TOPO_FRAMES = 65536       # phase 10a: cfg/sigverify.toml's synth count
 TOPO_PREFILTER_FRAMES = 16384   # phase 10b, bulk_prefilter
+LEADER_FRAMES = 4096      # phase 12: cfg/leader.toml's synth count
+BANK_WAVE_MBS = 8         # phase 11: bank0's wave, microblocks ...
+MB_TXNS = 31              # ... of max_txn_per_microblock transfers
+PIPE_WAVES = 4            # phase 11: bank waves through the pipeline
+RAND_TXNS = 4096          # phase 11: the random block's transfers ...
+RAND_ACCTS = 768          # ... over the leader topology's unique pool
+# the wave scan's integer operations per active lane (the u64 need, two
+# u64 compares, the charge select and subtract, the credit and the
+# status: each u64 step as two 32-bit operations) and per account slot
+# (the 64-bit load and store of the balance halves)
+WAVE_OPS_PER_LANE = 20
+WAVE_OPS_PER_ACCT = 4
 ITERS = 20
 N_UNIQUE = 256          # distinct signatures behind the 8192 lanes
 DEVICE = "cuda"
@@ -358,6 +384,201 @@ def run_topology(root, tag, count, verify_last=False, **verify):
             os.environ["FDTPU_VERIFY_INFLIGHT"] = env0
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device ms per call of `fn`, its `iters` calls captured in one
+    CUDA graph and replayed between CUDA events: the kernels' own time,
+    without the host's launch cost between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def synth_transfers(n: int, seed: int):
+    """n system transfers as the synth tile makes them (16 signers in
+    turn, each to its own destination, an amount in [2^20, 2^31), the
+    fee of one signature) -> (SystemTxn list, genesis {pubkey: 2^44}).
+    Built without signing: the bank executes what the txns say."""
+    from firedancer_tpu_torch.pack.scheduler import FEE_PER_SIGNATURE
+    from firedancer_tpu_torch.svm.executor import SystemTxn
+    from firedancer_tpu_torch.tiles.synth import synth_signer_seed
+    from firedancer_tpu_torch.utils.ed25519_ref import keypair
+    pubs = [keypair(synth_signer_seed(i))[2] for i in range(16)]
+    rng = np.random.default_rng(seed)
+    txns = [SystemTxn(pubs[i % 16], hashlib.sha256(b"dest-%d" % i).digest(),
+                      int(rng.integers(1 << 20, 1 << 31)), FEE_PER_SIGNATURE)
+            for i in range(n)]
+    return txns, {p: 1 << 44 for p in pubs}
+
+
+def u64_block(n: int, n_acct: int, seed: int):
+    """A random block of n transfers over n_acct accounts with u64 edge
+    values: balances up to 2^64 - 1 (a quarter at or above 2^63), amounts
+    and fees near 2^63 and 2^64 so amount + fee wraps, hi-word borrows.
+    -> (SystemTxn list, genesis {pubkey: u64})."""
+    from firedancer_tpu_torch.svm.executor import SystemTxn
+    rng = np.random.default_rng(seed)
+    keys = [hashlib.sha256(b"acct-%d" % i).digest() for i in range(n_acct)]
+    edges = [0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+             (1 << 64) - 1]
+
+    def u64(p_edge):
+        if rng.random() < p_edge:       # at an edge or just below it
+            e = edges[rng.integers(len(edges))]
+            return (e - int(rng.integers(0, 3))) % (1 << 64)
+        return int(rng.integers(0, 1 << 62)) << int(rng.integers(0, 3))
+    genesis = {k: u64(0.25) if i % 4
+               else (1 << 63) + int(rng.integers(0, 1 << 62))
+               for i, k in enumerate(keys)}
+    txns = [SystemTxn(keys[rng.integers(n_acct)], keys[rng.integers(n_acct)],
+                      u64(0.2), u64(0.1) >> int(rng.integers(0, 40)))
+            for _ in range(n)]
+    return txns, genesis
+
+
+def wave_tables(txns, genesis):
+    """The staged table of `txns` and the balance halves of its account
+    slots, as WaveExecutor.stage and dispatch build them -> numpy
+    (packed (Wp, Cp, 7) uint32, bal_hi, bal_lo (A,) uint32, W, C, active
+    lanes)."""
+    from firedancer_tpu_torch.svm import executor as texec
+    key_idx = {}
+    for t in txns:
+        for k in (t.src, t.dst):
+            key_idx.setdefault(k, len(key_idx))
+    packed, tix, act = texec.pack_table(txns, key_idx)
+    n = texec._bucket(len(key_idx) + 1)
+    hi, lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    for k, i in key_idx.items():
+        v = genesis.get(k, 0)
+        hi[i], lo[i] = v >> 32, v & 0xFFFFFFFF
+    return packed, hi, lo, tix.shape[0], tix.shape[1], int(act.sum())
+
+
+def run_leader(root, tag):
+    """Phase 12: boot firedancer_tpu_torch/cfg/leader.toml with verify and
+    bank on the card, wait until every tile runs, then until the synth
+    has published its 4096 frames and every one is accounted for
+    (bench.py's _leader_wait_drained: bank0 txns plus the frames dropped
+    at a named hop equal the count, and pack has retired every
+    microblock); halt the tiles and read their flushed metrics, budgets
+    and link counters. -> record. Raises on a count mismatch, a dead tile
+    or a timeout."""
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.disco.metrics import (
+        link_lag, quantile_ns, read_hists, read_link_metrics)
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "leader.toml"),
+        overrides={"tile": [{"name": "verify", "device": DEVICE},
+                            {"name": "bank0", "device": DEVICE}]})
+    count = next(t["count"] for t in cfg["tile"] if t["name"] == "synth")
+    assert count == LEADER_FRAMES
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke{tag}{os.getpid()}").build())
+    shards = [tn for tn in runner.plan["tiles"] if tn.startswith("verify")]
+    try:
+        t_boot = time.perf_counter()
+        runner.start()
+        runner.wait_running(timeout_s=300)
+        t0 = time.perf_counter()
+        # each tile's work so far (boot-time ticks and slot frags), so the
+        # budget below counts the drain window's work only
+        work0 = {tn: read_hists(runner.wksp, runner.plan, tn)["work"]
+                 ["sum_ns"] for tn in runner.plan["tiles"]}
+        runner.wait_idle("synth", "tx", count, timeout_s=300, poll_s=0.002)
+        deadline = time.time() + 300
+        while True:
+            runner.check_failures()
+            p, b = runner.metrics("pack"), runner.metrics("bank0")
+            dropped = runner.metrics("dedup")["dup"] + p["parse_fail"]
+            for tn in shards:
+                v = runner.metrics(tn)
+                dropped += v["parse_fail"] + v["dedup_drop"] \
+                    + v["verify_fail"]
+            if b["txns"] + dropped >= count \
+                    and p["completions"] == p["microblocks"]:
+                break
+            assert time.time() < deadline, \
+                f"leader loop never drained: pack {p}, bank {b}"
+            time.sleep(0.002)
+        wall = time.perf_counter() - t0
+        # the stems flush their metrics, histograms and link counters on
+        # a clean exit; the workspace stays until close()
+        runner.halt()
+        for tn, proc in runner.procs.items():
+            assert proc.exitcode == 0, f"tile {tn} exit code {proc.exitcode}"
+        m = {tn: runner.metrics(tn) for tn in runner.plan["tiles"]}
+        b, p, poh = m["bank0"], m["pack"], m["poh"]
+        parsed = b["txns"] - b["exec_skip"]
+        for key, got, want in (
+                ("bank0.txns + drops", b["txns"] + dropped, count),
+                ("bank0.exec_fail", b["exec_fail"], 0),
+                ("bank0.exec_skip", b["exec_skip"], 0),
+                ("bank0.transfers", b["transfers"], parsed),
+                ("poh.mixins", poh["mixins"], b["microblocks"]),
+                ("pack.completions", p["completions"], p["microblocks"]),
+                ("pack.scheduled", p["scheduled"], b["txns"])):
+            assert got == want, f"{key} = {got}, expected {want}"
+        assert b["wave_launches"] > 0, "the bank launched no wave scan"
+        for tn in shards:
+            assert m[tn]["batches"] > 0 and m[tn]["verify_fail"] == 0, \
+                f"{tn}: {m[tn]}"
+        budget = {}
+        for tn in runner.plan["tiles"]:
+            h = read_hists(runner.wksp, runner.plan, tn)
+            work, wait = h["work"], h["wait"]
+            busy = work["sum_ns"] + wait["sum_ns"]
+            budget[tn] = {
+                "work_p50_us": quantile_ns(work, 0.50) / 1e3,
+                "work_p99_us": quantile_ns(work, 0.99) / 1e3,
+                "occupancy": work["sum_ns"] / busy if busy else 0.0,
+                # work from RUN to halt over the drain window's wall
+                "window_work_s": (work["sum_ns"] - work0[tn]) / 1e9,
+                "window_share": (work["sum_ns"] - work0[tn]) / 1e9 / wall}
+        links = {}
+        for ln, rec in read_link_metrics(runner.wksp, runner.plan).items():
+            cons = rec["consumers"]
+            links[ln] = {
+                "pub": rec["pub"],
+                "consumed": sum(c["consumed"] for c in cons.values()),
+                "lost": sum(link_lag(rec, tn) for tn in cons),
+                "backpressure": rec["backpressure"]}
+            assert links[ln]["lost"] == 0, f"link {ln}: {links[ln]}"
+        bh = read_hists(runner.wksp, runner.plan, "bank0")
+        return {
+            "e2e_leader_tps": b["txns"] / wall, "e2e_leader_count":
+            b["txns"], "e2e_leader_wall_s": wall, "boot_s": t0 - t_boot,
+            "bank_microblocks": b["microblocks"],
+            "bank_wave_launches": b["wave_launches"],
+            "txns_per_microblock": b["txns"] / b["microblocks"],
+            "verify_batches": {tn: m[tn]["batches"] for tn in shards},
+            "poh_ticks": poh["ticks"], "pack_blocks": p["blocks"],
+            "bank_dispatch_spans": bh["tpu"]["count"],
+            "bank_dispatch_p50_ms": quantile_ns(bh["tpu"], 0.50) / 1e6,
+            "bank_dispatch_p99_ms": quantile_ns(bh["tpu"], 0.99) / 1e6,
+            "bank_dispatch_share_of_work":
+                bh["tpu"]["sum_ns"] / bh["work"]["sum_ns"],
+            "stage_budget": budget, "link_budget": links}
+    finally:
+        runner.halt()
+        runner.close()
+
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -394,7 +615,8 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from firedancer_tpu_torch.ops import _build, cuda_ed, cuda_msm, cuda_sha
+    from firedancer_tpu_torch.ops import (_build, cuda_ed, cuda_msm,
+                                          cuda_sha, cuda_wave)
     from firedancer_tpu_torch.ops import ed25519 as ed
     from firedancer_tpu_torch.ops import msm, sha2
     from firedancer_tpu_torch.ops.params import fixed_base_tables
@@ -404,12 +626,13 @@ def main() -> int:
 
     def counts() -> dict:
         return {**cuda_sha.launches, "ed25519_verify": cuda_ed.launches,
-                **cuda_msm.launches}
+                **cuda_msm.launches, **cuda_wave.launches}
 
     def reset_counts():
         cuda_ed.launches = 0
         cuda_sha.launches.update(sha512=0, sha512_ram=0)
         cuda_msm.launches.update(msm_stage1=0, msm_stage2=0)
+        cuda_wave.launches.update(wave_scan=0)
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -857,7 +1080,8 @@ def main() -> int:
     assert sorted(out) == sorted(txns), "out ring != the unique valid txns"
     assert not set(out) & set(torsion), "a torsion forgery was forwarded"
     log(f"flood path launches {flood_path}")
-    assert min(flood_path.values()) > 0
+    assert min(flood_path[k] for k in ("sha512", "ed25519_verify",
+                                       "msm_stage1", "msm_stage2")) > 0
 
     # 10. the main path as the system runs it: the topology launcher
     # boots synth -> verify -> dedup -> sink as four tile processes over
@@ -887,6 +1111,109 @@ def main() -> int:
             assert v["rlc_pass"] == v["rlc_batches"] and \
                 v["rlc_shed"] == 0, "a valid chunk failed the RLC equation"
 
+    # 11. the leader's execution leg in process: the wave-scan kernel
+    # against its plain version at bank0's wave (8 microblocks x 31 synth
+    # transfers, 16 signers) and on a random block with u64 edge values;
+    # its time; then the pipelined WaveExecutor against the serial oracle
+    from firedancer_tpu_torch.funk import Funk
+    from firedancer_tpu_torch.svm import executor as texec
+    log(f"== 11. wave scan kernel vs plain; pipelined WaveExecutor {card}")
+    per_wave = BANK_WAVE_MBS * MB_TXNS
+    bench_txns, bench_gen = synth_transfers(per_wave * PIPE_WAVES, 17)
+    rand_txns, rand_gen = u64_block(RAND_TXNS, RAND_ACCTS, 18)
+    wave_err = 0
+    for name, txns, gen in (("wave_scan", bench_txns[:per_wave], bench_gen),
+                            ("wave_scan@random", rand_txns, rand_gen)):
+        packed, hi, lo, w, c, lanes = wave_tables(txns, gen)
+        ins_d = [torch.from_numpy(x).to(dev) for x in (packed, hi, lo)]
+        got = [x.cpu().numpy() for x in cuda_wave.wave_scan(*ins_d)]
+        want = [x.cpu().numpy() for x in cuda_wave.wave_scan_plain(*ins_d)]
+        torch.cuda.synchronize()
+        err = max(int(np.abs(g.astype(np.int64) - v.astype(np.int64)).max())
+                  for g, v in zip(got, want))
+        assert err == 0, f"{name}: kernel != plain (max err {err})"
+        st = got[2]
+        hist = {k: int((st == k).sum()) for k in (0, 1, 2)}
+        assert sum(hist.values()) == lanes == len(txns)
+        if name == "wave_scan":
+            oracle = dict(gen)
+            assert sorted(texec.execute_block_serial(oracle, txns)) \
+                == sorted(st[st >= 0].tolist())
+        else:
+            assert min(hist.values()) > 0, f"{name}: statuses {hist}"
+        wave_err = max(wave_err, err)
+        ops = lanes * WAVE_OPS_PER_LANE + len(hi) * WAVE_OPS_PER_ACCT
+        nbytes = packed.nbytes + 4 * hi.nbytes + st.nbytes
+        # the kernel's own time from a CUDA graph of ITERS launches; a
+        # call from Python (checks, three allocations, the ctypes launch)
+        # costs more than the kernel, so back-to-back calls time the host
+        call_ms = cuda_ms(lambda: cuda_wave.wave_scan(*ins_d), ITERS)
+        st_ = stats[name] = stats_of(
+            graph_ms(lambda: cuda_wave.wave_scan(*ins_d), ITERS),
+            cuda_ms(lambda: cuda_wave.wave_scan_plain(*ins_d), 1), ops,
+            nbytes)
+        st_["call_ms"] = call_ms
+        log(f"{name}: {len(txns)} transfers, {len(hi)} account slots, "
+            f"{w} waves x {c} lanes (staged {packed.shape[0]} x "
+            f"{packed.shape[1]}), statuses ok/insufficient/fee_fail "
+            f"{hist[0]}/{hist[1]}/{hist[2]}; kernel == plain, max_abs_err "
+            f"{err}; kernel {st_['ms']:.4f} ms on the device (CUDA graph "
+            f"of {ITERS} launches; {1e3 * st_['ms'] / w:.2f} us a wave "
+            f"step), {call_ms:.4f} ms a call from Python (CUDA events over "
+            f"{ITERS} calls), plain {st_['plain_ms']:.2f} ms, bound "
+            f"{st_['bound_ms']:.6f} ms ({ops} int32 ops -> "
+            f"{st_['ops_ms']:.6f} ms, {nbytes} B -> {st_['bytes_ms']:.6f} "
+            f"ms); critical chain {w} dependent wave steps {card}")
+    reset_counts()
+    funk = Funk()
+    for k, v in bench_gen.items():
+        funk.rec_write(None, k, v)
+    oracle = dict(bench_gen)
+    want_st = texec.execute_block_serial(oracle, bench_txns)
+    wx = texec.WaveExecutor(DEVICE)
+    pending, got_st = None, []
+    t0 = time.perf_counter()
+    for k in range(PIPE_WAVES):
+        staged = wx.stage(bench_txns[k * per_wave:(k + 1) * per_wave])
+        if pending is not None:
+            got_st += wx.finalize(funk, pending)
+            funk.txn_publish(pending.xid)
+        pending = wx.dispatch(funk, None, k + 1, staged)
+    got_st += wx.finalize(funk, pending)
+    funk.txn_publish(pending.xid)
+    pipe_s = time.perf_counter() - t0
+    exec_path = counts()
+    assert got_st == want_st, "pipelined WaveExecutor != serial oracle"
+    assert funk.root_items() == oracle, "funk balances != serial oracle"
+    assert exec_path["wave_scan"] == PIPE_WAVES, exec_path
+    log(f"pipelined WaveExecutor: {PIPE_WAVES} bank waves of {per_wave} "
+        f"transfers, statuses and every balance == execute_block_serial, "
+        f"{pipe_s * 1e3:.2f} ms host wall ({len(bench_txns) / pipe_s:.0f} "
+        f"transfers/s), launches {exec_path} {card}")
+
+    # 12. the leader's execution leg as the system runs it:
+    # cfg/leader.toml booted by the topology launcher; the bank counts the
+    # wave scans it launches in its own process (wave_launches), the
+    # verify shards their strict batches
+    log(f"== 12. topology: cfg/leader.toml, {LEADER_FRAMES} frames, "
+        f"verify x2 and bank0 on the card {card}")
+    rec = run_leader(root, "12")
+    log(f"12 record {json.dumps(rec)}")
+    log(f"12: e2e_leader_tps {rec['e2e_leader_tps']:.1f} "
+        f"({rec['e2e_leader_count']} bank txns in {rec['e2e_leader_wall_s']:.3f} s from RUN to drained; "
+        f"boot {rec['boot_s']:.1f} s, not gated, the verify shards' first "
+        f"np.isin included), {rec['bank_microblocks']} microblocks "
+        f"({rec['txns_per_microblock']:.2f} txns each), "
+        f"{rec['bank_wave_launches']} wave scans, bank dispatch p50/p99 "
+        f"{rec['bank_dispatch_p50_ms']:.3f}/{rec['bank_dispatch_p99_ms']:.3f}"
+        f" ms, {100 * rec['bank_dispatch_share_of_work']:.1f}% of bank "
+        f"work, verify batches {rec['verify_batches']}; work over the "
+        f"drain window by tile " + ", ".join(
+            f"{tn} {b['window_work_s']:.3f} s ({100 * b['window_share']:.0f}%)"
+            for tn, b in sorted(rec["stage_budget"].items(),
+                                key=lambda kv: -kv[1]["window_work_s"]))
+        + f" {card}")
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path)
     for name, src, rep, err in (
@@ -908,6 +1235,15 @@ def main() -> int:
                         "ms": st["ms"], "plain_ms": st["plain_ms"],
                         "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": None})
+    st = stats["wave_scan"]
+    kernels.append({"name": "wave_scan", "route": "cuda",
+                    "source": "firedancer_tpu_torch/csrc/wave_scan.cu",
+                    "replaces": "firedancer_tpu/svm/executor.py:111",
+                    "launches": exec_path["wave_scan"]
+                    + rec["bank_wave_launches"],
+                    "max_abs_err": wave_err, "ms": st["ms"],
+                    "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                    "bound_by": st["bound_by"], "library_ms": None})
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

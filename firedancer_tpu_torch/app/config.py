@@ -24,7 +24,8 @@ Schema (the reference's, cut to the kinds the port has):
 
     [[tile]]
     name = "verify"
-    kind = "verify"          # synth | verify | dedup | sink
+    kind = "verify"          # synth | verify | dedup | sink | pack |
+                             # bank | poh
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
@@ -42,8 +43,11 @@ Schema (the reference's, cut to the kinds the port has):
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
-    verify, dedup and sink, plus `device` on verify (the card, "cuda",
-    unless "cpu");
+    verify, dedup, sink, pack, bank and poh, plus `device` on verify and
+    bank (the card, "cuda", unless "cpu"); a gated key the port has not
+    ported (pack's `resolved_in` and `bundle_in`, the bank's exec tile
+    family, `genesis_ckpt`, `rpc_port` and `ws_port`) passes the gate
+    and is refused by its adapter;
   * each top-level section the reference accepts but the port has not
     ported (trace, slo, prof, shed, witness, funk, replay, snapshot,
     flight, tune) raises NotImplementedError naming its ROADMAP.md
@@ -77,6 +81,14 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
                "mode", "prefilter_shed", "device"),
     "dedup": ("tcache", "batch"),
     "sink": ("batch",),
+    "pack": ("txn_in", "bank_links", "done_links", "slot_in", "bundle_in",
+             "slot_ms", "batch", "max_txn_per_microblock", "wave",
+             "resolved_in"),
+    "bank": ("exec", "poh_link", "forward_payloads", "slots_per_epoch",
+             "genesis_ckpt", "genesis", "genesis_synth", "rpc_port",
+             "ws_port", "wave", "redispatch_s", "exec_links", "exec_done",
+             "device"),
+    "poh": ("hashes_per_tick", "ticks_per_slot", "seed", "slot_link"),
 }
 
 

@@ -8,10 +8,10 @@ JAX package's app/run.py).
 Loads the config stack, materializes the topology, spawns every tile,
 runs the supervisor (fail-fast by default), prints the monitor table
 periodically, and tears down on SIGINT or after --duration seconds.
-`--device` (default cuda) sets `device` on every verify tile: on the
-card its kernels run; without one the verify tile fails its boot, the
-supervisor tears the topology down and the command exits 1. `cpu` runs
-the kernels' plain versions.
+`--device` (default cuda) sets `device` on every verify and bank tile:
+on the card their kernels run; without one the first such tile fails
+its boot, the supervisor tears the topology down and the command exits
+1. `cpu` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="firedancer_tpu_torch run")
     ap.add_argument("config", nargs="+", help="TOML layers, later wins")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="device of every verify tile")
+                    help="device of every verify and bank tile")
     ap.add_argument("--duration", type=float, default=0.0,
                     help="seconds to run (0 = until SIGINT)")
     ap.add_argument("--name", default=None, help="topology name override")
@@ -41,7 +41,7 @@ def main(argv=None) -> int:
 
     topo = build_topology(load_config(*args.config), name=args.name)
     for t in topo.tiles.values():
-        if t.kind == "verify":
+        if t.kind in ("verify", "bank"):
             t.args["device"] = args.device
     runner = TopologyRunner(topo.build()).start()
     try:

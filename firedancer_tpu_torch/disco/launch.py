@@ -12,10 +12,10 @@ Where the copy differs from the reference:
     already hold a CUDA context, which a forked child must not inherit;
     nothing in a tile process imports jax or the JAX package (the
     reference's `_setup_jax`, launch.py:40-51, is gone);
-  * `start` loads the native runtime and, when a verify tile runs on
-    the card, builds the CUDA kernels once in the runner before any tile
-    spawns, so the tiles load finished libraries instead of racing to
-    build them;
+  * `start` loads the native runtime and, when a verify or bank tile
+    runs on the card, builds the CUDA kernels once in the runner before
+    any tile spawns, so the tiles load finished libraries instead of
+    racing to build them;
   * a tile whose adapter fails to construct (a kernel that does not
     build or launch in the verify tile's warmup, an unported kind)
     leaves its cnc in FAIL and exits non-zero, so the supervisor tears
@@ -50,6 +50,13 @@ def tile_main(plan: dict, tile_name: str):
         from ..utils import sandbox
         sandbox.apply(max_files=int(args.get("sandbox_files", 1024)),
                       close_high_fds=False)
+    if args.get("device") == "cpu":
+        # a tile on the plain versions computes in its own process: one
+        # torch thread each, or eight tile processes' thread pools
+        # oversubscribe the host's cores (cfg/leader.toml's verify warmup
+        # took some 40 times longer)
+        import torch
+        torch.set_num_threads(1)
     from ..utils import log
     log.init(f"{plan['topology']}:{tile_name}")
     log.info("tile booting")
@@ -76,14 +83,21 @@ def plan_path(topology_name: str) -> str:
     return f"/dev/shm/fdtt_{topology_name}.plan.json"
 
 
+def _on_card(t: dict) -> bool:
+    """Does tile `t` of a plan run kernels on the card: a verify tile, or
+    a bank tile with exec="svm", whose `device` is not "cpu"."""
+    if t["kind"] == "bank" and t["args"].get("exec", "stub") != "svm":
+        return False
+    return t["kind"] in ("verify", "bank") \
+        and str(t["args"].get("device", "cuda")).startswith("cuda")
+
+
 def prebuild(plan: dict):
     """Build what the tile processes would otherwise build at once, in
     this process: the native runtime (loaded by importing runtime), and
-    the CUDA kernels when a verify tile runs on the card and a card is
-    there (without one, the tile fails its boot as it must)."""
-    if not any(t["kind"] == "verify"
-               and str(t["args"].get("device", "cuda")).startswith("cuda")
-               for t in plan["tiles"].values()):
+    the CUDA kernels when a verify or bank tile runs on the card and a
+    card is there (without one, the tile fails its boot as it must)."""
+    if not any(_on_card(t) for t in plan["tiles"].values()):
         return
     import torch
     if torch.cuda.is_available():

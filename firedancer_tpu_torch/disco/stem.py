@@ -1,6 +1,5 @@
 """Stem: the tile run loop (copy of the JAX package's disco/stem.py:30-377
-without the trace and profiler hooks, the adapters' housekeeping hook,
-which no ported adapter has, the chaos harness and the pinned or
+without the trace and profiler hooks, the chaos harness and the pinned or
 depth-derived housekeeping cadence (`lazy_ns`, `lazy_auto`); a tile
 arg asking for either is refused by `Topology.tile`, disco/unported.py).
 
@@ -9,6 +8,8 @@ fd_stem.c:1-168, :240 run1, :385 the main for(;;)). A tile object
 supplies the callbacks as methods:
 
   poll_once() -> int      frags consumed this iteration (0 = idle)
+  housekeeping()          optional, called at the lazy interval (the poh
+                          tile's tick clock)
   metrics_items() -> dict optional, name -> int, flushed to shm metrics
   in_seqs() -> dict       optional, consumer progress per in link
   on_halt()               optional, called once on a clean exit
@@ -113,6 +114,9 @@ class Stem:
                         self._flush_metrics()
                         return
                     self._update_in_fseqs()
+                    hk = getattr(self.tile, "housekeeping", None)
+                    if hk is not None:
+                        hk()
                     self._flush_metrics()
                     next_hk = now + self.hk_interval_s * (
                         0.7 + 0.6 * random.random())

@@ -1,13 +1,14 @@
 """Tile adapters + registry: kind string -> runnable tile object (copy of
-the four adapters of the JAX package's disco/tiles.py that the main path
-runs: synth, verify, dedup, sink).
+the adapters of the JAX package's disco/tiles.py that the port's two
+paths run: synth, verify, dedup and sink on the sigverify path, and pack,
+bank and poh on the leader's execution leg).
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these four kinds only; `Topology.tile` refuses
+  * the registry holds these seven kinds only; `Topology.tile` refuses
     every other kind of the reference's registry (disco/unported.py),
     and `adapter_class` raises ValueError for a name without an
     adapter;
@@ -20,15 +21,34 @@ Where the copy differs from the reference:
     device_timeout_s, device_fail_limit) are refused (item 2), and so
     are the JAX compile and memory series and the profiler capture
     (tiles.py:357-426, item 6) and the fdtune knob hook (item 11);
-  * no trace hooks (item 2).
+  * no trace hooks (item 2);
+  * PackAdapter refuses `resolved_in` (the resolv tile, item 5) and
+    `bundle_in` (the bundle tile, item 13);
+  * BankAdapter runs exec="svm" (the wave executor, svm/executor.py, on
+    the card unless its `device` arg says "cpu") and exec="stub"; it
+    refuses exec="general" (the full host SVM, item 15), the exec tile
+    family (`exec_links`, `exec_done`, `redispatch_s`) and
+    `genesis_ckpt` (item 5), and the RPC and WebSocket surfaces
+    (`rpc_port`, `ws_port`, item 16). It boots by running one
+    one-transfer wave through the kernel, so a kernel that does not
+    build or launch fails the tile's boot, and it counts the kernel
+    launches it makes after that in its `wave_launches` metric; its
+    tpu histogram holds two host-clock spans a wave: staging plus
+    dispatch, and finalize (the wait on the wave's CUDA event, the copy
+    back and the commit);
+  * the knob reads of pack's and bank's housekeeping (item 11) find no
+    knobs: the port's TileCtx has none.
 """
 from __future__ import annotations
 
+import hashlib
+import struct
 import time
 
 import numpy as np
 
 from ..protocol.txn import MTU
+from ..runtime import CNC_RUN
 from .unported import refuse
 
 REGISTRY: dict[str, type] = {}
@@ -54,6 +74,58 @@ def _single(d: dict, what: str, tile: str):
         raise ValueError(f"tile {tile}: expected exactly one {what}, "
                          f"got {list(d)}")
     return next(iter(d.values()))
+
+
+def publish_wave(out, fseqs, frames, cnc=None, on_stall=None) -> int:
+    """THE batched wave egress: one credit-gated publish_batch over
+    (sig, payload) rows with stop-row resume on a mid-wave stall.
+    Stalls are visible (`on_stall` per stall tick) and heartbeat; a
+    tile that leaves RUN while backpressured ABORTS the wave instead
+    of spinning forever (a dead or halting consumer must never wedge a
+    producer's halt path). Returns rows published. Shared by
+    pack/bank/poh so the stall policy lives in one place."""
+    k = len(frames)
+    if not k:
+        return 0
+    wb = np.zeros((k, max(len(f) for _, f in frames)), np.uint8)
+    sz = np.zeros(k, np.uint32)
+    ids = np.zeros(k, np.uint64)
+    for i, (sig, f) in enumerate(frames):
+        wb[i, :len(f)] = np.frombuffer(f, np.uint8)
+        sz[i] = len(f)
+        ids[i] = sig
+    start, total = 0, 0
+    while True:
+        stop, pub = out.publish_batch(
+            wb, sz, ids, np.ones(k, np.uint8), fseqs=fseqs,
+            start=start)
+        total += pub
+        start = stop
+        if start >= k:
+            return total
+        if on_stall is not None:
+            on_stall()
+        if cnc is not None:
+            cnc.heartbeat()
+            if cnc.state != CNC_RUN:
+                return total      # halted while backpressured: abort
+        time.sleep(20e-6)
+
+
+def _synth_genesis(n: int) -> dict:
+    """Fund the deterministic synth signer pool (wraps mod its size):
+    the ONE genesis map the leader bank derives from a config count."""
+    from ..tiles.synth import synth_signer_seed
+    from ..utils.ed25519_ref import keypair
+    out = {}
+    seen = set()
+    for i in range(n):
+        seed = synth_signer_seed(i)
+        if seed in seen:
+            break
+        seen.add(seed)
+        out[keypair(seed)[-1]] = 1 << 44
+    return out
 
 
 @register("synth")
@@ -291,6 +363,655 @@ class SinkAdapter:
             self.m["bytes"] += int(sizes[:n].sum())
             total += n
         return total
+
+    def in_seqs(self):
+        return dict(self.seqs)
+
+    def metrics_items(self):
+        return dict(self.m)
+
+
+@register("pack")
+class PackAdapter:
+    """Leader scheduler tile (ref: src/disco/pack/fd_pack_tile.c):
+    inserts txns from the dedup stage, emits non-conflicting
+    microblocks to parallel bank tiles, retires account locks on bank
+    completion frags.
+
+    Microblock wire format (one frag): u16 bank | u16 txn_cnt |
+    u64 microblock_id | u64 slot | (u16 len | payload)*.
+    Completion frag: u64 microblock_id (per-bank dedicated link).
+
+    Wave discipline: up to `wave` microblocks are outstanding per bank
+    (the scheduler's FIFO), the whole per-poll wave for a bank ships as
+    ONE credit-gated publish_batch on its link, and completion frags
+    drain as one gather pass per done link.
+
+    args: txn_in (link), bank_links (ordered list), done_links (ordered
+    list, one per bank), max_txn_per_microblock, wave (max outstanding
+    microblocks per bank), batch, and the slot boundary source: slot_in
+    (link carrying PoH slot frags, ref fd_poh.h leader slot handoff) or
+    slot_ms (wall-clock fallback for poh-less topologies)."""
+
+    METRICS = ["rx", "parse_fail", "inserted", "scheduled", "microblocks",
+               "completions", "blocks", "backpressure", "overruns"]
+
+    def __init__(self, ctx, args):
+        from ..pack import PackLimits, PackScheduler
+        from ..pack.scheduler import meta_from_payload
+        if args.get("resolved_in"):
+            refuse("pack arg 'resolved_in' (the resolv tile)", 5)
+        if args.get("bundle_in"):
+            refuse("pack arg 'bundle_in' (the bundle tile)", 13)
+        self._meta_from_payload = meta_from_payload
+        self.ctx = ctx
+        self.txn_in = args["txn_in"]
+        self.bank_links = list(args["bank_links"])
+        self.done_links = list(args["done_links"])
+        if len(self.bank_links) != len(self.done_links):
+            raise ValueError(
+                f"pack {ctx.tile_name}: bank_links and done_links must "
+                f"pair up, got {self.bank_links} / {self.done_links}")
+        n_banks = len(self.bank_links)
+        mtu = min(ctx.plan["links"][ln]["mtu"] for ln in self.bank_links)
+        self.sched = PackScheduler(
+            bank_cnt=n_banks,
+            limits=PackLimits(
+                max_txn_per_microblock=int(
+                    args.get("max_txn_per_microblock", 31)),
+                max_data_bytes_per_microblock=mtu - 20))
+        self.slot_in = args.get("slot_in")
+        self.slot_ms = float(args.get("slot_ms", 400.0))
+        self._slot_t0 = time.monotonic()
+        self.batch = int(args.get("batch", 64))
+        self.wave = max(1, int(args.get("wave", 4)))
+        self.seqs = ctx.in_seqs0()
+        self.in_mtu = ctx.plan["links"][self.txn_in]["mtu"]
+        from collections import deque
+        # outstanding microblock ids per bank, FIFO (wave depth deep;
+        # the scheduler holds the matching lock masks in its own queue)
+        self.busy = [deque() for _ in range(n_banks)]
+        self._next_mb = 0
+        self.cur_slot = 0                 # advanced by PoH slot frags
+        self.m = {k: 0 for k in self.METRICS}
+
+    def _serialize(self, bank: int, mb_id: int, metas) -> bytes:
+        out = bytearray(struct.pack("<HHQQ", bank, len(metas), mb_id,
+                                    self.cur_slot))
+        for m in metas:
+            out += struct.pack("<H", len(m.payload)) + m.payload
+        return bytes(out)
+
+    def poll_once(self) -> int:
+        total = 0
+        # 1) retire completions in batch (frees account locks first, the
+        # reference's poll order, so banks never starve); completions
+        # arrive in the bank's FIFO execution order
+        for bank, ln in enumerate(self.done_links):
+            ring = self.ctx.in_rings[ln]
+            n, self.seqs[ln], buf, sizes, sigs, ovr = ring.gather(
+                self.seqs[ln], self.batch, 64)
+            self.m["overruns"] += ovr
+            q = self.busy[bank]
+            for mb_id in sigs[:n].tolist():
+                if q and q[0] == mb_id:
+                    q.popleft()
+                    self.sched.microblock_done(bank)
+                    self.m["completions"] += 1
+            total += n
+        # 2) ingest new txns
+        ring = self.ctx.in_rings[self.txn_in]
+        n, self.seqs[self.txn_in], buf, sizes, sigs, ovr = ring.gather(
+            self.seqs[self.txn_in], self.batch, self.in_mtu)
+        self.m["overruns"] += ovr
+        for i in range(n):
+            try:
+                self.sched.insert(
+                    self._meta_from_payload(bytes(buf[i, :sizes[i]])))
+                self.m["inserted"] += 1
+            except Exception:
+                self.m["parse_fail"] += 1
+        self.m["rx"] += n
+        total += n
+        # 2b) PoH slot boundaries (tick-count-driven, not wall clock)
+        if self.slot_in:
+            ring = self.ctx.in_rings[self.slot_in]
+            k, self.seqs[self.slot_in], buf, sizes, sigs, ovr = \
+                ring.gather(self.seqs[self.slot_in], 4, 16)
+            self.m["overruns"] += ovr
+            for i in range(k):
+                self.sched.end_block()
+                self.m["blocks"] += 1
+                # slot frag payload = u64 completed slot (poh tile)
+                (done_slot,) = struct.unpack_from("<Q", buf[i], 0)
+                self.cur_slot = done_slot + 1
+            total += k
+        # 3) fill banks in WAVES: schedule up to the per-bank wave
+        # budget (bounded by the link's credit window so the batched
+        # publish below cannot stall mid-wave against a live consumer),
+        # and ship the whole wave as ONE publish_batch per bank link
+        for bank, ln in enumerate(self.bank_links):
+            out = self.ctx.out_rings[ln]
+            fseqs = self.ctx.out_fseqs[ln]
+            room = self.wave - len(self.busy[bank])
+            if room <= 0:
+                continue
+            if fseqs:
+                cr = out.credits(fseqs)
+                if cr <= 0:
+                    self.m["backpressure"] += 1
+                    continue
+                room = min(room, cr)
+            frames = []
+            while len(frames) < room:
+                metas = self.sched.schedule_microblock(bank)
+                if not metas:
+                    break
+                mb_id = self._next_mb
+                self._next_mb += 1
+                frames.append((mb_id,
+                               self._serialize(bank, mb_id, metas)))
+                self.busy[bank].append(mb_id)
+                self.m["scheduled"] += len(metas)
+                self.m["microblocks"] += 1
+            if not frames:
+                continue
+
+            # the credit pre-check bounds the wave, so a mid-wave stall
+            # can only mean a consumer rewound its fseq: stall visibly,
+            # resume from the stop row, abort on halt
+            def bp():
+                self.m["backpressure"] += 1
+            publish_wave(out, fseqs, frames,
+                         cnc=getattr(self.ctx, "cnc", None),
+                         on_stall=bp)
+            total += len(frames)
+        return total
+
+    def housekeeping(self):
+        # wall-clock slot fallback, only when no PoH slot link is wired
+        if not self.slot_in and \
+                (time.monotonic() - self._slot_t0) * 1e3 >= self.slot_ms:
+            self.sched.end_block()
+            self._slot_t0 = time.monotonic()
+            self.m["blocks"] += 1
+            self.cur_slot += 1
+        knobs = getattr(self.ctx, "knobs", None)
+        if knobs is not None:
+            v = knobs.get("pack_wave")
+            if v is not None:
+                self.wave = max(1, v)
+
+    def in_seqs(self):
+        return dict(self.seqs)
+
+    def metrics_items(self):
+        return dict(self.m)
+
+
+@register("bank")
+class BankAdapter:
+    """Execution stage (ref: src/discoh/bank/fd_bank_tile.c shape:
+    consume microblock, execute, emit completion; execution entry
+    src/flamenco/runtime/fd_runtime.h:254-266).
+
+    exec="svm": parse each txn, execute its system-program transfers
+    through the wave executor (svm/executor.py: conflict-DAG waves, one
+    launch of the wave-scan kernel a wave) against a process-local funk
+    fork, and forward each executed microblock (with a PoH mixin hash)
+    on the optional poh link. Use one bank tile with exec="svm":
+    multi-bank topologies share no account state.
+
+    exec="stub": count txns and ack (ring-plumbing tests).
+
+    Device-wave execution: the tile gathers up to `wave` microblocks per
+    poll and executes them as ONE device dispatch. Their conflict
+    tables are packed into one staging buffer whose balance-independent
+    transfer is issued BEFORE the previous wave retires, so the host
+    stages it while that wave computes; the previous wave then commits
+    and its poh-mixin frames and completion frags publish as one
+    credit-gated publish_batch per link. The serial fiction holds across
+    waves because balances are read only after the prior wave's commit,
+    and the conflict DAG orders intra-wave dependencies.
+
+    args: exec, wave (microblocks per device wave), poh_link (optional
+    out link name), forward_payloads, genesis ({pubkey hex: lamports}),
+    genesis_synth (fund the first N synth signers), device ("cuda" |
+    "cpu"); the done link is the remaining out link."""
+
+    METRICS = ["microblocks", "txns", "transfers", "exec_skip",
+               "exec_fail", "overruns", "wave_launches"]
+
+    def __init__(self, ctx, args):
+        for key, item in (("exec_links", 5), ("exec_done", 5),
+                          ("redispatch_s", 5), ("genesis_ckpt", 5),
+                          ("rpc_port", 16), ("ws_port", 16)):
+            if args.get(key) is not None:
+                refuse(f"bank arg {key!r}", item)
+        self.exec_mode = args.get("exec", "stub")
+        if self.exec_mode == "general":
+            refuse("bank exec=\"general\" (the full host SVM)", 15)
+        if self.exec_mode not in ("svm", "stub"):
+            raise ValueError(f"bank {ctx.tile_name}: unknown exec "
+                             f"{self.exec_mode!r}")
+        self.ctx = ctx
+        if len(ctx.in_rings) != 1:
+            raise ValueError(f"bank {ctx.tile_name}: expected one in "
+                             f"link, got {list(ctx.in_rings)}")
+        self.in_link = next(iter(ctx.in_rings))
+        self.ring = ctx.in_rings[self.in_link]
+        self.poh_link = args.get("poh_link")
+        done = [ln for ln in ctx.out_rings if ln != self.poh_link]
+        if len(done) != 1:
+            raise ValueError(f"bank {ctx.tile_name}: expected one done "
+                             f"link, got {done}")
+        self.out = ctx.out_rings[done[0]]
+        self.out_fseqs = ctx.out_fseqs[done[0]]
+        if self.poh_link:
+            self.poh_out = ctx.out_rings[self.poh_link]
+            self.poh_fseqs = ctx.out_fseqs[self.poh_link]
+        else:
+            self.poh_out = None
+        self.m = {k: 0 for k in self.METRICS}
+        self.slot = 0                  # highest slot seen in microblocks
+        self.fwd_payloads = bool(args.get("forward_payloads", False))
+        if self.fwd_payloads and self.poh_out is not None:
+            # fail at BOOT, not mid-flight: the poh frame re-wraps the
+            # microblock txn section (micro hdr 20 -> poh hdr 42), so
+            # the poh link must absorb the worst-case in-frame
+            need = ctx.plan["links"][self.in_link]["mtu"] - 20 + 42
+            have = ctx.plan["links"][self.poh_link]["mtu"]
+            if have < need:
+                raise ValueError(
+                    f"bank {ctx.tile_name}: forward_payloads needs "
+                    f"poh link mtu >= {need}, got {have}")
+        self.wave = max(1, int(args.get("wave", 8)))
+        self._pending = None           # svm: dispatched, uncommitted wave
+        if self.exec_mode == "svm":
+            from .metrics import HistAccum
+            from ..funk.funk import Funk, key32
+            from ..ops import cuda_wave
+            from ..svm.executor import WaveExecutor
+            self._cuda_wave = cuda_wave
+            self._wx = WaveExecutor(args.get("device", "cuda"))
+            self.funk = Funk()
+            self.xid = None            # published root
+            self._next_xid = 1
+            # genesis balances: airdropped accounts (tests inject via
+            # args), then genesis_synth = N funds the deterministic synth
+            # signers (TOML cannot derive pubkeys; the pool wraps mod
+            # 16, so each UNIQUE pubkey is funded once)
+            for acct_hex, bal in args.get("genesis", {}).items():
+                self.funk.rec_write(None, key32(bytes.fromhex(acct_hex)),
+                                    int(bal))
+            if args.get("genesis_synth"):
+                for pub, bal in _synth_genesis(
+                        int(args["genesis_synth"])).items():
+                    self.funk.rec_write(None, key32(pub), bal)
+            self._warmup()
+            self.tpu_hist = HistAccum()
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+
+    def _warmup(self):
+        """One one-transfer wave through the kernel on a scratch funk, so
+        the kernel's build, load and first launch happen at boot (a
+        failure fails the boot); launches from here on are counted."""
+        from ..funk.funk import Funk
+        from ..svm.executor import SystemTxn
+        scratch = Funk()
+        scratch.rec_write(None, bytes(31) + b"\x01", 10)
+        wx = self._wx
+        disp = wx.dispatch(scratch, None, 1, wx.stage([SystemTxn(
+            bytes(31) + b"\x01", bytes(31) + b"\x02", 1, 1)]))
+        wx.finalize(scratch, disp)
+        self._launch0 = self._cuda_wave.launches["wave_scan"]
+
+    def _parse_transfers(self, frame, txn_cnt):
+        """Microblock frame -> (SystemTxn list — one per system-program
+        Transfer instruction, in instruction order, fee charged on each
+        txn's first only —, sha256 mixin over concatenated first
+        signatures)."""
+        from ..pack.cost import SYSTEM_PROGRAM_ID
+        from ..pack.scheduler import FEE_PER_SIGNATURE
+        from ..protocol.txn import parse_txn
+        from ..svm.executor import SystemTxn
+        txns, sigs = [], []
+        off = 20
+        for _ in range(txn_cnt):
+            (ln,) = struct.unpack_from("<H", frame, off)
+            off += 2
+            payload = bytes(frame[off:off + ln])
+            off += ln
+            try:
+                t = parse_txn(payload)
+            except Exception:
+                self.m["exec_skip"] += 1
+                continue
+            sigs.append(t.signatures(payload)[0])
+            keys = t.account_keys(payload)
+            matched = 0
+            for ins in t.instrs:
+                data = payload[ins.data_off:ins.data_off + ins.data_sz]
+                # system-program Transfer: u32 discriminant 2 + u64
+                # lamports (fd_system_program.c transfer instruction);
+                # every transfer instruction executes, fee once per txn
+                if (keys[ins.prog_idx] == SYSTEM_PROGRAM_ID
+                        and len(data) == 12
+                        and data[:4] == b"\x02\x00\x00\x00"
+                        and len(ins.acct_idxs) >= 2):
+                    amt = int.from_bytes(data[4:12], "little")
+                    txns.append(SystemTxn(
+                        src=keys[ins.acct_idxs[0]],
+                        dst=keys[ins.acct_idxs[1]], amount=amt,
+                        fee=0 if matched
+                        else FEE_PER_SIGNATURE * t.sig_cnt))
+                    matched += 1
+            if not matched:
+                self.m["exec_skip"] += 1
+        mixin = hashlib.sha256(b"".join(sigs)).digest()
+        return txns, mixin
+
+    def poll_once(self) -> int:
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, self.wave, self.mtu)
+        self.m["overruns"] += ovr
+        if not n:
+            # drain-on-idle: a dispatched wave always retires — queued
+            # completions never wait on more microblocks arriving
+            if self._pending is not None:
+                self._finalize_wave()
+            return 0
+        frames = []
+        for i in range(n):
+            frame = bytes(buf[i, :sizes[i]])
+            _bank, txn_cnt, mb_id, slot = struct.unpack_from(
+                "<HHQQ", frame, 0)
+            self.slot = max(self.slot, slot)
+            self.m["txns"] += txn_cnt
+            self.m["microblocks"] += 1
+            frames.append((frame, txn_cnt, mb_id))
+        if self.exec_mode == "svm":
+            self._wave_svm(frames)
+        else:
+            self._flush_wave([], [mb_id for _, _, mb_id in frames])
+        return n
+
+    def _wave_svm(self, frames):
+        """Stage -> (retire previous) -> dispatch: the wave's packed
+        conflict tables are balance-independent, so their device
+        transfer launches FIRST and overlaps the previous wave's
+        compute; that wave then commits (and its completions publish)
+        before this wave's balances are read — the rotating-stage
+        pipeline, with serial fiction intact."""
+        recs, txns = [], []
+        for frame, txn_cnt, mb_id in frames:
+            if txn_cnt:
+                t, mixin = self._parse_transfers(frame, txn_cnt)
+            else:
+                t, mixin = [], hashlib.sha256(b"").digest()
+            recs.append((frame, txn_cnt, mb_id, mixin))
+            txns.extend(t)
+        t0 = time.perf_counter_ns()
+        staged = self._wx.stage(txns) if txns else None
+        span = time.perf_counter_ns() - t0
+        if self._pending is not None:
+            self._finalize_wave()
+        disp = None
+        if staged is not None:
+            new_xid = self._next_xid
+            self._next_xid += 1
+            t0 = time.perf_counter_ns()
+            try:
+                disp = self._wx.dispatch(self.funk, self.xid, new_xid,
+                                         staged)
+            except Exception:
+                self.funk.txn_cancel(new_xid)
+                raise
+            # the dispatch span: staging and dispatch, without the
+            # previous wave's finalize between them
+            self.tpu_hist.add(span + time.perf_counter_ns() - t0)
+        self._pending = (disp, recs)
+
+    def _finalize_wave(self):
+        """Wait for the pending wave's results, commit its funk fork,
+        then flush its poh mixin frames + completion frags as one
+        publish_batch per link."""
+        from ..svm.executor import STATUS_OK
+        disp, recs = self._pending
+        self._pending = None
+        if disp is not None:
+            t0 = time.perf_counter_ns()
+            try:
+                st = self._wx.finalize(self.funk, disp)
+                self.funk.txn_publish(disp.xid)
+                self.xid = None   # published into root
+            except Exception:
+                self.funk.txn_cancel(disp.xid)
+                raise
+            self.tpu_hist.add(time.perf_counter_ns() - t0)
+            ok = sum(1 for s in st if s == STATUS_OK)
+            self.m["transfers"] += ok
+            self.m["exec_fail"] += len(st) - ok
+        poh_frames = []
+        if self.poh_out is not None:
+            for frame, txn_cnt, mb_id, mixin in recs:
+                if not txn_cnt:
+                    continue
+                # forward_payloads: carry the microblock's txn section
+                # so poh entries carry the real block content
+                blob = frame[20:] if self.fwd_payloads else b""
+                poh_frames.append(
+                    (mb_id, struct.pack("<QH", mb_id, txn_cnt)
+                     + mixin + blob))
+        self._flush_wave(poh_frames, [r[2] for r in recs])
+
+    def _flush_wave(self, poh_frames, done_ids):
+        cnc = getattr(self.ctx, "cnc", None)
+        if poh_frames and self.poh_out is not None:
+            publish_wave(self.poh_out, self.poh_fseqs, poh_frames,
+                         cnc=cnc)
+        if done_ids:
+            publish_wave(
+                self.out, self.out_fseqs,
+                [(mb, struct.pack("<Q", mb)) for mb in done_ids],
+                cnc=cnc)
+
+    def on_halt(self):
+        # a wave already dispatched must still commit and publish its
+        # completions (the verify tile's flush contract)
+        if self._pending is not None:
+            self._finalize_wave()
+
+    def housekeeping(self):
+        knobs = getattr(self.ctx, "knobs", None)
+        if knobs is not None:
+            v = knobs.get("bank_wave")
+            if v is not None:
+                self.wave = max(1, v)
+
+    def in_seqs(self):
+        return {self.in_link: self.seq}
+
+    def metrics_items(self):
+        m = dict(self.m)
+        if self.exec_mode == "svm":
+            m["wave_launches"] = (self._cuda_wave.launches["wave_scan"]
+                                  - self._launch0)
+        return m
+
+
+@register("poh")
+class PohAdapter:
+    """Proof-of-History tile (ref: src/discof/poh/fd_poh.h:4-31): owns
+    the hash chain; mixes executed microblocks (from bank tiles) into
+    it as record entries, emits tick entries on schedule, and declares
+    slot boundaries by TICK COUNT — the pack tile ends its block on the
+    slot frag, not a wall clock. Chain generation is host-side
+    (inherently sequential).
+
+    Batched mixin: the gathered wave of bank microblocks mixes into the
+    chain as hash-chain RUNS (one host_poh_mixin_chain call per run
+    between tick boundaries, byte-identical to the sequential fold), and
+    every entry/slot frag the wave produced flushes as ONE credit-gated
+    publish_batch per link.
+
+    Entry frag wire: u64 slot | u32 tick | u32 num_hashes |
+    u8 has_mixin | prev 32 | hash 32 | mixin 32 | u8 flags
+    (bit0 = slot_complete, set on the slot's final tick entry) |
+    u16 txn_cnt | txn section (u16 len | payload)* — the txn section
+    is whatever the bank forwarded (forward_payloads).
+    Slot frag wire (slot_link): u64 completed_slot.
+
+    args: hashes_per_tick, ticks_per_slot, seed (hex, 32B),
+    slot_link (optional out link to pack), entry link = remaining out.
+    """
+
+    METRICS = ["mixins", "ticks", "slots", "entries", "overruns",
+               "backpressure"]
+
+    def __init__(self, ctx, args):
+        from ..ops.poh import (host_poh_append, host_poh_mixin,
+                               host_poh_mixin_chain)
+        self._append = host_poh_append
+        self._mixin = host_poh_mixin
+        self._mixin_chain = host_poh_mixin_chain
+        self.ctx = ctx
+        self.hashes_per_tick = int(args.get("hashes_per_tick", 64))
+        self.ticks_per_slot = int(args.get("ticks_per_slot", 8))
+        self.state = bytes.fromhex(args["seed"]) if "seed" in args \
+            else bytes(32)
+        self.slot_link = args.get("slot_link")
+        if self.slot_link:
+            self.slot_out = ctx.out_rings[self.slot_link]
+            self.slot_fseqs = ctx.out_fseqs[self.slot_link]
+            ent = [ln for ln in ctx.out_rings if ln != self.slot_link]
+            if len(ent) != 1:
+                raise ValueError(f"poh {ctx.tile_name}: expected one "
+                                 f"entry link, got {ent}")
+            self.entry_out = ctx.out_rings[ent[0]]
+            self.entry_fseqs = ctx.out_fseqs[ent[0]]
+        else:
+            self.slot_out = None
+            self.entry_out = _single(ctx.out_rings, "out link",
+                                     ctx.tile_name)
+            self.entry_fseqs = _single(ctx.out_fseqs, "out link",
+                                       ctx.tile_name)
+        self.seqs = ctx.in_seqs0()
+        self.mtu = max((ctx.plan["links"][ln]["mtu"]
+                        for ln in ctx.in_rings), default=64)
+        # entry frames re-wrap the bank frame's txn section (bank hdr
+        # 42 -> entry hdr 116); catch an undersized entry link at boot
+        ent_ln = next(ln for ln, r in ctx.out_rings.items()
+                      if r is self.entry_out)
+        ent_mtu = ctx.plan["links"][ent_ln]["mtu"]
+        if ctx.in_rings and ent_mtu < self.mtu - 42 + 116:
+            raise ValueError(
+                f"poh {ctx.tile_name}: entry link mtu {ent_mtu} < "
+                f"worst-case entry frame {self.mtu - 42 + 116}")
+        self.slot = 0
+        self.tick_in_slot = 0
+        self.hashes_in_tick = 0
+        self.entry_idx = 0
+        # wave staging: entry/slot frames built while walking a
+        # gathered wave, flushed as one publish_batch per link
+        self._pend_entries: list[tuple[int, bytes]] = []
+        self._pend_slots: list[int] = []
+        self.m = {k: 0 for k in self.METRICS}
+
+    def _emit_entry(self, num_hashes: int, prev: bytes,
+                    mixin: bytes | None, txn_blob: bytes = b"",
+                    txn_cnt: int = 0, slot_done: bool = False):
+        frame = struct.pack("<QII B", self.slot, self.tick_in_slot,
+                            num_hashes, 1 if mixin else 0)
+        frame += prev + self.state + (mixin or bytes(32))
+        frame += bytes([1 if slot_done else 0]) \
+            + struct.pack("<H", txn_cnt) + txn_blob
+        self._pend_entries.append((self.entry_idx, frame))
+        self.entry_idx += 1
+        self.m["entries"] += 1
+
+    def _flush_pending(self):
+        cnc = getattr(self.ctx, "cnc", None)
+        if self._pend_entries:
+            frames, self._pend_entries = self._pend_entries, []
+
+            def bp():
+                self.m["backpressure"] += 1
+            publish_wave(self.entry_out, self.entry_fseqs, frames,
+                         cnc=cnc, on_stall=bp)
+        if self._pend_slots and self.slot_out is not None:
+            slots, self._pend_slots = self._pend_slots, []
+            publish_wave(
+                self.slot_out, self.slot_fseqs,
+                [(s, struct.pack("<Q", s)) for s in slots], cnc=cnc)
+
+    def poll_once(self) -> int:
+        total = 0
+        # 1) mix in executed microblocks (one hash consumed per record;
+        # fd_poh mixin semantics, src/ballet/poh/fd_poh.c): maximal runs
+        # between tick boundaries hash as ONE chain call, and every
+        # frame the wave produced ships as one publish_batch per link
+        for ln, ring in self.ctx.in_rings.items():
+            n, self.seqs[ln], buf, sizes, sigs, ovr = ring.gather(
+                self.seqs[ln], 16, self.mtu)
+            self.m["overruns"] += ovr
+            if not n:
+                continue
+            mixins = [bytes(buf[i, 10:42]) for i in range(n)]
+            cnts = [struct.unpack_from("<H", buf[i], 8)[0]
+                    for i in range(n)]
+            blobs = [bytes(buf[i, 42:sizes[i]]) for i in range(n)]
+            i = 0
+            while i < n:
+                # a record must fit before the tick boundary (at most
+                # one tick fires per record position)
+                if self.hashes_in_tick + 1 >= self.hashes_per_tick:
+                    self._tick()
+                take = min(max(1, self.hashes_per_tick
+                               - self.hashes_in_tick - 1), n - i)
+                states = self._mixin_chain(self.state,
+                                           mixins[i:i + take])
+                for j in range(take):
+                    prev = self.state
+                    self.state = states[j]
+                    self.hashes_in_tick += 1
+                    blob = blobs[i + j]
+                    self._emit_entry(1, prev, mixins[i + j],
+                                     txn_blob=blob,
+                                     txn_cnt=cnts[i + j] if blob else 0)
+                    self.m["mixins"] += 1
+                i += take
+            total += n
+        if self._pend_entries or self._pend_slots:
+            self._flush_pending()
+        return total
+
+    def _tick(self):
+        remaining = self.hashes_per_tick - self.hashes_in_tick
+        prev = self.state
+        self.state = self._append(prev, remaining)
+        self._emit_entry(
+            remaining, prev, None,
+            slot_done=self.tick_in_slot + 1 >= self.ticks_per_slot)
+        self.hashes_in_tick = 0
+        self.tick_in_slot += 1
+        self.m["ticks"] += 1
+        if self.tick_in_slot >= self.ticks_per_slot:
+            if self.slot_out is not None:
+                self._pend_slots.append(self.slot)
+            self.slot += 1
+            self.tick_in_slot = 0
+            self.m["slots"] += 1
+
+    def housekeeping(self):
+        # tick cadence: one tick per housekeeping interval (the jittered
+        # stem timer stands in for the tick clock)
+        self._tick()
+        self._flush_pending()
+
+    def on_halt(self):
+        self._flush_pending()    # staged frames must not die with us
 
     def in_seqs(self):
         return dict(self.seqs)

@@ -3,7 +3,11 @@ args and tile kinds that have no counterpart here yet, each with the
 ROADMAP.md queue-A item that ports it.
 
 `app.config.build_topology` refuses the sections, `Topology.tile` the
-kinds and the args; nothing refused is silently ignored.
+kinds and the args; the adapters refuse their own args (the verify
+tile's degradation args, item 2; pack's `resolved_in`, item 5, and
+`bundle_in`, item 13; the bank's exec="general", item 15, exec tile
+family and `genesis_ckpt`, item 5, and `rpc_port` and `ws_port`, item
+16). Nothing refused is silently ignored.
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ UNPORTED_TILE_ARGS = {
 # every kind of the reference's tile registry without an adapter here
 UNPORTED_KINDS = {
     **dict.fromkeys(("sock", "quic", "gossip"), 3),
-    **dict.fromkeys(("pack", "bank", "poh", "shred", "exec", "resolv",
-                     "replay", "snapld", "snapdc", "snapin"), 5),
+    # shred needs bmtree and reedsol (item 4) and the sign tile (13)
+    "shred": 4,
+    **dict.fromkeys(("exec", "resolv", "replay", "snapld", "snapdc",
+                     "snapin"), 5),
     "metric": 8, "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,
     **dict.fromkeys(("sign", "tower", "repair", "send", "archiver",

@@ -92,6 +92,20 @@ class ParsedTxn:
         end = self.size if self.size else len(payload)
         return payload[self.msg_off:end]
 
+    def account_keys(self, payload: bytes) -> list[bytes]:
+        return [payload[self.acct_off + 32 * i: self.acct_off + 32 * (i + 1)]
+                for i in range(self.acct_cnt)]
+
+    def is_writable(self, idx: int) -> bool:
+        """Static account write permission (legacy/v0 static keys).
+        Mirrors the reference's account classification
+        (src/ballet/txn/fd_txn.h message header semantics)."""
+        if idx < self.n_signed:
+            return idx < self.n_signed - self.n_ro_signed
+        unsigned_idx = idx - self.n_signed
+        n_unsigned = self.acct_cnt - self.n_signed
+        return unsigned_idx < n_unsigned - self.n_ro_unsigned
+
 
 def parse_txn(payload: bytes, allow_trailing: bool = False) -> ParsedTxn:
     """allow_trailing=True parses a txn at a PREFIX of payload and

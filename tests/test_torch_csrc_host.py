@@ -1,15 +1,17 @@
 """The kernels' C++ sources compiled for the host and held against their
 plain PyTorch versions lane by lane.
 
-csrc/sha512.cu, csrc/ed25519_verify.cu and csrc/ed25519_msm.cu compile
-as plain C++ when nvcc is absent (__CUDACC__ unset): each kernel's
+csrc/sha512.cu, csrc/ed25519_verify.cu, csrc/ed25519_msm.cu and
+csrc/wave_scan.cu compile as plain C++ when nvcc is absent (__CUDACC__
+unset): each kernel's
 per-lane part becomes a host function, and the threads that work
 together on the card (the four threads of a group that carries one
 signature, the threads of MSM stage 2) run one after another. That
 checks the sources' arithmetic (padding, big-endian loads of R || A || M
 from three rows, limb carries, prechecks, scalar reduction,
 decompression, tables, window walk, chunked sums over blocks, Horner,
-canonical compare) here, where there is no card; launch, the group's
+canonical compare; the wave scan's u64 lane step) here, where there is
+no card; launch, the group's
 shuffles, the shared-memory staging and sums, memory and timing are
 checked on the card by chip_smoke.py and tests/test_torch_cuda.py.
 Exact: digests, verdicts and limbs are integers."""
@@ -30,6 +32,7 @@ from firedancer_tpu_torch.ops._build import CSRC
 from firedancer_tpu_torch.utils import ed25519_ref as ref
 from torch_rlc_cases import (KEPT_OUT, PRE_CLASSES, ram_inputs,
                              spread_blocks, stage_inputs)
+from torch_wave_cases import wave_cases
 
 VP = ct.c_void_p
 
@@ -229,3 +232,44 @@ def test_msm_stage2_source_matches_plain(host_lib, stage1_two_blocks, nblk):
         ok, point = msm.msm_stage2(wsum, d, params.fixed_base_tables("cpu"))
         assert out[0] == int(ok) == verdict
         np.testing.assert_array_equal(out[1:].reshape(4, 10), point.numpy())
+
+
+WAVE_CASES = wave_cases()
+
+
+@pytest.mark.parametrize("case", [c for c in WAVE_CASES if c != "empty"])
+def test_wave_scan_source_matches_plain(host_lib, case):
+    """The wave scan's host build (csrc/wave_scan.cu: the whole scan,
+    wave after wave and lane after lane) against ops/cuda_wave.py's plain
+    version, on the staged table of every case of
+    tests/torch_wave_cases.py (u64 wraps, hi-word borrows, a
+    self-transfer, fee-only failures, blocks across the bucket edges):
+    every balance and status equal."""
+    from firedancer_tpu_torch.ops import cuda_wave
+    from firedancer_tpu_torch.svm import executor as texec
+    fn = host_lib("wave_scan").wave_scan_host
+    fn.argtypes = [VP, ct.c_int, ct.c_int, VP, VP, ct.c_int, VP, VP, VP,
+                   VP]
+    bal, txns = WAVE_CASES[case]
+    key_idx = {}
+    for t in txns:
+        for k in (t.src, t.dst):
+            key_idx.setdefault(k, len(key_idx))
+    packed, _, act = texec.pack_table(txns, key_idx)
+    n = texec._bucket(len(key_idx) + 1)
+    hi, lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    for k, i in key_idx.items():
+        hi[i], lo[i] = bal.get(k, 0) >> 32, bal.get(k, 0) & 0xFFFFFFFF
+    w, c = packed.shape[:2]
+    out_hi, out_lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    status = np.zeros((w, c), np.int32)
+    scratch = np.zeros(n, np.uint64)
+    fn(packed.ctypes.data, w, c, hi.ctypes.data, lo.ctypes.data, n,
+       out_hi.ctypes.data, out_lo.ctypes.data, status.ctypes.data,
+       scratch.ctypes.data)
+    want = cuda_wave.wave_scan(*(torch.from_numpy(x)
+                                 for x in (packed, hi, lo)))
+    np.testing.assert_array_equal(out_hi, want[0].numpy())
+    np.testing.assert_array_equal(out_lo, want[1].numpy())
+    np.testing.assert_array_equal(status, want[2].numpy())
+    assert (status >= 0).sum() == act.sum() == len(txns)

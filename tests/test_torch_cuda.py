@@ -21,6 +21,7 @@ from firedancer_tpu_torch.utils import ed25519_ref as ref
 from firedancer_tpu_torch.utils.chaos import undecodable_point
 from torch_rlc_cases import (PRE_CLASSES, ram_inputs, signed,
                              spread_blocks, stage_inputs)
+from torch_wave_cases import wave_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -218,3 +219,51 @@ def test_msm_wrappers_refuse_bad_tensors(dev):
                                         device=dev),
                             torch.zeros((1, 13), dtype=torch.int32,
                                         device=dev))
+
+
+def test_wave_scan_kernel_matches_plain(dev):
+    """The wave-scan kernel against its plain version on every case of
+    tests/torch_wave_cases.py, with the balances in shared memory and,
+    for a table of 40,000 account slots, in the global scratch; then the
+    pipelined WaveExecutor on the card against the serial oracle."""
+    from firedancer_tpu_torch.funk import Funk
+    from firedancer_tpu_torch.ops import cuda_wave
+    from firedancer_tpu_torch.svm import executor as texec
+    for name, (bal, txns) in wave_cases().items():
+        if not txns:
+            continue
+        key_idx = {}
+        for t in txns:
+            for k in (t.src, t.dst):
+                key_idx.setdefault(k, len(key_idx))
+        packed, _, _ = texec.pack_table(txns, key_idx)
+        for n in (texec._bucket(len(key_idx) + 1), 40_000):
+            hi, lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+            for k, i in key_idx.items():
+                hi[i], lo[i] = bal.get(k, 0) >> 32, bal.get(k, 0) & 0xFFFFFFFF
+            ins = [torch.from_numpy(x) for x in (packed, hi, lo)]
+            before = cuda_wave.launches["wave_scan"]
+            got = cuda_wave.wave_scan(*(x.to(dev) for x in ins))
+            torch.cuda.synchronize()
+            assert cuda_wave.launches["wave_scan"] == before + 1
+            want = cuda_wave.wave_scan_plain(*ins)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), name
+    bal, txns = wave_cases()["random1"]
+    oracle = dict(bal)
+    want = texec.execute_block_serial(oracle, txns)
+    funk = Funk()
+    for k, v in bal.items():
+        funk.rec_write(None, k, v)
+    wx = texec.WaveExecutor("cuda")
+    staged = [wx.stage(txns[i:i + 40]) for i in range(0, len(txns), 40)]
+    pending, got = None, []
+    for wi, st in enumerate(staged):
+        if pending is not None:
+            got += wx.finalize(funk, pending)
+            funk.txn_publish(pending.xid)
+        pending = wx.dispatch(funk, None, wi, st)
+    got += wx.finalize(funk, pending)
+    funk.txn_publish(pending.xid)
+    assert got == want
+    assert all(funk.rec_query(None, k) == v for k, v in oracle.items())

@@ -88,29 +88,24 @@ def _tile_probe(plan, tile_name, q):
     q.put(sorted(k for k in sys.modules if _forbidden(k)))
 
 
-def test_spawned_verify_tile_process_loads_no_jax():
-    from firedancer_tpu_torch.disco import Topology
+def _spawn_and_probe(topo, tn):
+    """Spawn tile `tn` of `topo` through the launcher's entry point, wait
+    for RUN, halt it, and hold it to loading no forbidden module."""
     from firedancer_tpu_torch.runtime import (CNC_HALT, CNC_RUN, Cnc,
                                               Workspace)
-    topo = (Topology(f"ttimp{os.getpid()}", wksp_size=1 << 22)
-            .link("in", depth=16, external=True)
-            .link("out", depth=16, external=True)
-            .tcache("tc", depth=64)
-            .tile("verify", "verify", ins=["in"], outs=["out"], batch=16,
-                  device="cpu"))
     plan = topo.build()
     w = Workspace(plan["wksp"]["name"], plan["wksp"]["size"], create=False)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    p = ctx.Process(target=_tile_probe, args=(plan, "verify", q),
+    p = ctx.Process(target=_tile_probe, args=(plan, tn, q),
                     daemon=True)
     p.start()
     try:
-        cnc = Cnc(w, off=plan["tiles"]["verify"]["cnc_off"])
+        cnc = Cnc(w, off=plan["tiles"][tn]["cnc_off"])
         deadline = time.time() + 120
         while cnc.state != CNC_RUN:
             assert p.is_alive() and time.time() < deadline, \
-                "the verify tile never reached RUN"
+                f"the {tn} tile never reached RUN"
             time.sleep(0.02)
         cnc.state = CNC_HALT
         assert q.get(timeout=60) == []
@@ -122,3 +117,47 @@ def test_spawned_verify_tile_process_loads_no_jax():
             p.join(10)
         w.close()
         w.unlink()
+
+
+def test_spawned_verify_tile_process_loads_no_jax():
+    from firedancer_tpu_torch.disco import Topology
+    _spawn_and_probe(
+        Topology(f"ttimp{os.getpid()}", wksp_size=1 << 22)
+        .link("in", depth=16, external=True)
+        .link("out", depth=16, external=True)
+        .tcache("tc", depth=64)
+        .tile("verify", "verify", ins=["in"], outs=["out"], batch=16,
+              device="cpu"), "verify")
+
+
+def test_spawned_bank_tile_process_loads_no_jax():
+    """The bank tile with exec="svm" (the wave executor, its kernel's
+    wrapper, funk, the conflict DAG, pack's cost model) on the CPU."""
+    from firedancer_tpu_torch.disco import Topology
+    _spawn_and_probe(
+        Topology(f"ttimpb{os.getpid()}", wksp_size=1 << 22)
+        .link("mb", depth=16, mtu=4096, external=True)
+        .link("done", depth=16, mtu=64, external=True)
+        .link("poh", depth=16, mtu=4160, external=True)
+        .tile("bank0", "bank", ins=["mb"], outs=["done", "poh"],
+              exec="svm", poh_link="poh", forward_payloads=True,
+              genesis_synth=16, device="cpu"), "bank0")
+
+
+@pytest.mark.parametrize("mod", [
+    "firedancer_tpu_torch.svm.executor", "firedancer_tpu_torch.svm.accdb",
+    "firedancer_tpu_torch.ops.cuda_wave", "firedancer_tpu_torch.ops.poh",
+    "firedancer_tpu_torch.funk.funk", "firedancer_tpu_torch.replay.rdisp",
+    "firedancer_tpu_torch.pack.scheduler", "firedancer_tpu_torch.pack.cost",
+    "firedancer_tpu_torch.utils.base58"])
+def test_leader_leg_module_loads_no_jax(mod):
+    """Each module of the leader's execution leg, imported alone in a
+    fresh interpreter."""
+    code = (f"import sys, {mod}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'firedancer_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

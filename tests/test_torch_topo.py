@@ -136,7 +136,8 @@ def test_unported_kind_is_refused_with_its_item(kind):
 
 
 def test_every_reference_kind_is_ported_or_refused():
-    assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink"}
+    assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink",
+                                    "pack", "bank", "poh"}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
@@ -171,7 +172,8 @@ def test_config_gate_accepts_the_reference_keys_plus_device():
         ref = jregistry.known_keys(kind)
         port = {"name", "kind", "ins", "outs", *tconfig.COMMON_KEYS,
                 *keys}
-        assert port - ref == ({"device"} if kind == "verify" else set())
+        assert port - ref == ({"device"} if kind in ("verify", "bank")
+                              else set())
         assert ref <= port
 
 
