@@ -32,12 +32,18 @@ and read just after:
             stand for their launches; each prints the record bench.py's
             _e2e_run prints;
   execution phases 11-12: the leader's execution leg. 11 holds the
-            wave-scan kernel (csrc/wave_scan.cu) to its plain version on
-            bank0's wave at bench.py's shape (8 microblocks x 31 synth
-            transfers from 16 signers) and on a random block of 4096
-            transfers over 768 accounts with u64 edge values, times it,
-            and runs the pipelined WaveExecutor (stage k+1 before
-            finalize k) against the serial oracle; 12 boots
+            wave-scan kernel (csrc/wave_scan.cu) to its plain version,
+            and times it, at five shapes (tools/wave_bench.py): bank0's
+            wave at bench.py's shape (8 microblocks x 31 synth
+            transfers from 16 signers: one warp, the table resident in
+            shared memory), the wave the bank launches in phase 12 (4 x
+            12), a random block of 4096 transfers over 768 accounts with
+            u64 edge values (the table through the ring of slots),
+            16,384 transfers over 40,000 accounts (the balances in
+            device memory) and bank0's table with every lane inactive
+            (the bare chain of waits and barriers); then it runs the
+            pipelined WaveExecutor (stage k+1 before finalize k) against
+            the serial oracle; 12 boots
             firedancer_tpu_torch/cfg/leader.toml (bench.py's leader
             topology without its shred leg: synth -> verify x2 -> dedup
             -> pack -> bank0 -> poh -> sink, seven kinds in eight
@@ -81,11 +87,7 @@ FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
 TOPO_FRAMES = 65536       # phase 10a: cfg/sigverify.toml's synth count
 TOPO_PREFILTER_FRAMES = 16384   # phase 10b, bulk_prefilter
 LEADER_FRAMES = 4096      # phase 12: cfg/leader.toml's synth count
-BANK_WAVE_MBS = 8         # phase 11: bank0's wave, microblocks ...
-MB_TXNS = 31              # ... of max_txn_per_microblock transfers
 PIPE_WAVES = 4            # phase 11: bank waves through the pipeline
-RAND_TXNS = 4096          # phase 11: the random block's transfers ...
-RAND_ACCTS = 768          # ... over the leader topology's unique pool
 # the wave scan's integer operations per active lane (the u64 need, two
 # u64 compares, the charge select and subtract, the credit and the
 # status: each u64 step as two 32-bit operations) and per account slot
@@ -382,91 +384,6 @@ def run_topology(root, tag, count, verify_last=False, **verify):
             os.environ.pop("FDTPU_VERIFY_INFLIGHT", None)
         else:
             os.environ["FDTPU_VERIFY_INFLIGHT"] = env0
-
-
-def graph_ms(fn, iters: int) -> float:
-    """Mean device ms per call of `fn`, its `iters` calls captured in one
-    CUDA graph and replayed between CUDA events: the kernels' own time,
-    without the host's launch cost between them."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    t0.record()
-    g.replay()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def synth_transfers(n: int, seed: int):
-    """n system transfers as the synth tile makes them (16 signers in
-    turn, each to its own destination, an amount in [2^20, 2^31), the
-    fee of one signature) -> (SystemTxn list, genesis {pubkey: 2^44}).
-    Built without signing: the bank executes what the txns say."""
-    from firedancer_tpu_torch.pack.scheduler import FEE_PER_SIGNATURE
-    from firedancer_tpu_torch.svm.executor import SystemTxn
-    from firedancer_tpu_torch.tiles.synth import synth_signer_seed
-    from firedancer_tpu_torch.utils.ed25519_ref import keypair
-    pubs = [keypair(synth_signer_seed(i))[2] for i in range(16)]
-    rng = np.random.default_rng(seed)
-    txns = [SystemTxn(pubs[i % 16], hashlib.sha256(b"dest-%d" % i).digest(),
-                      int(rng.integers(1 << 20, 1 << 31)), FEE_PER_SIGNATURE)
-            for i in range(n)]
-    return txns, {p: 1 << 44 for p in pubs}
-
-
-def u64_block(n: int, n_acct: int, seed: int):
-    """A random block of n transfers over n_acct accounts with u64 edge
-    values: balances up to 2^64 - 1 (a quarter at or above 2^63), amounts
-    and fees near 2^63 and 2^64 so amount + fee wraps, hi-word borrows.
-    -> (SystemTxn list, genesis {pubkey: u64})."""
-    from firedancer_tpu_torch.svm.executor import SystemTxn
-    rng = np.random.default_rng(seed)
-    keys = [hashlib.sha256(b"acct-%d" % i).digest() for i in range(n_acct)]
-    edges = [0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
-             (1 << 64) - 1]
-
-    def u64(p_edge):
-        if rng.random() < p_edge:       # at an edge or just below it
-            e = edges[rng.integers(len(edges))]
-            return (e - int(rng.integers(0, 3))) % (1 << 64)
-        return int(rng.integers(0, 1 << 62)) << int(rng.integers(0, 3))
-    genesis = {k: u64(0.25) if i % 4
-               else (1 << 63) + int(rng.integers(0, 1 << 62))
-               for i, k in enumerate(keys)}
-    txns = [SystemTxn(keys[rng.integers(n_acct)], keys[rng.integers(n_acct)],
-                      u64(0.2), u64(0.1) >> int(rng.integers(0, 40)))
-            for _ in range(n)]
-    return txns, genesis
-
-
-def wave_tables(txns, genesis):
-    """The staged table of `txns` and the balance halves of its account
-    slots, as WaveExecutor.stage and dispatch build them -> numpy
-    (packed (Wp, Cp, 7) uint32, bal_hi, bal_lo (A,) uint32, W, C, active
-    lanes)."""
-    from firedancer_tpu_torch.svm import executor as texec
-    key_idx = {}
-    for t in txns:
-        for k in (t.src, t.dst):
-            key_idx.setdefault(k, len(key_idx))
-    packed, tix, act = texec.pack_table(txns, key_idx)
-    n = texec._bucket(len(key_idx) + 1)
-    hi, lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
-    for k, i in key_idx.items():
-        v = genesis.get(k, 0)
-        hi[i], lo[i] = v >> 32, v & 0xFFFFFFFF
-    return packed, hi, lo, tix.shape[0], tix.shape[1], int(act.sum())
 
 
 def run_leader(root, tag):
@@ -1112,58 +1029,59 @@ def main() -> int:
                 v["rlc_shed"] == 0, "a valid chunk failed the RLC equation"
 
     # 11. the leader's execution leg in process: the wave-scan kernel
-    # against its plain version at bank0's wave (8 microblocks x 31 synth
-    # transfers, 16 signers) and on a random block with u64 edge values;
-    # its time; then the pipelined WaveExecutor against the serial oracle
+    # against its plain version at phase 11's five shapes
+    # (firedancer_tpu_torch/tools/wave_bench.py: bank0's wave, the bank's
+    # observed wave, the random u64-edge block through the ring, balances
+    # in device memory, an all-inactive table), with its time on the
+    # device and a call's from Python; then the pipelined WaveExecutor
+    # against the serial oracle
     from firedancer_tpu_torch.funk import Funk
     from firedancer_tpu_torch.svm import executor as texec
+    from firedancer_tpu_torch.tools import wave_bench
     log(f"== 11. wave scan kernel vs plain; pipelined WaveExecutor {card}")
-    per_wave = BANK_WAVE_MBS * MB_TXNS
-    bench_txns, bench_gen = synth_transfers(per_wave * PIPE_WAVES, 17)
-    rand_txns, rand_gen = u64_block(RAND_TXNS, RAND_ACCTS, 18)
+    per_wave = wave_bench.BANK_WAVE[0] * wave_bench.BANK_WAVE[1]
+    bench_txns, bench_gen = wave_bench.synth_transfers(
+        per_wave * PIPE_WAVES, 17)
     wave_err = 0
-    for name, txns, gen in (("wave_scan", bench_txns[:per_wave], bench_gen),
-                            ("wave_scan@random", rand_txns, rand_gen)):
-        packed, hi, lo, w, c, lanes = wave_tables(txns, gen)
-        ins_d = [torch.from_numpy(x).to(dev) for x in (packed, hi, lo)]
-        got = [x.cpu().numpy() for x in cuda_wave.wave_scan(*ins_d)]
-        want = [x.cpu().numpy() for x in cuda_wave.wave_scan_plain(*ins_d)]
-        torch.cuda.synchronize()
-        err = max(int(np.abs(g.astype(np.int64) - v.astype(np.int64)).max())
-                  for g, v in zip(got, want))
-        assert err == 0, f"{name}: kernel != plain (max err {err})"
-        st = got[2]
+    for name, txns, gen, tables in wave_bench.shapes(bench_txns[:per_wave],
+                                                     bench_gen):
+        packed, hi, lo, w, c, lanes = tables
+        r = wave_bench.run_shape(cuda_wave, tables, ITERS, dev)
+        assert r["err"] == 0 and r["equal_statuses"], \
+            f"{name}: kernel != plain (max err {r['err']})"
+        st = r["statuses"]
         hist = {k: int((st == k).sum()) for k in (0, 1, 2)}
         assert sum(hist.values()) == lanes == len(txns)
         if name == "wave_scan":
             oracle = dict(gen)
             assert sorted(texec.execute_block_serial(oracle, txns)) \
                 == sorted(st[st >= 0].tolist())
-        else:
+        elif name in ("wave_scan@random", "wave_scan@global_balances"):
             assert min(hist.values()) > 0, f"{name}: statuses {hist}"
-        wave_err = max(wave_err, err)
+        wave_err = max(wave_err, r["err"])
         ops = lanes * WAVE_OPS_PER_LANE + len(hi) * WAVE_OPS_PER_ACCT
         nbytes = packed.nbytes + 4 * hi.nbytes + st.nbytes
-        # the kernel's own time from a CUDA graph of ITERS launches; a
-        # call from Python (checks, three allocations, the ctypes launch)
-        # costs more than the kernel, so back-to-back calls time the host
-        call_ms = cuda_ms(lambda: cuda_wave.wave_scan(*ins_d), ITERS)
-        st_ = stats[name] = stats_of(
-            graph_ms(lambda: cuda_wave.wave_scan(*ins_d), ITERS),
-            cuda_ms(lambda: cuda_wave.wave_scan_plain(*ins_d), 1), ops,
-            nbytes)
-        st_["call_ms"] = call_ms
+        st_ = stats[name] = stats_of(r["ms"], r["plain_ms"], ops, nbytes)
+        st_.update(call_ms=r["call_ms"], plan=r["plan"])
+        pl = r["plan"]
         log(f"{name}: {len(txns)} transfers, {len(hi)} account slots, "
             f"{w} waves x {c} lanes (staged {packed.shape[0]} x "
             f"{packed.shape[1]}), statuses ok/insufficient/fee_fail "
             f"{hist[0]}/{hist[1]}/{hist[2]}; kernel == plain, max_abs_err "
-            f"{err}; kernel {st_['ms']:.4f} ms on the device (CUDA graph "
-            f"of {ITERS} launches; {1e3 * st_['ms'] / w:.2f} us a wave "
-            f"step), {call_ms:.4f} ms a call from Python (CUDA events over "
-            f"{ITERS} calls), plain {st_['plain_ms']:.2f} ms, bound "
+            f"{r['err']}; plan: "
+            f"{'ring of %d slots' % pl['slots'] if pl['ring'] else 'resident'}"
+            f" for {pl['chunks']} chunks of {pl['chunk_lanes']} lanes, "
+            f"balances in {'shared' if pl['sbal'] else 'device'} memory, "
+            f"{pl['threads']} threads ({pl['scan_threads']} scanning), "
+            f"{pl['smem']} B shared; kernel {st_['ms']:.4f} ms on the "
+            f"device (CUDA graph of {ITERS} launches; "
+            f"{1e3 * st_['ms'] / packed.shape[0]:.3f} us a staged wave "
+            f"step), {r['call_ms']:.4f} ms a call from Python (CUDA events "
+            f"over {ITERS} calls), plain {st_['plain_ms']:.2f} ms, bound "
             f"{st_['bound_ms']:.6f} ms ({ops} int32 ops -> "
             f"{st_['ops_ms']:.6f} ms, {nbytes} B -> {st_['bytes_ms']:.6f} "
-            f"ms); critical chain {w} dependent wave steps {card}")
+            f"ms); critical chain {packed.shape[0]} dependent wave steps "
+            f"{card}")
     reset_counts()
     funk = Funk()
     for k, v in bench_gen.items():

@@ -8,10 +8,14 @@ act), bal_hi / bal_lo (A,) uint32 halves of the u64 balances; returns the
 balances after the W waves and the (W, C) int32 statuses (STATUS_PAD for
 an inactive lane, else STATUS_OK, STATUS_INSUFFICIENT or STATUS_FEE_FAIL,
 svm/executor.py). The lanes of one wave must be account-disjoint, as the
-conflict DAG's waves are.
+conflict DAG's waves are. `wave_scan_slab` returns the same results as
+one int32 slab, [bal_hi | bal_lo | status], the one allocation a launch
+makes; `split_slab` cuts it into the three views.
 
-A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
-or the call raises. `launches` counts kernel launches and nothing else."""
+packed, bal_hi and bal_lo must be contiguous and 16-byte aligned (the
+kernel stages them by bulk asynchronous copies), on either device. A CPU
+tensor goes to the plain version; a CUDA tensor goes to the kernel, or
+the call raises. `launches` counts kernel launches and nothing else."""
 from __future__ import annotations
 
 import ctypes as ct
@@ -24,13 +28,14 @@ STATUS_PAD = -1
 STATUS_OK = 0
 STATUS_INSUFFICIENT = 1
 STATUS_FEE_FAIL = 2
-SMEM_MAX = 227 * 1024          # the kernel keeps balances in shared memory
-                               # up to this many bytes (8 an account)
 
 launches = {"wave_scan": 0}
 
 _ARGS = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
          ct.c_int] + [ct.c_void_p] * 5
+_PLAN_ARGS = [ct.c_int] * 3 + [ct.c_void_p]
+PLAN_KEYS = ("ring", "sbal", "slots", "chunks", "chunk_lanes",
+             "scan_threads", "threads", "smem")
 _MASK = (1 << 32) - 1
 
 
@@ -40,6 +45,9 @@ def _check(name, t, shape, dtype, dev):
         raise ValueError(f"wave_scan: {name} must be a contiguous {shape} "
                          f"{dtype} on {dev}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"wave_scan: {name} must be 16-byte aligned, got "
+                         f"address {t.data_ptr():#x}")
 
 
 def _ge(ah, al, bh, bl):
@@ -88,9 +96,8 @@ def wave_scan_plain(packed, bal_hi, bal_lo):
     return bh.to(torch.uint32), bl.to(torch.uint32), status
 
 
-def wave_scan(packed, bal_hi, bal_lo):
-    """packed (W, C, 7) uint32, bal_hi, bal_lo (A,) uint32 -> (bal_hi,
-    bal_lo (A,) uint32, status (W, C) int32)."""
+def _checked(packed, bal_hi, bal_lo):
+    """The inputs' checks -> (A, W, C)."""
     dev = packed.device
     if packed.dim() != 3 or packed.shape[2] != 7:
         raise ValueError(f"wave_scan: packed must be (W, C, 7), got "
@@ -101,20 +108,69 @@ def wave_scan(packed, bal_hi, bal_lo):
                                   ("bal_hi", bal_hi, (a,), torch.uint32),
                                   ("bal_lo", bal_lo, (a,), torch.uint32)):
         _check(name, t, shape, dtype, dev)
-    if dev.type == "cpu":
-        return wave_scan_plain(packed, bal_hi, bal_lo)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wave_scan: tensors on {dev}; expected CUDA")
+    if w * c >= 1 << 31:
+        raise ValueError(f"wave_scan: {w} x {c} lanes; at most 2^31 - 1")
+    return a, w, c
+
+
+def plan(w: int, c: int, a: int, lib=None) -> dict:
+    """The kernel's launch plan for W x C lanes over A accounts (csrc
+    wave_plan): ring or resident table, balances in shared memory or not,
+    slots, chunks, chunk lanes, threads and shared-memory bytes. `lib`: a
+    loaded library of csrc/wave_scan.cu (default: the card's build)."""
+    if lib is None:
+        fn = _build.lib("wave_scan", _PLAN_ARGS, "fdtt_wave_plan")
+    else:
+        fn = lib.fdtt_wave_plan
+        fn.argtypes = _PLAN_ARGS
+    out = (ct.c_int64 * len(PLAN_KEYS))()
+    fn(w, c, a, ct.addressof(out))
+    return dict(zip(PLAN_KEYS, out))
+
+
+def split_slab(slab, a: int, w: int, c: int):
+    """[bal_hi | bal_lo | status] int32 slab -> (bal_hi, bal_lo (A,)
+    uint32, status (W, C) int32) views."""
+    return (slab[:a].view(torch.uint32), slab[a:2 * a].view(torch.uint32),
+            slab[2 * a:2 * a + w * c].view(w, c))
+
+
+def _launch(packed, bal_hi, bal_lo, a, w, c):
+    """One allocation: the result slab, then, at an 8-byte boundary, A + 1
+    64-bit words of scratch, which the kernel takes for the balances where
+    they do not fit in shared memory. -> the result slab."""
+    dev = packed.device
     fn = _build.lib("wave_scan", _ARGS)
-    out = torch.empty((2, a), dtype=torch.uint32, device=dev)
-    status = torch.empty((w, c), dtype=torch.int32, device=dev)
-    gbal = torch.empty(a, dtype=torch.int64, device=dev) \
-        if a * 8 > SMEM_MAX else None
+    n = 2 * a + w * c
+    at = (n + 1) & ~1
+    buf = torch.empty(at + 2 * a + 2, dtype=torch.int32, device=dev)
+    out = buf.data_ptr()
     with torch.cuda.device(dev):
         rc = fn(packed.data_ptr(), w, c, bal_hi.data_ptr(),
-                bal_lo.data_ptr(), a, out[0].data_ptr(), out[1].data_ptr(),
-                status.data_ptr(), None if gbal is None else gbal.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                bal_lo.data_ptr(), a, out, out + 4 * a, out + 8 * a,
+                out + 4 * at, torch.cuda.current_stream().cuda_stream)
     _build.check_launch("wave_scan", rc)
     launches["wave_scan"] += 1
-    return out[0], out[1], status
+    return buf[:n]
+
+
+def wave_scan_slab(packed, bal_hi, bal_lo):
+    """packed (W, C, 7) uint32, bal_hi, bal_lo (A,) uint32 -> (2 A + W C,)
+    int32 slab [bal_hi | bal_lo | status] (`split_slab`)."""
+    a, w, c = _checked(packed, bal_hi, bal_lo)
+    if packed.device.type == "cpu":
+        hi, lo, st = wave_scan_plain(packed, bal_hi, bal_lo)
+        return torch.cat((hi.view(torch.int32), lo.view(torch.int32),
+                          st.reshape(-1)))
+    return _launch(packed, bal_hi, bal_lo, a, w, c)
+
+
+def wave_scan(packed, bal_hi, bal_lo):
+    """packed (W, C, 7) uint32, bal_hi, bal_lo (A,) uint32 -> (bal_hi,
+    bal_lo (A,) uint32, status (W, C) int32)."""
+    a, w, c = _checked(packed, bal_hi, bal_lo)
+    if packed.device.type == "cpu":
+        return wave_scan_plain(packed, bal_hi, bal_lo)
+    return split_slab(_launch(packed, bal_hi, bal_lo, a, w, c), a, w, c)

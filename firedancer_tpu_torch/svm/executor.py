@@ -29,9 +29,9 @@ Where the copy differs from the reference:
     pinned buffer until `finalize`, so it is never reused while the copy
     is in flight;
   * `dispatch` uploads the balances the same way, launches the kernel,
-    queues the non-blocking copies of its results into pinned host
-    buffers and records a CUDA event, without synchronising; `finalize`
-    waits on that event;
+    queues one non-blocking copy of its result slab ([bal_hi | bal_lo |
+    status], ops/cuda_wave.py) into one pinned host buffer and records a
+    CUDA event, without synchronising; `finalize` waits on that event;
   * shapes are still padded to power-of-two buckets per axis, as the
     reference's jit buckets are, so the two packages stage identical
     tables (the kernel needs no buckets: padding lanes are inactive).
@@ -164,8 +164,9 @@ class StagedWave:
 @dataclass
 class DispatchedWave:
     """An in-flight wave: the funk fork is prepared, the scan is queued
-    and its results are on their way to `out` (pinned host tensors on the
-    card); finalize() waits on `event` and commits."""
+    and its result slab is on its way to a pinned host buffer on the
+    card, of which `out` holds the views; finalize() waits on `event` and
+    commits."""
     staged: StagedWave
     xid: object
     prior: dict
@@ -227,15 +228,17 @@ class WaveExecutor:
             bal[0, i] = v >> 32
             bal[1, i] = v & _MASK32
         bal_dev, pinned = _to_device(bal, self.device)
-        res = cuda_wave.wave_scan(staged.packed_dev, bal_dev[0], bal_dev[1])
-        if self.device.type == "cpu":
-            return DispatchedWave(staged, xid, prior, res, None, None)
-        out = tuple(torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
-                    for r in res)
-        for o, r in zip(out, res):
-            o.copy_(r, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        slab = cuda_wave.wave_scan_slab(staged.packed_dev, bal_dev[0],
+                                        bal_dev[1])
+        event = None
+        if self.device.type == "cuda":
+            host = torch.empty(slab.shape, dtype=slab.dtype, pin_memory=True)
+            host.copy_(slab, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            slab = host
+        out = cuda_wave.split_slab(slab, bal.shape[1],
+                                   *staged.packed_dev.shape[:2])
         return DispatchedWave(staged, xid, prior, out, event, pinned)
 
     def finalize(self, funk, disp: DispatchedWave) -> list[int]:

@@ -32,7 +32,7 @@ from firedancer_tpu_torch.ops._build import CSRC
 from firedancer_tpu_torch.utils import ed25519_ref as ref
 from torch_rlc_cases import (KEPT_OUT, PRE_CLASSES, ram_inputs,
                              spread_blocks, stage_inputs)
-from torch_wave_cases import wave_cases
+from torch_wave_cases import staged_inputs, wave_cases
 
 VP = ct.c_void_p
 
@@ -237,39 +237,149 @@ def test_msm_stage2_source_matches_plain(host_lib, stage1_two_blocks, nblk):
 WAVE_CASES = wave_cases()
 
 
-@pytest.mark.parametrize("case", [c for c in WAVE_CASES if c != "empty"])
-def test_wave_scan_source_matches_plain(host_lib, case):
-    """The wave scan's host build (csrc/wave_scan.cu: the whole scan,
-    wave after wave and lane after lane) against ops/cuda_wave.py's plain
-    version, on the staged table of every case of
-    tests/torch_wave_cases.py (u64 wraps, hi-word borrows, a
-    self-transfer, fee-only failures, blocks across the bucket edges):
-    every balance and status equal."""
-    from firedancer_tpu_torch.ops import cuda_wave
-    from firedancer_tpu_torch.svm import executor as texec
-    fn = host_lib("wave_scan").wave_scan_host
-    fn.argtypes = [VP, ct.c_int, ct.c_int, VP, VP, ct.c_int, VP, VP, VP,
-                   VP]
-    bal, txns = WAVE_CASES[case]
-    key_idx = {}
-    for t in txns:
-        for k in (t.src, t.dst):
-            key_idx.setdefault(k, len(key_idx))
-    packed, _, act = texec.pack_table(txns, key_idx)
-    n = texec._bucket(len(key_idx) + 1)
-    hi, lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
-    for k, i in key_idx.items():
-        hi[i], lo[i] = bal.get(k, 0) >> 32, bal.get(k, 0) & 0xFFFFFFFF
+@pytest.fixture(scope="module")
+def wave_lib(host_lib):
+    lib = host_lib("wave_scan")
+    lib.wave_scan_host.argtypes = [VP, ct.c_int, ct.c_int, VP, VP, ct.c_int,
+                                   VP, VP, VP, ct.c_int, ct.c_int]
+    return lib
+
+
+def _wave_inputs(case, crop=False):
+    return staged_inputs(*WAVE_CASES[case], crop=crop)
+
+
+def _host_scan(wave_lib, packed, hi, lo, chunk_lanes, slots):
     w, c = packed.shape[:2]
+    n = len(hi)
     out_hi, out_lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
-    status = np.zeros((w, c), np.int32)
-    scratch = np.zeros(n, np.uint64)
-    fn(packed.ctypes.data, w, c, hi.ctypes.data, lo.ctypes.data, n,
-       out_hi.ctypes.data, out_lo.ctypes.data, status.ctypes.data,
-       scratch.ctypes.data)
+    status = np.full((w, c), 7, np.int32)
+    rc = wave_lib.wave_scan_host(
+        packed.ctypes.data, w, c, hi.ctypes.data, lo.ctypes.data, n,
+        out_hi.ctypes.data, out_lo.ctypes.data, status.ctypes.data,
+        chunk_lanes.bit_length() - 1, slots)
+    assert rc == 0, "a barrier's parity disagrees with ring_parity"
+    return out_hi, out_lo, status
+
+
+def _assert_plain(got, packed, hi, lo):
+    from firedancer_tpu_torch.ops import cuda_wave
     want = cuda_wave.wave_scan(*(torch.from_numpy(x)
                                  for x in (packed, hi, lo)))
-    np.testing.assert_array_equal(out_hi, want[0].numpy())
-    np.testing.assert_array_equal(out_lo, want[1].numpy())
-    np.testing.assert_array_equal(status, want[2].numpy())
-    assert (status >= 0).sum() == act.sum() == len(txns)
+    for g, v in zip(got, want):
+        np.testing.assert_array_equal(g, v.numpy())
+
+
+@pytest.mark.parametrize("case", [c for c in WAVE_CASES if c != "empty"])
+def test_wave_scan_source_matches_plain(wave_lib, case):
+    """The wave scan's host build (csrc/wave_scan.cu: the whole scan,
+    wave after wave and lane after lane, through the chunks and slots of
+    the kernel's own plan) against ops/cuda_wave.py's plain version, on
+    the staged table of every case of tests/torch_wave_cases.py (u64
+    wraps, hi-word borrows, a self-transfer, fee-only failures, blocks
+    across the bucket edges): every balance and status equal."""
+    from firedancer_tpu_torch.ops import cuda_wave
+    packed, hi, lo, active = _wave_inputs(case)
+    w, c = packed.shape[:2]
+    plan = cuda_wave.plan(w, c, len(hi), lib=wave_lib)
+    got = _host_scan(wave_lib, packed, hi, lo, plan["chunk_lanes"],
+                     plan["slots"])
+    _assert_plain(got, packed, hi, lo)
+    assert (got[2] >= 0).sum() == active == len(WAVE_CASES[case][1])
+
+
+@pytest.fixture(scope="module")
+def phase11_shapes():
+    from firedancer_tpu_torch.tools import wave_bench
+    return {name: tables for name, _, _, tables in wave_bench.shapes()}
+
+
+@pytest.mark.parametrize("shape", ["wave_scan", "wave_scan@bank_observed",
+                                   "wave_scan@random",
+                                   "wave_scan@global_balances",
+                                   "wave_scan@inactive"])
+def test_wave_scan_source_at_phase11_shapes(wave_lib, phase11_shapes,
+                                            shape):
+    """chip_smoke.py phase 11's shapes (tools/wave_bench.py) through the
+    host build with the chunks and slots of the kernel's plan for each
+    (the random block and the 8 x 8192 block through rings of fewer
+    slots than chunks, the latter's balances in device memory on the
+    card); every balance and status equals the plain version's."""
+    from firedancer_tpu_torch.ops import cuda_wave
+    packed, hi, lo, _, _, active = phase11_shapes[shape]
+    plan = cuda_wave.plan(*packed.shape[:2], len(hi), lib=wave_lib)
+    assert plan["ring"] == (shape in ("wave_scan@random",
+                                      "wave_scan@global_balances"))
+    got = _host_scan(wave_lib, packed, hi, lo, plan["chunk_lanes"],
+                     plan["slots"])
+    _assert_plain(got, packed, hi, lo)
+    assert (got[2] >= 0).sum() == active
+
+
+RING_GEOMETRY = [(4, 1), (4, 3), (8, 2), (32, 2)]   # (chunk lanes, slots)
+
+
+@pytest.mark.parametrize("chunk_lanes, slots", RING_GEOMETRY)
+@pytest.mark.parametrize("case", ["random1", "random2", "u64_edges",
+                                  "self_transfer", "block17"])
+def test_wave_scan_ring_source_matches_plain(wave_lib, case, chunk_lanes,
+                                             slots):
+    """The ring's chunk, slot and parity arithmetic, as the kernel's
+    producer and scanning warps use it, through the host build: a table
+    of more chunks than slots (one slot too), with a last chunk that ends
+    part way (the table without its bucket padding: bulk part and tail
+    words) and an A that is not a multiple of 4; every slot reuse flips
+    its barriers' parity (the host build returns 1 otherwise), and every
+    balance and status equals the plain version's."""
+    packed, hi, lo, active = _wave_inputs(case, crop=True)
+    got = _host_scan(wave_lib, packed, hi, lo, chunk_lanes, slots)
+    _assert_plain(got, packed, hi, lo)
+    assert (got[2] >= 0).sum() == active
+
+
+def test_wave_ring_cases_cover_the_ring():
+    """The ring cases above hold what they are named for: more chunks
+    than slots at every geometry, a last chunk that ends part way, a
+    chunk whose bytes end off a 16-byte boundary, and an A off a multiple
+    of 4."""
+    tables = [_wave_inputs(c, crop=True) for c in
+              ("random1", "random2", "u64_edges", "self_transfer",
+               "block17")]
+    lanes = [p.shape[0] * p.shape[1] for p, *_ in tables]
+    for chunk_lanes, slots in RING_GEOMETRY:
+        assert max(-(-n // chunk_lanes) for n in lanes) > slots
+    assert any(n % 32 for n in lanes) and any(n * 28 % 16 for n in lanes)
+    assert any(len(hi) % 4 for _, hi, _, _ in tables)
+
+
+def test_wave_plan_picks_each_branch(wave_lib):
+    """The kernel's plan (csrc wave_plan) at phase 11's shapes: the
+    bank's waves one warp over a resident table with the balances in
+    shared memory; the random block (64 x 256 staged) a ring of
+    four-wave chunks with a producer warp; 32,768 account slots in device
+    memory beside a ring of the largest chunks; a chain of narrow waves
+    a ring with one scanning warp; balances in shared memory at any
+    shape up to 12,600 accounts; and never over 227 KB."""
+    from firedancer_tpu_torch.ops import cuda_wave
+
+    def plan(*a):
+        p = cuda_wave.plan(*a, lib=wave_lib)
+        assert p["smem"] <= 227 * 1024
+        assert p["threads"] == p["scan_threads"] + 32 * p["ring"] <= 1024
+        return p
+    for w, c, a in ((16, 16, 512), (4, 16, 64)):
+        p = plan(w, c, a)
+        assert (p["ring"], p["sbal"], p["slots"], p["threads"]) == \
+            (0, 1, 1, 32)
+    p = plan(64, 256, 1024)          # chunks of four waves
+    assert (p["ring"], p["sbal"], p["chunk_lanes"], p["chunks"],
+            p["threads"]) == (1, 1, 1024, 16, 288) and 5 <= p["slots"] < 16
+    p = plan(8, 8192, 32768)          # wide waves: the largest chunks
+    assert (p["ring"], p["sbal"], p["scan_threads"], p["threads"],
+            p["chunk_lanes"]) == (1, 0, 992, 1024, 2048) and p["slots"] >= 2
+    for c in (16, 256, 992, 8192):     # balances in shared memory to 12,600
+        assert plan(64, c, 12600)["sbal"] == 1 and \
+            plan(64, c, 40000)["sbal"] == 0
+    p = plan(4096, 4, 8192)
+    assert (p["ring"], p["scan_threads"], p["threads"]) == (1, 32, 64)
+    assert plan(0, 0, 0)["chunks"] == 0

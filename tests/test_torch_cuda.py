@@ -21,7 +21,7 @@ from firedancer_tpu_torch.utils import ed25519_ref as ref
 from firedancer_tpu_torch.utils.chaos import undecodable_point
 from torch_rlc_cases import (PRE_CLASSES, ram_inputs, signed,
                              spread_blocks, stage_inputs)
-from torch_wave_cases import wave_cases
+from torch_wave_cases import chain_block, pair_waves, staged_inputs, wave_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -267,3 +267,86 @@ def test_wave_scan_kernel_matches_plain(dev):
     funk.txn_publish(pending.xid)
     assert got == want
     assert all(funk.rec_query(None, k) == v for k, v in oracle.items())
+
+
+def _wave_on_card(dev, packed, hi, lo):
+    from firedancer_tpu_torch.ops import cuda_wave
+    ins = [torch.from_numpy(x) for x in (packed, hi, lo)]
+    before = cuda_wave.launches["wave_scan"]
+    got = cuda_wave.wave_scan(*(x.to(dev) for x in ins))
+    torch.cuda.synchronize()
+    assert cuda_wave.launches["wave_scan"] == before + 1
+    return [g.cpu() for g in got], cuda_wave.wave_scan_plain(*ins)
+
+
+def test_wave_scan_kernel_branches_match_plain(dev):
+    """Every branch of the kernel's plan against the plain version, each
+    with its balances in shared memory and, over 40,000 account slots,
+    in device memory: the u64-edge and random cases without bucket
+    padding (a last chunk that ends part way, an A off a multiple of 4)
+    and a chain of 300 one-lane waves, one warp over a resident table;
+    waves of 100 lanes, four warps at a named barrier; waves of 1,500
+    lanes, the general loop; a chain of 4,000, the ring with one scanning
+    warp beside the producer."""
+    from firedancer_tpu_torch.ops import cuda_wave
+    cases = {name: staged_inputs(*wave_cases()[name], crop=True)
+             for name in ("u64_edges", "random1")}
+    cases.update(chain300=staged_inputs(*chain_block(300)),
+                 pairs100=staged_inputs(*pair_waves(100, 3)),
+                 pairs1500=staged_inputs(*pair_waves(1500, 2), crop=True),
+                 chain4000=staged_inputs(*chain_block(4000)))
+    branches = set()
+    for name, (packed, hi, lo, active) in cases.items():
+        for n in (len(hi), 40_000):
+            h, l = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+            h[:len(hi)], l[:len(lo)] = hi, lo
+            p = cuda_wave.plan(*packed.shape[:2], n)
+            branches.add((name, p["ring"], p["sbal"], p["scan_threads"]))
+            got, want = _wave_on_card(dev, packed, h, l)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (name, n)
+            assert int((got[2] >= 0).sum()) == active
+    assert {(r, s) for _, r, s, _ in branches} == {(0, 0), (0, 1), (1, 0),
+                                                   (1, 1)}
+    assert {th for *_, th in branches} >= {32, 128, 1024}
+
+
+def test_wave_scan_phase11_shapes_match_plain(dev):
+    """chip_smoke.py phase 11's five shapes (tools/wave_bench.py), each
+    on its branch of the plan: bank0's wave and the bank's observed wave
+    resident with one warp, the random block through the ring, 32,768
+    account slots in device memory, an all-inactive table."""
+    from firedancer_tpu_torch.ops import cuda_wave
+    from firedancer_tpu_torch.tools import wave_bench
+    branch = {}
+    for name, _, _, (packed, hi, lo, *_rest) in wave_bench.shapes():
+        p = cuda_wave.plan(*packed.shape[:2], len(hi))
+        branch[name] = (p["ring"], p["sbal"], p["scan_threads"] == 32)
+        got, want = _wave_on_card(dev, packed, hi, lo)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+    assert branch == {"wave_scan": (0, 1, True),
+                      "wave_scan@bank_observed": (0, 1, True),
+                      "wave_scan@random": (1, 1, False),
+                      "wave_scan@global_balances": (1, 0, False),
+                      "wave_scan@inactive": (0, 1, True)}
+
+
+def test_wave_scan_refuses_misaligned_views_on_card(dev):
+    """A view off a 16-byte boundary raises before any launch; the
+    executor's bal[1] of a bucketed A is taken."""
+    from firedancer_tpu_torch.ops import cuda_wave
+    p = torch.zeros((2, 4, 7), dtype=torch.uint32, device=dev)
+    bal = torch.zeros(24, dtype=torch.uint32, device=dev)
+    before = cuda_wave.launches["wave_scan"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_wave.wave_scan(p, bal[:8], bal[9:17])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_wave.wave_scan_slab(
+            torch.zeros(57, dtype=torch.uint32, device=dev)[1:].view(2, 4, 7),
+            bal[:8], bal[8:16])
+    assert cuda_wave.launches["wave_scan"] == before
+    two = bal[:16].view(2, 8)
+    got = cuda_wave.wave_scan(p, two[0], two[1])
+    assert not any(g.cpu().numpy().any() for g in got[:2])
+    assert (got[2] == cuda_wave.STATUS_PAD).all()

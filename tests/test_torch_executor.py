@@ -114,6 +114,73 @@ def test_wave_scan_refuses_bad_inputs():
         cuda_wave.wave_scan(p.int(), b, b)
 
 
+def test_wave_scan_refuses_misaligned_or_strided_views():
+    """The kernel stages packed and both balance halves by 16-byte bulk
+    copies, so the wrapper refuses, on either device and before any
+    launch, a view that starts off a 16-byte boundary or is not
+    contiguous; a view at a multiple of 16 bytes (WaveExecutor's bal[1]
+    of a bucketed A) is taken, and its results equal a fresh copy's."""
+    p = torch.zeros((2, 4, 7), dtype=torch.uint32)
+    bal = torch.arange(2 * 9, dtype=torch.int64).to(torch.uint32)
+    with pytest.raises(ValueError, match="bal_lo must be 16-byte aligned"):
+        cuda_wave.wave_scan(p, bal[:8], bal[1:9])
+    with pytest.raises(ValueError, match="bal_hi must be 16-byte aligned"):
+        cuda_wave.wave_scan_slab(p, bal[2:10], bal[8:16])
+    flat = torch.zeros(2 * 4 * 7 + 1, dtype=torch.uint32)
+    with pytest.raises(ValueError, match="packed must be 16-byte aligned"):
+        cuda_wave.wave_scan(flat[1:].view(2, 4, 7), bal[:8], bal[8:16])
+    with pytest.raises(ValueError, match="bal_hi must be a contiguous"):
+        cuda_wave.wave_scan(p, bal[::2], bal[8:16])
+    with pytest.raises(ValueError, match="packed must be a contiguous"):
+        cuda_wave.wave_scan(torch.zeros((4, 2, 7), dtype=torch.uint32
+                                        ).transpose(0, 1), bal[:8], bal[8:16])
+    packed = torch.zeros((1, 4, 7), dtype=torch.uint32)
+    packed[0, 0] = torch.tensor((0, 1, 0, 5, 0, 1, 1))
+    two = torch.tensor([[0, 0, 0, 0], [10, 0, 3, 4]], dtype=torch.uint32)
+    got = cuda_wave.wave_scan(packed, two[0], two[1])
+    want = cuda_wave.wave_scan(packed, two[0].clone(), two[1].clone())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1].tolist() == [4, 5, 3, 4]
+
+
+@pytest.mark.parametrize("case", ["random1", "u64_edges", "block17"])
+def test_wave_executor_slab_matches_serial_oracle(case):
+    """WaveExecutor on the CPU through the result slab: dispatch takes one
+    int32 slab [bal_hi | bal_lo | status] from wave_scan_slab and keeps
+    views of it, which equal wave_scan's three results; finalize's
+    statuses and committed balances equal the serial oracle's (the u64
+    case against the reference's WaveExecutor, whose ints wrap)."""
+    bal, txns = CASES[case]
+    funk = _funk_pair(bal)[1]
+    wx = texec.WaveExecutor("cpu")
+    staged = wx.stage(txns)
+    disp = wx.dispatch(funk, None, "blk", staged)
+    bh, bl, st = disp.out
+    assert bh.untyped_storage().data_ptr() == \
+        st.untyped_storage().data_ptr() == bl.untyped_storage().data_ptr()
+    a = bh.shape[0]
+    bal_in = torch.zeros((2, a), dtype=torch.uint32)
+    for k, i in staged.key_idx.items():
+        bal_in[0, i], bal_in[1, i] = bal.get(k, 0) >> 32, \
+            bal.get(k, 0) & 0xFFFFFFFF
+    for g, w in zip(disp.out, cuda_wave.wave_scan(staged.packed_dev,
+                                                  bal_in[0], bal_in[1])):
+        assert torch.equal(g, w)
+    got = wx.finalize(funk, disp)
+    keys = set(bal) | {k for t in txns for k in (t.src, t.dst)}
+    if case == "u64_edges":
+        fj = _funk_pair(bal)[0]
+        assert got == jexec.execute_block(fj, None, "blk", txns)
+        for k in keys:
+            assert funk.rec_query("blk", k) == fj.rec_query("blk", k)
+    else:
+        oracle = dict(bal)
+        assert got == texec.execute_block_serial(oracle, txns)
+        for k in keys:
+            assert funk.rec_query("blk", k) == oracle.get(k, 0)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_execute_block_matches_reference_and_oracle(case):
     """execute_block on the port (plain scan) and on the reference: equal

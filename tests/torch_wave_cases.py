@@ -1,6 +1,7 @@
 """Inputs of the wave scan's tests, made with numpy and the port's
 SystemTxn and nothing of JAX, so the card's tests can use them too:
-named blocks of system transfers with their genesis balances."""
+named blocks of system transfers with their genesis balances, and their
+staged tables."""
 import hashlib
 
 import numpy as np
@@ -79,3 +80,41 @@ def wave_cases():
         out[f"block{n}"] = ({a: 1_000_000},
                             [t(a, b, 10, 1) for _ in range(n)])
     return out
+
+
+def pair_waves(n, waves):
+    """n account pairs, each paying the other back and forth: `waves`
+    waves of n lanes."""
+    src, dst = keys_of(n, b"p"), keys_of(n, b"q")
+    t = texec.SystemTxn
+    txns = [t(*((src[i], dst[i]) if w % 2 == 0 else (dst[i], src[i])),
+              100 + i, 3) for w in range(waves) for i in range(n)]
+    return {k: 1_000_000 for k in src}, txns
+
+
+def chain_block(n):
+    """One signer paying n destinations in turn: n waves of one lane (a
+    table of n x 4 staged lanes, scanned by one warp)."""
+    a, = keys_of(1, b"c")
+    return {a: 1 << 40}, [texec.SystemTxn(a, keys_of(1, b"d%d" % i)[0],
+                                          1000 + i, 5) for i in range(n)]
+
+
+def staged_inputs(bal, txns, crop=False):
+    """The staged table of `txns` and the balance halves of its account
+    slots -> numpy (packed (W, C, 7) uint32, bal_hi, bal_lo, active
+    lanes). crop: the table without its bucket padding (W x C of the
+    real waves, so a chunk of the kernel's ring may end part way) over
+    len(accounts) + 1 slots (an A that need not be a multiple of 4)."""
+    key_idx = {}
+    for t in txns:
+        for k in (t.src, t.dst):
+            key_idx.setdefault(k, len(key_idx))
+    packed, tix, act = texec.pack_table(txns, key_idx)
+    if crop:
+        packed = np.ascontiguousarray(packed[:tix.shape[0], :tix.shape[1]])
+    n = len(key_idx) + 1 if crop else texec._bucket(len(key_idx) + 1)
+    hi, lo = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    for k, i in key_idx.items():
+        hi[i], lo[i] = bal.get(k, 0) >> 32, bal.get(k, 0) & 0xFFFFFFFF
+    return packed, hi, lo, int(act.sum())
