@@ -45,12 +45,29 @@ and read just after:
             pipelined WaveExecutor (stage k+1 before finalize k) against
             the serial oracle; 12 boots
             firedancer_tpu_torch/cfg/leader.toml (bench.py's leader
-            topology without its shred leg: synth -> verify x2 -> dedup
-            -> pack -> bank0 -> poh -> sink, seven kinds in eight
-            processes, verify and bank on the card), waits until all
-            4096 frames are accounted for by bench.py's conservation
-            rule and prints the leader rate (bench.py's
-            e2e_leader_tps); the bank counts its own kernel launches.
+            topology less its core pinning: synth -> verify x2 -> dedup
+            -> pack -> bank0 -> poh -> shred <-> sign -> shredsink, nine
+            kinds in eleven processes, verify and bank on the card),
+            waits until all 4096 frames are accounted for by bench.py's
+            conservation rule and prints the leader rate (bench.py's
+            e2e_leader_tps); then drains the shred leg and holds
+            shredsink's frames to the shreds made, the signed roots to
+            the FEC sets, and every mirrored shred to its set's root and
+            signature; the bank counts its own kernel launches;
+  hashes    phases 13-16: the device ops of the shred leg and of the
+            follower's replay and bank hash. 13: the SHA-256 kernel ==
+            plain == hashlib at 8192 rows of 0-1296 bytes, at widths 1296
+            and 1297 (its 32-bit and its byte loads), then bmtree_root
+            over 64 shred-sized trees and the merkle leaves of a 32:32
+            FEC set (the Shredder's parity from ops/reedsol on the card)
+            through the kernel, each launch of theirs also == plain; 14:
+            poh_verify_entries on one slot at mainnet's 12,500 hashes a
+            tick against the host chain, and kernel == plain at
+            cfg/leader.toml's 64, each beside its chain floor; 15: the
+            BLAKE3 kernel's two entries == plain at 4096 lanes of 0-2048
+            bytes (== blake3_ref on 512); 16: Reed-Solomon encode and
+            recover on the card (torch.matmul, no hand-written kernel) at
+            64 sets of 32:32 over the shredder's RS region.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -60,8 +77,9 @@ Any mismatch raises. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-and the line before it a JSON object with each kernel's launches on the
-paths, error against its plain version, time, plain time and bound.
+and the line before it a JSON object with each of the nine kernels'
+launches on the paths, error against its plain version, time, plain time
+and bound.
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -101,7 +119,8 @@ DEVICE = "cuda"
 # Least-time model (see PERF.md "Port: PyTorch/CUDA on H100"): the H100
 # SXM's INT32 rate, 132 SMs x 64 INT32 lanes x 1.98 GHz boost, and its
 # HBM3 rate of 3.35 TB/s.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * CLOCK_HZ
 BYTES_PER_S = 3.35e12
 # SHA-512, 32-bit instructions per 128-byte block at the fewest the
 # algorithm allows on this ISA: a round is Sigma1 + Sigma0 (3 funnel-
@@ -120,6 +139,32 @@ OPS_PER_FIELD_MUL = 200
 # z S (91 digit products and a sc_reduce64 each), counted at 4 INT32
 # operations an int64 multiply.
 SCALAR_OPS_PER_LANE = 4 * (90 + 2 * (91 + 90))
+# SHA-256, 32-bit instructions per 64-byte block at the fewest this ISA
+# allows: a round is Sigma1 and Sigma0 (3 funnel-shift rotates and one
+# LOP3 xor3 each: 8), ch and maj (one LOP3 each: 2), t1 (a 5-term sum, 2
+# IADD3), e = d + t1 and a = t1 + Sigma0 + maj (2) = 14; a schedule word is
+# sigma0 and sigma1 (2 rotates, a shift and a LOP3 each: 8) and a 4-term
+# sum (2) = 10; the state update is 8 adds.
+SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
+# PoH's chain floor: a round's e = d + t1 hangs on the round before's e
+# through three dependent instructions (the Sigma1 rotates, their LOP3
+# xor3, the IADD3 of t1 and d), and an entry's rounds run one after the
+# other; at one cycle an instruction, below any real latency, an entry's
+# rounds take at least 3 cycles each at the boost clock.
+SHA256_ROUND_CHAIN_OPS = 3
+# BLAKE3, a compression: 7 rounds of 8 G functions of 12 32-bit operations
+# (4 adds, 4 xors, 4 rotates), then 8 output xors (16 for an XOF block).
+BLAKE3_OPS = 7 * 8 * 12 + 8
+BLAKE3_XOF_OPS = 7 * 8 * 12 + 16
+SHA256_B = 8192          # phase 13: rows of lengths 0-1296
+SHA256_WIDTH = 1296
+BMTREE_TREES = 64        # phase 13: shred-sized trees (a 32:32 FEC set)
+BMTREE_LEAVES = 64
+POH_TICKS = 64           # phase 14: one slot at mainnet's settings
+POH_HASHES_PER_TICK = 12500   # Solana genesis hashes_per_tick
+POH_SMALL_HASHES = 64    # cfg/leader.toml's hashes_per_tick
+BLAKE3_B = 4096          # phase 15: lanes of lengths 0-2048
+RS_SETS = 64             # phase 16: 32:32 sets over the shredder's RS region
 SMALL_B = TILE_BATCH     # the second timed size: the tile's chunk
 RAGGED_B = 5000          # stage 2 at 79 blocks, the last chunk ragged
 
@@ -392,13 +437,17 @@ def run_leader(root, tag):
     has published its 4096 frames and every one is accounted for
     (bench.py's _leader_wait_drained: bank0 txns plus the frames dropped
     at a named hop equal the count, and pack has retired every
-    microblock); halt the tiles and read their flushed metrics, budgets
-    and link counters. -> record. Raises on a count mismatch, a dead tile
-    or a timeout."""
+    microblock); then drain the shred leg (tools/leader_drain.py: halt
+    every tile upstream of the shred tile, wait until it has taken every
+    poh entry and shredsink every shred it made), halt the rest and read
+    the tiles' flushed metrics, budgets and link counters, and hold every
+    mirrored shred to its FEC set's root and signature. -> record. Raises
+    on a count mismatch, a dead tile or a timeout."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     from firedancer_tpu_torch.disco.launch import TopologyRunner
     from firedancer_tpu_torch.disco.metrics import (
         link_lag, quantile_ns, read_hists, read_link_metrics)
+    from firedancer_tpu_torch.tools import leader_drain
     cfg = load_config(
         os.path.join(root, "firedancer_tpu_torch", "cfg", "leader.toml"),
         overrides={"tile": [{"name": "verify", "device": DEVICE},
@@ -418,29 +467,23 @@ def run_leader(root, tag):
         work0 = {tn: read_hists(runner.wksp, runner.plan, tn)["work"]
                  ["sum_ns"] for tn in runner.plan["tiles"]}
         runner.wait_idle("synth", "tx", count, timeout_s=300, poll_s=0.002)
-        deadline = time.time() + 300
-        while True:
-            runner.check_failures()
-            p, b = runner.metrics("pack"), runner.metrics("bank0")
-            dropped = runner.metrics("dedup")["dup"] + p["parse_fail"]
-            for tn in shards:
-                v = runner.metrics(tn)
-                dropped += v["parse_fail"] + v["dedup_drop"] \
-                    + v["verify_fail"]
-            if b["txns"] + dropped >= count \
-                    and p["completions"] == p["microblocks"]:
-                break
-            assert time.time() < deadline, \
-                f"leader loop never drained: pack {p}, bank {b}"
-            time.sleep(0.002)
+        dropped = leader_drain.wait_drained(runner, count, timeout_s=300)
         wall = time.perf_counter() - t0
         # the stems flush their metrics, histograms and link counters on
         # a clean exit; the workspace stays until close()
-        runner.halt()
+        t1 = time.perf_counter()
+        m = leader_drain.drain_shred_leg(runner, timeout_s=600)
+        shred_drain_s = time.perf_counter() - t1
         for tn, proc in runner.procs.items():
             assert proc.exitcode == 0, f"tile {tn} exit code {proc.exitcode}"
-        m = {tn: runner.metrics(tn) for tn in runner.plan["tiles"]}
         b, p, poh = m["bank0"], m["pack"], m["poh"]
+        sh, sg, snk = m["shred"], m["sign"], m["shredsink"]
+        wires = leader_drain.mirror_wires(runner)
+        ident = bytes.fromhex(next(t["identity_hex"] for t in cfg["tile"]
+                                   if t["name"] == "shred"))
+        t1 = time.perf_counter()
+        sets_checked = leader_drain.check_mirror(wires, ident)
+        check_s = time.perf_counter() - t1
         parsed = b["txns"] - b["exec_skip"]
         for key, got, want in (
                 ("bank0.txns + drops", b["txns"] + dropped, count),
@@ -449,8 +492,16 @@ def run_leader(root, tag):
                 ("bank0.transfers", b["transfers"], parsed),
                 ("poh.mixins", poh["mixins"], b["microblocks"]),
                 ("pack.completions", p["completions"], p["microblocks"]),
-                ("pack.scheduled", p["scheduled"], b["txns"])):
+                ("pack.scheduled", p["scheduled"], b["txns"]),
+                ("shred.entries", sh["entries"], poh["entries"]),
+                ("shredsink.rx", snk["rx"],
+                 sh["data_shreds"] + sh["parity_shreds"]),
+                ("sign.signed", sg["signed"], sh["fec_sets"]),
+                ("sign.refused", sg["refused"], 0),
+                ("shred.sign_fail", sh["sign_fail"], 0),
+                ("shred.sent", sh["sent"], snk["rx"])):
             assert got == want, f"{key} = {got}, expected {want}"
+        assert sh["fec_sets"] > 0 and sets_checked > 0
         assert b["wave_launches"] > 0, "the bank launched no wave scan"
         for tn in shards:
             assert m[tn]["batches"] > 0 and m[tn]["verify_fail"] == 0, \
@@ -464,9 +515,12 @@ def run_leader(root, tag):
                 "work_p50_us": quantile_ns(work, 0.50) / 1e3,
                 "work_p99_us": quantile_ns(work, 0.99) / 1e3,
                 "occupancy": work["sum_ns"] / busy if busy else 0.0,
-                # work from RUN to halt over the drain window's wall
+                # work from RUN to halt over the drain window's wall (the
+                # shred leg's window runs on through its own drain)
                 "window_work_s": (work["sum_ns"] - work0[tn]) / 1e9,
-                "window_share": (work["sum_ns"] - work0[tn]) / 1e9 / wall}
+                "window_share": (work["sum_ns"] - work0[tn]) / 1e9 / (
+                    wall + (shred_drain_s if tn in leader_drain.SHRED_LEG
+                            else 0.0))}
         links = {}
         for ln, rec in read_link_metrics(runner.wksp, runner.plan).items():
             cons = rec["consumers"]
@@ -490,10 +544,338 @@ def run_leader(root, tag):
             "bank_dispatch_p99_ms": quantile_ns(bh["tpu"], 0.99) / 1e6,
             "bank_dispatch_share_of_work":
                 bh["tpu"]["sum_ns"] / bh["work"]["sum_ns"],
+            "shred": {k: sh[k] for k in ("entries", "batches", "fec_sets",
+                                         "data_shreds", "parity_shreds",
+                                         "sent", "slots", "sign_fail")},
+            "sign_signed": sg["signed"], "shredsink_rx": snk["rx"],
+            "shred_drain_s": shred_drain_s, "mirror_checked": len(wires),
+            "mirror_sets_checked": sets_checked, "mirror_check_s": check_s,
             "stage_budget": budget, "link_budget": links}
     finally:
         runner.halt()
         runner.close()
+
+
+def poh_work(args, max_hashes: int):
+    """(hashes, SHA-256 blocks) that verifying the entries `args` (prev,
+    num_hashes, mixin, has_mixin, expected) needs: each entry's plain
+    hashes up to max_hashes, one block each, and a mixin hash of two
+    blocks where it has one."""
+    num, has = args[1].astype(np.int64), args[3].astype(np.int64)
+    plain = int(np.clip(num - has, 0, max_hashes).sum())
+    return plain + int(has.sum()), plain + 2 * int(has.sum())
+
+
+def poh_chain(args, max_hashes: int):
+    """(rounds, ms) of the longest entry's chain in `args`: its plain
+    hashes up to max_hashes of 64 dependent rounds each, and 128 for its
+    mixin hash, at SHA256_ROUND_CHAIN_OPS cycles a round."""
+    num, has = args[1].astype(np.int64), args[3].astype(np.int64)
+    rounds = int((np.clip(num - has, 0, max_hashes) * 64 + has * 128).max())
+    return rounds, rounds * SHA256_ROUND_CHAIN_OPS / CLOCK_HZ * 1e3
+
+
+def run_hash_phases(dev, card, counts, reset_counts):
+    """Phases 13-16: the SHA-256, PoH and BLAKE3 kernels against their
+    plain versions and oracles, the paths through them (bmtree_root, the
+    shred merkle leaves, poh_verify_entries, blake3_batch and
+    lthash_batch, each read with the counts set to 0 just before it), and
+    Reed-Solomon on the card. -> ({name: stats}, the paths' launch
+    counts, {kernel: max_abs_err against its plain version})."""
+    from firedancer_tpu_torch.ops import cuda_blake3, cuda_sha256, sha2
+    stats = {}
+    # 13. SHA-256: kernel == plain == hashlib at 8192 rows of lengths
+    # 0-1296; then two paths through the kernel, each with the counts set
+    # to 0 just before it: bmtree_root over 64 shred-sized trees (64
+    # leaves, the 26-byte prefixes) == host_bmtree_root, and the merkle
+    # leaves of the 64 wires of a 32:32 FEC set (the port's Shredder, its
+    # parity from ops/reedsol on the card) == hashlib, whose tree gives
+    # the set's signed root
+    from firedancer_tpu_torch.ops import blake3 as b3, bmtree, poh, reedsol
+    from firedancer_tpu_torch.shred import format as sfmt
+    from firedancer_tpu_torch.shred.merkle import (
+        LEAF_PREFIX, MerkleTree20, shred_merkle_leaf)
+    from firedancer_tpu_torch.shred.merkle import \
+        bmtree_depth as shred_tree_depth
+    from firedancer_tpu_torch.shred.shredder import Shredder
+    from firedancer_tpu_torch.utils import blake3_ref, gf256
+    from firedancer_tpu_torch.utils import ed25519_ref as eref
+    log(f"== 13. sha256 kernel vs plain vs hashlib; bmtree_root and shred "
+        f"merkle leaves on the kernel {card}")
+    rng = np.random.default_rng(13)
+    lens = rng.integers(0, SHA256_WIDTH + 1, SHA256_B).astype(np.int32)
+    lens[:12] = [0, 1, 55, 56, 63, 64, 119, 120, 127, 128, 1295,
+                 SHA256_WIDTH]
+    smsg = rng.integers(0, 256, (SHA256_B, SHA256_WIDTH), np.uint8)
+    smsg[np.arange(SHA256_WIDTH)[None, :] >= lens[:, None]] = 0
+    sm_d, sl_d = torch.from_numpy(smsg).to(dev), torch.from_numpy(lens).to(dev)
+    got = cuda_sha256.sha256(sm_d, sl_d)
+    plain = sha2.sha256(sm_d, sl_d)
+    torch.cuda.synchronize()
+    sha256_err = int((got.int() - plain.int()).abs().max())
+    want = np.stack([np.frombuffer(hashlib.sha256(
+        smsg[i, :n].tobytes()).digest(), np.uint8)
+        for i, n in enumerate(lens)])
+    assert sha256_err == 0, f"sha256 kernel != plain (max err {sha256_err})"
+    assert np.array_equal(got.cpu().numpy(), want), "sha256 != hashlib"
+    blocks = int(sha2.nblocks(torch.from_numpy(lens).long(), 64, 8).sum())
+    ops = blocks * SHA256_OPS_PER_BLOCK
+    nbytes = int(lens.sum()) + SHA256_B * (4 + 32)
+    st = stats["sha256"] = stats_of(
+        cuda_ms(lambda: cuda_sha256.sha256(sm_d, sl_d), ITERS),
+        cuda_ms(lambda: sha2.sha256(sm_d, sl_d), 1), ops, nbytes)
+    log(f"sha256: {SHA256_B} rows of 0-{SHA256_WIDTH} bytes ({blocks} "
+        f"blocks), kernel == plain == hashlib, max_abs_err 0; kernel "
+        f"{st['ms']:.4f} ms, plain {st['plain_ms']:.2f} ms, bound "
+        f"{st['bound_ms']:.5f} ms ({ops} int32 ops -> {st['ops_ms']:.5f} "
+        f"ms, {nbytes} B -> {st['bytes_ms']:.5f} ms), "
+        f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
+    # the same rows one byte wider: a row width off a multiple of 4 takes
+    # the kernel's byte loads, as bmtree's levels and the shred leaves do
+    sm_odd = torch.nn.functional.pad(sm_d, (0, 1)).contiguous()
+    got = cuda_sha256.sha256(sm_odd, sl_d)
+    odd_err = int((got.int() - sha2.sha256(sm_odd, sl_d).int()).abs().max())
+    assert odd_err == 0, f"sha256 byte loads != plain (max err {odd_err})"
+    assert np.array_equal(got.cpu().numpy(), want), \
+        "sha256 byte loads != hashlib"
+    sha256_err = max(sha256_err, odd_err)
+    log(f"sha256 byte loads: the rows at width {SHA256_WIDTH + 1}, kernel "
+        f"== plain == hashlib, max_abs_err 0; kernel "
+        f"{cuda_ms(lambda: cuda_sha256.sha256(sm_odd, sl_d), ITERS):.4f} "
+        f"ms {card}")
+    leaves = rng.integers(0, 256, (BMTREE_TREES, BMTREE_LEAVES, 32),
+                          np.uint8)
+    cnt = np.full(BMTREE_TREES, BMTREE_LEAVES, np.int32)
+    cnt[1:8] = [1, 2, 3, 33, 47, 63, 17]
+    # bmtree_root's launches, recorded to hold each level to the plain
+    # version after the path's counts are read
+    levels, kernel_sha256 = [], cuda_sha256.sha256
+
+    def recorded_sha256(m, n):
+        out = kernel_sha256(m, n)
+        levels.append((m, n, out))
+        return out
+    cuda_sha256.sha256 = recorded_sha256
+    try:
+        reset_counts()
+        roots = bmtree.bmtree_root(leaves, cnt, BMTREE_LEAVES,
+                                   bmtree.LEAF_PREFIX_SHREDS,
+                                   bmtree.NODE_PREFIX_SHREDS,
+                                   device=DEVICE).cpu().numpy()
+        bmtree_path = counts()
+    finally:
+        cuda_sha256.sha256 = kernel_sha256
+    level_err = max(int((out.int() - sha2.sha256(m, n).int()).abs().max())
+                    for m, n, out in levels)
+    assert level_err == 0, f"bmtree levels: kernel != plain ({level_err})"
+    sha256_err = max(sha256_err, level_err)
+    for t in range(BMTREE_TREES):
+        assert bytes(roots[t]) == bmtree.host_bmtree_root(
+            [bytes(x) for x in leaves[t, :cnt[t]]],
+            bmtree.LEAF_PREFIX_SHREDS, bmtree.NODE_PREFIX_SHREDS), t
+    assert bmtree_path["sha256"] == 1 + bmtree.bmtree_depth(BMTREE_LEAVES)
+    seed = bytes(range(32))
+    batch = rng.integers(0, 256, 63680, np.uint8).tobytes()
+    fec = Shredder(lambda r: eref.sign(seed, r), rs_backend="torch",
+                   device=DEVICE).shred_batch(batch, 5, 1, 0, False)
+    fs = fec[0]
+    assert (len(fs.data_shreds), len(fs.parity_shreds)) == (32, 32)
+    dv, cv = fs.data_shreds[0][sfmt.VARIANT_OFF], \
+        fs.parity_shreds[0][sfmt.VARIANT_OFF]
+    regions = [w[64:64 + sfmt.data_merkle_region_sz(dv)]
+               for w in fs.data_shreds] + \
+        [w[64:64 + sfmt.code_merkle_region_sz(cv)] for w in fs.parity_shreds]
+    lw = len(LEAF_PREFIX) + max(len(r) for r in regions)
+    lmsg = np.zeros((len(regions), lw), np.uint8)
+    for i, r in enumerate(regions):
+        lmsg[i, :len(LEAF_PREFIX) + len(r)] = np.frombuffer(LEAF_PREFIX + r,
+                                                            np.uint8)
+    llen = torch.tensor([len(LEAF_PREFIX) + len(r) for r in regions],
+                        dtype=torch.int32, device=dev)
+    lmsg_d = torch.from_numpy(lmsg).to(dev)
+    reset_counts()
+    leaf_d = cuda_sha256.sha256(lmsg_d, llen)
+    leaf_path = counts()
+    leaf_err = int((leaf_d.int() - sha2.sha256(lmsg_d, llen).int())
+                   .abs().max())
+    assert leaf_err == 0, f"shred leaves: kernel != plain ({leaf_err})"
+    sha256_err = max(sha256_err, leaf_err)
+    leaf_h = leaf_d.cpu().numpy()
+    assert [bytes(h) for h in leaf_h] == [shred_merkle_leaf(r)
+                                          for r in regions]
+    assert MerkleTree20.from_leaf_hashes(leaf_h).root == fs.merkle_root
+    assert eref.verify(sfmt.parse_shred(fs.data_shreds[0]).signature,
+                       eref.keypair(seed)[-1], fs.merkle_root)
+    log(f"bmtree_root: {BMTREE_TREES} trees of up to {BMTREE_LEAVES} leaves "
+        f"(26-byte prefixes) == host_bmtree_root, each level's launch "
+        f"(row widths {sorted({m.shape[1] for m, _, _ in levels})}) == "
+        f"plain, launches {bmtree_path}; the 64 merkle leaves of a 32:32 "
+        f"FEC set (Shredder with rs_backend='torch' on the card, row width "
+        f"{lw}) == plain == hashlib, their tree's root == the signed root, "
+        f"launches {leaf_path} {card}")
+
+    # 14. PoH: one slot at mainnet's published settings (Solana's genesis
+    # hashes_per_tick, 12,500): 64 ticks, each after one mixin entry that
+    # takes 1-64 of the tick's hashes, generated by the host chain
+    # (PohChain: host_poh_append / host_poh_mixin), and the same entries
+    # with one flipped byte in expected; the kernel's verdicts through
+    # poh_verify_entries (the path, counts set to 0 before it) == the host
+    # chain's. The plain version is compared at cfg/leader.toml's 64
+    # hashes a tick only: at 12,500 it would issue some 4 x 10^7 launches.
+    log(f"== 14. poh_verify: {POH_TICKS} ticks of {POH_HASHES_PER_TICK} "
+        f"hashes and {POH_TICKS} mixin entries, valid and flipped {card}")
+
+    def slot_entries(hashes_per_tick, rng):
+        chain = poh.PohChain(rng.bytes(32))
+        for _ in range(POH_TICKS):
+            k = int(rng.integers(1, 65)) % hashes_per_tick or 1
+            chain.record(rng.bytes(32), k)
+            chain.tick(hashes_per_tick - k)
+        prev, num, mix, has, exp = chain.entry_arrays(hashes_per_tick)
+        bad = exp.copy()
+        bad[np.arange(len(bad)), np.arange(len(bad)) % 32] ^= 1
+        args = [np.concatenate([x, x]) for x in (prev, num, mix, has)]
+        args.append(np.concatenate([exp, bad]))
+        want = np.arange(2 * len(num)) < len(num)
+        return args, want
+
+    t0 = time.perf_counter()
+    pargs, pwant = slot_entries(POH_HASHES_PER_TICK, rng)
+    gen_s = time.perf_counter() - t0
+    reset_counts()
+    pok = poh.poh_verify_entries(*pargs, POH_HASHES_PER_TICK,
+                                 device=DEVICE).cpu().numpy()
+    poh_path = counts()
+    assert np.array_equal(pok, pwant), "poh_verify != the host chain"
+    assert poh_path["poh_verify"] == 1, poh_path
+    pt = [torch.from_numpy(x).to(dev) for x in pargs]
+    big_ms = cuda_ms(lambda: cuda_sha256.poh_verify(
+        *pt, POH_HASHES_PER_TICK), 3)
+    hashes, blocks = poh_work(pargs, POH_HASHES_PER_TICK)
+    big_ops = blocks * SHA256_OPS_PER_BLOCK
+    big_rounds, big_chain_ms = poh_chain(pargs, POH_HASHES_PER_TICK)
+    log(f"poh_verify at {POH_HASHES_PER_TICK} hashes a tick: "
+        f"{len(pwant)} entries ({hashes} hashes, generated on the host in "
+        f"{gen_s:.2f} s), verdicts == the host chain (valid {int(pok.sum())}"
+        f", flipped {int((~pok).sum())} refused); kernel {big_ms:.3f} ms; "
+        f"bound {big_ops / INT32_OPS_PER_S * 1e3:.5f} ms by operations; "
+        f"chain floor {big_chain_ms:.4f} ms (the longest entry's "
+        f"{big_rounds} dependent rounds at {SHA256_ROUND_CHAIN_OPS} cycles), "
+        f"{big_ms / big_chain_ms:.1f}x the chain floor {card}")
+    sargs, swant = slot_entries(POH_SMALL_HASHES, rng)
+    st_ = [torch.from_numpy(x).to(dev) for x in sargs]
+    sk = cuda_sha256.poh_verify(*st_, POH_SMALL_HASHES)
+    sp = poh.poh_verify_plain(*st_, POH_SMALL_HASHES)
+    poh_err = int((sk.int() - sp.int()).abs().max())
+    assert poh_err == 0 and np.array_equal(sk.cpu().numpy(), swant), \
+        "poh_verify kernel != plain at 64 hashes a tick"
+    st = stats["poh_verify"] = stats_of(
+        cuda_ms(lambda: cuda_sha256.poh_verify(*st_, POH_SMALL_HASHES),
+                ITERS),
+        cuda_ms(lambda: poh.poh_verify_plain(*st_, POH_SMALL_HASHES), 1),
+        poh_work(sargs, POH_SMALL_HASHES)[1] * SHA256_OPS_PER_BLOCK,
+        len(swant) * (3 * 32 + 4 + 1 + 1))
+    st["mainnet_ms"] = big_ms
+    st["chain_rounds"], st["chain_ms"] = poh_chain(sargs, POH_SMALL_HASHES)
+    log(f"poh_verify at {POH_SMALL_HASHES} hashes a tick: {len(swant)} "
+        f"entries, kernel == plain == the host chain, max_abs_err 0; kernel "
+        f"{st['ms']:.4f} ms, plain {st['plain_ms']:.2f} ms, bound "
+        f"{st['bound_ms']:.6f} ms by {st['bound_by']}; chain floor "
+        f"{st['chain_ms']:.6f} ms (the longest entry's {st['chain_rounds']} "
+        f"dependent rounds), {st['ms'] / st['chain_ms']:.1f}x the chain "
+        f"floor {card}")
+
+    # 15. BLAKE3 and lthash: kernel == plain at 4096 lanes of lengths 0-2048
+    # (the bank hash's lane cap), the 1024/1025 chunk edge included, and ==
+    # blake3_ref on the first 512 lanes (the pure-Python oracle is slow);
+    # the path is blake3_batch and lthash_batch, counts set to 0 before
+    log(f"== 15. blake3 and lthash kernels vs plain vs blake3_ref, "
+        f"{BLAKE3_B} lanes of 0-2048 bytes {card}")
+    blens = rng.integers(0, 2049, BLAKE3_B).astype(np.int32)
+    blens[:11] = [0, 1, 63, 64, 65, 1023, 1024, 1025, 2047, 2048, 3]
+    bmsg = rng.integers(0, 256, (BLAKE3_B, 2048), np.uint8)
+    bmsg[np.arange(2048)[None, :] >= blens[:, None]] = 0
+    reset_counts()
+    bd = b3.blake3_batch(bmsg, blens, device=DEVICE)
+    bl = b3.lthash_batch(bmsg, blens, device=DEVICE)
+    b3_path = counts()
+    assert b3_path["blake3"] == 1 and b3_path["lthash"] == 1, b3_path
+    bm_d, bl_d = torch.from_numpy(bmsg).to(dev), torch.from_numpy(blens).to(dev)
+    pd, pl = b3.blake3_plain(bm_d, bl_d), b3.lthash_plain(bm_d, bl_d)
+    b3_err = int((bd.int() - pd.int()).abs().max())
+    lt_err = int((bl - pl).abs().max())
+    assert b3_err == 0 and lt_err == 0, (b3_err, lt_err)
+    bd_h, bl_h = bd.cpu().numpy(), bl.cpu().numpy()
+    for i in range(min(512, BLAKE3_B)):
+        m_ = bmsg[i, :blens[i]].tobytes()
+        assert bytes(bd_h[i]) == blake3_ref.blake3(m_), i
+        assert np.array_equal(bl_h[i], np.frombuffer(
+            blake3_ref.lthash(m_), np.uint16)), i
+    # compressions this run's lengths need: a chunk's blocks chain (one
+    # chunk's last block runs only as the root), then the root: 1 for the
+    # digest, 32 for the XOF
+    nb = np.maximum(1, -(-blens // 64))
+    chain = np.where(blens <= 1024, nb - 1,
+                     16 + -(-(blens - 1024) // 64))
+    b3_ops = int(chain.sum()) * BLAKE3_OPS + BLAKE3_B * BLAKE3_OPS
+    lt_ops = int(chain.sum()) * BLAKE3_OPS + BLAKE3_B * 32 * BLAKE3_XOF_OPS
+    in_bytes = int(blens.sum()) + 4 * BLAKE3_B
+    for name, fn, pfn, ops, nbytes in (
+            ("blake3", lambda: cuda_blake3.blake3(bm_d, bl_d),
+             lambda: b3.blake3_plain(bm_d, bl_d), b3_ops,
+             in_bytes + 32 * BLAKE3_B),
+            ("lthash", lambda: cuda_blake3.lthash(bm_d, bl_d),
+             lambda: b3.lthash_plain(bm_d, bl_d), lt_ops,
+             in_bytes + 4096 * BLAKE3_B)):
+        st = stats[name] = stats_of(cuda_ms(fn, ITERS), cuda_ms(pfn, 1), ops,
+                                    nbytes)
+        log(f"{name}: kernel == plain (== blake3_ref on 512 lanes), "
+            f"max_abs_err 0; kernel {st['ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.2f} ms, bound {st['bound_ms']:.5f} ms ({ops} "
+            f"int32 ops -> {st['ops_ms']:.5f} ms, {nbytes} B -> "
+            f"{st['bytes_ms']:.5f} ms), {st['ms'] / st['bound_ms']:.1f}x the "
+            f"bound; a lane's chain up to {int(chain.max()) + 1} dependent "
+            f"compressions {card}")
+
+    # 16. Reed-Solomon (torch.matmul on the card, no hand-written kernel):
+    # encode 64 sets at the shredder's 32:32 over its RS region, == the CPU
+    # port on every set and == gf256 on four; recover from 32 survivors
+    proof_nodes = shred_tree_depth(64) - 1     # a 32:32 set's 64 leaves
+    d_var = sfmt.TYPE_MERKLE_DATA | proof_nodes
+    rs_region = sfmt.payload_capacity(d_var) + sfmt.DATA_HEADER_SZ \
+        - sfmt.SIGNATURE_SZ
+    log(f"== 16. reedsol on the card: {RS_SETS} sets of 32:32 over "
+        f"{rs_region} bytes ({proof_nodes} proof nodes) {card}")
+    rdata = rng.integers(0, 256, (RS_SETS, 32, rs_region), np.uint8)
+    rd_d = torch.from_numpy(rdata).to(dev)
+    par = reedsol.encode(rd_d, 32, device=DEVICE)
+    par_h = par.cpu().numpy()
+    assert np.array_equal(par_h, reedsol.encode(rdata, 32,
+                                                device="cpu").numpy())
+    for k in range(4):
+        assert np.array_equal(par_h[k], gf256.encode(rdata[k], 32)), k
+    present = tuple(range(1, 64, 2))
+    code = torch.cat([rd_d, par], dim=1)[:, list(present)].contiguous()
+    rec_d = reedsol.recover(code, present, 32, 32, device=DEVICE)
+    assert torch.equal(rec_d, rd_d), "reedsol.recover != the data"
+    enc_ms = cuda_ms(lambda: reedsol.encode(rd_d, 32, device=DEVICE), ITERS)
+    rec_ms = cuda_ms(lambda: reedsol.recover(code, present, 32, 32,
+                                             device=DEVICE), ITERS)
+    flops = 2 * 256 * 256 * RS_SETS * rs_region
+    rs_bytes = 2 * RS_SETS * 32 * rs_region
+    stats["reedsol"] = dict(ms=enc_ms, recover_ms=rec_ms, flops=flops,
+                            bound_ms=max(flops / 67e12, rs_bytes / BYTES_PER_S)
+                            * 1e3)
+    log(f"reedsol: encode == CPU port (== gf256 on 4 sets), recover == "
+        f"data; encode {enc_ms:.4f} ms, recover {rec_ms:.4f} ms (CUDA events "
+        f"over {ITERS} calls, the bit expansion, torch.matmul and the parity "
+        f"mask: several launches); the product alone {flops} float32 "
+        f"operations, {flops / 67e12 * 1e3:.5f} ms at 67 TFLOP/s; bytes "
+        f"{rs_bytes} -> {rs_bytes / BYTES_PER_S * 1e3:.5f} ms {card}")
+
+    errs = {"sha256": sha256_err, "poh_verify": poh_err, "blake3": b3_err,
+            "lthash": lt_err}
+    return stats, (bmtree_path, leaf_path, poh_path, b3_path), errs
 
 
 def load_vectors(root):
@@ -532,8 +914,9 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from firedancer_tpu_torch.ops import (_build, cuda_ed, cuda_msm,
-                                          cuda_sha, cuda_wave)
+    from firedancer_tpu_torch.ops import (_build, cuda_blake3, cuda_ed,
+                                          cuda_msm, cuda_sha, cuda_sha256,
+                                          cuda_wave)
     from firedancer_tpu_torch.ops import ed25519 as ed
     from firedancer_tpu_torch.ops import msm, sha2
     from firedancer_tpu_torch.ops.params import fixed_base_tables
@@ -543,13 +926,16 @@ def main() -> int:
 
     def counts() -> dict:
         return {**cuda_sha.launches, "ed25519_verify": cuda_ed.launches,
-                **cuda_msm.launches, **cuda_wave.launches}
+                **cuda_msm.launches, **cuda_wave.launches,
+                **cuda_sha256.launches, **cuda_blake3.launches}
 
     def reset_counts():
         cuda_ed.launches = 0
         cuda_sha.launches.update(sha512=0, sha512_ram=0)
         cuda_msm.launches.update(msm_stage1=0, msm_stage2=0)
         cuda_wave.launches.update(wave_scan=0)
+        cuda_sha256.launches.update(sha256=0, poh_verify=0)
+        cuda_blake3.launches.update(blake3=0, lthash=0)
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -1132,6 +1518,11 @@ def main() -> int:
                                 key=lambda kv: -kv[1]["window_work_s"]))
         + f" {card}")
 
+
+    hash_stats, hash_paths, hash_errs = run_hash_phases(dev, card, counts,
+                                                         reset_counts)
+    stats.update(hash_stats)
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path)
     for name, src, rep, err in (
@@ -1162,6 +1553,25 @@ def main() -> int:
                     "max_abs_err": wave_err, "ms": st["ms"],
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
+    for name, src, rep in (
+            ("sha256", "sha256.cu", "firedancer_tpu/ops/sha2.py:211"),
+            ("poh_verify", "sha256.cu", "firedancer_tpu/ops/poh.py:41"),
+            ("blake3", "blake3.cu", "firedancer_tpu/ops/blake3.py:139"),
+            ("lthash", "blake3.cu", "firedancer_tpu/ops/blake3.py:150")):
+        st = stats[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"firedancer_tpu_torch/csrc/{src}",
+                        "replaces": rep,
+                        "launches": sum(p[name] for p in hash_paths),
+                        "max_abs_err": hash_errs[name], "ms": st["ms"],
+                        "plain_ms": st["plain_ms"],
+                        "bound_ms": st["bound_ms"],
+                        "bound_by": st["bound_by"], "library_ms": None})
+        if name == "poh_verify":
+            # bound_ms is the operations bound; an entry's chain of
+            # dependent rounds is the floor that binds this kernel
+            kernels[-1].update(chain_rounds=st["chain_rounds"],
+                               chain_ms=st["chain_ms"])
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,6 +89,11 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
              "ws_port", "wave", "redispatch_s", "exec_links", "exec_done",
              "device"),
     "poh": ("hashes_per_tick", "ticks_per_slot", "seed", "slot_link"),
+    "shred": ("mode", "req", "resp", "cluster", "identity_hex",
+              "shreds_link", "batches_link", "flush_bytes", "fanout",
+              "shred_version", "drop_slot_every", "leader_pubkey_hex",
+              "turbine_in"),
+    "sign": ("seed", "clients"),
 }
 
 

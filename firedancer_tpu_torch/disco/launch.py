@@ -190,12 +190,19 @@ class TopologyRunner:
     def _halt_for_supervisor(self):
         self.halt(join_timeout_s=10.0)
 
-    def halt(self, join_timeout_s: float = 30.0):
-        self._halted = True
-        for tn in self.procs:
+    def halt(self, join_timeout_s: float = 30.0, tiles=None):
+        """Halt the tiles named in `tiles` (default: every tile, which
+        also ends supervision) and join them. Halting the upstream tiles
+        first lets the downstream ones drain what was published: a tile
+        that exits after a halt is not a failure to the supervisor."""
+        names = list(self.procs) if tiles is None else list(tiles)
+        if tiles is None:
+            self._halted = True
+        for tn in names:
             self._cnc(tn).state = CNC_HALT
         deadline = time.time() + join_timeout_s
-        for tn, p in self.procs.items():
+        for tn in names:
+            p = self.procs[tn]
             p.join(max(0.1, deadline - time.time()))
             if p.is_alive():
                 p.terminate()

@@ -1,14 +1,14 @@
 """Tile adapters + registry: kind string -> runnable tile object (copy of
 the adapters of the JAX package's disco/tiles.py that the port's two
 paths run: synth, verify, dedup and sink on the sigverify path, and pack,
-bank and poh on the leader's execution leg).
+bank, poh, shred and sign on the leader's loop).
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these seven kinds only; `Topology.tile` refuses
+  * the registry holds these nine kinds only; `Topology.tile` refuses
     every other kind of the reference's registry (disco/unported.py),
     and `adapter_class` raises ValueError for a name without an
     adapter;
@@ -37,7 +37,13 @@ Where the copy differs from the reference:
     dispatch, and finalize (the wait on the wave's CUDA event, the copy
     back and the commit);
   * the knob reads of pack's and bank's housekeeping (item 11) find no
-    knobs: the port's TileCtx has none.
+    knobs: the port's TileCtx has none;
+  * ShredAdapter runs mode="leader" only and refuses mode="recover"
+    (ShredRecoverCore, FEC resolution and the store: the follower path,
+    item 5);
+  * SignAdapter refuses a `keyswitch_off` in its plan entry: the port's
+    plan carves no keyswitch region for the live identity hot-swap
+    (topo.py:460-465 in the reference, item 13).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ import time
 
 import numpy as np
 
+from ..keyguard.tile import SignHalted
 from ..protocol.txn import MTU
 from ..runtime import CNC_RUN
 from .unported import refuse
@@ -1018,3 +1025,143 @@ class PohAdapter:
 
     def metrics_items(self):
         return dict(self.m)
+
+
+@register("shred")
+class ShredAdapter:
+    """Turbine shred tile, leader mode (ref: src/disco/shred/
+    fd_shred_tile.c:6-60): in link = poh entries; shreds entry batches
+    into signed merkle FEC sets (keyguard LEADER role via req/resp links)
+    and transmits each shred to its stake-weighted turbine first hop
+    over UDP. args: cluster = [{pubkey_hex, stake, addr "host:port"}],
+    identity_hex, req/resp (keyguard links), optional out link
+    "shreds" mirror + "batches" witness link, flush_bytes, fanout,
+    shred_version. mode="recover" is refused (item 5)."""
+
+    METRICS = ["entries", "batches", "fec_sets", "data_shreds",
+               "parity_shreds", "sent", "no_dest", "sign_fail",
+               "slots", "overruns"]
+
+    def __init__(self, ctx, args):
+        import socket
+
+        from ..keyguard import KeyguardClient
+        from ..shred.shred_dest import ClusterNode
+        from ..tiles import shred as shredmod
+        self.ctx = ctx
+        self.mode = args.get("mode", "leader")
+        if self.mode == "recover":
+            refuse('the shred tile\'s mode="recover" (ShredRecoverCore)', 5)
+        if self.mode != "leader":
+            raise ValueError(f"shred {ctx.tile_name}: mode {self.mode!r}")
+        self._ovr = 0
+        ins = [ln for ln in ctx.in_rings if ln != args["resp"]]
+        if len(ins) != 1:
+            raise ValueError(f"shred {ctx.tile_name}: expected one entry "
+                             f"link besides {args['resp']}, got {ins}")
+        self.in_link = ins[0]
+        kg = KeyguardClient(ctx.out_rings[args["req"]],
+                            ctx.in_rings[args["resp"]],
+                            req_fseqs=ctx.out_fseqs[args["req"]],
+                            cnc=getattr(ctx, "cnc", None))
+
+        def sign_fn(root):
+            sig = kg.sign(root)
+            if sig is None:
+                self.core.metrics["sign_fail"] += 1
+                raise RuntimeError("keyguard refused shred root")
+            return sig
+
+        self._kg = kg
+        cluster = [ClusterNode(bytes.fromhex(n["pubkey_hex"]),
+                               int(n["stake"]),
+                               (n["addr"].rsplit(":", 1)[0],
+                                int(n["addr"].rsplit(":", 1)[1])))
+                   for n in args.get("cluster", [])]
+        aux = [ln for ln in ctx.out_rings if ln != args["req"]]
+        shreds_ln = args.get("shreds_link")
+        batch_ln = args.get("batches_link")
+        if set(aux) != {ln for ln in (shreds_ln, batch_ln) if ln}:
+            raise ValueError(f"shred {ctx.tile_name}: out links {aux} are "
+                             f"not shreds_link {shreds_ln!r} and "
+                             f"batches_link {batch_ln!r}")
+        self.core = shredmod.ShredLeaderCore(
+            sign_fn, bytes.fromhex(args["identity_hex"]), cluster,
+            socket.socket(socket.AF_INET, socket.SOCK_DGRAM),
+            out_ring=ctx.out_rings.get(shreds_ln),
+            out_fseqs=ctx.out_fseqs.get(shreds_ln),
+            batch_out=ctx.out_rings.get(batch_ln),
+            batch_fseqs=ctx.out_fseqs.get(batch_ln),
+            shred_version=int(args.get("shred_version", 0)),
+            fanout=int(args.get("fanout", 200)),
+            flush_bytes=int(args.get("flush_bytes", 31840)),
+            cnc=getattr(ctx, "cnc", None))
+        self.ring = ctx.in_rings[self.in_link]
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+
+    def poll_once(self) -> int:
+        n, self.seq, buf, sizes, _, ovr = self.ring.gather(
+            self.seq, 16, self.mtu)
+        self._ovr += ovr
+        for i in range(n):
+            try:
+                self.core.on_entry(bytes(buf[i, :sizes[i]]))
+            except SignHalted:
+                break   # halting: what is left of the poll is dropped
+        # the wave's mirror wires ship as one batched publish (the core
+        # buffers per entry, the adapter publishes per poll)
+        self.core.flush_egress()
+        return n
+
+    def in_seqs(self):
+        # the response link reports the keyguard client's position
+        return {ln: self.seq if ln == self.in_link else self._kg.resp_seq
+                for ln in self.ctx.in_rings}
+
+    def on_halt(self):
+        self.core.flush_egress()   # buffered wires must not die
+
+    def metrics_items(self):
+        return self.core.metrics | {"overruns": self._ovr}
+
+
+@register("sign")
+class SignAdapter:
+    """Identity-key custody tile (ref: src/disco/sign/fd_sign_tile.c).
+    args: seed (hex, 32B private key seed), clients = ordered list of
+    {role: "leader"|"gossip"|"repair"|"send", req: in link,
+    resp: out link} — the role is bound to the ring pair at topology
+    build, so policy is attached to the wire. A `keyswitch_off` in the
+    tile's plan entry (the live identity hot-swap region) is refused
+    (item 13)."""
+
+    METRICS = ["signed", "refused", "overruns", "backpressure"]
+
+    def __init__(self, ctx, args):
+        from ..keyguard import SignTile
+        from ..keyguard.keyguard import ROLE_NAMES
+        if ctx.spec.get("keyswitch_off") is not None:
+            refuse("the sign tile's keyswitch region (live identity "
+                   "hot-swap)", 13)
+        role_ids = {v: k for k, v in ROLE_NAMES.items()}
+        self.ctx = ctx
+        clients = []
+        for c in args["clients"]:
+            clients.append({
+                "role": role_ids[c["role"]],
+                "in_ring": ctx.in_rings[c["req"]],
+                "out_ring": ctx.out_rings[c["resp"]],
+                "out_fseqs": ctx.out_fseqs[c["resp"]],
+            })
+        self._links = [c["req"] for c in args["clients"]]
+        self.tile = SignTile(bytes.fromhex(args["seed"]), clients)
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def in_seqs(self):
+        return {ln: s for ln, s in zip(self._links, self.tile.seqs)}
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)

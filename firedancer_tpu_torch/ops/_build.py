@@ -23,7 +23,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("sha512", "ed25519_verify", "ed25519_msm", "wave_scan")
+SOURCES = ("sha512", "ed25519_verify", "ed25519_msm", "wave_scan", "sha256",
+           "blake3")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -24,7 +24,9 @@ _ARGS_RAM = [ct.c_void_p] * 3 + [ct.c_longlong] + [ct.c_void_p] * 3 \
     + [ct.c_int, ct.c_void_p]
 
 
-def _check(fn, name, t, dev, dtype, shape):
+def check(fn, name, t, dev, dtype, shape):
+    """Raise ValueError unless `t` is a contiguous tensor of `dtype` on
+    `dev` whose shape matches `shape` (None matches any size)."""
     if t.device != dev or t.dtype != dtype or t.dim() != len(shape) \
             or any(w is not None and w != s for w, s in zip(shape, t.shape)) \
             or not t.is_contiguous():
@@ -41,8 +43,8 @@ def sha512(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"sha512: tensors on {dev}; expected CUDA")
     b = msg.shape[0] if msg.dim() == 2 else -1
-    _check("sha512", "msg", msg, dev, torch.uint8, (b, None))
-    _check("sha512", "msg_len", msg_len, dev, torch.int32, (b,))
+    check("sha512", "msg", msg, dev, torch.uint8, (b, None))
+    check("sha512", "msg_len", msg_len, dev, torch.int32, (b,))
     fn = _build.lib("sha512", _ARGS)
     out = torch.empty((b, 64), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
@@ -68,7 +70,7 @@ def sha512_ram(sig: torch.Tensor, pub: torch.Tensor, msg: torch.Tensor,
                                   ("pub", pub, torch.uint8, (b, 32)),
                                   ("msg", msg, torch.uint8, (b, None)),
                                   ("msg_len", msg_len, torch.int32, (b,))):
-        _check("sha512_ram", name, t, dev, dtype, shape)
+        check("sha512_ram", name, t, dev, dtype, shape)
     fn = _build.lib("sha512", _ARGS_RAM, "fdtt_sha512_ram")
     k64 = torch.empty((b, 64), dtype=torch.uint8, device=dev)
     pre = torch.empty(b, dtype=torch.int32, device=dev)

@@ -1,12 +1,14 @@
-"""Batched SHA-512 as plain PyTorch (the plain versions of the SHA-512
-kernel's two entries, csrc/sha512.cu: `sha512` and `sha512_ram`;
-counterpart of the JAX package's ops/sha2.py `sha512` and
+"""Batched SHA-512 and SHA-256 as plain PyTorch (the plain versions of
+the SHA-512 kernel's two entries, csrc/sha512.cu: `sha512` and
+`sha512_ram`, and of the SHA-256 kernel's `sha256`, csrc/sha256.cu;
+counterpart of the JAX package's ops/sha2.py `sha512`, `sha256` and
 `_pad_message`).
 
 A 64-bit word is a (hi, lo) pair of int64 tensors holding 32-bit halves,
-so every add, shift and rotate is exact without relying on wrapping
-integer overflow. Padding is materialised per lane (the kernel pads in
-registers instead), and blocks past a lane's own count are masked.
+and a 32-bit word one int64 tensor masked to 32 bits, so every add,
+shift and rotate is exact without relying on wrapping integer overflow.
+Padding is materialised per lane (the kernels pad in registers instead),
+and blocks past a lane's own count are masked.
 """
 from __future__ import annotations
 
@@ -84,16 +86,25 @@ def _xor(*xs):
     return hi, lo
 
 
-def nblocks(msg_len):
+# SHA-256's constants are the leading 32 bits of SHA-512's: the same
+# fractional parts of the cube roots of the first 64 primes and of the
+# square roots of the first 8 (FIPS 180-4, 4.2.2 and 5.3.3)
+H256 = tuple(h >> 32 for h in H512)
+K256 = tuple(k >> 32 for k in K512[:64])
+
+
+def nblocks(msg_len, block: int = 128, len_bytes: int = 16):
     """Blocks a message of msg_len bytes pads to: the 0x80 byte and the
-    16-byte big-endian bit length must fit after it."""
-    return (msg_len + 17 + 127) // 128
+    big-endian bit length (16 bytes for SHA-512, 8 for SHA-256) must fit
+    after it."""
+    return (msg_len + 1 + len_bytes + block - 1) // block
 
 
-def _pad_message(msg: torch.Tensor, msg_len: torch.Tensor, nblock: int):
-    """(B, L) uint8, (B,) lengths -> ((B, nblock*128) padded bytes,
+def _pad_message(msg: torch.Tensor, msg_len: torch.Tensor, nblock: int,
+                 block: int = 128, len_bytes: int = 16):
+    """(B, L) uint8, (B,) lengths -> ((B, nblock*block) padded bytes,
     (B,) per-lane block counts). Bytes past each length are zeroed."""
-    total = nblock * 128
+    total = nblock * block
     ml = msg_len.to(torch.int64).unsqueeze(-1)
     buf = torch.zeros(msg.shape[:-1] + (total,), dtype=torch.int64,
                       device=msg.device)
@@ -101,12 +112,12 @@ def _pad_message(msg: torch.Tensor, msg_len: torch.Tensor, nblock: int):
     pos = torch.arange(total, device=msg.device)
     buf = torch.where(pos < ml, buf, 0)
     buf = torch.where(pos == ml, 0x80, buf)
-    nb = nblocks(msg_len.to(torch.int64))
-    end = nb.unsqueeze(-1) * 128            # one past the last byte
+    nb = nblocks(msg_len.to(torch.int64), block, len_bytes)
+    end = nb.unsqueeze(-1) * block          # one past the last byte
     sh = (end - 1 - pos) * 8                # big-endian bit length
     lb = torch.where((sh >= 0) & (sh < 64),
                      ((ml * 8) >> sh.clamp(0, 63)) & 0xFF, 0)
-    buf = torch.where((pos >= end - 16) & (pos < end), lb, buf)
+    buf = torch.where((pos >= end - len_bytes) & (pos < end), lb, buf)
     return buf, nb
 
 
@@ -164,3 +175,43 @@ def sha512_ram(sig: torch.Tensor, pub: torch.Tensor, msg: torch.Tensor,
     k64 = sha512(torch.cat([sig[:, :32], pub, msg], dim=-1),
                  msg_len.to(torch.int32) + 64)
     return k64, ed.strict_prechecks(sig, pub).to(torch.int32)
+
+
+def _rotr32(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & _M32
+
+
+def sha256(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
+    """msg (..., L) uint8, msg_len (...,) int32 (each <= L) -> (..., 32)
+    uint8 digests of msg[..., :msg_len]. A message of L bytes pads to
+    (L + 9 + 63) // 64 blocks; lanes past their own count keep their
+    state."""
+    nblock = int(nblocks(msg.shape[-1], 64, 8))
+    buf, nb = _pad_message(msg, msg_len, nblock, 64, 8)
+    w4 = buf.reshape(buf.shape[:-1] + (nblock, 16, 4))
+    words = (w4[..., 0] << 24) | (w4[..., 1] << 16) | (w4[..., 2] << 8) \
+        | w4[..., 3]
+    z = torch.zeros(msg.shape[:-1], dtype=torch.int64, device=msg.device)
+    state = [z + h for h in H256]
+    for blk in range(nblock):
+        w = [words[..., blk, t] for t in range(16)]
+        for t in range(16, 64):
+            s0 = _rotr32(w[t - 15], 7) ^ _rotr32(w[t - 15], 18) \
+                ^ (w[t - 15] >> 3)
+            s1 = _rotr32(w[t - 2], 17) ^ _rotr32(w[t - 2], 19) \
+                ^ (w[t - 2] >> 10)
+            w.append((w[t - 16] + s0 + w[t - 7] + s1) & _M32)
+        a, b, c, d, e, f, g, h = state
+        for t in range(64):
+            s1 = _rotr32(e, 6) ^ _rotr32(e, 11) ^ _rotr32(e, 25)
+            ch = (e & f) ^ (~e & g)
+            t1 = h + s1 + ch + K256[t] + w[t]
+            s0 = _rotr32(a, 2) ^ _rotr32(a, 13) ^ _rotr32(a, 22)
+            maj = (a & b) ^ (a & c) ^ (b & c)
+            a, b, c, d, e, f, g, h = ((t1 + s0 + maj) & _M32, a, b, c,
+                                      (d + t1) & _M32, e, f, g)
+        act = blk < nb
+        state = [torch.where(act, (o + v) & _M32, o)
+                 for o, v in zip(state, (a, b, c, d, e, f, g, h))]
+    out = [(word >> sh) & 0xFF for word in state for sh in (24, 16, 8, 0)]
+    return torch.stack(out, dim=-1).to(torch.uint8)

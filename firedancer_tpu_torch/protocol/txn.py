@@ -1,5 +1,6 @@
 """Solana transaction wire parser (the port's own copy of the JAX
-package's protocol/txn.py, without the keyguard's message-shape probe).
+package's protocol/txn.py, the keyguard's message-shape probe
+`parse_message_shape` included).
 
 Equivalent of the reference's zero-copy txn parser
 (ref: src/ballet/txn/fd_txn.h:181-227 — `fd_txn_t` descriptor table;
@@ -215,6 +216,64 @@ def parse_txn(payload: bytes, allow_trailing: bool = False) -> ParsedTxn:
                      blockhash_off, instrs, alut_cnt, tuple(aluts),
                      size=off)
 
+
+def parse_message_shape(data: bytes) -> bool:
+    """Is `data` structurally a txn MESSAGE (the signed region — header,
+    accounts, blockhash, instructions — without the signature table)?
+    Used by the keyguard to identify vote-txn signing requests
+    (ref: src/disco/keyguard/fd_keyguard_match.c txn identification).
+    Shape-only: no semantic validation."""
+    try:
+        off = 0
+        if not data:
+            return False
+        version = -1
+        if data[0] & 0x80:
+            version = data[0] & 0x7F
+            if version != 0:
+                return False
+            off = 1
+        if off + 3 > len(data):
+            return False
+        n_signed, n_ro_signed, n_ro_unsigned = data[off:off + 3]
+        off += 3
+        if not 1 <= n_signed <= SIG_MAX or n_ro_signed >= n_signed:
+            return False
+        acct_cnt, off = _cu16(data, off)
+        if not n_signed <= acct_cnt <= ACCT_MAX \
+                or n_ro_unsigned > acct_cnt - n_signed:
+            return False
+        off += 32 * acct_cnt + 32          # keys + blockhash
+        if off > len(data):
+            return False
+        instr_cnt, off = _cu16(data, off)
+        if instr_cnt > INSTR_MAX:
+            return False
+        for _ in range(instr_cnt):
+            if off >= len(data):
+                return False
+            if data[off] >= acct_cnt:
+                return False
+            off += 1
+            n_acct, off = _cu16(data, off)
+            off += n_acct
+            n_data, off = _cu16(data, off)
+            off += n_data
+            if off > len(data):
+                return False
+        if version == 0:
+            alut_cnt, off = _cu16(data, off)
+            for _ in range(alut_cnt):
+                off += 32
+                n_w, off = _cu16(data, off)
+                off += n_w
+                n_ro, off = _cu16(data, off)
+                off += n_ro
+                if off > len(data):
+                    return False
+        return off == len(data)
+    except TxnParseError:
+        return False
 
 # ---------------------------------------------------------------------------
 # construction (tests / synthetic load gen — the benchg analog,

@@ -1,17 +1,19 @@
 """The kernels' C++ sources compiled for the host and held against their
 plain PyTorch versions lane by lane.
 
-csrc/sha512.cu, csrc/ed25519_verify.cu, csrc/ed25519_msm.cu and
-csrc/wave_scan.cu compile as plain C++ when nvcc is absent (__CUDACC__
-unset): each kernel's
+csrc/sha512.cu, csrc/ed25519_verify.cu, csrc/ed25519_msm.cu,
+csrc/wave_scan.cu, csrc/sha256.cu and csrc/blake3.cu compile as plain C++
+when nvcc is absent (__CUDACC__ unset): each kernel's
 per-lane part becomes a host function, and the threads that work
 together on the card (the four threads of a group that carries one
 signature, the threads of MSM stage 2) run one after another. That
 checks the sources' arithmetic (padding, big-endian loads of R || A || M
 from three rows, limb carries, prechecks, scalar reduction,
 decompression, tables, window walk, chunked sums over blocks, Horner,
-canonical compare; the wave scan's u64 lane step) here, where there is
-no card; launch, the group's
+canonical compare; the wave scan's u64 lane step; SHA-256's big-endian
+words and padding, PoH's fixed one-block hashes and clipping, BLAKE3's
+little-endian words, flags, counters and root, lthash's lane order) here,
+where there is no card; launch, the group's
 shuffles, the shared-memory staging and sums, memory and timing are
 checked on the card by chip_smoke.py and tests/test_torch_cuda.py.
 Exact: digests, verdicts and limbs are integers."""
@@ -27,12 +29,13 @@ import torch
 
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import fe25519 as fe
-from firedancer_tpu_torch.ops import msm, params, sha2
+from firedancer_tpu_torch.ops import blake3, msm, params, poh, sha2
 from firedancer_tpu_torch.ops._build import CSRC
 from firedancer_tpu_torch.utils import ed25519_ref as ref
 from torch_rlc_cases import (KEPT_OUT, PRE_CLASSES, ram_inputs,
                              spread_blocks, stage_inputs)
 from torch_wave_cases import staged_inputs, wave_cases
+import torch_hash_cases as hc
 
 VP = ct.c_void_p
 
@@ -383,3 +386,83 @@ def test_wave_plan_picks_each_branch(wave_lib):
     p = plan(4096, 4, 8192)
     assert (p["ring"], p["scan_threads"], p["threads"]) == (1, 32, 64)
     assert plan(0, 0, 0)["chunks"] == 0
+
+
+# -- SHA-256 and PoH (csrc/sha256.cu), BLAKE3 and lthash (csrc/blake3.cu) --
+
+def _hash_fn(host_lib, src, name, argtypes):
+    fn = getattr(host_lib(src), name)
+    fn.argtypes = argtypes
+    return fn
+
+
+_ROW_ARGS = [VP, ct.c_int64, VP, VP, ct.c_int, ct.c_int]
+
+
+@pytest.mark.parametrize("width,aligned", [(200, 1), (200, 0), (203, 0)])
+def test_sha256_source_matches_plain_and_hashlib(host_lib, width, aligned):
+    """Every padding edge and random lengths, through the 32-bit load
+    path (rows 4-byte aligned, width a multiple of 4) and the byte path,
+    against hashlib and sha2.sha256."""
+    fn = _hash_fn(host_lib, "sha256", "sha256_lane_host", _ROW_ARGS)
+    lens = list(hc.SHA256_EDGES) + list(
+        np.random.default_rng(width).integers(0, width + 1, 12))
+    msg, ln = hc.rows(lens, width, 50 + width)
+    out = np.zeros((len(ln), 32), np.uint8)
+    for lane in range(len(ln)):
+        fn(msg.ctypes.data, width, ln.ctypes.data, out.ctypes.data, aligned,
+           lane)
+    np.testing.assert_array_equal(out, hc.sha256_want(msg, ln))
+    np.testing.assert_array_equal(
+        out, sha2.sha256(torch.from_numpy(msg), torch.from_numpy(ln)).numpy())
+
+
+@pytest.mark.parametrize("max_hashes", [16, 64])
+def test_poh_verify_source_matches_plain(host_lib, max_hashes):
+    """Ticks, mixins, a mixin of one hash, 0 hashes, entries clipped at
+    max_hashes and flipped expected bytes: the verdicts of
+    poh.poh_verify_plain and of the host chain."""
+    fn = _hash_fn(host_lib, "sha256", "poh_verify_host",
+                  [VP] * 6 + [ct.c_int, ct.c_int])
+    (prev, num, mix, has, exp), want = hc.poh_entries(max_hashes, 3)
+    has8 = has.astype(np.uint8)
+    ok = np.zeros(len(num), np.uint8)
+    for i in range(len(num)):
+        fn(prev.ctypes.data, num.ctypes.data, mix.ctypes.data,
+           has8.ctypes.data, exp.ctypes.data, ok.ctypes.data, max_hashes, i)
+    np.testing.assert_array_equal(ok.astype(bool), want)
+    plain = poh.poh_verify_plain(
+        *(torch.from_numpy(x) for x in (prev, num, mix, has, exp)),
+        max_hashes)
+    np.testing.assert_array_equal(ok.astype(bool), plain.numpy())
+
+
+@pytest.mark.parametrize("width,aligned", [(2048, 1), (2048, 0), (1027, 0)])
+def test_blake3_source_matches_plain_and_oracle(host_lib, width, aligned):
+    """The block and chunk edges (one chunk re-runs its last block as the
+    root; two chunks end in the parent merge), both load paths, against
+    blake3_ref and blake3.blake3_plain."""
+    fn = _hash_fn(host_lib, "blake3", "blake3_lane_host", _ROW_ARGS)
+    msg, ln = hc.rows(hc.BLAKE3_EDGES, width, 60 + width)
+    out = np.zeros((len(ln), 32), np.uint8)
+    for i in range(len(ln)):
+        fn(msg.ctypes.data, width, ln.ctypes.data, out.ctypes.data, aligned,
+           i)
+    np.testing.assert_array_equal(out, hc.blake3_want(msg, ln))
+    np.testing.assert_array_equal(out, blake3.blake3_plain(
+        torch.from_numpy(msg), torch.from_numpy(ln)).numpy())
+
+
+@pytest.mark.parametrize("width,aligned", [(2048, 1), (1027, 0)])
+def test_lthash_source_matches_plain_and_oracle(host_lib, width, aligned):
+    """The 32 output counters of a message, lanes (w & 0xFFFF, w >> 16)
+    counter-major, against blake3_ref.lthash and blake3.lthash_plain."""
+    fn = _hash_fn(host_lib, "blake3", "lthash_lane_host", _ROW_ARGS)
+    msg, ln = hc.rows(hc.BLAKE3_EDGES, width, 70 + width)
+    out = np.zeros((len(ln), 1024), np.int32)
+    for i in range(len(ln)):
+        fn(msg.ctypes.data, width, ln.ctypes.data, out.ctypes.data, aligned,
+           i)
+    np.testing.assert_array_equal(out, hc.lthash_want(msg, ln))
+    np.testing.assert_array_equal(out, blake3.lthash_plain(
+        torch.from_numpy(msg), torch.from_numpy(ln)).numpy())

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from firedancer_tpu_torch.ops import cuda_ed, cuda_msm, cuda_sha, msm
+from firedancer_tpu_torch.ops import (blake3, bmtree, cuda_blake3, cuda_ed,
+                                      cuda_msm, cuda_sha, cuda_sha256, msm,
+                                      poh, reedsol)
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import params, sha2
 from firedancer_tpu_torch.utils import ed25519_ref as ref
@@ -22,6 +24,7 @@ from firedancer_tpu_torch.utils.chaos import undecodable_point
 from torch_rlc_cases import (PRE_CLASSES, ram_inputs, signed,
                              spread_blocks, stage_inputs)
 from torch_wave_cases import chain_block, pair_waves, staged_inputs, wave_cases
+import torch_hash_cases as hc
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +353,85 @@ def test_wave_scan_refuses_misaligned_views_on_card(dev):
     got = cuda_wave.wave_scan(p, two[0], two[1])
     assert not any(g.cpu().numpy().any() for g in got[:2])
     assert (got[2] == cuda_wave.STATUS_PAD).all()
+
+
+# -- SHA-256, PoH, bmtree, BLAKE3, lthash, Reed-Solomon --------------------
+
+@pytest.mark.parametrize("width", [1296, 1297])
+def test_sha256_kernel_matches_plain(dev, width):
+    """The 32-bit load path (1296) and the byte path (1297)."""
+    lens = list(hc.SHA256_EDGES) + list(
+        np.random.default_rng(width).integers(0, width + 1, 500))
+    msg, ln = hc.rows(lens, width, width)
+    m, l = torch.from_numpy(msg).to(dev), torch.from_numpy(ln).to(dev)
+    before = cuda_sha256.launches["sha256"]
+    got = cuda_sha256.sha256(m, l)
+    assert cuda_sha256.launches["sha256"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), hc.sha256_want(msg, ln))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  sha2.sha256(m, l).cpu().numpy())
+
+
+@pytest.mark.parametrize("max_hashes", [16, 64])
+def test_poh_verify_kernel_matches_plain(dev, max_hashes):
+    args, want = hc.poh_entries(max_hashes, 5, reps=8)
+    t = [torch.from_numpy(a).to(dev) for a in args]
+    got = cuda_sha256.poh_verify(*t, max_hashes).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, poh.poh_verify_plain(*t, max_hashes).cpu().numpy())
+    np.testing.assert_array_equal(
+        got, poh.poh_verify_entries(*args, max_hashes).cpu().numpy())
+
+
+def test_bmtree_root_on_card_matches_host(dev):
+    rng = np.random.default_rng(8)
+    leaves = rng.integers(0, 256, (9, 64, 32), np.uint8)
+    cnt = np.array([1, 2, 3, 17, 32, 33, 63, 64, 5], np.int32)
+    lp, np_ = bmtree.LEAF_PREFIX_SHREDS, bmtree.NODE_PREFIX_SHREDS
+    got = bmtree.bmtree_root(leaves, cnt, 64, lp, np_).cpu().numpy()
+    for t, c in enumerate(cnt):
+        assert bytes(got[t]) == bmtree.host_bmtree_root(
+            [bytes(x) for x in leaves[t, :c]], lp, np_)
+
+
+@pytest.mark.parametrize("width", [2048, 1027])
+def test_blake3_and_lthash_kernels_match_plain(dev, width):
+    lens = list(hc.BLAKE3_EDGES) + list(
+        np.random.default_rng(width).integers(0, width + 1, 100))
+    msg, ln = hc.rows(lens, width, 3 * width)
+    m, l = torch.from_numpy(msg).to(dev), torch.from_numpy(ln).to(dev)
+    d = cuda_blake3.blake3(m, l)
+    lt = cuda_blake3.lthash(m, l)
+    np.testing.assert_array_equal(d.cpu().numpy(), hc.blake3_want(msg, ln))
+    np.testing.assert_array_equal(lt.cpu().numpy(), hc.lthash_want(msg, ln))
+    np.testing.assert_array_equal(d.cpu().numpy(),
+                                  blake3.blake3_plain(m, l).cpu().numpy())
+    np.testing.assert_array_equal(lt.cpu().numpy(),
+                                  blake3.lthash_plain(m, l).cpu().numpy())
+
+
+def test_reedsol_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(4)
+    data = rng.integers(0, 256, (8, 32, 1019), np.uint8)
+    par = reedsol.encode(data, 32)
+    assert par.device.type == "cuda"
+    np.testing.assert_array_equal(
+        par.cpu().numpy(), reedsol.encode(data, 32, device="cpu").numpy())
+    present = tuple(range(16, 48))
+    code = np.concatenate([data, par.cpu().numpy()], axis=1)
+    got = reedsol.recover(code[:, list(present)], present, 32, 32)
+    np.testing.assert_array_equal(got.cpu().numpy(), data)
+
+
+def test_hash_wrappers_refuse_bad_tensors(dev):
+    m = torch.zeros((4, 64), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="msg_len"):
+        cuda_sha256.sha256(m, torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="msg"):
+        cuda_blake3.lthash(m[:, ::2], torch.zeros(4, dtype=torch.int32,
+                                                  device=dev))
+    z = torch.zeros((4, 32), dtype=torch.uint8, device=dev)
+    n = torch.ones(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="has_mixin"):
+        cuda_sha256.poh_verify(z, n, z, n, z, 4)

@@ -38,7 +38,12 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'firedancer_tpu'))\n"
         "print(len(mods), bad)\n"
-        "assert len(mods) >= 35 and not bad, bad\n")
+        "assert len(mods) >= 35 and not bad, bad\n"
+        "new = {'ops.cuda_sha256', 'ops.cuda_blake3', 'ops.blake3', "
+        "'ops.bmtree', 'ops.reedsol', 'utils.blake3_ref', 'utils.gf256', "
+        "'utils.chacha', 'shred.shredder', 'shred.shred_dest', "
+        "'tiles.shred', 'keyguard.tile', 'tools.leader_drain'}\n"
+        "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)

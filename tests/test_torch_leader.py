@@ -1,10 +1,13 @@
-"""The leader's execution leg of the port against the JAX package's: the
-pack, bank (exec="svm", device="cpu": the wave scan's plain version) and
-poh adapters in-process over each package's own shm rings, fed the same
+"""The leader's loop of the port against the JAX package's: the pack,
+bank (exec="svm", device="cpu": the wave scan's plain version) and poh
+adapters in-process over each package's own shm rings, fed the same
 frames: every out frame byte-identical and every funk balance equal
 (tests/test_leader_batch.py:120, :150, :232, :281, :348); then the port's
 leader topology spawned on the CPU (tests/test_leader_batch.py:532), the
-refusals, and `app.run` on cfg/leader.toml."""
+refusals, cfg/leader.toml held to bench.py's `_leader_topology`, the whole
+of cfg/leader.toml (shred, sign and shredsink included) drained on the
+CPU, and `app.run` on cfg/leader.toml."""
+import dataclasses
 import hashlib
 import os
 import struct
@@ -21,9 +24,11 @@ from firedancer_tpu.disco import tiles as jtiles
 from firedancer_tpu.tiles.synth import make_signed_txns, synth_signer_seed
 from firedancer_tpu.utils.ed25519_ref import keypair
 from firedancer_tpu_torch import runtime as trt
+from firedancer_tpu_torch.app import config as tconfig
 from firedancer_tpu_torch.disco import tiles as ttiles
 from firedancer_tpu_torch.disco.launch import TopologyRunner
 from firedancer_tpu_torch.disco.topo import Topology
+from firedancer_tpu_torch.tools import leader_drain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEADER_TOML = os.path.join(ROOT, "firedancer_tpu_torch", "cfg",
@@ -387,6 +392,68 @@ def test_leader_loop_with_two_verify_tiles_on_the_cpu():
         runner.close()
 
 
+def _specs(topo) -> dict:
+    return {"links": {n: dataclasses.asdict(s)
+                      for n, s in topo.links.items()},
+            "tcaches": dict(topo.tcaches),
+            "tiles": {n: dataclasses.asdict(s)
+                      for n, s in topo.tiles.items()}}
+
+
+def test_leader_toml_is_bench_leader_topology_less_core_pinning():
+    """bench.py's leader topology at its capacity boot (4096 frames over
+    768 unique, batch 32, two verify shards, unpaced) and
+    cfg/leader.toml build the same links, tcaches and tiles, but for the
+    verify shards' core pinning (cpu_idx) and the synth's rate_tps None
+    (unpaced), which the TOML leaves out."""
+    sys.path.insert(0, ROOT)
+    import bench
+    want = _specs(bench._leader_topology(4096, 768, 32, 2, None))
+    got = _specs(tconfig.build_topology(tconfig.load_config(LEADER_TOML)))
+    for t in want["tiles"].values():
+        t["args"].pop("cpu_idx", None)
+    assert want["tiles"]["synth"]["args"].pop("rate_tps") is None
+    assert got == want
+    assert {"shred", "sign", "shredsink"} <= set(got["tiles"])
+
+
+def test_full_leader_toml_drains_on_the_cpu():
+    """cfg/leader.toml with the shred leg, verify and bank on the CPU, at
+    192 frames over 64 unique txns: bench.py's conservation rule holds,
+    the shred leg drains, shredsink has every shred the shred tile made,
+    the sign tile signed one root a FEC set and refused none, and every
+    mirrored shred proves its set's root, which its signature covers."""
+    cfg = tconfig.load_config(LEADER_TOML, overrides={"tile": [
+        {"name": "synth", "count": 192, "unique": 64},
+        {"name": "verify", "device": "cpu"},
+        {"name": "bank0", "device": "cpu"}]})
+    runner = TopologyRunner(tconfig.build_topology(
+        cfg, name=f"tlf{os.getpid()}").build()).start()
+    try:
+        runner.wait_running(timeout_s=120)
+        runner.wait_idle("synth", "tx", 192, timeout_s=120)
+        drops = leader_drain.wait_drained(runner, 192, timeout_s=120)
+        m = leader_drain.drain_shred_leg(runner, timeout_s=120)
+        b, sh, sg = m["bank0"], m["shred"], m["sign"]
+        assert b["txns"] + drops == 192 and b["exec_fail"] == 0
+        assert m["poh"]["mixins"] == b["microblocks"] > 0
+        assert sh["fec_sets"] > 0 and sh["sign_fail"] == 0
+        assert m["shredsink"]["rx"] == sh["data_shreds"] \
+            + sh["parity_shreds"] == sh["sent"] + sh["no_dest"]
+        assert sg["signed"] == sh["fec_sets"] and sg["refused"] == 0
+        assert sh["entries"] == m["poh"]["entries"]
+        wires = leader_drain.mirror_wires(runner)
+        assert len(wires) == m["shredsink"]["rx"]
+        pub = bytes.fromhex(next(t["identity_hex"] for t in cfg["tile"]
+                                 if t["name"] == "shred"))
+        assert leader_drain.check_mirror(wires, pub) == sh["fec_sets"]
+        for tn, p in runner.procs.items():
+            assert p.exitcode == 0, (tn, p.exitcode)
+    finally:
+        runner.halt()
+        runner.close()
+
+
 def _run(*argv, timeout=240):
     return subprocess.run(
         [sys.executable, "-m", "firedancer_tpu_torch.app.run", LEADER_TOML,
@@ -395,12 +462,12 @@ def _run(*argv, timeout=240):
 
 
 def test_app_run_boots_leader_toml_on_the_cpu():
-    """synth, both verify shards, dedup, pack, bank0, poh and the sink
-    boot and run; the table lists every tile."""
+    """synth, both verify shards, dedup, pack, bank0, poh, shred, sign and
+    shredsink boot and run; the table lists every tile."""
     r = _run("--device", "cpu", "--duration", "2")
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     for tn in ("synth", "verify0", "verify1", "dedup", "pack", "bank0",
-               "poh", "sink"):
+               "poh", "shred", "sign", "shredsink"):
         assert f"\n{tn} " in r.stdout, tn
 
 

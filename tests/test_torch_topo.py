@@ -137,7 +137,8 @@ def test_unported_kind_is_refused_with_its_item(kind):
 
 def test_every_reference_kind_is_ported_or_refused():
     assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink",
-                                    "pack", "bank", "poh"}
+                                    "pack", "bank", "poh", "shred",
+                                    "sign"}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
