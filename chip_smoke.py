@@ -57,13 +57,14 @@ and read just after:
   hashes    phases 13-16: the device ops of the shred leg and of the
             follower's replay and bank hash. 13: the SHA-256 kernel ==
             plain == hashlib at 8192 rows of 0-1296 bytes, at widths 1296
-            and 1297 (its 32-bit and its byte loads), then bmtree_root
-            over 64 shred-sized trees and the merkle leaves of a 32:32
-            FEC set (the Shredder's parity from ops/reedsol on the card)
-            through the kernel, each launch of theirs also == plain; 14:
-            poh_verify_entries on one slot at mainnet's 12,500 hashes a
-            tick against the host chain, and kernel == plain at
-            cfg/leader.toml's 64, each beside its chain floor; 15: the
+            and 1297 (one staging path for every width and alignment),
+            then bmtree_root over 64 shred-sized trees and the merkle
+            leaves of a 32:32 FEC set (the Shredder's parity from
+            ops/reedsol on the card) through the kernel, each launch of
+            theirs also == plain and timed; 14: poh_verify_entries on
+            one slot at mainnet's 12,500 hashes a tick against the host
+            chain, and kernel == plain at cfg/leader.toml's 64, each
+            beside its chain floor and its one-warp issue floor; 15: the
             BLAKE3 kernel's two entries == plain at 4096 lanes of 0-2048
             bytes (== blake3_ref on 512); 16: Reed-Solomon encode and
             recover on the card (torch.matmul, no hand-written kernel) at
@@ -149,8 +150,13 @@ SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 # PoH's chain floor: a round's e = d + t1 hangs on the round before's e
 # through three dependent instructions (the Sigma1 rotates, their LOP3
 # xor3, the IADD3 of t1 and d), and an entry's rounds run one after the
-# other; at one cycle an instruction, below any real latency, an entry's
-# rounds take at least 3 cycles each at the boost clock.
+# other; at one cycle an instruction an entry's rounds take at least 3
+# cycles each at the boost clock. The card cannot reach it: a dependent
+# instruction waits 4.4-4.6 clocks for its operand, and one warp's ALU
+# instructions (a round's rotates and LOP3s) issue one every 2.09 clocks
+# on its sub-partition's 16 INT32 lanes (tools/pipe_bench.cu on an
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6). The issue floor beside it
+# (`issue_floor`) counts the SASS instructions the round warp issues.
 SHA256_ROUND_CHAIN_OPS = 3
 # BLAKE3, a compression: 7 rounds of 8 G functions of 12 32-bit operations
 # (4 adds, 4 xors, 4 rotates), then 8 output xors (16 for an XOF block).
@@ -575,6 +581,16 @@ def poh_chain(args, max_hashes: int):
     return rounds, rounds * SHA256_ROUND_CHAIN_OPS / CLOCK_HZ * 1e3
 
 
+def issue_floor(kernel: str, steps: int, sass: dict):
+    """(instructions, ms) of the round warp of `kernel` issuing `steps`
+    passes of its loop in the SASS (`sass`: tools/sha256_bench's
+    sass_report; one pass is a compression of poh_verify, a block of
+    sha256), one instruction a cycle at the boost clock."""
+    from firedancer_tpu_torch.tools.sha256_bench import round_loop
+    n = round_loop(sass, kernel)["instrs"]
+    return n, steps * n / CLOCK_HZ * 1e3
+
+
 def run_hash_phases(dev, card, counts, reset_counts):
     """Phases 13-16: the SHA-256, PoH and BLAKE3 kernels against their
     plain versions and oracles, the paths through them (bmtree_root, the
@@ -582,8 +598,10 @@ def run_hash_phases(dev, card, counts, reset_counts):
     lthash_batch, each read with the counts set to 0 just before it), and
     Reed-Solomon on the card. -> ({name: stats}, the paths' launch
     counts, {kernel: max_abs_err against its plain version})."""
-    from firedancer_tpu_torch.ops import cuda_blake3, cuda_sha256, sha2
+    from firedancer_tpu_torch.ops import _build, cuda_blake3, cuda_sha256, sha2
+    from firedancer_tpu_torch.tools import sha256_bench, wave_bench
     stats = {}
+    sass = sha256_bench.sass_report(_build._paths("sha256")[1])
     # 13. SHA-256: kernel == plain == hashlib at 8192 rows of lengths
     # 0-1296; then two paths through the kernel, each with the counts set
     # to 0 just before it: bmtree_root over 64 shred-sized trees (64
@@ -621,28 +639,39 @@ def run_hash_phases(dev, card, counts, reset_counts):
     blocks = int(sha2.nblocks(torch.from_numpy(lens).long(), 64, 8).sum())
     ops = blocks * SHA256_OPS_PER_BLOCK
     nbytes = int(lens.sum()) + SHA256_B * (4 + 32)
+    # the kernel's time from a CUDA graph of ITERS launches: a call from
+    # Python costs more than the kernel at this size
     st = stats["sha256"] = stats_of(
-        cuda_ms(lambda: cuda_sha256.sha256(sm_d, sl_d), ITERS),
+        wave_bench.graph_ms(lambda: cuda_sha256.sha256(sm_d, sl_d), ITERS),
         cuda_ms(lambda: sha2.sha256(sm_d, sl_d), 1), ops, nbytes)
+    st["call_ms"] = cuda_ms(lambda: cuda_sha256.sha256(sm_d, sl_d), ITERS)
+    longest = int(sha2.nblocks(torch.from_numpy(lens).long(), 64, 8).max())
+    st["issue_instrs"], st["issue_floor_ms"] = issue_floor(
+        "sha256_kernel", longest, sass)
     log(f"sha256: {SHA256_B} rows of 0-{SHA256_WIDTH} bytes ({blocks} "
         f"blocks), kernel == plain == hashlib, max_abs_err 0; kernel "
-        f"{st['ms']:.4f} ms, plain {st['plain_ms']:.2f} ms, bound "
+        f"{st['ms']:.4f} ms (CUDA graph; {st['call_ms']:.4f} ms a call from "
+        f"Python), plain {st['plain_ms']:.2f} ms, bound "
         f"{st['bound_ms']:.5f} ms ({ops} int32 ops -> {st['ops_ms']:.5f} "
         f"ms, {nbytes} B -> {st['bytes_ms']:.5f} ms), "
-        f"{st['ms'] / st['bound_ms']:.1f}x the bound {card}")
-    # the same rows one byte wider: a row width off a multiple of 4 takes
-    # the kernel's byte loads, as bmtree's levels and the shred leaves do
+        f"{st['ms'] / st['bound_ms']:.1f}x the bound; issue floor "
+        f"{st['issue_floor_ms']:.5f} ms (the round warp's {longest} blocks "
+        f"of {st['issue_instrs']} SASS instructions), "
+        f"{st['ms'] / st['issue_floor_ms']:.1f}x it {card}")
+    # the same rows one byte wider: every row at another alignment, the
+    # same staging path as bmtree's levels and the shred leaves take
     sm_odd = torch.nn.functional.pad(sm_d, (0, 1)).contiguous()
     got = cuda_sha256.sha256(sm_odd, sl_d)
     odd_err = int((got.int() - sha2.sha256(sm_odd, sl_d).int()).abs().max())
-    assert odd_err == 0, f"sha256 byte loads != plain (max err {odd_err})"
+    assert odd_err == 0, f"sha256 at width 1297 != plain ({odd_err})"
     assert np.array_equal(got.cpu().numpy(), want), \
-        "sha256 byte loads != hashlib"
+        "sha256 at width 1297 != hashlib"
     sha256_err = max(sha256_err, odd_err)
-    log(f"sha256 byte loads: the rows at width {SHA256_WIDTH + 1}, kernel "
-        f"== plain == hashlib, max_abs_err 0; kernel "
-        f"{cuda_ms(lambda: cuda_sha256.sha256(sm_odd, sl_d), ITERS):.4f} "
-        f"ms {card}")
+    st["ms_1297"] = wave_bench.graph_ms(
+        lambda: cuda_sha256.sha256(sm_odd, sl_d), ITERS)
+    log(f"sha256: the rows at width {SHA256_WIDTH + 1}, kernel == plain == "
+        f"hashlib, max_abs_err 0; kernel {st['ms_1297']:.4f} ms (CUDA "
+        f"graph), {st['ms_1297'] / st['ms']:.3f}x width {SHA256_WIDTH} {card}")
     leaves = rng.integers(0, 256, (BMTREE_TREES, BMTREE_LEAVES, 32),
                           np.uint8)
     cnt = np.full(BMTREE_TREES, BMTREE_LEAVES, np.int32)
@@ -706,6 +735,14 @@ def run_hash_phases(dev, card, counts, reset_counts):
     assert MerkleTree20.from_leaf_hashes(leaf_h).root == fs.merkle_root
     assert eref.verify(sfmt.parse_shred(fs.data_shreds[0]).signature,
                        eref.keypair(seed)[-1], fs.merkle_root)
+    # each of the paths' launches timed on its own inputs: device time
+    # from a CUDA graph of ITERS launches (a call from Python costs more
+    # than these small launches)
+    for m, n, _ in levels + [(lmsg_d, llen, None)]:
+        log(f"sha256 at {m.shape[0]} rows x {m.shape[1]} bytes "
+            f"({'shred leaves' if n is llen else 'a bmtree level'}): "
+            f"{wave_bench.graph_ms(lambda: cuda_sha256.sha256(m, n), ITERS):.5f}"
+            f" ms (CUDA graph) {card}")
     log(f"bmtree_root: {BMTREE_TREES} trees of up to {BMTREE_LEAVES} leaves "
         f"(26-byte prefixes) == host_bmtree_root, each level's launch "
         f"(row widths {sorted({m.shape[1] for m, _, _ in levels})}) == "
@@ -754,14 +791,20 @@ def run_hash_phases(dev, card, counts, reset_counts):
     hashes, blocks = poh_work(pargs, POH_HASHES_PER_TICK)
     big_ops = blocks * SHA256_OPS_PER_BLOCK
     big_rounds, big_chain_ms = poh_chain(pargs, POH_HASHES_PER_TICK)
+    issue_instrs, big_issue_ms = issue_floor("poh_verify_kernel",
+                                             big_rounds // 64, sass)
     log(f"poh_verify at {POH_HASHES_PER_TICK} hashes a tick: "
         f"{len(pwant)} entries ({hashes} hashes, generated on the host in "
         f"{gen_s:.2f} s), verdicts == the host chain (valid {int(pok.sum())}"
-        f", flipped {int((~pok).sum())} refused); kernel {big_ms:.3f} ms; "
+        f", flipped {int((~pok).sum())} refused); kernel {big_ms:.3f} ms "
+        f"({big_ms * 1e-3 * CLOCK_HZ / big_rounds:.1f} clocks a round); "
         f"bound {big_ops / INT32_OPS_PER_S * 1e3:.5f} ms by operations; "
         f"chain floor {big_chain_ms:.4f} ms (the longest entry's "
         f"{big_rounds} dependent rounds at {SHA256_ROUND_CHAIN_OPS} cycles), "
-        f"{big_ms / big_chain_ms:.1f}x the chain floor {card}")
+        f"{big_ms / big_chain_ms:.1f}x the chain floor; issue floor "
+        f"{big_issue_ms:.4f} ms (the round warp's {issue_instrs} SASS "
+        f"instructions a compression, one a cycle), "
+        f"{big_ms / big_issue_ms:.2f}x it {card}")
     sargs, swant = slot_entries(POH_SMALL_HASHES, rng)
     st_ = [torch.from_numpy(x).to(dev) for x in sargs]
     sk = cuda_sha256.poh_verify(*st_, POH_SMALL_HASHES)
@@ -777,13 +820,16 @@ def run_hash_phases(dev, card, counts, reset_counts):
         len(swant) * (3 * 32 + 4 + 1 + 1))
     st["mainnet_ms"] = big_ms
     st["chain_rounds"], st["chain_ms"] = poh_chain(sargs, POH_SMALL_HASHES)
+    st["issue_instrs"], st["issue_floor_ms"] = issue_floor(
+        "poh_verify_kernel", st["chain_rounds"] // 64, sass)
     log(f"poh_verify at {POH_SMALL_HASHES} hashes a tick: {len(swant)} "
         f"entries, kernel == plain == the host chain, max_abs_err 0; kernel "
         f"{st['ms']:.4f} ms, plain {st['plain_ms']:.2f} ms, bound "
         f"{st['bound_ms']:.6f} ms by {st['bound_by']}; chain floor "
         f"{st['chain_ms']:.6f} ms (the longest entry's {st['chain_rounds']} "
         f"dependent rounds), {st['ms'] / st['chain_ms']:.1f}x the chain "
-        f"floor {card}")
+        f"floor; issue floor {st['issue_floor_ms']:.6f} ms, "
+        f"{st['ms'] / st['issue_floor_ms']:.2f}x it {card}")
 
     # 15. BLAKE3 and lthash: kernel == plain at 4096 lanes of lengths 0-2048
     # (the bank hash's lane cap), the 1024/1025 chunk edge included, and ==
@@ -1567,9 +1613,13 @@ def main() -> int:
                         "plain_ms": st["plain_ms"],
                         "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": None})
+        if name in ("sha256", "poh_verify"):
+            # bound_ms is the operations bound; one warp's SASS stream
+            # issued at one instruction a cycle is the floor of this
+            # design (issue_floor)
+            kernels[-1].update(issue_floor_ms=st["issue_floor_ms"])
         if name == "poh_verify":
-            # bound_ms is the operations bound; an entry's chain of
-            # dependent rounds is the floor that binds this kernel
+            # an entry's chain of dependent rounds at 3 cycles a round
             kernels[-1].update(chain_rounds=st["chain_rounds"],
                                chain_ms=st["chain_ms"])
     log(smi)

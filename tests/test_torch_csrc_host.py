@@ -399,22 +399,45 @@ def _hash_fn(host_lib, src, name, argtypes):
 _ROW_ARGS = [VP, ct.c_int64, VP, VP, ct.c_int, ct.c_int]
 
 
-@pytest.mark.parametrize("width,aligned", [(200, 1), (200, 0), (203, 0)])
-def test_sha256_source_matches_plain_and_hashlib(host_lib, width, aligned):
-    """Every padding edge and random lengths, through the 32-bit load
-    path (rows 4-byte aligned, width a multiple of 4) and the byte path,
-    against hashlib and sha2.sha256."""
-    fn = _hash_fn(host_lib, "sha256", "sha256_lane_host", _ROW_ARGS)
-    lens = list(hc.SHA256_EDGES) + list(
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("width", [200, 203, *hc.SHA256_WIDTHS])
+def test_sha256_source_matches_plain_and_hashlib(host_lib, width, offset):
+    """Every padding edge and random lengths, at the paths' row widths and
+    base offsets 0-3 (every row's address mod 16: the staged window, the
+    byte offset inside its first word), against hashlib and
+    sha2.sha256. The slot's bytes outside the row's block are garbage,
+    so a byte past the length that reached a word would show."""
+    fn = _hash_fn(host_lib, "sha256", "sha256_lane_host",
+                  [VP, ct.c_int64, VP, VP, ct.c_int])
+    lens = list(hc.SHA256_EDGES) + [width - 1, width] + list(
         np.random.default_rng(width).integers(0, width + 1, 12))
-    msg, ln = hc.rows(lens, width, 50 + width)
+    msg, ln = hc.offset_rows(lens, width, offset, 50 + width)
     out = np.zeros((len(ln), 32), np.uint8)
     for lane in range(len(ln)):
-        fn(msg.ctypes.data, width, ln.ctypes.data, out.ctypes.data, aligned,
-           lane)
+        fn(msg.ctypes.data, width, ln.ctypes.data, out.ctypes.data, lane)
     np.testing.assert_array_equal(out, hc.sha256_want(msg, ln))
-    np.testing.assert_array_equal(
-        out, sha2.sha256(torch.from_numpy(msg), torch.from_numpy(ln)).numpy())
+    np.testing.assert_array_equal(out, sha2.sha256(
+        torch.from_numpy(np.ascontiguousarray(msg)),
+        torch.from_numpy(ln)).numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 16, 65])
+def test_poh_hash_source_matches_host_chain(host_lib, n):
+    """One PoH hash as the kernel's lane pair computes it (pair_step on
+    an e-lane and an a-lane two rounds apart, the values crossing as the
+    shuffles carry them; the padding literals, the folded schedule terms,
+    round 0's new e from a constant) n times over a state ==
+    host_poh_append and == the plain sha256 chained."""
+    fn = _hash_fn(host_lib, "sha256", "poh_hashes_host", [VP, ct.c_int])
+    for seed in range(3):
+        start = np.random.default_rng(seed + 10 * n).bytes(32)
+        state = np.frombuffer(start, np.uint8).copy()
+        fn(state.ctypes.data, n)
+        assert bytes(state) == poh.host_poh_append(start, n)
+        plain = torch.from_numpy(np.frombuffer(start, np.uint8).copy())[None]
+        for _ in range(n):
+            plain = sha2.sha256(plain, torch.tensor([32], dtype=torch.int32))
+        assert bytes(state) == bytes(plain[0].numpy())
 
 
 @pytest.mark.parametrize("max_hashes", [16, 64])

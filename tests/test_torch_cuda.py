@@ -359,7 +359,8 @@ def test_wave_scan_refuses_misaligned_views_on_card(dev):
 
 @pytest.mark.parametrize("width", [1296, 1297])
 def test_sha256_kernel_matches_plain(dev, width):
-    """The 32-bit load path (1296) and the byte path (1297)."""
+    """Row widths 1296 and 1297: the same staging path, every row at
+    another alignment at 1297."""
     lens = list(hc.SHA256_EDGES) + list(
         np.random.default_rng(width).integers(0, width + 1, 500))
     msg, ln = hc.rows(lens, width, width)
@@ -370,6 +371,25 @@ def test_sha256_kernel_matches_plain(dev, width):
     np.testing.assert_array_equal(got.cpu().numpy(), hc.sha256_want(msg, ln))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   sha2.sha256(m, l).cpu().numpy())
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("width", hc.SHA256_WIDTHS)
+def test_sha256_kernel_widths_and_offsets_match_plain(dev, width, offset):
+    """The staged windows at the paths' row widths and base offsets 0-3,
+    a warp of edges and random lengths and a second warp in part (lanes
+    past the batch)."""
+    lens = list(hc.SHA256_EDGES) + [width - 1, width] + list(
+        np.random.default_rng(width + offset).integers(0, width + 1, 40))
+    msg, ln = hc.offset_rows(lens, width, offset, width + offset)
+    buf = torch.zeros(msg.size + 16, dtype=torch.uint8, device=dev)
+    m = buf[offset:offset + msg.size].view(msg.shape)
+    m.copy_(torch.from_numpy(np.ascontiguousarray(msg)))
+    assert m.data_ptr() % 16 == offset
+    l = torch.from_numpy(ln).to(dev)
+    got = cuda_sha256.sha256(m, l).cpu().numpy()
+    np.testing.assert_array_equal(got, hc.sha256_want(msg, ln))
+    np.testing.assert_array_equal(got, sha2.sha256(m, l).cpu().numpy())
 
 
 @pytest.mark.parametrize("max_hashes", [16, 64])

@@ -26,6 +26,22 @@ def rows(lens, width, seed):
     return msg, lens
 
 
+# the row widths of SHA-256's paths (bmtree's leaf and node levels, the
+# shred leaves, R || A || M) and one off every alignment
+SHA256_WIDTHS = (58, 90, 1070, 1296, 1297)
+
+
+def offset_rows(lens, width, offset, seed):
+    """rows() whose first byte lies `offset` bytes past an aligned buffer
+    start: (n, width) uint8 view of a larger buffer, and the lengths."""
+    msg, lens = rows(lens, width, seed)
+    flat = np.zeros(msg.size + offset + 16, np.uint8)
+    flat = flat[(-flat.ctypes.data) % 16:]          # 16-aligned start
+    view = flat[offset:offset + msg.size].reshape(msg.shape)
+    view[:] = msg
+    return view, lens
+
+
 def sha256_want(msg, lens):
     return np.stack([np.frombuffer(hashlib.sha256(
         msg[i, :n].tobytes()).digest(), np.uint8) for i, n in enumerate(lens)])
