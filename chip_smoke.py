@@ -66,7 +66,8 @@ and read just after:
             chain, and kernel == plain at cfg/leader.toml's 64, each
             beside its chain floor and its one-warp issue floor; 15: the
             BLAKE3 kernel's two entries == plain at 4096 lanes of 0-2048
-            bytes (== blake3_ref on 512); 16: Reed-Solomon encode and
+            bytes and at the bank hash's 4096 lanes of 81 (== blake3_ref
+            on 512), each timed by a CUDA graph; 16: Reed-Solomon encode and
             recover on the card (torch.matmul, no hand-written kernel) at
             64 sets of 32:32 over the shredder's RS region.
 
@@ -158,10 +159,6 @@ SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 # NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6). The issue floor beside it
 # (`issue_floor`) counts the SASS instructions the round warp issues.
 SHA256_ROUND_CHAIN_OPS = 3
-# BLAKE3, a compression: 7 rounds of 8 G functions of 12 32-bit operations
-# (4 adds, 4 xors, 4 rotates), then 8 output xors (16 for an XOF block).
-BLAKE3_OPS = 7 * 8 * 12 + 8
-BLAKE3_XOF_OPS = 7 * 8 * 12 + 16
 SHA256_B = 8192          # phase 13: rows of lengths 0-1296
 SHA256_WIDTH = 1296
 BMTREE_TREES = 64        # phase 13: shred-sized trees (a 32:32 FEC set)
@@ -169,7 +166,7 @@ BMTREE_LEAVES = 64
 POH_TICKS = 64           # phase 14: one slot at mainnet's settings
 POH_HASHES_PER_TICK = 12500   # Solana genesis hashes_per_tick
 POH_SMALL_HASHES = 64    # cfg/leader.toml's hashes_per_tick
-BLAKE3_B = 4096          # phase 15: lanes of lengths 0-2048
+BLAKE3_B = 4096          # phase 15: lanes of lengths 0-2048, and of 81 bytes
 RS_SETS = 64             # phase 16: 32:32 sets over the shredder's RS region
 SMALL_B = TILE_BATCH     # the second timed size: the tile's chunk
 RAGGED_B = 5000          # stage 2 at 79 blocks, the last chunk ragged
@@ -599,7 +596,8 @@ def run_hash_phases(dev, card, counts, reset_counts):
     Reed-Solomon on the card. -> ({name: stats}, the paths' launch
     counts, {kernel: max_abs_err against its plain version})."""
     from firedancer_tpu_torch.ops import _build, cuda_blake3, cuda_sha256, sha2
-    from firedancer_tpu_torch.tools import sha256_bench, wave_bench
+    from firedancer_tpu_torch.tools import (blake3_bench, sha256_bench,
+                                            wave_bench)
     stats = {}
     sass = sha256_bench.sass_report(_build._paths("sha256")[1])
     # 13. SHA-256: kernel == plain == hashlib at 8192 rows of lengths
@@ -834,9 +832,13 @@ def run_hash_phases(dev, card, counts, reset_counts):
     # 15. BLAKE3 and lthash: kernel == plain at 4096 lanes of lengths 0-2048
     # (the bank hash's lane cap), the 1024/1025 chunk edge included, and ==
     # blake3_ref on the first 512 lanes (the pure-Python oracle is slow);
-    # the path is blake3_batch and lthash_batch, counts set to 0 before
+    # the path is blake3_batch and lthash_batch, counts set to 0 before.
+    # Then the bank hash's shape: 4096 lanes of 81 bytes (a serialized
+    # data-less system account, flamenco/bank_hash.py:30-40), rows at
+    # width 81, every row at another alignment
     log(f"== 15. blake3 and lthash kernels vs plain vs blake3_ref, "
-        f"{BLAKE3_B} lanes of 0-2048 bytes {card}")
+        f"{BLAKE3_B} lanes of 0-2048 bytes and {BLAKE3_B} of "
+        f"{blake3_bench.BANK_HASH_LEN} {card}")
     blens = rng.integers(0, 2049, BLAKE3_B).astype(np.int32)
     blens[:11] = [0, 1, 63, 64, 65, 1023, 1024, 1025, 2047, 2048, 3]
     bmsg = rng.integers(0, 256, (BLAKE3_B, 2048), np.uint8)
@@ -846,42 +848,58 @@ def run_hash_phases(dev, card, counts, reset_counts):
     bl = b3.lthash_batch(bmsg, blens, device=DEVICE)
     b3_path = counts()
     assert b3_path["blake3"] == 1 and b3_path["lthash"] == 1, b3_path
-    bm_d, bl_d = torch.from_numpy(bmsg).to(dev), torch.from_numpy(blens).to(dev)
-    pd, pl = b3.blake3_plain(bm_d, bl_d), b3.lthash_plain(bm_d, bl_d)
-    b3_err = int((bd.int() - pd.int()).abs().max())
-    lt_err = int((bl - pl).abs().max())
-    assert b3_err == 0 and lt_err == 0, (b3_err, lt_err)
-    bd_h, bl_h = bd.cpu().numpy(), bl.cpu().numpy()
-    for i in range(min(512, BLAKE3_B)):
-        m_ = bmsg[i, :blens[i]].tobytes()
-        assert bytes(bd_h[i]) == blake3_ref.blake3(m_), i
-        assert np.array_equal(bl_h[i], np.frombuffer(
-            blake3_ref.lthash(m_), np.uint16)), i
-    # compressions this run's lengths need: a chunk's blocks chain (one
-    # chunk's last block runs only as the root), then the root: 1 for the
-    # digest, 32 for the XOF
-    nb = np.maximum(1, -(-blens // 64))
-    chain = np.where(blens <= 1024, nb - 1,
-                     16 + -(-(blens - 1024) // 64))
-    b3_ops = int(chain.sum()) * BLAKE3_OPS + BLAKE3_B * BLAKE3_OPS
-    lt_ops = int(chain.sum()) * BLAKE3_OPS + BLAKE3_B * 32 * BLAKE3_XOF_OPS
-    in_bytes = int(blens.sum()) + 4 * BLAKE3_B
-    for name, fn, pfn, ops, nbytes in (
-            ("blake3", lambda: cuda_blake3.blake3(bm_d, bl_d),
-             lambda: b3.blake3_plain(bm_d, bl_d), b3_ops,
-             in_bytes + 32 * BLAKE3_B),
-            ("lthash", lambda: cuda_blake3.lthash(bm_d, bl_d),
-             lambda: b3.lthash_plain(bm_d, bl_d), lt_ops,
-             in_bytes + 4096 * BLAKE3_B)):
-        st = stats[name] = stats_of(cuda_ms(fn, ITERS), cuda_ms(pfn, 1), ops,
-                                    nbytes)
-        log(f"{name}: kernel == plain (== blake3_ref on 512 lanes), "
-            f"max_abs_err 0; kernel {st['ms']:.4f} ms, plain "
-            f"{st['plain_ms']:.2f} ms, bound {st['bound_ms']:.5f} ms ({ops} "
-            f"int32 ops -> {st['ops_ms']:.5f} ms, {nbytes} B -> "
-            f"{st['bytes_ms']:.5f} ms), {st['ms'] / st['bound_ms']:.1f}x the "
-            f"bound; a lane's chain up to {int(chain.max()) + 1} dependent "
-            f"compressions {card}")
+    bank_msg, bank_lens = blake3_bench.rows(
+        BLAKE3_B, blake3_bench.BANK_HASH_LEN, blake3_bench.BANK_HASH_LEN,
+        blake3_bench.BANK_HASH_LEN, int(rng.integers(1 << 30)))
+    b3_err = lt_err = 0
+    for shape, msg_h, lens_h, dig, lan in (
+            ("0-2048", bmsg, blens, bd, bl),
+            ("81", bank_msg, bank_lens, None, None)):
+        m_d, l_d = torch.from_numpy(msg_h).to(dev), \
+            torch.from_numpy(lens_h).to(dev)
+        if dig is None:
+            dig, lan = cuda_blake3.blake3(m_d, l_d), cuda_blake3.lthash(m_d,
+                                                                       l_d)
+        e_d = int((dig.int() - b3.blake3_plain(m_d, l_d).int()).abs().max())
+        e_l = int((lan - b3.lthash_plain(m_d, l_d)).abs().max())
+        assert e_d == 0 and e_l == 0, (shape, e_d, e_l)
+        b3_err, lt_err = max(b3_err, e_d), max(lt_err, e_l)
+        d_h, l_h = dig.cpu().numpy(), lan.cpu().numpy()
+        for i in range(min(512, BLAKE3_B)):
+            m_ = msg_h[i, :lens_h[i]].tobytes()
+            assert bytes(d_h[i]) == blake3_ref.blake3(m_), (shape, i)
+            assert np.array_equal(l_h[i], np.frombuffer(
+                blake3_ref.lthash(m_), np.uint16)), (shape, i)
+        for name, kern, plain in (
+                ("blake3", cuda_blake3.blake3, b3.blake3_plain),
+                ("lthash", cuda_blake3.lthash, b3.lthash_plain)):
+            w = blake3_bench.work(lens_h, name)
+            # the kernel's time from a CUDA graph of ITERS launches: a call
+            # from Python costs more than the kernel at these sizes
+            ms = wave_bench.graph_ms(lambda: kern(m_d, l_d), ITERS)
+            call_ms = cuda_ms(lambda: kern(m_d, l_d), ITERS)
+            if shape == "0-2048":
+                st = stats[name] = stats_of(ms, cuda_ms(
+                    lambda: plain(m_d, l_d), 1), w["ops"], w["bytes"])
+                st.update(call_ms=call_ms, chain_floor_ms=w["chain_floor_ms"])
+            else:
+                st = stats[name]
+                st.update(bank_hash_ms=ms, bank_hash_call_ms=call_ms,
+                          bank_hash_bound_ms=w["bound_ms"],
+                          bank_hash_bound_by=w["bound_by"])
+            plain_txt = (f", plain {st['plain_ms']:.2f} ms"
+                         if shape == "0-2048" else "")
+            log(f"{name} at {BLAKE3_B} lanes of {shape} bytes (width "
+                f"{msg_h.shape[1]}): kernel == plain (== blake3_ref on 512 "
+                f"lanes), max_abs_err 0; kernel {ms:.4f} ms (CUDA graph; "
+                f"{call_ms:.4f} ms a call from Python){plain_txt}, bound "
+                f"{w['bound_ms']:.5f} ms ({w['ops']} int32 ops -> "
+                f"{w['ops_ms']:.5f} ms, {w['bytes']} B -> "
+                f"{w['bytes_ms']:.5f} ms), {ms / w['bound_ms']:.1f}x the "
+                f"bound; chain floor {w['chain_floor_ms']:.5f} ms (the "
+                f"longest message's {w['chain']} dependent compressions, "
+                f"its chunks side by side), {ms / w['chain_floor_ms']:.1f}x "
+                f"it {card}")
 
     # 16. Reed-Solomon (torch.matmul on the card, no hand-written kernel):
     # encode 64 sets at the shredder's 32:32 over its RS region, == the CPU
@@ -1622,6 +1640,14 @@ def main() -> int:
             # an entry's chain of dependent rounds at 3 cycles a round
             kernels[-1].update(chain_rounds=st["chain_rounds"],
                                chain_ms=st["chain_ms"])
+        if name in ("blake3", "lthash"):
+            # ms is the CUDA graph's at 0-2048 bytes, beside the longest
+            # message's chain at a compression's dependent latency; the
+            # same at the bank hash's 81 bytes beside its own bound
+            kernels[-1].update({k: st[k] for k in (
+                "call_ms", "chain_floor_ms", "bank_hash_ms",
+                "bank_hash_call_ms", "bank_hash_bound_ms",
+                "bank_hash_bound_by")})
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

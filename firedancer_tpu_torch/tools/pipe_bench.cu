@@ -23,16 +23,23 @@
 #define ADD(a, b) asm volatile("add.u32 %0, %0, %1;" : "+r"(a) : "r"(b))
 #define PRMT(a, b) \
   asm volatile("prmt.b32 %0, %0, %1, 0x1230;" : "+r"(a) : "r"(b))
+// a lane takes the value of the next lane of its group of four
+#define SHFL(a, src, mask)                                                  \
+  asm volatile("shfl.sync.idx.b32 %0, %0, %1, 0x1c1f, %2;" : "+r"(a)       \
+               : "r"(src), "r"(mask))
 
 // kinds: 0 LOP3, 1 SHF (funnel rotate), 2 IMAD, 3 IMAD.HI, 4 IADD (ptxas
 // picks IADD3 or an IMAD form), 5 PRMT, 6 LOP3 / IMAD in turn, 7 SHF /
-// IMAD in turn, 8 LOP3 / SHF in turn, 9 SHF / IMAD.HI in turn
+// IMAD in turn, 8 LOP3 / SHF in turn, 9 SHF / IMAD.HI in turn, 10 SHFL
+// within groups of four lanes, 11 SHF / SHFL in turn
 __device__ constexpr int op_of(int kind, int k) {
   return kind < 6 ? kind
        : kind == 6 ? ((k & 1) ? 2 : 0)
        : kind == 7 ? ((k & 1) ? 2 : 1)
        : kind == 8 ? ((k & 1) ? 1 : 0)
-                   : ((k & 1) ? 3 : 1);
+       : kind == 9 ? ((k & 1) ? 3 : 1)
+       : kind == 10 ? 6
+                    : ((k & 1) ? 6 : 1);
 }
 
 template <int KIND, int CH>
@@ -45,7 +52,8 @@ __global__ void pipe_kernel(long long *out, int iters, uint32_t mul,
     a[k] = threadIdx.x * 2654435761u + 977u * k;
     x[k] = mul * (k + 3u);
   }
-  __syncwarp(__activemask());
+  const uint32_t mask = __activemask(), src = (threadIdx.x + 1) & 3;
+  __syncwarp(mask);
   const long long t0 = clock64();
 #pragma unroll 1
   for (int i = 0; i < iters; i++) {
@@ -59,7 +67,8 @@ __global__ void pipe_kernel(long long *out, int iters, uint32_t mul,
         else if (o == 2) MAD(a[k], mul, x[k]);
         else if (o == 3) MADHI(a[k], mul, x[k]);
         else if (o == 4) ADD(a[k], x[k]);
-        else PRMT(a[k], x[k]);
+        else if (o == 5) PRMT(a[k], x[k]);
+        else SHFL(a[k], src, mask);
       }
     }
   }
@@ -98,6 +107,8 @@ extern "C" int fdtt_pipe_bench(int kind, int chains, int iters, int active,
     case 7: launch_kind<7>(o, iters, mul, active, chains, blocks, st); break;
     case 8: launch_kind<8>(o, iters, mul, active, chains, blocks, st); break;
     case 9: launch_kind<9>(o, iters, mul, active, chains, blocks, st); break;
+    case 10: launch_kind<10>(o, iters, mul, active, chains, blocks, st); break;
+    case 11: launch_kind<11>(o, iters, mul, active, chains, blocks, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();

@@ -23,7 +23,8 @@ Prints one JSON line each for:
     and a node level, 2048 rows of 90; the 64 shred leaves of 1070 bytes),
     each held to hashlib, and the two times;
   * with --pipes, `pipe`: tools/pipe_bench.cu's issue rates of LOP3, SHF,
-    IMAD, IMAD.HI, IADD and PRMT alone and in pairs, on one warp an SM,
+    IMAD, IMAD.HI, IADD, PRMT and SHFL (within groups of four lanes)
+    alone and in pairs, on one warp an SM,
     with 32 and 16 active lanes, and their dependent latencies; `place`:
     where the warps of a launch land (SM, sub-partition) and their rate;
     and a named-barrier round trip between two warps.
@@ -288,7 +289,7 @@ def run_pipes(dev) -> list:
     fn.argtypes = [ct.c_int] * 4 + [ct.c_uint, ct.c_void_p, ct.c_int,
                                     ct.c_void_p]
     names = ["LOP3", "SHF", "IMAD", "IMAD.HI", "IADD", "PRMT", "LOP3+IMAD",
-             "SHF+IMAD", "LOP3+SHF", "SHF+IMAD.HI"]
+             "SHF+IMAD", "LOP3+SHF", "SHF+IMAD.HI", "SHFL", "SHF+SHFL"]
     blocks, iters = torch.cuda.get_device_properties(dev).multi_processor_count, 4096
     out = torch.zeros(2 * blocks, dtype=torch.int64, device=dev)
     res = []

@@ -489,3 +489,120 @@ def test_lthash_source_matches_plain_and_oracle(host_lib, width, aligned):
     np.testing.assert_array_equal(out, hc.lthash_want(msg, ln))
     np.testing.assert_array_equal(out, blake3.lthash_plain(
         torch.from_numpy(msg), torch.from_numpy(ln)).numpy())
+
+
+# the kernel's tile of 16 messages: chunks over groups of four lanes, the
+# staged load, the root state once a message, then the digests or the XOF
+_B3_WIDTHS = (2048, 1027, hc.BLAKE3_BANK_HASH_LEN)
+
+
+def _b3_tile(host_lib):
+    """Messages a block of the kernel takes."""
+    fn = _hash_fn(host_lib, "blake3", "b3_tile_messages_host", [])
+    fn.restype = ct.c_int
+    return fn()
+
+
+def _b3_tile_run(host_lib, msg, ln, xof):
+    """Every tile of the batch through b3_tile_host (the kernel's block:
+    its task table, each chunk's chain on a group stepped lane by lane,
+    the root area, then the root compressions or the XOF)."""
+    fn = _hash_fn(host_lib, "blake3", "b3_tile_host",
+                  [VP, ct.c_int64, VP, VP, ct.c_int, ct.c_int, ct.c_int])
+    n, width = msg.shape
+    out = np.zeros((n, 1024), np.int32) if xof else np.zeros((n, 32),
+                                                             np.uint8)
+    for base in range(0, n, _b3_tile(host_lib)):
+        fn(msg.ctypes.data, width, ln.ctypes.data, out.ctypes.data, n, base,
+           xof)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("width", _B3_WIDTHS)
+@pytest.mark.parametrize("entry", ["blake3", "lthash"])
+def test_blake3_tile_source_matches_plain_and_oracle(host_lib, entry, width,
+                                                     offset):
+    """Every block and chunk edge, the bank hash's 81 bytes and random
+    lengths over one or two tiles (the last in part), rows at base offsets
+    0-3 (every row's address mod 16: the staged window, the byte offset
+    inside its first word), against blake3_ref and the plain versions."""
+    lens = list(hc.BLAKE3_EDGES) + [hc.BLAKE3_BANK_HASH_LEN] + list(
+        np.random.default_rng(width + offset).integers(0, width + 1, 8))
+    msg, ln = hc.offset_rows(lens, width, offset, 80 + width + offset)
+    assert msg.ctypes.data % 16 == offset
+    xof = entry == "lthash"
+    got = _b3_tile_run(host_lib, msg, ln, xof)
+    want = hc.lthash_want(msg, ln) if xof else hc.blake3_want(msg, ln)
+    np.testing.assert_array_equal(got, want)
+    plain = blake3.lthash_plain if xof else blake3.blake3_plain
+    np.testing.assert_array_equal(got, plain(
+        torch.from_numpy(np.ascontiguousarray(msg)),
+        torch.from_numpy(ln)).numpy())
+
+
+@pytest.mark.parametrize("case", ["two_chunks", "one_chunk", "one_message",
+                                  "bank_hash"])
+def test_blake3_tile_task_tables_match_plain(host_lib, case):
+    """The task table's extremes: a tile of two-chunk messages (a task
+    for every group), a tile of one-chunk messages (half the groups), a
+    tile of one message, and 80 bank-hash rows of 81 bytes (full tiles
+    and a part)."""
+    t = _b3_tile(host_lib)
+    lens, width = {"two_chunks": ([2048, 1025] * (t // 2), 2048),
+                   "one_chunk": ([1024, 1, 0, 64] * (t // 4), 2048),
+                   "one_message": ([1500], 2048),
+                   "bank_hash": ([81] * 80, 81)}[case]
+    msg, ln = hc.rows(lens, width, 90 + len(lens))
+    for xof, want, plain in ((0, hc.blake3_want, blake3.blake3_plain),
+                             (1, hc.lthash_want, blake3.lthash_plain)):
+        got = _b3_tile_run(host_lib, msg, ln, xof)
+        np.testing.assert_array_equal(got, want(msg, ln))
+        np.testing.assert_array_equal(got, plain(
+            torch.from_numpy(msg), torch.from_numpy(ln)).numpy())
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_blake3_group_compress_source_matches_plain(host_lib, seed):
+    """One compression on a group of lanes (the column and diagonal G
+    functions, a, c and d into the diagonals and back, from the lane's
+    own columns or by the kernel's shuffles, each lane's message words in
+    its own order) == the plain version's
+    compression, at counters, block lengths and flags of every kind."""
+    fn = _hash_fn(host_lib, "blake3", "b3_group_compress_host",
+                  [VP, VP, ct.c_uint32, ct.c_uint32, ct.c_uint32])
+    rng = np.random.default_rng(seed)
+    ctr = [0, 1, 31, 0, 1, 7][seed]
+    blen = [64, 64, 17, 0, 64, 1][seed]
+    flags = [1, 2, 8 | 2, 1 | 2, 4 | 8, 1][seed]
+    cv = rng.integers(0, 1 << 32, 8, np.uint64).astype(np.uint32)
+    m = rng.integers(0, 1 << 32, 16, np.uint64).astype(np.uint32)
+    got = cv.copy()
+    fn(got.ctypes.data, m.ctypes.data, ctr, blen, flags)
+    want = blake3._compress([torch.tensor([int(x)]) for x in cv],
+                            [torch.tensor([int(x)]) for x in m], ctr, blen,
+                            flags)
+    np.testing.assert_array_equal(got, [int(w[0]) for w in want[:8]])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("width", _B3_WIDTHS)
+def test_blake3_staged_load_source_matches_plain(host_lib, width, offset):
+    """Each block of each chunk as a group stages it (the live 16-byte
+    pieces of its 16-aligned window into a slot of garbage, each lane's
+    four words by byte selects, the bytes past the length masked) == the
+    plain version's block words, at every edge and base offsets 0-3."""
+    fn = _hash_fn(host_lib, "blake3", "b3_stage_host",
+                  [VP, ct.c_int, ct.c_int, ct.c_int, VP])
+    lens = list(hc.BLAKE3_EDGES) + [hc.BLAKE3_BANK_HASH_LEN, width - 1]
+    msg, ln = hc.offset_rows(lens, width, offset, 110 + width + offset)
+    mt, lt = torch.from_numpy(np.ascontiguousarray(msg)), torch.from_numpy(ln)
+    got = np.zeros(16, np.uint32)
+    for i, n in enumerate(ln):
+        for c in range(2 if n > 1024 else 1):
+            clen = n - 1024 if c else min(n, 1024)
+            for b in range(max(1, -(-clen // 64))):
+                fn(msg.ctypes.data + i * width, int(n), c, b, got.ctypes.data)
+                want = blake3._block_words(mt[i:i + 1], 1024 * c + 64 * b,
+                                           lt[i:i + 1])
+                assert [int(w[0]) for w in want] == got.tolist(), (n, c, b)

@@ -415,20 +415,49 @@ def test_bmtree_root_on_card_matches_host(dev):
             [bytes(x) for x in leaves[t, :c]], lp, np_)
 
 
-@pytest.mark.parametrize("width", [2048, 1027])
-def test_blake3_and_lthash_kernels_match_plain(dev, width):
-    lens = list(hc.BLAKE3_EDGES) + list(
-        np.random.default_rng(width).integers(0, width + 1, 100))
-    msg, ln = hc.rows(lens, width, 3 * width)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("width", [2048, 1027, hc.BLAKE3_BANK_HASH_LEN])
+def test_blake3_and_lthash_kernels_match_plain(dev, width, offset):
+    """Both entries at row widths 2048, 1027 and the bank hash's 81 and
+    base offsets 0-3 (the staged windows at every alignment), over three
+    tiles, the last in part (task tables of every size): every edge, the
+    bank hash's 81 bytes and random lengths."""
+    lens = list(hc.BLAKE3_EDGES) + [hc.BLAKE3_BANK_HASH_LEN] + list(
+        np.random.default_rng(width + offset).integers(0, width + 1, 28))
+    msg, ln = hc.offset_rows(lens, width, offset, 3 * width + offset)
+    buf = torch.zeros(msg.size + 16, dtype=torch.uint8, device=dev)
+    m = buf[offset:offset + msg.size].view(msg.shape)
+    m.copy_(torch.from_numpy(np.ascontiguousarray(msg)))
+    assert m.data_ptr() % 16 == offset
+    l = torch.from_numpy(ln).to(dev)
+    for entry, kern, want, plain in (
+            ("blake3", cuda_blake3.blake3, hc.blake3_want,
+             blake3.blake3_plain),
+            ("lthash", cuda_blake3.lthash, hc.lthash_want,
+             blake3.lthash_plain)):
+        before = cuda_blake3.launches[entry]
+        got = kern(m, l)
+        assert cuda_blake3.launches[entry] == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want(msg, ln))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      plain(m, l).cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", ["phase15", "bank_hash"])
+def test_blake3_kernels_at_smoke_shapes_match_plain(dev, shape):
+    """chip_smoke.py phase 15's two shapes: 4096 lanes of 0-2048 bytes and
+    4096 lanes of 81 bytes (every row at another alignment), both entries
+    == plain on every lane and == blake3_ref on the first 64."""
+    from firedancer_tpu_torch.tools import blake3_bench
+    msg, ln = dict((n, r) for n, r, _ in blake3_bench.shapes(False))[shape]
     m, l = torch.from_numpy(msg).to(dev), torch.from_numpy(ln).to(dev)
-    d = cuda_blake3.blake3(m, l)
-    lt = cuda_blake3.lthash(m, l)
-    np.testing.assert_array_equal(d.cpu().numpy(), hc.blake3_want(msg, ln))
-    np.testing.assert_array_equal(lt.cpu().numpy(), hc.lthash_want(msg, ln))
-    np.testing.assert_array_equal(d.cpu().numpy(),
-                                  blake3.blake3_plain(m, l).cpu().numpy())
-    np.testing.assert_array_equal(lt.cpu().numpy(),
-                                  blake3.lthash_plain(m, l).cpu().numpy())
+    for kern, want, plain in (
+            (cuda_blake3.blake3, hc.blake3_want, blake3.blake3_plain),
+            (cuda_blake3.lthash, hc.lthash_want, blake3.lthash_plain)):
+        got = kern(m, l)
+        assert torch.equal(got, plain(m, l))
+        np.testing.assert_array_equal(got[:64].cpu().numpy(),
+                                      want(msg[:64], ln[:64]))
 
 
 def test_reedsol_on_card_matches_cpu(dev):

@@ -14,6 +14,8 @@ from firedancer_tpu_torch.utils import blake3_ref
 SHA256_EDGES = (0, 1, 3, 55, 56, 63, 64, 119, 120, 127, 128, 200)
 # BLAKE3's block and chunk edges and the two-chunk cap
 BLAKE3_EDGES = (0, 1, 3, 63, 64, 65, 1023, 1024, 1025, 2047, 2048)
+# the bank hash's account of no data: 8 + 8 + 0 + 1 + 32 + 32 bytes
+BLAKE3_BANK_HASH_LEN = 81
 
 
 def rows(lens, width, seed):
