@@ -69,7 +69,23 @@ and read just after:
             bytes and at the bank hash's 4096 lanes of 81 (== blake3_ref
             on 512), each timed by a CUDA graph; 16: Reed-Solomon encode and
             recover on the card (torch.matmul, no hand-written kernel) at
-            64 sets of 32:32 over the shredder's RS region.
+            64 sets of 32:32 over the shredder's RS region;
+  follower  phase 17: the follower's check. 17a runs phase 12's mirrored
+            wires through the port's ShredRecoverCore and ReplayCore on
+            the card (each launch of poh_verify and lthash held to its
+            plain version, the median and largest timed by a CUDA graph)
+            and on the CPU: every slot's bank hash and PoH tip equal, no
+            PoH failure; a flipped entry hash is a PoH failure; FEC sets
+            that lost as many data shreds as they have parity shreds
+            recover into the same slices. 17b boots
+            firedancer_tpu_torch/cfg/leader_follower.toml (cfg/leader.toml
+            with shredr -> replay -> towersink on its shred mirror; verify,
+            bank0 and replay on the card), drains the leader, then the
+            follower: every slot poh completed is replayed without a PoH
+            failure, the replay tile launched both kernels in its own
+            process, and every block frame it published carries the bank
+            hash of a CPU replay of the run's own mirrored wires (both
+            links tapped from their first frame). 17c prints the record.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -81,7 +97,7 @@ Any mismatch raises. The last line of output is
 
 and the line before it a JSON object with each of the nine kernels'
 launches on the paths, error against its plain version, time, plain time
-and bound.
+and bound (poh_verify and lthash also at the replay's own shapes).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -444,8 +460,9 @@ def run_leader(root, tag):
     every tile upstream of the shred tile, wait until it has taken every
     poh entry and shredsink every shred it made), halt the rest and read
     the tiles' flushed metrics, budgets and link counters, and hold every
-    mirrored shred to its FEC set's root and signature. -> record. Raises
-    on a count mismatch, a dead tile or a timeout."""
+    mirrored shred to its FEC set's root and signature. -> (record, the
+    wires still in the mirror ring). Raises on a count mismatch, a dead
+    tile or a timeout."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     from firedancer_tpu_torch.disco.launch import TopologyRunner
     from firedancer_tpu_torch.disco.metrics import (
@@ -553,7 +570,7 @@ def run_leader(root, tag):
             "sign_signed": sg["signed"], "shredsink_rx": snk["rx"],
             "shred_drain_s": shred_drain_s, "mirror_checked": len(wires),
             "mirror_sets_checked": sets_checked, "mirror_check_s": check_s,
-            "stage_budget": budget, "link_budget": links}
+            "stage_budget": budget, "link_budget": links}, wires
     finally:
         runner.halt()
         runner.close()
@@ -940,6 +957,370 @@ def run_hash_phases(dev, card, counts, reset_counts):
     errs = {"sha256": sha256_err, "poh_verify": poh_err, "blake3": b3_err,
             "lthash": lt_err}
     return stats, (bmtree_path, leaf_path, poh_path, b3_path), errs
+
+
+FOLLOWER_LOSSY_SETS = 6   # phase 17a: FEC sets recovered from their parity
+
+
+class _Capture:
+    """An out link that keeps what a core publishes (the in-process
+    stand-in of a ring with one reliable consumer)."""
+
+    def __init__(self):
+        self.frames = []
+
+    def publish(self, frame, sig=0):
+        self.frames.append(bytes(frame))
+
+    def credits(self, fseqs):
+        return 1 << 30
+
+
+def follower_cfg(root, device):
+    """firedancer_tpu_torch/cfg/leader_follower.toml with verify, bank0
+    and replay on `device`; -> (config, the leader's pubkey, replay's
+    genesis_synth and hashes_per_tick)."""
+    from firedancer_tpu_torch.app.config import load_config
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg",
+                     "leader_follower.toml"),
+        overrides={"tile": [{"name": tn, "device": device}
+                            for tn in ("verify", "bank0", "replay")]})
+    tiles = {t["name"]: t for t in cfg["tile"]}
+    pub = bytes.fromhex(tiles["shredr"]["leader_pubkey_hex"])
+    assert pub == bytes.fromhex(tiles["shred"]["identity_hex"])
+    return (cfg, pub, tiles["replay"]["genesis_synth"],
+            tiles["replay"]["hashes_per_tick"])
+
+
+def recover_slices(pub, wires, drop=frozenset()):
+    """The port's ShredRecoverCore over `wires` but the indices in
+    `drop`. -> (slice frames, the core)."""
+    from firedancer_tpu_torch.tiles.shred import ShredRecoverCore
+    out = _Capture()
+    rec = ShredRecoverCore(pub, out, None)
+    for k, w in enumerate(wires):
+        if k not in drop:
+            rec.on_shred(w)
+    assert rec.metrics["parse_fail"] == 0, rec.metrics
+    return out.frames, rec
+
+
+def replay_slices(slices, genesis, hashes_per_tick, device, per_slice,
+                  on_span=None):
+    """The port's ReplayCore over slice frames on `device`: one slice at
+    a time (per_slice, as the replay tile releases slots when it keeps
+    up) or all in one release. -> (core, wall seconds)."""
+    from firedancer_tpu_torch.tiles.replay import ReplayCore
+    t0 = time.perf_counter()
+    core = ReplayCore(out_ring=_Capture(), genesis=genesis,
+                      hashes_per_tick=hashes_per_tick, device=device,
+                      on_span=on_span)
+    if per_slice:
+        for f in slices:
+            core.on_slice(f)
+    else:
+        core.on_slices(slices)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return core, time.perf_counter() - t0
+
+
+def lossy_drop(wires) -> set:
+    """Indices of data shreds to lose: in FOLLOWER_LOSSY_SETS complete FEC
+    sets (the two with the most data shreds, the rest spread over the
+    run), as many as the set has parity shreds, at most all its data."""
+    from firedancer_tpu_torch.shred import format as sfmt
+    sets = {}
+    for k, w in enumerate(wires):
+        s = sfmt.parse_shred(w)
+        e = sets.setdefault((s.slot, s.fec_set_idx),
+                            {"data": [], "code": 0, "d": None, "p": None})
+        if sfmt.is_data(w[sfmt.VARIANT_OFF]):
+            e["data"].append(k)
+        else:
+            e["code"] += 1
+            e["d"], e["p"] = s.data_cnt, s.code_cnt
+    whole = [key for key, e in sorted(sets.items())
+             if e["d"] == len(e["data"]) and e["p"] == e["code"]]
+    big = sorted(whole, key=lambda key: -sets[key]["d"])[:2]
+    rest = [key for key in whole if key not in big]
+    step = max(1, len(rest) // (FOLLOWER_LOSSY_SETS - len(big)))
+    chosen = big + rest[::step][:FOLLOWER_LOSSY_SETS - len(big)]
+    drop = set()
+    for key in chosen:
+        e = sets[key]
+        drop |= set(e["data"][:min(e["d"], e["p"])])
+    return drop, chosen
+
+
+def follower_kernel_times(launches, hashes_per_tick, b3_work):
+    """The replay's own launches of poh_verify and lthash, held to their
+    plain versions (every launch's rows in one plain call on the CPU:
+    the verdicts and lanes are per row); the launch of the median and of
+    the largest shape timed by a CUDA graph of ITERS launches beside its
+    bound and the plain version's time on the card.
+    -> ({kernel: max_abs_err}, {kernel: [stats]})."""
+    from firedancer_tpu_torch.ops import blake3 as b3, cuda_blake3, \
+        cuda_sha256, poh
+    from firedancer_tpu_torch.tools import wave_bench
+    errs = {}
+    cpu = [[t.cpu() for t in a[:5]] for a, _ in launches["poh_verify"]]
+    plain = poh.poh_verify_plain(*[torch.cat(c) for c in zip(*cpu)],
+                                 hashes_per_tick)
+    got = torch.cat([out.cpu() for _, out in launches["poh_verify"]])
+    errs["poh_verify"] = int((got.int() - plain.int()).abs().max())
+    width = max(a[0].shape[1] for a, _ in launches["lthash"])
+    msg = torch.cat([torch.nn.functional.pad(a[0].cpu(), (
+        0, width - a[0].shape[1])) for a, _ in launches["lthash"]])
+    lens = torch.cat([a[1].cpu() for a, _ in launches["lthash"]])
+    got = torch.cat([out.cpu() for _, out in launches["lthash"]])
+    errs["lthash"] = int((got - b3.lthash_plain(msg, lens)).abs().max())
+    timed = {}
+    for name in ("poh_verify", "lthash"):
+        ls = sorted(launches[name], key=lambda x: x[0][0].shape[0])
+        timed[name] = []
+        for a, _ in {id(x): x for x in (ls[len(ls) // 2], ls[-1])}.values():
+            if name == "poh_verify":
+                np_a = [t.cpu().numpy() for t in a[:5]]
+                st = stats_of(
+                    wave_bench.graph_ms(
+                        lambda: cuda_sha256.poh_verify(*a), ITERS),
+                    cuda_ms(lambda: poh.poh_verify_plain(*a), 1),
+                    poh_work(np_a, hashes_per_tick)[1]
+                    * SHA256_OPS_PER_BLOCK,
+                    a[0].shape[0] * (3 * 32 + 4 + 1 + 1))
+                st["shape"] = f"{a[0].shape[0]} entries"
+            else:
+                w = b3_work(a[1].cpu().numpy(), "lthash")
+                st = stats_of(
+                    wave_bench.graph_ms(lambda: cuda_blake3.lthash(*a),
+                                        ITERS),
+                    cuda_ms(lambda: b3.lthash_plain(*a), 1), w["ops"],
+                    w["bytes"])
+                st["shape"] = (f"{a[0].shape[0]} lanes x "
+                               f"{a[0].shape[1]} bytes")
+            timed[name].append(st)
+    return errs, timed
+
+
+def run_follower(root, dev, card, counts, reset_counts, wires12,
+                 shred_drain12):
+    """Phase 17: the follower's check. 17a in process on phase 12's
+    mirrored wires: the port's ShredRecoverCore, then ReplayCore on the
+    card (a slice at a time, each launch of poh_verify and lthash
+    recorded and held to its plain version) and on the CPU (one
+    release): every slot's bank hash and PoH tip equal, no PoH failure,
+    the same executions; a flipped entry hash counted as a PoH failure;
+    FEC sets that lost as many data shreds as they have parity shreds
+    recovered into the same slices. 17b: cfg/leader_follower.toml booted
+    on the card at phase 12's shape, the leader's drain, then the
+    follower's: replay has replayed every slot poh completed, with no
+    PoH failure and no dead tile, its kernel launches counted in its own
+    process, and every block frame it published (tapped from the tower
+    link) carries the bank hash a CPU replay of this run's own mirrored
+    wires (tapped from the first) gives. -> (record, the in-process
+    path's launch counts, {kernel: max_abs_err}, {kernel: [stats]})."""
+    from firedancer_tpu_torch.app.config import build_topology
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.disco.metrics import quantile_ns, read_hists
+    from firedancer_tpu_torch.disco.tiles import _synth_genesis
+    from firedancer_tpu_torch.ops import cuda_blake3, cuda_sha256
+    from firedancer_tpu_torch.tiles.shred import parse_slice
+    from firedancer_tpu_torch.tools import blake3_bench, leader_drain
+    cfg, pub, gen_n, hpt = follower_cfg(root, DEVICE)
+    genesis = _synth_genesis(gen_n)
+
+    # 17a. in process, on phase 12's mirrored wires
+    log(f"== 17a. follower in process: ShredRecoverCore and ReplayCore on "
+        f"phase 12's {len(wires12)} mirrored wires, on the card and on the "
+        f"CPU {card}")
+    t0 = time.perf_counter()
+    slices, rec = recover_slices(pub, wires12)
+    recover_s = time.perf_counter() - t0
+    assert slices and rec.metrics["slots_done"] > 1, rec.metrics
+    launches = {"poh_verify": [], "lthash": []}
+    k_poh, k_lt = cuda_sha256.poh_verify, cuda_blake3.lthash
+
+    def rec_poh(*a):
+        out = k_poh(*a)
+        launches["poh_verify"].append((a, out))
+        return out
+
+    def rec_lt(*a):
+        out = k_lt(*a)
+        launches["lthash"].append((a, out))
+        return out
+    spans = {"poh": [], "bank_hash": []}
+    cuda_sha256.poh_verify, cuda_blake3.lthash = rec_poh, rec_lt
+    try:
+        reset_counts()
+        card_core, card_s = replay_slices(
+            slices, genesis, hpt, DEVICE, True,
+            on_span=lambda kind, ns: spans[kind].append(ns))
+        path = counts()
+    finally:
+        cuda_sha256.poh_verify, cuda_blake3.lthash = k_poh, k_lt
+    cpu_core, cpu_s = replay_slices(slices, genesis, hpt, "cpu", False)
+    log(f"17a: card replay {card_s:.3f} s a slice at a time, CPU "
+        f"{cpu_s:.3f} s in one release, recovery {recover_s:.3f} s "
+        f"{card}")
+    # the gauges (buffered, behind) are taken at a release: one a slice
+    # on the card, one for all on the CPU
+    cm, pm = ({k: v for k, v in c.metrics.items()
+               if k not in ("buffered", "behind")}
+              for c in (card_core, cpu_core))
+    assert card_core.bank_hash_of == cpu_core.bank_hash_of, \
+        "17a: bank hashes on the card != on the CPU"
+    assert card_core.hash_of == cpu_core.hash_of
+    assert card_core.out_ring.frames == cpu_core.out_ring.frames
+    assert cm == pm, (cm, pm)
+    assert cm["poh_fail"] == 0 and cm["slots_replayed"] == \
+        rec.metrics["slots_done"], cm
+    assert cm["txns"] > 0 and path["poh_verify"] > 0 and path["lthash"] > 0, \
+        (cm, path)
+    assert path["poh_verify"] == len(launches["poh_verify"]) and \
+        path["lthash"] == len(launches["lthash"]), path
+    errs, timed = follower_kernel_times(launches, hpt, blake3_bench.work)
+    assert errs == {"poh_verify": 0, "lthash": 0}, errs
+    # a flipped byte in the first entry hash of the second slot's first
+    # slice (slice header 13 + num_hashes 4): its PoH check fails
+    slot_of = [parse_slice(f)[0] for f in slices]
+    k = next(i for i, sl in enumerate(slot_of) if sl != slot_of[0])
+    end = max(i for i, sl in enumerate(slot_of) if sl == slot_of[k]) + 1
+    bad = [bytearray(f) for f in slices[:end]]
+    bad[k][17] ^= 1
+    tamper_core, _ = replay_slices([bytes(f) for f in bad], genesis, hpt,
+                                   DEVICE, True)
+    assert tamper_core.metrics["poh_fail"] == 1, tamper_core.metrics
+    drop, chosen = lossy_drop(wires12)
+    t0 = time.perf_counter()
+    lossy, lrec = recover_slices(pub, wires12, drop)
+    lossy_s = time.perf_counter() - t0
+    assert lossy == slices, "17a: recovered slices != the lossless ones"
+    # beyond the sets the ring's oldest wires left short, which both runs
+    # recover from parity alike
+    recovered = lrec.resolver.metrics["recovered"] \
+        - rec.resolver.metrics["recovered"]
+    assert recovered == len(drop) > 0, (lrec.resolver.metrics, len(drop))
+    log(f"17a: {len(slices)} slices, {cm['slots_replayed']} slots, "
+        f"{cm['txns']} txns ({cm['exec_ok']} ok, {cm['exec_fail']} failed), "
+        f"{cm['entries']} entries; card == CPU in every slot's bank hash "
+        f"and PoH tip, poh_fail 0; launches {path}, each == plain "
+        f"(max_abs_err 0); PoH span p50/p99 {np.percentile(spans['poh'], 50) / 1e6:.3f}"
+        f"/{np.percentile(spans['poh'], 99) / 1e6:.3f} ms, bank-hash fold "
+        f"{np.percentile(spans['bank_hash'], 50) / 1e6:.3f}/"
+        f"{np.percentile(spans['bank_hash'], 99) / 1e6:.3f} ms; flipped "
+        f"entry hash in slot {slot_of[k]}: poh_fail 1; {len(chosen)} FEC "
+        f"sets lost {len(drop)} data shreds, all recovered "
+        f"({recovered}) into the same slices in "
+        f"{lossy_s:.2f} s {card}")
+    for name, sts in timed.items():
+        for st in sts:
+            log(f"{name} at the replay's {st['shape']}: kernel "
+                f"{st['ms']:.5f} ms (CUDA graph of {ITERS}), plain "
+                f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.6f} ms by "
+                f"{st['bound_by']}, {st['ms'] / st['bound_ms']:.0f}x {card}")
+
+    # 17b. the topology: the leader with the follower leg on its mirror
+    count = next(t["count"] for t in cfg["tile"] if t["name"] == "synth")
+    assert count == LEADER_FRAMES
+    log(f"== 17b. topology: cfg/leader_follower.toml, {count} frames, "
+        f"verify x2, bank0 and replay on the card {card}")
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke17{os.getpid()}").build())
+    try:
+        t_boot = time.perf_counter()
+        runner.start()
+        taps = {ln: leader_drain.LinkTap(runner, ln, batch=b) for ln, b in (
+            ("shreds_mirror", 256), ("shred_slices", 4),
+            ("replay_tower", 256))}
+        runner.wait_running(timeout_s=300)
+        t0 = time.perf_counter()
+        runner.wait_idle("synth", "tx", count, timeout_s=300, poll_s=0.002)
+        dropped = leader_drain.wait_drained(runner, count, timeout_s=300)
+        wall = time.perf_counter() - t0
+        leader_drain.close_slot(runner, timeout_s=120)
+        t1 = time.perf_counter()
+        m = leader_drain.drain_shred_leg(runner, timeout_s=600,
+                                         keep=leader_drain.FOLLOWER_LEG)
+        shred_drain_s = time.perf_counter() - t1
+        slots = m["poh"]["slots"]
+        t1 = time.perf_counter()
+        m = leader_drain.drain_follower(runner, slots, timeout_s=900)
+        follower_drain_s = time.perf_counter() - t1
+        for tn, proc in runner.procs.items():
+            assert proc.exitcode == 0, f"tile {tn} exit code {proc.exitcode}"
+        got = {ln: tap.stop() for ln, tap in taps.items()}
+        rh = read_hists(runner.wksp, runner.plan, "replay")
+        r, b, sh, snk = m["replay"], m["bank0"], m["shred"], m["shredsink"]
+        parsed = b["txns"] - b["exec_skip"]
+        for key, v, want in (
+                ("bank0.txns + drops", b["txns"] + dropped, count),
+                ("replay.slots_replayed", r["slots_replayed"], slots),
+                ("replay.poh_fail", r["poh_fail"], 0),
+                ("replay.txns", r["txns"], parsed),
+                ("replay.exec_ok", r["exec_ok"], b["transfers"]),
+                ("shredr.shreds", m["shredr"]["shreds"], snk["rx"]),
+                ("shredr.slots_done", m["shredr"]["slots_done"], slots),
+                ("shredsink.rx", snk["rx"],
+                 sh["data_shreds"] + sh["parity_shreds"]),
+                ("mirror tap", len(got["shreds_mirror"]), snk["rx"]),
+                ("tower tap", len(got["replay_tower"]), slots),
+                ("towersink.rx", m["towersink"]["rx"], slots)):
+            assert v == want, f"17b: {key} = {v}, expected {want}"
+        assert r["poh_launches"] > 0 and r["lthash_launches"] > 0, r
+    finally:
+        runner.halt()
+        runner.close()
+    t1 = time.perf_counter()
+    slices_b, _ = recover_slices(pub, got["shreds_mirror"])
+    cpu_b, _ = replay_slices(slices_b, genesis, hpt, "cpu", False)
+    cpu_check_s = time.perf_counter() - t1
+    from firedancer_tpu_torch.tiles.tower import parse_block
+    blocks = [parse_block(f) for f in got["replay_tower"]]
+    for slot, parent, bid, pid in blocks:
+        assert cpu_b.bank_hash_of[slot] == bid, f"17b: slot {slot} block id"
+        assert cpu_b.bank_hash_of[slot - 1] == pid, f"17b: slot {slot} parent"
+    assert blocks[-1][0] == max(cpu_b.bank_hash_of) and \
+        cpu_b.metrics["slots_replayed"] == slots, cpu_b.metrics
+    replay_wall = got["replay_tower"] and (
+        taps["replay_tower"].times[-1] - taps["shred_slices"].times[0])
+    rec17 = {
+        "slots_replayed": r["slots_replayed"], "txns_replayed": r["txns"],
+        "exec_ok": r["exec_ok"], "exec_fail": r["exec_fail"],
+        "entries": r["entries"], "poh_launches": r["poh_launches"],
+        "lthash_launches": r["lthash_launches"],
+        "replay_wall_s": replay_wall,
+        "replay_work_p50_ms": quantile_ns(rh["work"], 0.50) / 1e6,
+        "replay_work_p99_ms": quantile_ns(rh["work"], 0.99) / 1e6,
+        "replay_work_polls": rh["work"]["count"],
+        "replay_spans": rh["tpu"]["count"],
+        "replay_span_p50_ms": quantile_ns(rh["tpu"], 0.50) / 1e6,
+        "replay_span_p99_ms": quantile_ns(rh["tpu"], 0.99) / 1e6,
+        "inproc_poh_span_p50_ms": np.percentile(spans["poh"], 50) / 1e6,
+        "inproc_poh_span_p99_ms": np.percentile(spans["poh"], 99) / 1e6,
+        "inproc_hash_span_p50_ms":
+            np.percentile(spans["bank_hash"], 50) / 1e6,
+        "inproc_hash_span_p99_ms":
+            np.percentile(spans["bank_hash"], 99) / 1e6,
+        "kernel_ms": {name: [(st["shape"], st["ms"], st["bound_ms"])
+                             for st in sts] for name, sts in timed.items()},
+        "e2e_leader_tps": b["txns"] / wall, "boot_s": t0 - t_boot,
+        "shred_drain_s": shred_drain_s, "shred_drain_s_phase12":
+            shred_drain12, "follower_drain_s": follower_drain_s,
+        "mirror_wires": len(got["shreds_mirror"]),
+        "blocks_checked": len(blocks), "cpu_check_s": cpu_check_s,
+        "card": nvidia_smi()}
+    log(f"17b: {r['slots_replayed']} slots replayed (poh's {slots}), "
+        f"{r['txns']} txns, poh_fail 0, every tile exited 0; the "
+        f"{len(blocks)} block frames == a CPU replay of the run's "
+        f"{len(got['shreds_mirror'])} mirrored wires ({cpu_check_s:.1f} s); "
+        f"replay launches poh_verify {r['poh_launches']}, lthash "
+        f"{r['lthash_launches']}; shred drain {shred_drain_s:.2f} s "
+        f"(phase 12: {shred_drain12:.2f} s), follower drain "
+        f"{follower_drain_s:.2f} s {card}")
+    return rec17, path, errs, timed
 
 
 def load_vectors(root):
@@ -1565,7 +1946,7 @@ def main() -> int:
     # verify shards their strict batches
     log(f"== 12. topology: cfg/leader.toml, {LEADER_FRAMES} frames, "
         f"verify x2 and bank0 on the card {card}")
-    rec = run_leader(root, "12")
+    rec, wires12 = run_leader(root, "12")
     log(f"12 record {json.dumps(rec)}")
     log(f"12: e2e_leader_tps {rec['e2e_leader_tps']:.1f} "
         f"({rec['e2e_leader_count']} bank txns in {rec['e2e_leader_wall_s']:.3f} s from RUN to drained; "
@@ -1586,6 +1967,13 @@ def main() -> int:
     hash_stats, hash_paths, hash_errs = run_hash_phases(dev, card, counts,
                                                          reset_counts)
     stats.update(hash_stats)
+
+    # 17. the follower's check: in process on phase 12's wires (17a), then
+    # cfg/leader_follower.toml on the card (17b), and its record (17c)
+    rec17, follower_path, follower_errs, follower_timed = run_follower(
+        root, dev, card, counts, reset_counts, wires12,
+        rec["shred_drain_s"])
+    log(f"17 record {json.dumps(rec17)}")
 
     kernels = []
     paths = (strict_path, rlc_path, flood_path)
@@ -1617,17 +2005,26 @@ def main() -> int:
                     "max_abs_err": wave_err, "ms": st["ms"],
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
+    # the follower's replay tile counts its own launches in the topology
+    tile_launches = {"poh_verify": rec17["poh_launches"],
+                     "lthash": rec17["lthash_launches"]}
     for name, src, rep in (
             ("sha256", "sha256.cu", "firedancer_tpu/ops/sha2.py:211"),
             ("poh_verify", "sha256.cu", "firedancer_tpu/ops/poh.py:41"),
             ("blake3", "blake3.cu", "firedancer_tpu/ops/blake3.py:139"),
             ("lthash", "blake3.cu", "firedancer_tpu/ops/blake3.py:150")):
         st = stats[name]
+        # the follower's replay: its in-process path (17a) and the
+        # topology's replay tile (17b)
+        follower = follower_path[name] + tile_launches.get(name, 0)
         kernels.append({"name": name, "route": "cuda",
                         "source": f"firedancer_tpu_torch/csrc/{src}",
                         "replaces": rep,
-                        "launches": sum(p[name] for p in hash_paths),
-                        "max_abs_err": hash_errs[name], "ms": st["ms"],
+                        "launches": sum(p[name] for p in hash_paths)
+                        + follower,
+                        "max_abs_err": max(hash_errs[name],
+                                           follower_errs.get(name, 0)),
+                        "ms": st["ms"],
                         "plain_ms": st["plain_ms"],
                         "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": None})
@@ -1640,6 +2037,13 @@ def main() -> int:
             # an entry's chain of dependent rounds at 3 cycles a round
             kernels[-1].update(chain_rounds=st["chain_rounds"],
                                chain_ms=st["chain_ms"])
+        if name in follower_timed:
+            # at the replay's own shapes (17a's launches: the median and
+            # the largest), CUDA graph
+            kernels[-1].update(replay_launches=follower, replay_ms=[
+                {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")}
+                for t in follower_timed[name]])
         if name in ("blake3", "lthash"):
             # ms is the CUDA graph's at 0-2048 bytes, beside the longest
             # message's chain at a compression's dependent latency; the

@@ -25,7 +25,7 @@ Schema (the reference's, cut to the kinds the port has):
     [[tile]]
     name = "verify"
     kind = "verify"          # synth | verify | dedup | sink | pack |
-                             # bank | poh
+                             # bank | poh | shred | sign | replay
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
@@ -43,15 +43,19 @@ Schema (the reference's, cut to the kinds the port has):
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
-    verify, dedup, sink, pack, bank and poh, plus `device` on verify and
-    bank (the card, "cuda", unless "cpu"); a gated key the port has not
-    ported (pack's `resolved_in` and `bundle_in`, the bank's exec tile
-    family, `genesis_ckpt`, `rpc_port` and `ws_port`) passes the gate
-    and is refused by its adapter;
+    verify, dedup, sink, pack, bank, poh, shred, sign and replay, plus
+    `device` on verify, bank and replay (the card, "cuda", unless
+    "cpu"); a gated key the port has not ported (pack's `resolved_in`
+    and `bundle_in`, the bank's exec tile family, `genesis_ckpt`,
+    `rpc_port` and `ws_port`, the replay tile's exec fan-out and
+    snapshot args) passes the gate and is refused by its adapter;
+  * the [replay] section is validated by `tiles/replay.normalize_replay`
+    and carried on the plan; it is taken with `exec_tile_cnt = 0` only
+    (the exec fan-out is item 5);
   * each top-level section the reference accepts but the port has not
-    ported (trace, slo, prof, shed, witness, funk, replay, snapshot,
-    flight, tune) raises NotImplementedError naming its ROADMAP.md
-    queue-A item, and so does FDTPU_TUNED_PROFILE (item 11); a known
+    ported (trace, slo, prof, shed, witness, funk, snapshot, flight,
+    tune) raises NotImplementedError naming its ROADMAP.md queue-A
+    item, and so does FDTPU_TUNED_PROFILE (item 11); a known
     kind without an adapter, and a gated key the port lacks (chaos,
     core pinning, the lazy cadence), pass the gate and are refused by
     `Topology.tile` (disco/unported.py);
@@ -66,8 +70,10 @@ import tomllib
 
 from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
+from ..tiles.replay import normalize_replay
 
-_TOP_SECTIONS = {"topology", "link", "tcache", "tile", *UNPORTED_SECTIONS}
+_TOP_SECTIONS = {"topology", "link", "tcache", "tile", "replay",
+                 *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
 # the stem)
@@ -94,6 +100,10 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
               "shred_version", "drop_slot_every", "leader_pubkey_hex",
               "turbine_in"),
     "sign": ("seed", "clients"),
+    "replay": ("genesis", "genesis_synth", "hashes_per_tick", "verify_poh",
+               "slots_per_epoch", "exec_links", "exec_done",
+               "redispatch_s", "expected", "wait_restore", "snapshot_path",
+               "snapshot_every", "snapshot_compress", "device"),
 }
 
 
@@ -179,9 +189,14 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
             refuse(f"the [{key}] section", item)
     if os.environ.get("FDTPU_TUNED_PROFILE"):
         refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
+    replay_cfg = cfg.get("replay")
+    if replay_cfg is not None:
+        # fail before launch (tiles/replay.py is the one validator)
+        normalize_replay(replay_cfg)
     top = cfg.get("topology", {})
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
-                    wksp_size=int(top.get("wksp_size", 1 << 26)))
+                    wksp_size=int(top.get("wksp_size", 1 << 26)),
+                    replay=replay_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))

@@ -1,19 +1,22 @@
 """Tile adapters + registry: kind string -> runnable tile object (copy of
-the adapters of the JAX package's disco/tiles.py that the port's two
-paths run: synth, verify, dedup and sink on the sigverify path, and pack,
-bank, poh, shred and sign on the leader's loop).
+the adapters of the JAX package's disco/tiles.py that the port's paths
+run: synth, verify, dedup and sink on the sigverify path; pack, bank,
+poh, shred and sign on the leader's loop; shred in recover mode and
+replay on the follower's).
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these nine kinds only; `Topology.tile` refuses
+  * the registry holds these ten kinds only; `Topology.tile` refuses
     every other kind of the reference's registry (disco/unported.py),
     and `adapter_class` raises ValueError for a name without an
     adapter;
   * SynthAdapter has no traffic plans (`on_chaos`, tiles.py:221-262;
-    `Topology.tile` refuses every `chaos` arg);
+    `Topology.tile` refuses every `chaos` arg, which also refuses
+    replay's chaos seams `diverge_block` and `crash_mid_snapshot`,
+    item 2);
   * VerifyAdapter wraps the port's VerifyTile, which runs on the card
     unless its `device` arg (default "cuda") says "cpu"; that arg is the
     port's counterpart of the reference's FDTPU_JAX_PLATFORM override
@@ -38,9 +41,20 @@ Where the copy differs from the reference:
     back and the commit);
   * the knob reads of pack's and bank's housekeeping (item 11) find no
     knobs: the port's TileCtx has none;
-  * ShredAdapter runs mode="leader" only and refuses mode="recover"
-    (ShredRecoverCore, FEC resolution and the store: the follower path,
-    item 5);
+  * ShredAdapter runs mode="leader" and mode="recover" (the follower's
+    FEC resolution, store and reassembly, tiles/shred.py
+    ShredRecoverCore);
+  * ReplayAdapter runs the in-process replay (tiles/replay.py) with its
+    PoH check and bank hash on the card unless its `device` arg says
+    "cpu"; it refuses the exec fan-out (`exec_links`, `exec_done`,
+    `redispatch_s`) and the snapshot restore and writer
+    (`wait_restore`, `snapshot_path`, `snapshot_every`,
+    `snapshot_compress`), item 5. It boots by running lthash_of_root
+    over its genesis and a one-entry poh_verify on its device (a kernel
+    that does not build or launch fails the boot), counts later
+    launches in `poh_launches` and `lthash_launches`, and its tpu
+    histogram holds each slot's host-clock spans of the PoH check and
+    the bank-hash fold;
   * SignAdapter refuses a `keyswitch_off` in its plan entry: the port's
     plan carves no keyswitch region for the live identity hot-swap
     (topo.py:460-465 in the reference, item 13).
@@ -1029,32 +1043,54 @@ class PohAdapter:
 
 @register("shred")
 class ShredAdapter:
-    """Turbine shred tile, leader mode (ref: src/disco/shred/
-    fd_shred_tile.c:6-60): in link = poh entries; shreds entry batches
-    into signed merkle FEC sets (keyguard LEADER role via req/resp links)
+    """Turbine shred tile (ref: src/disco/shred/fd_shred_tile.c:6-60 —
+    one tile serves both directions).
+
+    mode="leader": in link = poh entries; shreds entry batches into
+    signed merkle FEC sets (keyguard LEADER role via req/resp links)
     and transmits each shred to its stake-weighted turbine first hop
     over UDP. args: cluster = [{pubkey_hex, stake, addr "host:port"}],
     identity_hex, req/resp (keyguard links), optional out link
     "shreds" mirror + "batches" witness link, flush_bytes, fanout,
-    shred_version. mode="recover" is refused (item 5)."""
+    shred_version.
+
+    mode="recover": in links = raw shred wires (turbine ingest and
+    repair responses feed the same resolver); FEC-resolves, stores,
+    reassembles ordered slices on the out link. args:
+    leader_pubkey_hex; with cluster + identity_hex it also retransmits
+    to its turbine children the shreds of `turbine_in` (default: the
+    first in link)."""
 
     METRICS = ["entries", "batches", "fec_sets", "data_shreds",
                "parity_shreds", "sent", "no_dest", "sign_fail",
-               "slots", "overruns"]
+               "slots", "shreds", "fecs", "slices", "slots_done",
+               "parse_fail", "retransmitted", "overruns"]
 
     def __init__(self, ctx, args):
+        self.ctx = ctx
+        self.mode = args.get("mode", "leader")
+        self._ovr = 0
+        if self.mode == "leader":
+            self._init_leader(ctx, args)
+        elif self.mode == "recover":
+            self._init_recover(ctx, args)
+        else:
+            raise ValueError(f"shred {ctx.tile_name}: mode {self.mode!r}")
+
+    @staticmethod
+    def _cluster(args):
+        from ..shred.shred_dest import ClusterNode
+        return [ClusterNode(bytes.fromhex(n["pubkey_hex"]),
+                            int(n["stake"]),
+                            (n["addr"].rsplit(":", 1)[0],
+                             int(n["addr"].rsplit(":", 1)[1])))
+                for n in args.get("cluster", [])]
+
+    def _init_leader(self, ctx, args):
         import socket
 
         from ..keyguard import KeyguardClient
-        from ..shred.shred_dest import ClusterNode
         from ..tiles import shred as shredmod
-        self.ctx = ctx
-        self.mode = args.get("mode", "leader")
-        if self.mode == "recover":
-            refuse('the shred tile\'s mode="recover" (ShredRecoverCore)', 5)
-        if self.mode != "leader":
-            raise ValueError(f"shred {ctx.tile_name}: mode {self.mode!r}")
-        self._ovr = 0
         ins = [ln for ln in ctx.in_rings if ln != args["resp"]]
         if len(ins) != 1:
             raise ValueError(f"shred {ctx.tile_name}: expected one entry "
@@ -1073,11 +1109,6 @@ class ShredAdapter:
             return sig
 
         self._kg = kg
-        cluster = [ClusterNode(bytes.fromhex(n["pubkey_hex"]),
-                               int(n["stake"]),
-                               (n["addr"].rsplit(":", 1)[0],
-                                int(n["addr"].rsplit(":", 1)[1])))
-                   for n in args.get("cluster", [])]
         aux = [ln for ln in ctx.out_rings if ln != args["req"]]
         shreds_ln = args.get("shreds_link")
         batch_ln = args.get("batches_link")
@@ -1086,7 +1117,8 @@ class ShredAdapter:
                              f"not shreds_link {shreds_ln!r} and "
                              f"batches_link {batch_ln!r}")
         self.core = shredmod.ShredLeaderCore(
-            sign_fn, bytes.fromhex(args["identity_hex"]), cluster,
+            sign_fn, bytes.fromhex(args["identity_hex"]),
+            self._cluster(args),
             socket.socket(socket.AF_INET, socket.SOCK_DGRAM),
             out_ring=ctx.out_rings.get(shreds_ln),
             out_fseqs=ctx.out_fseqs.get(shreds_ln),
@@ -1100,7 +1132,32 @@ class ShredAdapter:
         self.mtu = ctx.plan["links"][self.in_link]["mtu"]
         self.seq = ctx.in_seq0.get(self.in_link, 0)
 
+    def _init_recover(self, ctx, args):
+        import socket
+
+        from ..tiles import shred as shredmod
+        self.in_links = list(ctx.in_rings)
+        dest = identity = rt_sock = None
+        if args.get("cluster") and args.get("identity_hex"):
+            identity = bytes.fromhex(args["identity_hex"])
+            dest = shredmod.ShredDest(self._cluster(args), identity,
+                                      fanout=int(args.get("fanout", 200)))
+            rt_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.core = shredmod.ShredRecoverCore(
+            bytes.fromhex(args["leader_pubkey_hex"]),
+            _single(ctx.out_rings, "out link", ctx.tile_name),
+            _single(ctx.out_fseqs, "out link", ctx.tile_name),
+            dest=dest, identity=identity, sock=rt_sock)
+        # repair responses must NOT re-enter turbine: only the turbine
+        # ingest link retransmits
+        self.turbine_in = args.get("turbine_in", self.in_links[0])
+        self.seqs = {ln: ctx.in_seq0.get(ln, 0) for ln in self.in_links}
+        self.mtus = {ln: ctx.plan["links"][ln]["mtu"]
+                     for ln in self.in_links}
+
     def poll_once(self) -> int:
+        if self.mode == "recover":
+            return self._poll_recover()
         n, self.seq, buf, sizes, _, ovr = self.ring.gather(
             self.seq, 16, self.mtu)
         self._ovr += ovr
@@ -1114,16 +1171,143 @@ class ShredAdapter:
         self.core.flush_egress()
         return n
 
+    def _poll_recover(self) -> int:
+        total = 0
+        for ln in self.in_links:
+            n, self.seqs[ln], buf, sizes, _, ovr = \
+                self.ctx.in_rings[ln].gather(self.seqs[ln], 16,
+                                             self.mtus[ln])
+            self._ovr += ovr
+            rt = ln == self.turbine_in
+            for i in range(n):
+                self.core.on_shred(bytes(buf[i, :sizes[i]]), retransmit=rt)
+            total += n
+        return total
+
     def in_seqs(self):
+        if self.mode == "recover":
+            return dict(self.seqs)
         # the response link reports the keyguard client's position
         return {ln: self.seq if ln == self.in_link else self._kg.resp_seq
                 for ln in self.ctx.in_rings}
 
     def on_halt(self):
-        self.core.flush_egress()   # buffered wires must not die
+        if self.mode == "leader":
+            self.core.flush_egress()   # buffered wires must not die
 
     def metrics_items(self):
-        return self.core.metrics | {"overruns": self._ovr}
+        return {k: self.core.metrics.get(k, 0) for k in self.METRICS
+                if k != "overruns"} | {"overruns": self._ovr}
+
+
+@register("replay")
+class ReplayAdapter:
+    """Replay tile (ref: src/discof/replay/fd_replay_tile.c:77-95):
+    consumes reassembled slices, re-verifies PoH with the SHA-256
+    kernel's `poh_verify`, stages txns through the conflict DAG,
+    executes them on the host TxnExecutor, folds each slot's account
+    delta into the bank-hash lattice with the BLAKE3 kernel's `lthash`,
+    and notifies tower per completed block (the frame's block id is the
+    slot's bank hash). `expected` pins the leader's per-slot bank
+    hashes: a mismatch is a divergence VERDICT (metric + loud tile
+    FAIL), never a silent wrong state.
+
+    args: genesis ({pubkey_hex: lamports}), genesis_synth,
+    hashes_per_tick, verify_poh (both default from the plan's [replay]
+    section), slots_per_epoch, expected ({slot: bank_hash_hex}),
+    device ("cuda" | "cpu"). The exec fan-out (exec_links, exec_done,
+    redispatch_s) and the snapshot restore and writer (wait_restore,
+    snapshot_path, snapshot_every, snapshot_compress) are refused,
+    item 5."""
+
+    METRICS = ["slices", "slots_replayed", "entries", "txns", "exec_ok",
+               "exec_fail", "poh_fail", "buffered", "waves",
+               "parse_fail", "divergent_slot", "behind", "overruns",
+               "poh_launches", "lthash_launches"]
+
+    def __init__(self, ctx, args):
+        for key in ("exec_links", "exec_done", "redispatch_s",
+                    "wait_restore", "snapshot_path", "snapshot_every",
+                    "snapshot_compress"):
+            if args.get(key):
+                refuse(f"replay arg {key!r}", 5)
+        from .metrics import HistAccum
+        from ..ops import cuda_blake3, cuda_sha256
+        from ..tiles.replay import ReplayCore
+        self.ctx = ctx
+        self.in_link = _single({ln: ln for ln in ctx.in_rings},
+                               "slice in link", ctx.tile_name)
+        self.ring = ctx.in_rings[self.in_link]
+        genesis = {bytes.fromhex(k): int(v)
+                   for k, v in args.get("genesis", {}).items()}
+        if args.get("genesis_synth"):
+            genesis.update(_synth_genesis(int(args["genesis_synth"])))
+        rp = ctx.plan.get("replay") or {}
+        expected = {int(s): bytes.fromhex(h)
+                    for s, h in (args.get("expected") or {}).items()}
+        self.device = args.get("device", "cuda")
+        self._cuda = (cuda_sha256, cuda_blake3)
+        self.tpu_hist = HistAccum()
+        # the core's boot runs lthash_of_root over the genesis on the
+        # device: the lthash kernel's first launch
+        self.core = ReplayCore(
+            out_ring=_single(ctx.out_rings, "tower out link",
+                             ctx.tile_name),
+            out_fseqs=_single(ctx.out_fseqs, "tower out link",
+                              ctx.tile_name),
+            genesis=genesis,
+            hashes_per_tick=int(args.get(
+                "hashes_per_tick", rp.get("hashes_per_tick", 16))),
+            verify_poh=bool(args.get(
+                "verify_poh", rp.get("verify_poh", True))),
+            slots_per_epoch=int(args.get("slots_per_epoch", 432_000)),
+            expected=expected, device=self.device,
+            cnc=getattr(ctx, "cnc", None),
+            on_span=lambda kind, ns: self.tpu_hist.add(ns))
+        self._warmup()
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+        self._ovr = 0
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+
+    def _warmup(self):
+        """One one-hash entry through poh_verify on the tile's device, so
+        the kernel's build, load and first launch happen at boot (a
+        failure or a wrong verdict fails the boot); launches from here
+        on are counted."""
+        from ..ops.poh import poh_verify_entries
+        z = np.zeros((1, 32), np.uint8)
+        exp = np.array([list(hashlib.sha256(bytes(32)).digest())],
+                       np.uint8)
+        ok = poh_verify_entries(z, np.ones(1, np.int32), z,
+                                np.zeros(1, bool), exp, max_hashes=1,
+                                device=self.device)
+        if not bool(ok.all()):
+            raise RuntimeError("replay boot: poh_verify rejected a valid "
+                               "one-hash entry")
+        self._launch0 = (self._cuda[0].launches["poh_verify"],
+                         self._cuda[1].launches["lthash"])
+
+    def poll_once(self) -> int:
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, 8, self.mtu)
+        self._ovr += ovr
+        if n:
+            # the poll's slices release together: their slots' PoH
+            # checks are one batch
+            self.core.on_slices([bytes(buf[i, :sizes[i]])
+                                 for i in range(n)])
+        return n
+
+    def in_seqs(self):
+        return {self.in_link: self.seq}
+
+    def metrics_items(self):
+        return self.core.metrics | {
+            "overruns": self._ovr,
+            "poh_launches": (self._cuda[0].launches["poh_verify"]
+                             - self._launch0[0]),
+            "lthash_launches": (self._cuda[1].launches["lthash"]
+                                - self._launch0[1])}
 
 
 @register("sign")

@@ -66,9 +66,13 @@ class TileSpec:
 class Topology:
     """Declare links/tiles/objects, then build() into a wksp."""
 
-    def __init__(self, name: str, wksp_size: int = 1 << 26):
+    def __init__(self, name: str, wksp_size: int = 1 << 26,
+                 replay: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
+        # the [replay] section (tiles/replay.py's schema), validated at
+        # build and carried on the plan for the replay tile
+        self.replay = replay
         self.links: dict[str, LinkSpec] = {}
         self.tiles: dict[str, TileSpec] = {}
         self.tcaches: dict[str, int] = {}           # name -> depth
@@ -169,6 +173,9 @@ class Topology:
         The caller is the single creator (replace mode); every tile
         process joins with create=False."""
         self._validate()
+        from ..tiles.replay import normalize_replay
+        replay = normalize_replay(self.replay) \
+            if self.replay is not None else None
         wksp_name = wksp_name or f"/fdtt_{self.name}"
         w = Workspace(wksp_name, self.wksp_size)
         plan: dict = {
@@ -177,6 +184,7 @@ class Topology:
             # per-boot seed shared by verify (tag computation) and dedup
             "seed": os.urandom(16).hex(),
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
+            "replay": replay,
         }
 
         def zeroed(nbytes: int) -> int:

@@ -7,15 +7,20 @@ kinds and the args; the adapters refuse their own args (the verify
 tile's degradation args, item 2; pack's `resolved_in`, item 5, and
 `bundle_in`, item 13; the bank's exec="general", item 15, exec tile
 family and `genesis_ckpt`, item 5, and `rpc_port` and `ws_port`, item
-16; the shred tile's mode="recover", item 5; the sign tile's keyswitch
-region, item 13). Nothing refused is silently ignored.
+16; the replay tile's exec fan-out and snapshot args, item 5; the sign
+tile's keyswitch region, item 13). The [replay] section is taken with
+`exec_tile_cnt = 0` only (`tiles/replay.normalize_replay` refuses the
+fan-out's settings, item 5), and the host executor refuses every
+program but the system program and ComputeBudget, and v0 transactions
+with address lookup tables (svm/programs.py, item 15). Nothing refused
+is silently ignored.
 """
 from __future__ import annotations
 
 # topology sections of the reference (the JAX package's
 # disco/topo.py:85-126 and app/config.py's top-level tables)
 UNPORTED_SECTIONS = {"trace": 2, "prof": 6, "slo": 8, "shed": 3,
-                     "funk": 5, "replay": 5, "snapshot": 5, "flight": 10,
+                     "funk": 5, "snapshot": 5, "flight": 10,
                      "tune": 11, "witness": 6}
 
 # per-tile args of the reference that the port has not ported: the
@@ -34,8 +39,7 @@ UNPORTED_TILE_ARGS = {
 # every kind of the reference's tile registry without an adapter here
 UNPORTED_KINDS = {
     **dict.fromkeys(("sock", "quic", "gossip"), 3),
-    **dict.fromkeys(("exec", "resolv", "replay", "snapld", "snapdc",
-                     "snapin"), 5),
+    **dict.fromkeys(("exec", "resolv", "snapld", "snapdc", "snapin"), 5),
     "metric": 8, "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,
     **dict.fromkeys(("tower", "repair", "send", "archiver",

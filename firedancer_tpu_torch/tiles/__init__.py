@@ -1,1 +1,2 @@
-"""Tiles of the port's main path: synth and verify."""
+"""Tile cores of the port's paths: synth and verify; shred (leader and
+recover halves); replay and its tower frames."""

@@ -1,15 +1,15 @@
-"""Shred tile core, leader half: PoH entries -> entry batches -> signed
-merkle FEC sets -> turbine first-hop UDP egress (copy of the JAX
-package's tiles/shred.py:43-215: `ShredLeaderCore` and the frame helpers
-`pack_slice`, `parse_slice` and `parse_entry_batch`).
+"""Shred tile cores: the leader half, PoH entries -> entry batches ->
+signed merkle FEC sets -> turbine first-hop UDP egress, and the
+follower half, raw shred wires -> FEC resolution -> store -> ordered
+slices, with turbine retransmit (copy of the JAX package's
+tiles/shred.py: `ShredLeaderCore`, `ShredRecoverCore` and the frame
+helpers `pack_slice`, `parse_slice` and `parse_entry_batch`).
 
 The reference's shred tile serves both directions of turbine
-(ref: src/disco/shred/fd_shred_tile.c:6-60); its non-leader half,
-`ShredRecoverCore` (FEC resolution, store, reassembled slices and
-retransmit), comes with the follower path (ROADMAP.md queue A item 5),
-and its `drop_slot_every` fault seam, which withholds a slot's shreds
-from turbine for the repair tile's tests, with the repair tile (item 13;
-`Topology.tile` refuses the arg).
+(ref: src/disco/shred/fd_shred_tile.c:6-60). Its `drop_slot_every`
+fault seam, which withholds a slot's shreds from turbine for the repair
+tile's tests, comes with the repair tile (item 13; `Topology.tile`
+refuses the arg).
 Signing rides the keyguard LEADER role (32-byte merkle roots only,
 src/disco/keyguard/fd_keyguard_authorize.c is_shred_ping).
 
@@ -30,8 +30,10 @@ from __future__ import annotations
 
 import struct
 
+from ..shred.fec_resolver import FecResolver
 from ..shred.shred_dest import ShredDest
 from ..shred.shredder import Shredder
+from ..shred.store import FecStore, Reassembler
 from ..shred import format as fmt
 
 # poh entry frame offsets (disco/tiles.py PohAdapter wire)
@@ -201,3 +203,105 @@ class ShredLeaderCore:
         while fseqs and ring.credits(fseqs) <= 0:
             time.sleep(20e-6)
         ring.publish(frame, sig=sig)
+
+
+class ShredRecoverCore:
+    """Raw shred wires -> FEC resolution -> store -> ordered slices,
+    plus TURBINE RETRANSMIT: every structurally valid shred forwards
+    to this node's children in the stake-weighted tree (the
+    non-leader half of fd_shred_tile — receive, retransmit, resolve).
+
+    verify_sig is host-side here (one root per FEC set, ~32 sigs/s/slot
+    — not the hot path; the hot ed25519 path is the verify tile's
+    batched device kernel)."""
+
+    def __init__(self, leader_pubkey: bytes, out_ring, out_fseqs,
+                 max_pending: int = 1024, store_sets: int = 4096,
+                 dest: "ShredDest | None" = None,
+                 identity: bytes | None = None, sock=None):
+        from ..utils.ed25519_ref import verify
+
+        def verify_sig(sig, root, slot):
+            return verify(sig, leader_pubkey, root)
+
+        self.resolver = FecResolver(verify_sig, max_pending=max_pending)
+        self.store = FecStore(max_sets=store_sets)
+        self.reasm = Reassembler()
+        self.leader_pubkey = leader_pubkey
+        self.dest = dest
+        self.identity = identity
+        self.sock = sock
+        self.out_ring = out_ring
+        self.out_fseqs = out_fseqs
+        self.metrics = {"shreds": 0, "fecs": 0, "slices": 0,
+                        "slots_done": 0, "parse_fail": 0,
+                        "retransmitted": 0}
+        # per-shred retransmit dedup: first sight of (slot, type, idx)
+        # forwards, replays don't (bounded FIFO — a replayed shred must
+        # not amplify fanout-fold)
+        from collections import OrderedDict
+        self._rt_seen: OrderedDict = OrderedDict()
+        self._rt_seen_max = 1 << 16
+
+    def _retransmit(self, wire: bytes):
+        if self.dest is None or self.sock is None:
+            return
+        try:
+            slot, = struct.unpack_from("<Q", wire, 0x41)
+            idx, = struct.unpack_from("<I", wire, 0x49)
+            is_data = fmt.is_data(wire[fmt.VARIANT_OFF])
+        except Exception:
+            return
+        for node in self.dest.children(slot, idx, 1 if is_data else 0,
+                                       self.leader_pubkey):
+            if node.addr[1]:
+                self.sock.sendto(wire, node.addr)
+                self.metrics["retransmitted"] += 1
+
+    def on_shred(self, wire: bytes, retransmit: bool = True) -> int:
+        """retransmit=False for repair responses — turbine must never
+        forward repaired shreds (the reference's repair/turbine
+        separation)."""
+        self.metrics["shreds"] += 1
+        rm = self.resolver.metrics
+        before = (rm["bad_sig"], rm["bad_proof"], rm["eqvoc"],
+                  rm["root_mismatch"])
+        try:
+            fec, _eqvoc = self.resolver.add_shred(wire)
+        except Exception:
+            self.metrics["parse_fail"] += 1
+            return 0
+        valid = before == (rm["bad_sig"], rm["bad_proof"], rm["eqvoc"],
+                           rm["root_mismatch"])
+        if retransmit and valid:
+            # forward each DISTINCT valid shred once (shreds of
+            # already-completed sets still forward — they are the
+            # retransmission chain for peers behind us — but replays
+            # of the same shred never amplify)
+            try:
+                slot, = struct.unpack_from("<Q", wire, 0x41)
+                idx, = struct.unpack_from("<I", wire, 0x49)
+                key = (slot, fmt.is_data(wire[fmt.VARIANT_OFF]), idx)
+            except Exception:
+                key = None
+            if key is not None and key not in self._rt_seen:
+                while len(self._rt_seen) >= self._rt_seen_max:
+                    self._rt_seen.popitem(last=False)
+                self._rt_seen[key] = True
+                self._retransmit(wire)
+        if fec is None:
+            return 0
+        self.metrics["fecs"] += 1
+        self.store.insert(fec.merkle_root, fec.slot, fec.fec_set_idx,
+                          b"".join(fec.data_payloads))
+        slices = self.reasm.add_fec(fec)
+        for sl in slices:
+            ShredLeaderCore._publish(
+                self.out_ring, self.out_fseqs,
+                pack_slice(sl.slot, sl.first_fec_idx, sl.slot_complete,
+                           sl.payload),
+                sig=sl.slot)
+            self.metrics["slices"] += 1
+            if sl.slot_complete:
+                self.metrics["slots_done"] += 1
+        return len(slices)

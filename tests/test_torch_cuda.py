@@ -484,3 +484,81 @@ def test_hash_wrappers_refuse_bad_tensors(dev):
     n = torch.ones(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="has_mixin"):
         cuda_sha256.poh_verify(z, n, z, n, z, 4)
+
+
+def _follower_slices(n_slots=5, hashes_per_tick=16):
+    """Slots of poh entries (a txn group mixed into the odd slots, two
+    ticks each) shredded by the port's leader core and recovered into
+    slice frames by its recover core."""
+    import struct
+
+    from firedancer_tpu_torch.shred.shred_dest import ClusterNode
+    from firedancer_tpu_torch.tiles import shred as tshred
+    from firedancer_tpu_torch.tiles.synth import make_signed_txns
+    seed = bytes(range(32))
+    pub = ref.keypair(seed)[-1]
+    sent = []
+
+    class Sock:
+        def sendto(self, wire, addr):
+            sent.append(bytes(wire))
+
+    class Capture:
+        def __init__(self):
+            self.frames = []
+
+        def publish(self, frame, sig=0):
+            self.frames.append(bytes(frame))
+    leader = tshred.ShredLeaderCore(
+        lambda r: ref.sign(seed, r), pub,
+        [ClusterNode(b"\x55" * 32, 100, ("127.0.0.1", 9))], Sock())
+    txns = make_signed_txns(4 * n_slots, seed=3)
+    state = bytes(32)
+    for slot in range(n_slots):
+        hashes = 0
+        if slot % 2:
+            group = txns[4 * slot:4 * slot + 4]
+            mixin = hashlib.sha256(b"".join(t[1:65] for t in group)).digest()
+            prev, state = state, poh.host_poh_mixin(state, mixin)
+            hashes = 1
+            blob = b"".join(struct.pack("<H", len(t)) + t for t in group)
+            leader.on_entry(struct.pack("<QIIB", slot, 0, 1, 1) + prev
+                            + state + mixin + b"\0"
+                            + struct.pack("<H", len(group)) + blob)
+        for tick in range(2):
+            prev = state
+            state = poh.host_poh_append(state, hashes_per_tick - hashes)
+            leader.on_entry(struct.pack("<QIIB", slot, tick,
+                                        hashes_per_tick - hashes, 0)
+                            + prev + state + bytes(32)
+                            + bytes([tick == 1]) + struct.pack("<H", 0))
+            hashes = 0
+    out = Capture()
+    rec = tshred.ShredRecoverCore(pub, out, None)
+    for w in sent:
+        rec.on_shred(w)
+    return out.frames
+
+
+def test_replay_on_card_matches_cpu(dev):
+    """The follower's replay with its PoH check (poh_verify) and bank hash
+    (lthash) on the card equals the plain versions' on the CPU, slot by
+    slot; both kernels launched."""
+    from firedancer_tpu_torch.tiles.replay import ReplayCore
+    from firedancer_tpu_torch.tiles.synth import synth_signer_seed
+    frames = _follower_slices()
+    genesis = {ref.keypair(synth_signer_seed(i))[-1]: 1 << 44
+               for i in range(16)}
+    n0 = (cuda_sha256.launches["poh_verify"], cuda_blake3.launches["lthash"])
+    cores = [ReplayCore(genesis=genesis, hashes_per_tick=16, device=d)
+             for d in ("cuda", "cpu")]
+    for f in frames:
+        for c in cores:
+            c.on_slice(f)
+    assert cores[0].bank_hash_of == cores[1].bank_hash_of
+    assert cores[0].hash_of == cores[1].hash_of
+    assert cores[0].metrics == cores[1].metrics
+    assert cores[0].metrics["poh_fail"] == 0
+    assert cores[0].metrics["exec_ok"] == 8
+    assert cuda_sha256.launches["poh_verify"] > n0[0]
+    assert cuda_blake3.launches["lthash"] > n0[1]

@@ -149,12 +149,19 @@ def _ctx(w, spec=None):
 
 
 def test_shred_adapter_refuses_recover_mode_and_boots_leader():
+    """Both modes boot (recover mode is ported: its in links are shred
+    wires, its one out link the slices) and an unknown mode is refused;
+    the leader boots on its keyguard links."""
     w = Workspace(f"/fdtt_kga{os.getpid()}", 1 << 21)
     try:
         ctx = _ctx(w)
-        with pytest.raises(NotImplementedError, match="queue A item 5$"):
-            ttiles.REGISTRY["shred"](ctx, {"mode": "recover",
+        with pytest.raises(ValueError, match="mode 'follow'"):
+            ttiles.REGISTRY["shred"](ctx, {"mode": "follow"})
+        r = ttiles.REGISTRY["shred"](ctx, {"mode": "recover",
                                            "leader_pubkey_hex": "00" * 32})
+        assert r.poll_once() == 0
+        assert r.in_seqs() == {"entries": 0, "resp": 0}
+        assert set(r.metrics_items()) == set(ttiles.REGISTRY["shred"].METRICS)
         a = ttiles.REGISTRY["shred"](ctx, {
             "req": "req", "resp": "resp", "identity_hex": IDENTITY.hex()})
         assert a.poll_once() == 0
