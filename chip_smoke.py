@@ -86,6 +86,27 @@ and read just after:
             process, and every block frame it published carries the bank
             hash of a CPU replay of the run's own mirrored wires (both
             links tapped from their first frame). 17c prints the record.
+  faults    phase 18: the main path's fault drills and flight recorder.
+            18a drives VerifyTile(batch=2048) in process on phase 7's
+            frames with a chaos plan: two injected dispatch failures
+            are absorbed by the retries, each verdict wait spinning on
+            its event under a deadline (device_errors 2, cpu_fallback
+            0, the same frames out as phase 7); a persistent failure
+            makes poll_once raise after the retries, with nothing
+            published (the port has no CPU path on the card's behalf:
+            the stem marks such a tile FAIL and the supervisor restarts
+            it, as 18c shows for the sink). 18b boots
+            cfg/sigverify.toml at full width (65,536 frames) with [trace]
+            on, reports its e2e_tps beside 10a's, and exports the rings
+            with `python -m firedancer_tpu_torch.trace`: tpu_dispatch
+            spans on verify, each unique frame's lineage verify -> dedup
+            -> sink, the per-link summary. 18c boots
+            firedancer_tpu_torch/cfg/chaos.toml on the card: its sink
+            crashes at rx 32, the supervisor dumps the sink's ring (the
+            crash, then its death) to the black box and respawns it once,
+            every unique txn passes dedup, and every tile halts cleanly.
+            Every verify tile outside 18a's drills must end with
+            cpu_fallback 0 and device_errors 0.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -122,6 +143,8 @@ FLOOD_CHUNKS = 4          # all-forged chunks of TILE_BATCH frames (phase 9)
 FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
 TOPO_FRAMES = 65536       # phase 10a: cfg/sigverify.toml's synth count
 TOPO_PREFILTER_FRAMES = 16384   # phase 10b, bulk_prefilter
+TRACE_DEPTH = 1 << 17     # phase 18b: records a tile ring (a 65,536-frame run)
+PERSISTENT = {"events": [{"action": "fail_dispatch", "count": -1}]}
 LEADER_FRAMES = 4096      # phase 12: cfg/leader.toml's synth count
 PIPE_WAVES = 4            # phase 11: bank waves through the pipeline
 # the wave scan's integer operations per active lane (the u64 need, two
@@ -295,25 +318,32 @@ def stats_of(ms, plain_ms, ops, nbytes) -> dict:
                 ops=ops, bytes=nbytes, ops_ms=ops_ms, bytes_ms=bytes_ms)
 
 
-def run_tile(frames, depth, **kw):
-    """synth -> shm ring -> VerifyTile(**kw) -> out ring, in-process: the
-    ring is pre-filled, then the tile polls until idle and flushes.
-    -> (out-ring payloads, metrics, seconds of polling)."""
-    from firedancer_tpu_torch.runtime import Ring, Tcache, Workspace
+def run_tile(waves, depth, trace=False, **kw):
+    """synth -> shm ring -> VerifyTile(batch=TILE_BATCH, **kw) -> out ring,
+    in process: each wave of frames is published, then polled through and
+    flushed before the next (phase 18a's waves are one dispatch each).
+    -> (out-ring payloads, metrics, decoded trace events, seconds of
+    polling each wave)."""
+    from firedancer_tpu_torch.runtime import (Ring, Tcache, TraceRing,
+                                              Workspace)
     from firedancer_tpu_torch.tiles.synth import SynthTile
     from firedancer_tpu_torch.tiles.verify import VerifyTile
+    from firedancer_tpu_torch.trace import TraceWriter, events
     w = Workspace(f"/fdtt_smoke_{os.getpid()}", 1 << 26)
     try:
         in_ring = Ring.create(w, depth=depth, mtu=1280)
         out_ring = Ring.create(w, depth=1024, mtu=1280)
+        tr = TraceWriter(TraceRing.create(w, 1024)) if trace else None
         tile = VerifyTile(in_ring, out_ring, Tcache(w, depth=4096),
-                          batch=TILE_BATCH, device=DEVICE, **kw)
-        SynthTile(in_ring, frames).run(len(frames))
-        t0 = time.perf_counter()
-        while tile.poll_once():
-            pass
-        tile.flush()
-        sec = time.perf_counter() - t0
+                          batch=TILE_BATCH, device=DEVICE, trace=tr, **kw)
+        secs = []
+        for wave in waves:
+            SynthTile(in_ring, wave).run(len(wave))
+            t0 = time.perf_counter()
+            while tile.poll_once():
+                pass
+            tile.flush()
+            secs.append(time.perf_counter() - t0)
         out, seq = [], 0
         while True:
             rc, frag = out_ring.consume(seq)
@@ -321,13 +351,160 @@ def run_tile(frames, depth, **kw):
                 break
             out.append(bytes(out_ring.payload(frag)))
             seq += 1
+        evs = [events.decode(r) for r in tr.ring.snapshot()[1]] if tr \
+            else []
     finally:
         w.close()
         w.unlink()
-    return out, dict(tile.metrics), sec
+    return out, dict(tile.metrics), evs, secs
 
 
-def run_topology(root, tag, count, verify_last=False, **verify):
+def no_fallback(where: str, m: dict):
+    """The gate of every verify tile outside phase 18a's drills: no device
+    error and no CPU fallback."""
+    assert m["cpu_fallback"] == 0 and m["device_errors"] == 0, \
+        f"{where}: cpu_fallback {m['cpu_fallback']}, device_errors " \
+        f"{m['device_errors']}"
+
+
+def trace_report(root, runner, unique: int) -> dict:
+    """Phase 18b's reads of a traced run after its halt: `python -m
+    firedancer_tpu_torch.trace` exports the rings (the summary, and the
+    Chrome JSON, which holds tpu_dispatch spans on verify); each unique
+    frame's lineage crosses verify -> dedup -> sink; the verify tile's
+    WORK spans and each link's per-hop latency."""
+    import tempfile
+    from firedancer_tpu_torch import trace as ftrace
+    name = runner.plan["topology"]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "firedancer_tpu_torch.trace", name,
+             "--out", path], cwd=root, capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=root), timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr
+        with open(path) as f:
+            doc = json.load(f)
+    log(r.stdout.rstrip())
+    tids = {e["args"]["name"]: e["tid"] for e in doc["traceEvents"]
+            if e.get("name") == "thread_name"}
+    dispatch = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+                and e["name"] == "tpu_dispatch"
+                and e["tid"] == tids["verify"]]
+    assert dispatch, "18b: no tpu_dispatch span on verify"
+    evs = ftrace.read_rings(runner.plan, runner.wksp)
+    for tn, e in evs.items():
+        assert e[0]["_cursor"] <= TRACE_DEPTH, f"18b: {tn}'s ring wrapped"
+    hops = [("verify", "publish"), ("dedup", "consume"),
+            ("dedup", "publish"), ("sink", "consume")]
+    per_link: dict = {}
+    through = 0
+    for chain in ftrace.lineage(evs).values():
+        seen = [(tn, n) for _, tn, n, _ in chain]
+        if all(h in seen for h in hops):
+            through += 1
+        pub = None
+        for ts, _, n, link in chain:         # as export.summary counts
+            if n == "publish":
+                pub = ts
+            elif n == "consume" and pub is not None and link:
+                per_link.setdefault(link, []).append(ts - pub)
+    assert through == unique, f"18b: {through} of {unique} frames lineaged"
+    work = [e for e in evs["verify"] if e["ev"] == "work"]
+    ns = [e["arg"] for e in work]
+    k = int(np.argmax(ns))
+    return {
+        "verify_work_spans": len(work),
+        "verify_first_work_ms": ns[0] / 1e6,
+        "verify_max_work_ms": ns[k] / 1e6,
+        # which productive poll it was, and the frags it consumed
+        "verify_max_work_poll": k + 1,
+        "verify_max_work_frags": work[k]["count"],
+        "verify_work_ms": sum(ns) / 1e6,
+        "tpu_dispatch_spans": len(dispatch),
+        "tpu_dispatch_p50_ms": float(np.percentile(
+            [e["dur"] for e in dispatch], 50)) / 1e3,
+        "lineaged": through,
+        "link_us": {ln: {"frags": len(v),
+                         "p50": float(np.percentile(v, 50)) / 1e3,
+                         "p99": float(np.percentile(v, 99)) / 1e3,
+                         "max": max(v) / 1e3}
+                    for ln, v in sorted(per_link.items())},
+        "events": {tn: len(e) for tn, e in evs.items()}}
+
+
+def run_chaos_drill(root, tag):
+    """Phase 18c: firedancer_tpu_torch/cfg/chaos.toml on the card. Waits
+    until the synth has published its frames, dedup has passed every
+    unique txn and the sink, crashed by its plan at rx 32, is back; then
+    reads the black box and halts. -> record."""
+    from firedancer_tpu_torch import trace as ftrace
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.trace.events import CHAOS_ACTION_IDS
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "chaos.toml"),
+        overrides={"tile": [{"name": "verify", "device": DEVICE}]})
+    syn = next(t for t in cfg["tile"] if t["name"] == "synth")
+    count, unique = syn["count"], syn["unique"]
+    name = f"smoke{tag}{os.getpid()}"
+    runner = TopologyRunner(build_topology(cfg, name=name).build())
+    path = ftrace.blackbox_path(name, "sink")
+    try:
+        runner.start()
+        runner.wait_running(timeout_s=300)
+        t0 = time.perf_counter()
+        deadline = time.time() + 300
+        while True:
+            runner.check_failures()
+            s, d = runner.metrics("sink"), runner.metrics("dedup")
+            if runner.metrics("synth")["tx"] >= count and \
+                    d["tx"] >= unique and s["sup_restarts"] >= 1 and \
+                    s["sup_down"] == 0:
+                break
+            assert time.time() < deadline, f"18c: sink {s}, dedup {d}"
+            time.sleep(0.01)
+        runner.wait_running(timeout_s=120)   # the respawned sink is up
+        wall = time.perf_counter() - t0
+        v = runner.metrics("verify")
+        no_fallback("18c verify", v)
+        assert (v["tx"], v["verify_fail"], d["tx"]) == (unique, 0, unique), \
+            f"18c: verify {v}, dedup {d}"
+        assert runner.supervisor.blackbox == {"sink": path}, \
+            runner.supervisor.blackbox
+        with open(path) as f:
+            dump = json.load(f)
+        tail = dump["events"][-2:]
+        assert [e["ev"] for e in tail] == ["chaos", "down"] and \
+            tail[0]["count"] == CHAOS_ACTION_IDS["crash"], tail
+        time.sleep(0.3)
+        runner.halt()
+        for tn, proc in runner.procs.items():
+            assert proc.exitcode == 0, f"18c: tile {tn} exit {proc.exitcode}"
+        s = runner.metrics("sink")
+        assert (s["sup_restarts"], s["sup_watchdog_trips"]) == (1, 0), s
+        live = ftrace.read_rings(runner.plan, runner.wksp)["sink"]
+        i = max(k for k, e in enumerate(live) if e["ev"] == "restart")
+        assert live[i + 1]["ev"] == "boot" and live[-1]["ev"] == "halt" \
+            and "chaos" not in [e["ev"] for e in live[i:]], \
+            [e["ev"] for e in live[i:i + 4]]
+        return {"count": count, "unique": unique, "wall_s": wall,
+                "dedup_tx": d["tx"],
+                "sup_restarts": s["sup_restarts"],
+                "blackbox_reason": dump["reason"],
+                "blackbox_events": len(dump["events"]),
+                # the crash's record to the respawned sink's boot
+                "recovery_ms": (live[i + 1]["ts"] - tail[0]["ts"]) / 1e6,
+                "verify_batches": v["batches"]}
+    finally:
+        runner.halt()
+        runner.close()
+        if os.path.exists(path):
+            os.unlink(path)
+
+
+def run_topology(root, tag, count, verify_last=False, trace=None,
+                 on_halted=None, **verify):
     """Phase 10: boot the port's main path as four tile processes,
     firedancer_tpu_torch/cfg/sigverify.toml with `count` frames and the
     verify args `verify`, through app.config and TopologyRunner, with
@@ -339,16 +516,21 @@ def run_topology(root, tag, count, verify_last=False, **verify):
     then halts the tiles and reads their flushed telemetry, each link's
     producer and consumer counts held to the frames that crossed it.
     -> (record as bench.py's _e2e_run prints it, verify metrics). Raises
-    on a count mismatch, a dead tile or a timeout."""
+    on a count mismatch, a dead tile or a timeout. `trace` is a [trace]
+    section to run with; `on_halted(runner)` reads the halted topology
+    before its workspace goes, and its result joins the record as
+    "trace"."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     from firedancer_tpu_torch.disco.launch import TopologyRunner
     from firedancer_tpu_torch.disco.metrics import (
         link_lag, merge_hists, quantile_ns, read_hists, read_link_metrics)
+    over = {"tile": [{"name": "synth", "count": count},
+                     {"name": "verify", "device": DEVICE, **verify}]}
+    if trace is not None:
+        over["trace"] = trace
     cfg = load_config(
         os.path.join(root, "firedancer_tpu_torch", "cfg", "sigverify.toml"),
-        overrides={"tile": [{"name": "synth", "count": count},
-                            {"name": "verify", "device": DEVICE,
-                             **verify}]})
+        overrides=over)
     unique = next(t["unique"] for t in cfg["tile"] if t["name"] == "synth")
     env0 = os.environ.get("FDTPU_VERIFY_INFLIGHT")
     os.environ["FDTPU_VERIFY_INFLIGHT"] = "3"
@@ -384,10 +566,9 @@ def run_topology(root, tag, count, verify_last=False, **verify):
                                ("verify.rx", v["rx"], count),
                                ("verify.verify_fail", v["verify_fail"], 0),
                                ("verify.parse_fail", v["parse_fail"], 0),
-                               ("verify.device_errors",
-                                v["device_errors"], 0),
                                ("dedup.tx", d["tx"], unique)):
             assert got == want, f"{key} = {got}, expected {want}"
+        no_fallback(f"{tag} verify", v)
         assert v["batches"] > 0, "no strict dispatch in the verify tile"
         # every stem flushes its histograms and link counters on a clean
         # exit; the workspace stays until close(), so what is read below
@@ -395,6 +576,7 @@ def run_topology(root, tag, count, verify_last=False, **verify):
         runner.halt()
         for tn, p in runner.procs.items():
             assert p.exitcode == 0, f"tile {tn} exit code {p.exitcode}"
+        traced = on_halted(runner) if on_halted is not None else None
         budget = {}
         for tn in ("synth", "verify", "dedup", "sink"):
             h = read_hists(runner.wksp, runner.plan, tn)
@@ -440,6 +622,8 @@ def run_topology(root, tag, count, verify_last=False, **verify):
             "device_seam_share_of_busy": vh["tpu"]["sum_ns"] / (
                 vh["work"]["sum_ns"] + vh["wait"]["sum_ns"]),
             "stage_budget": budget, "link_budget": links}
+        if traced is not None:
+            rec["trace"] = traced
         return rec, v
     finally:
         runner.halt()
@@ -526,6 +710,7 @@ def run_leader(root, tag):
         for tn in shards:
             assert m[tn]["batches"] > 0 and m[tn]["verify_fail"] == 0, \
                 f"{tn}: {m[tn]}"
+            no_fallback(f"12 {tn}", m[tn])
         budget = {}
         for tn in runner.plan["tiles"]:
             h = read_hists(runner.wksp, runner.plan, tn)
@@ -1270,6 +1455,9 @@ def run_follower(root, dev, card, counts, reset_counts, wires12,
                 ("towersink.rx", m["towersink"]["rx"], slots)):
             assert v == want, f"17b: {key} = {v}, expected {want}"
         assert r["poh_launches"] > 0 and r["lthash_launches"] > 0, r
+        for tn, spec in runner.plan["tiles"].items():
+            if spec["kind"] == "verify":
+                no_fallback(f"17b {tn}", runner.metrics(tn))
     finally:
         runner.halt()
         runner.close()
@@ -1321,6 +1509,76 @@ def run_follower(root, dev, card, counts, reset_counts, wires12,
         f"(phase 12: {shred_drain12:.2f} s), follower drain "
         f"{follower_drain_s:.2f} s {card}")
     return rec17, path, errs, timed
+
+
+def run_fault_drills(root, card, frames7, out7, m7, rec10a) -> dict:
+    """Phase 18 (18a in process, 18b traced topology, 18c the chaos
+    drill). -> record."""
+    # 18a. VerifyTile(batch=2048) in process with a chaos plan
+    log(f"== 18a. verify tile faults in process: VerifyTile(batch="
+        f"{TILE_BATCH}) on phase 7's frames {card}")
+    # with a verdict deadline: each wait spins on Event.query
+    out, m, _, _ = run_tile([frames7], TILE_FRAMES, device_timeout_s=30.0,
+                            chaos={"events": [{"action": "fail_dispatch",
+                                               "count": 2}]})
+    assert (m["device_errors"], m["cpu_fallback"]) == (2, 0), m
+    assert out == out7 and {k: m[k] for k in m if k != "device_errors"} \
+        == {k: m7[k] for k in m7 if k != "device_errors"}, \
+        "18a: the retried run's frames or counts differ from phase 7's"
+    log(f"18a transient: fail_dispatch count=2 absorbed by the retries, "
+        f"verdict waits under a 30 s deadline: device_errors 2, "
+        f"cpu_fallback 0, {len(out)} frames out == phase 7's, "
+        f"{m['batches']} batches")
+    # a persistent failure: the first dispatch raises after its retries
+    try:
+        run_tile([frames7[:64]], 128, chaos=PERSISTENT)
+        raise AssertionError("18a: a persistent dispatch failure did not "
+                             "raise")
+    except RuntimeError as e:
+        assert "dispatch failed 3 times" in str(e), e
+    log("18a persistent: fail_dispatch count=-1: poll_once raised after "
+        "the 3 attempts (no CPU path)")
+
+    # 18b. cfg/sigverify.toml at full width with [trace] on
+    log(f"== 18b. topology traced: cfg/sigverify.toml, {TOPO_FRAMES} "
+        f"frames, [trace] depth {TRACE_DEPTH}, four tile processes {card}")
+    unique = TILE_UNIQUE
+    rec18b, v = run_topology(
+        root, "18b", TOPO_FRAMES, trace={"enable": True,
+                                         "depth": TRACE_DEPTH},
+        on_halted=lambda runner: trace_report(root, runner, unique))
+    tr = rec18b["trace"]
+    log(f"18b: traced e2e {rec18b['e2e_tps']:.0f} frames/s ({TOPO_FRAMES} "
+        f"in {rec18b['e2e_wall_s']:.4f} s), untraced 10a "
+        f"{rec10a['e2e_tps']:.0f} ({rec10a['e2e_wall_s']:.4f} s) in this "
+        f"call; verify work p99 {rec18b['verify_work_p99_ms']:.3f} ms "
+        f"(10a {rec10a['verify_work_p99_ms']:.3f}); verify WORK spans "
+        f"{tr['verify_work_spans']}, the first {tr['verify_first_work_ms']:.3f}"
+        f" ms, the longest {tr['verify_max_work_ms']:.3f} ms (productive "
+        f"poll {tr['verify_max_work_poll']}, {tr['verify_max_work_frags']} "
+        f"frags); "
+        f"{tr['tpu_dispatch_spans']} tpu_dispatch spans; {tr['lineaged']} "
+        f"frames lineaged verify -> dedup -> sink; per-link "
+        f"{json.dumps(tr['link_us'])} {card}")
+
+    # 18c. cfg/chaos.toml: the sink crash drill
+    log(f"== 18c. topology: cfg/chaos.toml, the sink crash drill {card}")
+    rec18c = run_chaos_drill(root, "18c")
+    log(f"18c: the sink crashed once its rx reached 32 and restarted once "
+        f"({rec18c['recovery_ms']:.1f} ms from the crash record to the "
+        f"respawn's boot), black box '{rec18c['blackbox_reason']}' with "
+        f"{rec18c['blackbox_events']} events ending chaos, down; dedup "
+        f"passed {rec18c['dedup_tx']} of {rec18c['unique']} unique, every "
+        f"tile halted with exit 0 {card}")
+    return {"transient": {"device_errors": m["device_errors"],
+                          "frames_out": len(out)},
+            "traced": {k: rec18b[k] for k in (
+                "e2e_tps", "e2e_wall_s", "boot_s", "verify_work_p50_ms",
+                "verify_work_p99_ms", "tpu_p50_ms", "tpu_p99_ms", "trace")},
+            "untraced_10a": {k: rec10a[k] for k in (
+                "e2e_tps", "e2e_wall_s", "verify_work_p50_ms",
+                "verify_work_p99_ms")},
+            "chaos": rec18c, "card": nvidia_smi()}
 
 
 def load_vectors(root):
@@ -1597,7 +1855,7 @@ def main() -> int:
     frames = [frames[i] for i in prng.permutation(len(frames))]
     log(f"{len(frames)} frames ({TILE_UNIQUE} unique valid, {TILE_CORRUPT} "
         f"corrupt) built in {time.perf_counter() - t0:.1f} s")
-    out, m, sec = run_tile(frames, TILE_FRAMES)
+    out, m, _, (sec,) = run_tile([frames], TILE_FRAMES)
     log(f"tile metrics {json.dumps(m)}")
     log(f"tile: {len(frames)} frames in {sec:.3f} s, {len(frames) / sec:.0f} "
         f"frames/s, {m['batches']} device batches {card}")
@@ -1607,6 +1865,8 @@ def main() -> int:
     for key, val in want_m.items():
         assert m[key] == val, f"tile {key} = {m[key]}, expected {val}"
     assert sorted(out) == sorted(txns), "out ring != the unique valid txns"
+    no_fallback("7", m)
+    frames7, out7, m7 = frames, out, m
     strict_path = counts()
     log(f"strict path launches: verify_batch phase {launches6}, with the "
         f"tile {strict_path}")
@@ -1812,8 +2072,8 @@ def main() -> int:
         f"chunks, then {TILE_UNIQUE} valid, {FLOOD_MIX_FORGED} forged, 8 "
         f"torsion) built in {time.perf_counter() - t0:.1f} s")
     reset_counts()
-    out, m, sec = run_tile(frames, 16384, mode="bulk_prefilter",
-                           coalesce_us=150000)
+    out, m, _, (sec,) = run_tile([frames], 16384, mode="bulk_prefilter",
+                                 coalesce_us=150000)
     flood_path = counts()
     log(f"tile metrics {json.dumps(m)}")
     log(f"flood tile: {len(frames)} frames in {sec:.3f} s, "
@@ -1827,6 +2087,7 @@ def main() -> int:
         assert m[key] == val, f"flood tile {key} = {m[key]}, expected {val}"
     assert sorted(out) == sorted(txns), "out ring != the unique valid txns"
     assert not set(out) & set(torsion), "a torsion forgery was forwarded"
+    no_fallback("9", m)
     log(f"flood path launches {flood_path}")
     assert min(flood_path[k] for k in ("sha512", "ed25519_verify",
                                        "msm_stage1", "msm_stage2")) > 0
@@ -1842,6 +2103,8 @@ def main() -> int:
         log(f"== {tag}. topology: cfg/sigverify.toml, {count} frames, "
             f"verify {verify or 'strict'}, four tile processes {card}")
         rec, v = run_topology(root, tag, count, **verify)
+        if tag == "10a":
+            rec10a = rec
         log(f"{tag} verify metrics {json.dumps(v)}")
         log(f"{tag} record {json.dumps(rec)}")
         log(f"{tag}: e2e {rec['e2e_tps']:.0f} frames/s ({count} frames in "
@@ -1974,6 +2237,10 @@ def main() -> int:
         root, dev, card, counts, reset_counts, wires12,
         rec["shred_drain_s"])
     log(f"17 record {json.dumps(rec17)}")
+
+    # 18. the main path's fault drills and flight recorder
+    rec18 = run_fault_drills(root, card, frames7, out7, m7, rec10a)
+    log(f"18 record {json.dumps(rec18)}")
 
     kernels = []
     paths = (strict_path, rlc_path, flood_path)

@@ -40,6 +40,17 @@ Schema (the reference's, cut to the kinds the port has):
     [topology.supervise]     # topology-wide defaults, deep-merged
     policy = "restart"       #  under each tile's table
 
+    [trace]                  # fdtrace flight recorder (trace/recorder.py)
+    enable = true            # default false: untraced tiles pay nothing
+    depth = 2048             # records per tile ring (power of two)
+
+    [tile.trace]             # per-tile override (opt out/in, depth,
+    sample = 16              #  sample)
+
+    [[tile.chaos.events]]    # seeded fault plan (utils/chaos.py)
+    action = "crash"
+    at_rx = 32
+
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
@@ -53,12 +64,13 @@ Where the copy differs from the reference:
     and carried on the plan; it is taken with `exec_tile_cnt = 0` only
     (the exec fan-out is item 5);
   * each top-level section the reference accepts but the port has not
-    ported (trace, slo, prof, shed, witness, funk, snapshot, flight,
-    tune) raises NotImplementedError naming its ROADMAP.md queue-A
-    item, and so does FDTPU_TUNED_PROFILE (item 11); a known
-    kind without an adapter, and a gated key the port lacks (chaos,
-    core pinning, the lazy cadence), pass the gate and are refused by
-    `Topology.tile` (disco/unported.py);
+    ported (slo, prof, shed, witness, funk, snapshot, flight, tune)
+    raises NotImplementedError naming its ROADMAP.md queue-A item, and
+    so does FDTPU_TUNED_PROFILE (item 11); a known kind without an
+    adapter, a gated key the port lacks (core pinning, the lazy
+    cadence, and the verify tile's `device_fail_limit`, which it
+    refuses by design) and a chaos action of an unported kind pass the
+    gate and are refused by `Topology.tile` (disco/unported.py);
   * `cpu0` is handed to `Topology.tile` as it is, which refuses it
     (the reference turns it into `cpu_idx`, config.py:323-335).
 """
@@ -71,8 +83,9 @@ import tomllib
 from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
 from ..tiles.replay import normalize_replay
+from ..trace import normalize_trace
 
-_TOP_SECTIONS = {"topology", "link", "tcache", "tile", "replay",
+_TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "replay",
                  *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
@@ -189,14 +202,18 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
             refuse(f"the [{key}] section", item)
     if os.environ.get("FDTPU_TUNED_PROFILE"):
         refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
+    # fail before launch (trace/recorder.py and tiles/replay.py are the
+    # validators)
+    trace_cfg = cfg.get("trace")
+    if trace_cfg is not None:
+        normalize_trace(trace_cfg)
     replay_cfg = cfg.get("replay")
     if replay_cfg is not None:
-        # fail before launch (tiles/replay.py is the one validator)
         normalize_replay(replay_cfg)
     top = cfg.get("topology", {})
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
                     wksp_size=int(top.get("wksp_size", 1 << 26)),
-                    replay=replay_cfg)
+                    trace=trace_cfg, replay=replay_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))

@@ -130,6 +130,12 @@ class TopologyRunner:
             # joins its in rings at the producers' CURRENT seq
             plan = json.loads(json.dumps(self.plan))
             plan["tiles"][tn]["rejoin_at_tail"] = True
+            # a chaos drill simulates one fault per boot: the
+            # replacement comes up clean unless the plan sets "rearm"
+            # (a crash-loop drill that opens the breaker on purpose)
+            ch = plan["tiles"][tn]["args"].get("chaos")
+            if not (isinstance(ch, dict) and ch.get("rearm")):
+                plan["tiles"][tn]["args"].pop("chaos", None)
         p = self._mp.Process(target=tile_main, args=(plan, tn),
                              name=f"tile:{tn}", daemon=True)
         p.start()

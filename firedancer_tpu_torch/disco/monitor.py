@@ -1,7 +1,8 @@
 """Monitor: read every tile's heartbeat + metrics from shared memory
-(copy of the JAX package's disco/monitor.py:43-230, without the SLO
-events, the flight archive and the trace reads: ROADMAP.md queue A
-items 8, 10 and 2).
+(copy of the JAX package's disco/monitor.py:43-230, with each traced
+tile's trace cursor; without the SLO events, whose trace reads are the
+metric tile's EV_SLO records, and the flight archive: ROADMAP.md queue
+A items 8 and 10).
 
 The reference's `monitor` command attaches to the running validator's
 shm and prints per-tile status snapshots
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import json
 
-from ..runtime import Workspace, Cnc, CNC_BOOT, CNC_RUN, CNC_HALT, CNC_FAIL
+from ..runtime import (Workspace, Cnc, TraceRing, CNC_BOOT, CNC_RUN,
+                       CNC_HALT, CNC_FAIL)
 from . import topo as topo_mod
 from .launch import plan_path
 from .metrics import link_lag, quantile_ns, read_hists, read_link_metrics
@@ -24,7 +26,10 @@ _STATE = {CNC_BOOT: "boot", CNC_RUN: "run", CNC_HALT: "halt",
 
 
 def snapshot(plan: dict, wksp: Workspace) -> dict:
-    """{tile: {kind, state, hb_age_ticks, metrics{...}, latency{...}}}"""
+    """{tile: {kind, state, hb_age_ticks, trace, metrics{...},
+    latency{...}}}; trace is None on an untraced tile, else the events
+    ever written and the ring's depth (the ring keeps the last depth;
+    `python -m firedancer_tpu_torch.trace` drains it)."""
     out = {}
     now = topo_mod.now_ticks()
     for tn, spec in plan["tiles"].items():
@@ -32,11 +37,17 @@ def snapshot(plan: dict, wksp: Workspace) -> dict:
         vals = topo_mod.read_metrics(wksp, plan, tn)
         names = spec["metrics_names"]
         hists = read_hists(wksp, plan, tn)
+        trace = None
+        if spec.get("trace_off") is not None:
+            trace = {"events": TraceRing(
+                wksp, spec["trace_off"], spec["trace_depth"]).cursor,
+                "depth": spec["trace_depth"]}
         out[tn] = {
             "kind": spec["kind"],
             "state": _STATE.get(cnc.state, f"?{cnc.state}"),
             # clamp: clock reads race across processes by a few ticks
             "hb_age_ticks": max(0, now - cnc.last_heartbeat),
+            "trace": trace,
             "metrics": {
                 **{nm: int(vals[i]) for i, nm in enumerate(names)},
                 **sup_counters(vals)},

@@ -1,7 +1,8 @@
 """Stem: the tile run loop (copy of the JAX package's disco/stem.py:30-377
-without the trace and profiler hooks, the chaos harness and the pinned or
-depth-derived housekeeping cadence (`lazy_ns`, `lazy_auto`); a tile
-arg asking for either is refused by `Topology.tile`, disco/unported.py).
+with its chaos harness and trace hooks, without the profiler hooks
+(ROADMAP.md queue A item 6) and the pinned or depth-derived housekeeping
+cadence (`lazy_ns`, `lazy_auto`, item 14); a tile arg asking for those
+is refused by `Topology.tile`, disco/unported.py).
 
 Re-expression of the reference's run loop (ref: src/disco/stem/
 fd_stem.c:1-168, :240 run1, :385 the main for(;;)). A tile object
@@ -13,19 +14,30 @@ supplies the callbacks as methods:
   metrics_items() -> dict optional, name -> int, flushed to shm metrics
   in_seqs() -> dict       optional, consumer progress per in link
   on_halt()               optional, called once on a clean exit
+  on_chaos(ev)            optional, gets the chaos events the stem does
+                          not run itself (traffic floods, diverge_block)
 
 The stem owns what every tile shares: cnc lifecycle (BOOT -> RUN ->
 HALT/FAIL), heartbeating, the lazy housekeeping interval with jitter,
 consumer-side fseq publication (so upstream producers can credit-gate),
 the wait/work/tpu histograms, and flushing tile metrics and the per-link
-telemetry counters into shared memory.
+telemetry counters into shared memory. With a chaos plan in the tile's
+args (utils/chaos.py) it fires the plan's events; with a trace ring
+(`ctx.trace`) it records BOOT, a WAIT span per idle streak, WORK spans
+(one a `sample` productive polls, summed), HOUSEKEEP, FAIL and HALT. An
+untraced tile's only cost is the cached `None` check.
 """
 from __future__ import annotations
 
+import os
 import random
 import time
 
 from ..runtime import CNC_RUN, CNC_HALT, CNC_FAIL
+from ..trace import chaos_event
+from ..trace import events as trace_ev
+from ..utils import log
+from ..utils.chaos import ChaosPlan
 from .metrics import HIST_U64, HistAccum
 
 
@@ -55,6 +67,58 @@ class Stem:
             h.seed_from(ctx.link_cons_views[ln][3:3 + HIST_U64])
         self._link_seen = {ln: ctx.in_rings[ln].m_consumed
                            for ln in self._link_hists}
+        # chaos harness: a seeded fault plan from the tile's args
+        chaos = ctx.spec.get("args", {}).get("chaos")
+        self._chaos = ChaosPlan(chaos) if chaos else None
+        self._hb_frozen = False
+        self._wedged = False
+        self._stalled_links: set | None = None   # None = no stall
+        # flight recorder: None on an untraced tile, the whole disabled
+        # path
+        self._trace = getattr(ctx, "trace", None)
+        self._wait_t0: int | None = None      # idle-streak start (ns)
+        # with sample > 1 one EV_WORK record sums the last `sample`
+        # productive polls
+        self._work_ns = 0
+        self._work_frags = 0
+        self._work_polls = 0
+
+    def _apply_chaos(self, iters: int, rx: int):
+        for ev in self._chaos.poll(iters, rx):
+            act = ev["action"]
+            log.warning(f"chaos: firing {act} (iter={iters} rx={rx})")
+            # recorded BEFORE acting, so even a crash leaves its
+            # footprint for the black-box dump
+            chaos_event(self._trace, act, at=iters)
+            if act == "crash":
+                os._exit(ev["code"])
+            elif act == "freeze_hb":
+                self._hb_frozen = True
+            elif act == "wedge":
+                self._hb_frozen = True
+                self._wedged = True
+            elif act == "stall_fseq":
+                if self._stalled_links is None:
+                    self._stalled_links = set()
+                self._stalled_links.add(ev["link"])   # None = all links
+            else:
+                # traffic and replay drills: the adapter owns them
+                hook = getattr(self.tile, "on_chaos", None)
+                if hook is not None:
+                    hook(ev)
+
+    def _trace_flush(self, tr):
+        """Close out pending trace state on any loop exit: the summed but
+        unrecorded work window and an open wait streak are the last thing
+        the tile was doing."""
+        if self._work_polls:
+            tr.event(trace_ev.EV_WORK, arg=self._work_ns,
+                     count=self._work_frags)
+            self._work_ns = self._work_frags = self._work_polls = 0
+        if self._wait_t0 is not None:
+            tr.event(trace_ev.EV_WAIT,
+                     arg=time.perf_counter_ns() - self._wait_t0)
+            self._wait_t0 = None
 
     def _flush_metrics(self):
         items = getattr(self.tile, "metrics_items", None)
@@ -90,36 +154,59 @@ class Stem:
             return
         cur = seqs()
         for ln, fs in self.ctx.in_fseqs.items():
+            if self._stalled_links is not None and \
+                    (None in self._stalled_links
+                     or ln in self._stalled_links):
+                continue              # chaos: progress frozen
             if ln in cur:
                 fs.update(cur[ln])
 
     def run(self, max_iters: int | None = None):
+        tr = self._trace
         cnc = self.ctx.cnc
         cnc.heartbeat()
         cnc.state = CNC_RUN
+        if tr is not None:
+            tr.event(trace_ev.EV_BOOT)
         # jittered lazy interval (fd_stem.c: avoid phase-locking tiles)
         next_hk = 0.0
         iters = 0
+        rx_total = 0
         try:
             while True:
                 now = time.perf_counter()
                 if now >= next_hk:
-                    cnc.heartbeat()
+                    if not self._hb_frozen:
+                        cnc.heartbeat()
                     st = cnc.state
                     if st == CNC_HALT:
                         break
                     if st == CNC_FAIL:
                         # externally failed (wedge watchdog): exit NOW,
                         # leaving the FAIL state visible
+                        if tr is not None:
+                            self._trace_flush(tr)
+                            tr.event(trace_ev.EV_FAIL)
                         self._flush_metrics()
                         return
+                    hk_t0 = time.perf_counter_ns() if tr is not None \
+                        else 0
                     self._update_in_fseqs()
                     hk = getattr(self.tile, "housekeeping", None)
                     if hk is not None:
                         hk()
                     self._flush_metrics()
+                    if tr is not None:
+                        tr.event(trace_ev.EV_HOUSEKEEP,
+                                 arg=time.perf_counter_ns() - hk_t0)
                     next_hk = now + self.hk_interval_s * (
                         0.7 + 0.6 * random.random())
+                if self._wedged:
+                    # chaos: a hung tile, no polling and no heartbeats,
+                    # still halt-able and killable by the supervisor
+                    time.sleep(0.005)
+                    iters += 1
+                    continue
                 t0 = time.perf_counter_ns()
                 n = self.tile.poll_once()
                 t1 = time.perf_counter_ns()
@@ -132,15 +219,43 @@ class Stem:
                         if c != self._link_seen[ln]:
                             self._link_seen[ln] = c
                             h.add(t1 - t0)
-                else:
+                if tr is not None:
+                    # one WAIT span per idle streak (from its first empty
+                    # poll to the start of the next productive one), one
+                    # WORK span per `sample` productive polls
+                    if n:
+                        if self._wait_t0 is not None:
+                            # stamped at t0, where the streak ended;
+                            # perf_counter_ns and monotonic_ns are both
+                            # CLOCK_MONOTONIC here
+                            tr.ring.append(t0, trace_ev.EV_WAIT,
+                                           arg=t0 - self._wait_t0)
+                            self._wait_t0 = None
+                        self._work_ns += t1 - t0
+                        self._work_frags += n
+                        self._work_polls += 1
+                        if self._work_polls >= tr.sample:
+                            tr.event(trace_ev.EV_WORK, arg=self._work_ns,
+                                     count=self._work_frags)
+                            self._work_ns = 0
+                            self._work_frags = 0
+                            self._work_polls = 0
+                    elif self._wait_t0 is None:
+                        self._wait_t0 = t0
+                if not n:
                     time.sleep(self.idle_sleep_s)
                 iters += 1
+                rx_total += n
+                if self._chaos is not None:
+                    self._apply_chaos(iters, rx_total)
                 if max_iters is not None and iters >= max_iters:
                     break
         except Exception as e:
             cnc.state = CNC_FAIL
+            if tr is not None:
+                self._trace_flush(tr)
+                tr.event(trace_ev.EV_FAIL)
             self._flush_metrics()
-            from ..utils import log
             log.err(f"tile failed: {e!r}")
             raise
         # drain-side bookkeeping before exit; the reference flushes
@@ -151,4 +266,7 @@ class Stem:
             on_halt()
         self._update_in_fseqs()
         self._flush_metrics()
+        if tr is not None:
+            self._trace_flush(tr)
+            tr.event(trace_ev.EV_HALT)
         cnc.state = CNC_HALT

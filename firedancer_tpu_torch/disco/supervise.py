@@ -1,6 +1,6 @@
-"""Tile supervision: restart policies, wedge watchdog, circuit breaker
-(copy of the JAX package's disco/supervise.py:55-396 without the trace
-black-box dumps, which wait for ROADMAP.md queue A item 2).
+"""Tile supervision: restart policies, wedge watchdog, circuit breaker,
+and the flight recorder's black-box dumps (copy of the JAX package's
+disco/supervise.py:55-396).
 
 The reference's posture is a supervised tile topology: every tile
 exposes a cnc state machine + heartbeat (ref: src/tango/cnc/
@@ -43,6 +43,8 @@ import time
 from collections import deque
 
 from ..runtime import Cnc, CNC_RUN, CNC_HALT, CNC_FAIL, Fseq, Ring
+from ..trace import dump_blackbox, writer_for
+from ..trace.events import EV_DOWN, EV_RESTART, EV_WATCHDOG
 
 # supervisor-owned metric slots (indices into the METRICS_SLOTS region)
 SUP_SLOTS = {
@@ -159,6 +161,13 @@ class Supervisor:
                             for tn in plan["tiles"]}
         self._slot_views = {tn: self._build_slots(tn)
                             for tn in plan["tiles"]}
+        # flight recorder: a writer over each traced tile's ring (None
+        # when untraced). The supervisor appends only after the owning
+        # tile died or was killed, so the ring keeps one writer at a
+        # time; blackbox holds the last dump path per tile
+        self._trace = {tn: writer_for(plan, wksp, tn)
+                       for tn in plan["tiles"]}
+        self.blackbox: dict[str, str] = {}
 
     # -- shm counter helpers ------------------------------------------------
 
@@ -196,6 +205,25 @@ class Supervisor:
 
     def _in_fseqs(self, tn: str):
         return self._tile_fseqs[tn]
+
+    # -- flight-recorder integration ----------------------------------------
+
+    def _trace_mark(self, tn: str, etype: int):
+        tr = self._trace.get(tn)
+        if tr is not None:
+            tr.event(etype)
+
+    def _dump_blackbox(self, tn: str, reason: str):
+        """Snapshot the dying tile's last trace events out of shm before
+        a restart reuses its ring."""
+        if self._trace.get(tn) is None:
+            return
+        try:
+            path = dump_blackbox(self.plan, self.wksp, tn, reason)
+        except OSError:
+            return                        # a dump never blocks recovery
+        if path:
+            self.blackbox[tn] = path
 
     # -- policy machinery ---------------------------------------------------
 
@@ -250,6 +278,7 @@ class Supervisor:
                 st.next_restart_t = now + st.backoff_s
                 return
         self._bump(tn, "sup_restarts")
+        self._trace_mark(tn, EV_RESTART)   # before the respawn owns it
         self._spawn(tn, rejoin=True)
         st.down_since = None
         st.fseq_marks.clear()
@@ -330,6 +359,8 @@ class Supervisor:
                 code = p.exitcode
                 if code in (0, None) or self._cnc(tn).state == CNC_HALT:
                     continue             # clean exit: not a failure
+                self._trace_mark(tn, EV_DOWN)
+                self._dump_blackbox(tn, f"died (exit {code})")
                 if pol["policy"] == "restart":
                     events.append(f"died {tn} (exit {code})")
                     self._mark_down(tn, now, code)
@@ -342,6 +373,10 @@ class Supervisor:
                 self._bump(tn, "sup_watchdog_trips")
                 self._cnc(tn).state = CNC_FAIL
                 self._kill(tn)
+                # the wedged tile's final events, stamped with the trip,
+                # before any restart reuses the ring
+                self._trace_mark(tn, EV_WATCHDOG)
+                self._dump_blackbox(tn, f"watchdog: {reason}")
                 if pol["policy"] == "restart":
                     self._mark_down(tn, now, self._procs()[tn].exitcode)
                 else:

@@ -13,18 +13,21 @@ Where the copy differs from the reference:
     every other kind of the reference's registry (disco/unported.py),
     and `adapter_class` raises ValueError for a name without an
     adapter;
-  * SynthAdapter has no traffic plans (`on_chaos`, tiles.py:221-262;
-    `Topology.tile` refuses every `chaos` arg, which also refuses
-    replay's chaos seams `diverge_block` and `crash_mid_snapshot`,
-    item 2);
   * VerifyAdapter wraps the port's VerifyTile, which runs on the card
     unless its `device` arg (default "cuda") says "cpu"; that arg is the
     port's counterpart of the reference's FDTPU_JAX_PLATFORM override
-    (tiles.py:120-133). Its device-degradation args (device_retries,
-    device_timeout_s, device_fail_limit) are refused (item 2), and so
-    are the JAX compile and memory series and the profiler capture
-    (tiles.py:357-426, item 6) and the fdtune knob hook (item 11);
-  * no trace hooks (item 2);
+    (tiles.py:120-133). It takes `device_retries` and
+    `device_timeout_s`, never the reference's `device_fail_limit`
+    (`Topology.tile` refuses it: the port does not degrade to the CPU,
+    tiles/verify.py), and it has no JAX compile and memory series, no
+    profiler capture (tiles.py:357-426, item 6) and no fdtune knob hook
+    (item 11);
+  * the trace hooks are the reference's: EV_PUBLISH on synth, verify
+    and dedup, EV_CONSUME on verify, dedup, sink and shred (the
+    reference's `_gather_all`, tiles.py:38-60), as one vectorized
+    append a batch; a publish record carries the time taken before its
+    `publish_batch`, not after it as in the reference, so a consume
+    never sorts before the publish it follows;
   * PackAdapter refuses `resolved_in` (the resolv tile, item 5) and
     `bundle_in` (the bundle tile, item 13);
   * BankAdapter runs exec="svm" (the wave executor, svm/executor.py, on
@@ -70,6 +73,9 @@ import numpy as np
 from ..keyguard.tile import SignHalted
 from ..protocol.txn import MTU
 from ..runtime import CNC_RUN
+from ..trace import events as trace_ev
+from ..utils.chaos import TRAFFIC_ACTIONS, attack_frames
+from ..utils.tempo import monotonic_ns
 from .unported import refuse
 
 REGISTRY: dict[str, type] = {}
@@ -95,6 +101,14 @@ def _single(d: dict, what: str, tile: str):
         raise ValueError(f"tile {tile}: expected exactly one {what}, "
                          f"got {list(d)}")
     return next(iter(d.values()))
+
+
+def _trace_consume(ctx, link: str, sigs, n: int):
+    """Consume lineage of one gather (the reference's `_gather_all`
+    hook): one vectorized append, nothing when untraced."""
+    tr = getattr(ctx, "trace", None)
+    if tr is not None and n:
+        tr.frag_batch(trace_ev.EV_CONSUME, sigs[:n], link=tr.link_id(link))
 
 
 def publish_wave(out, fseqs, frames, cnc=None, on_stall=None) -> int:
@@ -158,12 +172,17 @@ class SynthAdapter:
     may also be a RAMP SCHEDULE, a list of (duration_s, tps) stanzas;
     past the schedule's end the last stanza's rate holds."""
 
-    METRICS = ["tx", "backpressure"]
+    METRICS = ["tx", "backpressure", "attack_tx", "attack_drop"]
 
     def __init__(self, ctx, args):
         from ..tiles.synth import make_signed_txns
         self.ctx = ctx
         self.count = int(args.get("count", 1024))
+        # traffic plans (utils/chaos.TRAFFIC_ACTIONS): the stem fires
+        # them into on_chaos, which floods the out ring
+        self.attack_tx = 0
+        self.attack_drop = 0
+        self._attack_sig = 1 << 48       # ring sigs clear of tx range
         self.burst = int(args.get("burst", 32))
         rt = args.get("rate_tps", 0.0)
         if isinstance(rt, (list, tuple)) and rt:
@@ -206,14 +225,59 @@ class SynthAdapter:
             if b <= 0:
                 return 0
         idx = np.arange(self.sent, self.sent + b) % self._n_unique
+        tr = getattr(self.ctx, "trace", None)
+        # lineage stamps are taken before the frags become visible
+        pub_ts = monotonic_ns() if tr is not None else 0
         stop, pub = self.out.publish_batch(
             self._buf[idx], self._sizes[idx],
             np.arange(self.sent, self.sent + b, dtype=np.uint64),
             np.ones(b, np.uint8), fseqs=self.fseqs)
         if stop < b:
             self.bp += 1
+        if tr is not None and pub:
+            tr.frag_batch(
+                trace_ev.EV_PUBLISH,
+                np.arange(self.sent, self.sent + pub, dtype=np.uint64),
+                link=tr.link_id(next(iter(self.ctx.out_rings))),
+                ts_ns=pub_ts)
         self.sent += pub
         return pub
+
+    def on_chaos(self, ev: dict):
+        """A traffic plan's event (the stem has recorded it): render the
+        attack pool and flood the out ring. Credit-gated but never a
+        spin: what the ring refuses twice in a row is dropped newest
+        first (attack_drop)."""
+        if ev["action"] not in TRAFFIC_ACTIONS:
+            return
+        frames = attack_frames(ev["action"], ev["frames"], seed=ev["seed"])
+        if not frames:
+            return
+        k = len(frames)
+        wb = np.zeros((k, max(len(f) for f in frames)), np.uint8)
+        sz = np.zeros(k, np.uint32)
+        for i, f in enumerate(frames):
+            wb[i, :len(f)] = np.frombuffer(f, np.uint8)
+            sz[i] = len(f)
+        sigs = np.arange(self._attack_sig, self._attack_sig + k,
+                         dtype=np.uint64)
+        self._attack_sig += k
+        start = 0
+        stalls = 0
+        while start < k:
+            stop, pub = self.out.publish_batch(
+                wb, sz, sigs, np.ones(k, np.uint8),
+                fseqs=self.fseqs, start=start)
+            self.attack_tx += pub
+            if stop == start:
+                stalls += 1
+                if stalls >= 2:          # no credits twice: drop the rest
+                    self.attack_drop += k - start
+                    break
+                time.sleep(50e-6)
+                continue
+            stalls = 0
+            start = stop
 
     def _earned(self, dt: float) -> int:
         """Token budget earned after dt seconds: flat rate, or the ramp
@@ -230,7 +294,9 @@ class SynthAdapter:
         return int(total + dt * self.ramp[-1][1])
 
     def metrics_items(self):
-        return {"tx": self.sent, "backpressure": self.bp}
+        return {"tx": self.sent, "backpressure": self.bp,
+                "attack_tx": self.attack_tx,
+                "attack_drop": self.attack_drop}
 
 
 @register("verify")
@@ -238,7 +304,8 @@ class VerifyAdapter:
     """Sigverify tile on the card (ref: src/disco/verify/fd_verify_tile.h)
     over the port's tiles/verify.py::VerifyTile.
     args: batch, max_len, tcache (name), rr_cnt, rr_idx, devices,
-    coalesce_us, mode ("strict" | "bulk_prefilter"), prefilter_shed,
+    device_retries, device_timeout_s, chaos (fault plan), coalesce_us,
+    mode ("strict" | "bulk_prefilter"), prefilter_shed,
     device ("cuda" | "cpu")."""
 
     METRICS = ["rx", "parse_fail", "dedup_drop", "verify_fail", "tx",
@@ -251,16 +318,17 @@ class VerifyAdapter:
 
     def __init__(self, ctx, args):
         from ..tiles.verify import VerifyTile
-        for key in ("device_retries", "device_timeout_s",
-                    "device_fail_limit"):
-            if key in args:
-                refuse(f"verify arg {key!r} (device degradation)", 2)
         self.ctx = ctx
         in_ring = _single(ctx.in_rings, "in link", ctx.tile_name)
         out_ring = _single(ctx.out_rings, "out link", ctx.tile_name)
         tc_name = args.get("tcache")
         tc = ctx.tcaches[tc_name] if tc_name \
             else _single(ctx.tcaches, "tcache", ctx.tile_name)
+        tr = getattr(ctx, "trace", None)
+        links = [0, 0] if tr is None else [
+            tr.link_id(next(iter(ctx.out_rings))),
+            tr.link_id(next(iter(ctx.in_rings)))]
+        timeout = args.get("device_timeout_s")
         self.tile = VerifyTile(
             in_ring, out_ring, tc,
             batch=int(args.get("batch", 256)),
@@ -270,6 +338,10 @@ class VerifyAdapter:
             rr_cnt=int(args.get("rr_cnt", 1)),
             rr_idx=int(args.get("rr_idx", 0)),
             devices=int(args.get("devices", 1)),
+            device_retries=int(args.get("device_retries", 2)),
+            device_timeout_s=None if timeout is None else float(timeout),
+            chaos=args.get("chaos"), trace=tr, trace_link=links[0],
+            trace_link_in=links[1],
             coalesce_us=float(args.get("coalesce_us", 0.0)),
             mode=args.get("mode", "strict"),
             prefilter_shed=bool(args.get("prefilter_shed", True)),
@@ -318,8 +390,14 @@ class DedupAdapter:
         self.seqs = ctx.in_seqs0()
         self.mtu = max(ctx.plan["links"][ln]["mtu"] for ln in ctx.in_rings)
         self.m = {k: 0 for k in self.METRICS}
+        # trace link ids resolved once
+        self._tr = getattr(ctx, "trace", None)
+        if self._tr is not None:
+            self._tr_out = self._tr.link_id(next(iter(ctx.out_rings)))
+            self._tr_ins = {ln: self._tr.link_id(ln) for ln in ctx.in_rings}
 
     def poll_once(self) -> int:
+        tr = self._tr
         total = 0
         for ln, ring in self.ctx.in_rings.items():
             n, self.seqs[ln], buf, sizes, sigs, ovr = ring.gather(
@@ -329,6 +407,9 @@ class DedupAdapter:
                 continue
             total += n
             self.m["rx"] += n
+            if tr is not None:
+                tr.frag_batch(trace_ev.EV_CONSUME, sigs[:n],
+                              link=self._tr_ins[ln])
             # the whole gather dedups as ONE native insert-or-dup call
             # and forwards as credit-gated native batch publishes
             dup = self.tcache.insert_batch(sigs[:n])
@@ -336,10 +417,16 @@ class DedupAdapter:
             mask = (dup == 0).astype(np.uint8)
             start = 0
             while True:
+                # lineage stamps are taken before the frags become visible
+                pub_ts = monotonic_ns() if tr is not None else 0
                 stop, pub = self.out.publish_batch(
                     buf[:n], sizes[:n], sigs[:n], mask,
                     fseqs=self.out_fseqs, start=start)
                 self.m["tx"] += pub
+                if tr is not None and pub:
+                    live = sigs[start:stop][mask[start:stop] != 0]
+                    tr.frag_batch(trace_ev.EV_PUBLISH, live,
+                                  link=self._tr_out, ts_ns=pub_ts)
                 start = stop
                 if start >= n:
                     break
@@ -382,6 +469,7 @@ class SinkAdapter:
                 continue
             self.m["rx"] += n
             self.m["bytes"] += int(sizes[:n].sum())
+            _trace_consume(self.ctx, ln, sigs, n)
             total += n
         return total
 
@@ -1158,9 +1246,10 @@ class ShredAdapter:
     def poll_once(self) -> int:
         if self.mode == "recover":
             return self._poll_recover()
-        n, self.seq, buf, sizes, _, ovr = self.ring.gather(
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
             self.seq, 16, self.mtu)
         self._ovr += ovr
+        _trace_consume(self.ctx, self.in_link, sigs, n)
         for i in range(n):
             try:
                 self.core.on_entry(bytes(buf[i, :sizes[i]]))
@@ -1174,10 +1263,11 @@ class ShredAdapter:
     def _poll_recover(self) -> int:
         total = 0
         for ln in self.in_links:
-            n, self.seqs[ln], buf, sizes, _, ovr = \
+            n, self.seqs[ln], buf, sizes, sigs, ovr = \
                 self.ctx.in_rings[ln].gather(self.seqs[ln], 16,
                                              self.mtus[ln])
             self._ovr += ovr
+            _trace_consume(self.ctx, ln, sigs, n)
             rt = ln == self.turbine_in
             for i in range(n):
                 self.core.on_shred(bytes(buf[i, :sizes[i]]), retransmit=rt)
@@ -1297,6 +1387,12 @@ class ReplayAdapter:
             self.core.on_slices([bytes(buf[i, :sizes[i]])
                                  for i in range(n)])
         return n
+
+    def on_chaos(self, ev: dict):
+        """diverge_block: perturb the next replayed slot's state delta;
+        its divergence verdict must name that slot."""
+        if ev["action"] == "diverge_block":
+            self.core.diverge(int(ev.get("seed", 1)))
 
     def in_seqs(self):
         return {self.in_link: self.seq}

@@ -16,19 +16,23 @@ waited on and must tolerate overruns.
 Where the copy differs from the reference:
   * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
     topo.py:256), so both packages' topologies can run side by side;
-  * `Topology()` takes none of the reference's section keywords
-    (topo.py:85-126: trace, slo, prof, shed, funk, replay, snapshot,
-    flight, tune); app.config refuses those sections;
+  * `Topology()` takes the [trace] and [replay] sections only, none of
+    the reference's other section keywords (topo.py:85-126: slo, prof,
+    shed, funk, snapshot, flight, tune); app.config refuses those
+    sections;
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
-    :460-465, with it) and the per-tile args the port lacks: the
-    trace, prof and shed overrides (:366-459), chaos, and core pinning
-    (`cpu_idx`, and `cpu0` of `sharded_tile`, :153-220); a name that is
-    no kind at all is left to fail in its tile process, as in the
+    :460-465, with it), the per-tile args the port lacks (the prof and
+    shed overrides, :366-459, and core pinning: `cpu_idx`, and `cpu0`
+    of `sharded_tile`, :153-220) and a chaos plan naming an action whose
+    tile kind or seam is not ported (the reference ignores such an
+    action); it refuses the verify tile's `device_fail_limit` by design
+    (ROADMAP.md C: the port does not degrade to the CPU); a name that
+    is no kind at all is left to fail in its tile process, as in the
     reference;
-  * the plan carries no trace, prof, funk, tune or slo regions, and
-    TileCtx has no trace, prof or knob handles.
+  * the plan carries no prof, funk, tune or slo regions, and TileCtx
+    has no prof or knob handles.
 """
 from __future__ import annotations
 
@@ -37,11 +41,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..runtime import Workspace, Ring, Fseq, Cnc, Tcache
+from ..runtime import Workspace, Ring, Fseq, Cnc, Tcache, TraceRing
+from ..trace import effective_trace, normalize_trace, writer_for
 from . import tiles as tiles_mod
 from .metrics import HIST_REGION_U64, LINK_CONS_U64, LINK_PROD_U64
 from .supervise import SUP_SLOT_MIN, normalize_policy
-from .unported import UNPORTED_KINDS, UNPORTED_TILE_ARGS, refuse
+from .unported import (REFUSED_TILE_ARGS, UNPORTED_CHAOS_ACTIONS,
+                       UNPORTED_KINDS, UNPORTED_TILE_ARGS, refuse,
+                       refuse_by_design)
 
 METRICS_SLOTS = 64          # u64 counters per tile
 
@@ -67,9 +74,12 @@ class Topology:
     """Declare links/tiles/objects, then build() into a wksp."""
 
     def __init__(self, name: str, wksp_size: int = 1 << 26,
-                 replay: dict | None = None):
+                 trace: dict | None = None, replay: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
+        # [trace] flight-recorder config (trace/recorder.py schema);
+        # validated at build so a typo fails before launch
+        self.trace = trace
         # the [replay] section (tiles/replay.py's schema), validated at
         # build and carried on the plan for the replay tile
         self.replay = replay
@@ -93,6 +103,14 @@ class Topology:
         for key, item in UNPORTED_TILE_ARGS.items():
             if key in args:
                 refuse(f"the tile arg {key!r}", item)
+        for key, why in REFUSED_TILE_ARGS.items():
+            if key in args:
+                refuse_by_design(f"the tile arg {key!r}", why)
+        chaos = args.get("chaos")
+        for ev in chaos.get("events", ()) if isinstance(chaos, dict) else ():
+            item = UNPORTED_CHAOS_ACTIONS.get(ev.get("action"))
+            if item is not None:
+                refuse(f"the chaos action {ev['action']!r}", item)
         norm = []
         for i in ins:
             if isinstance(i, str):
@@ -114,8 +132,9 @@ class Topology:
         rr_idx=i, consuming the SAME in links (frag ownership is disjoint
         by seq % cnt) and producing outs[i]: one out link per shard,
         since links are SPMC; the downstream stage fans in. A
-        list-valued `tcache` or `supervise` of length cnt distributes
-        one per shard; every other arg is shared.
+        list-valued `tcache`, `chaos` or `supervise` of length cnt
+        distributes one per shard (a None entry: not on this shard, how a
+        drill targets one shard); every other arg is shared.
         The reference's per-shard in links (the exec family,
         topo.py:173-203) are refused."""
         cnt = int(cnt)
@@ -134,7 +153,7 @@ class Topology:
             a = {}
             for k, v in args.items():
                 if isinstance(v, (list, tuple)) and len(v) == cnt \
-                        and k in ("tcache", "supervise"):
+                        and k in ("tcache", "chaos", "supervise"):
                     if v[i] is not None:
                         a[k] = v[i]
                 else:
@@ -176,6 +195,11 @@ class Topology:
         from ..tiles.replay import normalize_replay
         replay = normalize_replay(self.replay) \
             if self.replay is not None else None
+        trace_cfg = normalize_trace(self.trace)
+        unknown = set(trace_cfg["tiles"] or ()) - set(self.tiles)
+        if unknown:
+            raise ValueError(
+                f"trace.tiles names unknown tile(s) {sorted(unknown)}")
         wksp_name = wksp_name or f"/fdtt_{self.name}"
         w = Workspace(wksp_name, self.wksp_size)
         plan: dict = {
@@ -184,7 +208,7 @@ class Topology:
             # per-boot seed shared by verify (tag computation) and dedup
             "seed": os.urandom(16).hex(),
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
-            "replay": replay,
+            "trace": trace_cfg, "replay": replay,
         }
 
         def zeroed(nbytes: int) -> int:
@@ -233,6 +257,17 @@ class Topology:
                     # explicit slot-name ABI: readers match by name
                     "metrics_names": names,
                 }
+                # flight-recorder ring, carved next to the metric slots;
+                # an untraced tile gets no region and no plan keys, so
+                # its TileCtx.trace stays None
+                eff = effective_trace(
+                    trace_cfg, tn,
+                    normalize_trace(t.args.get("trace"), per_tile=True))
+                if eff is not None:
+                    plan["tiles"][tn].update(
+                        trace_off=TraceRing.create(w, eff["depth"]).off,
+                        trace_depth=eff["depth"],
+                        trace_sample=eff["sample"])
         except Exception:
             w.close()
             w.unlink()
@@ -248,7 +283,9 @@ class Topology:
 class TileCtx:
     """A tile process's view of the plan: joined workspace, in/out rings,
     fseqs (own consumer fseqs + downstream reliable fseqs for each out
-    link), tcaches, cnc, metric and per-link telemetry views."""
+    link), tcaches, cnc, metric and per-link telemetry views, and the
+    flight recorder's writer (`trace`, None on an untraced tile: the
+    whole disabled path)."""
 
     def __init__(self, plan: dict, tile_name: str):
         self.plan, self.tile_name = plan, tile_name
@@ -297,6 +334,7 @@ class TileCtx:
             name: Tcache(self.wksp, depth=tc["depth"], off=tc["off"])
             for name, tc in plan["tcaches"].items()
         }
+        self.trace = writer_for(plan, self.wksp, tile_name)
 
         # per-link telemetry views: consumer blocks for the in links,
         # producer blocks for the out links, flushed by the stem

@@ -3,8 +3,9 @@ args and tile kinds that have no counterpart here yet, each with the
 ROADMAP.md queue-A item that ports it.
 
 `app.config.build_topology` refuses the sections, `Topology.tile` the
-kinds and the args; the adapters refuse their own args (the verify
-tile's degradation args, item 2; pack's `resolved_in`, item 5, and
+kinds, the args (and `device_fail_limit`, which no item ports: the
+port's verify tile does not degrade to the CPU) and the chaos actions;
+the adapters refuse their own args (pack's `resolved_in`, item 5, and
 `bundle_in`, item 13; the bank's exec="general", item 15, exec tile
 family and `genesis_ckpt`, item 5, and `rpc_port` and `ws_port`, item
 16; the replay tile's exec fan-out and snapshot args, item 5; the sign
@@ -19,21 +20,39 @@ from __future__ import annotations
 
 # topology sections of the reference (the JAX package's
 # disco/topo.py:85-126 and app/config.py's top-level tables)
-UNPORTED_SECTIONS = {"trace": 2, "prof": 6, "slo": 8, "shed": 3,
+UNPORTED_SECTIONS = {"prof": 6, "slo": 8, "shed": 3,
                      "funk": 5, "snapshot": 5, "flight": 10,
                      "tune": 11, "witness": 6}
 
 # per-tile args of the reference that the port has not ported: the
-# trace/prof/shed overrides its build reads (topo.py:366-459), the
-# stem's chaos harness (stem.py:96), core pinning (launch.py:52-57,
-# topo.py:219), the stem's lazy housekeeping cadence (stem.py:36-52) and
-# the shred tile's fault seam for the repair tile's tests
-# (tiles/shred.py:87)
+# prof/shed overrides its build reads (topo.py:366-459), core pinning
+# (launch.py:52-57, topo.py:219), the stem's lazy housekeeping cadence
+# (stem.py:36-52) and the shred tile's fault seam for the repair tile's
+# tests (tiles/shred.py:87)
 UNPORTED_TILE_ARGS = {
-    "trace": 2, "prof": 6, "shed": 3,
-    "chaos": "2 (fault plans) and item 3 (traffic plans)",
+    "prof": 6, "shed": 3,
     "drop_slot_every": 13,
     **dict.fromkeys(("cpu_idx", "cpu0", "lazy_ns", "lazy_auto"), 14),
+}
+
+# per-tile args of the reference that the port refuses by design (a
+# deliberate difference, ROADMAP.md C, not a queue-A item): the verify
+# tile's degradation to the host reference after consecutive device
+# failures (tiles/verify.py:849-960). The port never verifies on the CPU
+# on the card's behalf: a failure that outlasts the retries fails the
+# tile, and the supervisor restarts it.
+REFUSED_TILE_ARGS = {
+    "device_fail_limit": "the verify tile does not degrade to the CPU",
+}
+
+# chaos actions (utils/chaos.ACTIONS) whose tile kind or seam is not
+# ported: the QUIC and gossip doors' floods, and the snapshot drills of
+# snapld and of the replay's snapshot writer (the reference ignores an
+# action no tile takes; the port refuses it)
+UNPORTED_CHAOS_ACTIONS = {
+    "flood_malformed_quic": 3, "flood_crds_spam": 3,
+    **dict.fromkeys(("crash_mid_snapshot", "corrupt_checkpt_frame",
+                     "stale_snapshot_offer"), "5f"),
 }
 
 # every kind of the reference's tile registry without an adapter here
@@ -46,6 +65,12 @@ UNPORTED_KINDS = {
                      "playback", "bundle", "plugin", "vinyl", "ipecho",
                      "pcap"), 13),
 }
+
+
+def refuse_by_design(what: str, why: str):
+    """Raise for a part of the reference the port leaves out on purpose."""
+    raise NotImplementedError(
+        f"{what} is refused by design ({why}): ROADMAP.md C")
 
 
 def refuse(what: str, item):

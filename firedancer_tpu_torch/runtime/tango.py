@@ -2,7 +2,9 @@
 
 A copy of the JAX package's runtime/tango.py, trimmed to what the
 topology's main path uses: workspaces, frag rings with their per-join
-telemetry counters, fseqs, cncs and tcaches. The library
+telemetry counters, fseqs, cncs, tcaches and the flight recorder's
+TraceRing (pure numpy; without the reference's `snapshot_since`, which
+serves the flight archive, ROADMAP.md queue A item 10). The library
 is built from `firedancer_tpu_torch/native/` by `make` at first use.
 
 Layout convention: a Workspace is a named shm segment; objects (rings,
@@ -364,3 +366,120 @@ class Tcache:
         """tags (n,) uint64 -> (n,) uint8 was-duplicate flags; only rows
         with mask[i] != 0 are inserted."""
         return self._batch(lib.fdtpu_tcache_insert_batch, tags, mask)
+
+
+TRACE_REC_U64 = 4             # ts_ns | sig | arg | meta(etype/link/count)
+TRACE_REC_SZ = TRACE_REC_U64 * 8
+TRACE_HDR_U64 = 8             # [0] cursor, [1] depth, rest reserved
+TRACE_LINK_NONE = 0xFFFF
+
+
+class TraceRing:
+    """Per-tile flight-recorder event ring in the workspace — the same
+    design as the frag mcache (fixed depth, overwrite-oldest, cursor is
+    the total-records-written count) but for 32-byte trace records, and
+    pure Python/numpy: a single writer (the owning tile) appends, any
+    process attached to the workspace snapshots. The region survives
+    the tile's death — the supervisor reads a dead tile's last events
+    out of shm for the black-box dump (trace/export.py).
+
+    Record layout (4 little-endian u64 words):
+
+        [0] ts_ns   end timestamp (utils/tempo.monotonic_ns — the cnc
+                    heartbeat clock, so traces and watchdog decisions
+                    share one timeline)
+        [1] sig     frag lineage key (the frag's sig / dedup tag; 0 if
+                    the event is not frag-scoped)
+        [2] arg     span duration in ns (0 for instant events)
+        [3] meta    etype | link_id << 16 | count << 32
+                    (etype: trace/events.py; link_id indexes the
+                    plan's sorted link names, TRACE_LINK_NONE if none)
+    """
+
+    def __init__(self, wksp: Workspace, off: int, depth: int,
+                 init: bool = False):
+        if depth <= 0 or depth & (depth - 1):
+            raise ValueError(f"trace depth {depth} not a power of two")
+        self.wksp, self.off, self.depth = wksp, off, depth
+        self._v = wksp.view(off, self.footprint(depth)).view(np.uint64)
+        if init:
+            self._v[:] = 0
+            self._v[1] = depth
+
+    @staticmethod
+    def footprint(depth: int) -> int:
+        return (TRACE_HDR_U64 + depth * TRACE_REC_U64) * 8
+
+    @classmethod
+    def create(cls, wksp: Workspace, depth: int) -> "TraceRing":
+        off = wksp.alloc(cls.footprint(depth))
+        return cls(wksp, off, depth, init=True)
+
+    @property
+    def cursor(self) -> int:
+        return int(self._v[0])
+
+    def append(self, ts_ns: int, etype: int, sig: int = 0, arg: int = 0,
+               link: int = TRACE_LINK_NONE, count: int = 0):
+        """Lock-free single-writer append (overwrites the oldest record
+        once full; the cursor keeps counting so readers know how much
+        history was lost). Record words land before the cursor bump, so
+        a racing reader never sees a half-written CURRENT record — it
+        can still see a torn overwritten slot, the documented snapshot
+        caveat."""
+        v = self._v
+        cur = int(v[0])
+        base = TRACE_HDR_U64 + (cur & (self.depth - 1)) * TRACE_REC_U64
+        m64 = (1 << 64) - 1
+        v[base] = ts_ns & m64
+        v[base + 1] = int(sig) & m64
+        v[base + 2] = int(arg) & m64
+        v[base + 3] = (etype & 0xFFFF) | ((link & 0xFFFF) << 16) \
+            | ((int(count) & 0xFFFFFFFF) << 32)
+        v[0] = cur + 1
+
+    def append_batch(self, ts_ns: int, etype: int, sigs,
+                     arg: int = 0, link: int = TRACE_LINK_NONE,
+                     count: int = 0):
+        """Vectorized single-writer append of one record per sig: the
+        whole batch lands with ONE cursor bump (numpy scatter into the
+        ring view — no per-record Python). All records share the batch
+        timestamp/arg/link/meta; `sig` is the per-record lineage key.
+        When the batch exceeds the ring depth only the newest `depth`
+        records are materialized, but the cursor still counts every
+        one, so readers see the correct history-loss accounting."""
+        sigs = np.asarray(sigs, np.uint64)
+        n = len(sigs)
+        if not n:
+            return
+        v = self._v
+        cur = int(v[0])
+        keep = sigs[-self.depth:] if n > self.depth else sigs
+        m = len(keep)
+        slot = (cur + (n - m) + np.arange(m, dtype=np.int64)) \
+            & (self.depth - 1)
+        base = TRACE_HDR_U64 + slot * TRACE_REC_U64
+        m64 = (1 << 64) - 1
+        v[base] = ts_ns & m64
+        v[base + 1] = keep
+        v[base + 2] = int(arg) & m64
+        v[base + 3] = (etype & 0xFFFF) | ((link & 0xFFFF) << 16) \
+            | ((int(count) & 0xFFFFFFFF) << 32)
+        v[0] = cur + n
+
+    def snapshot(self) -> tuple[int, np.ndarray]:
+        """-> (cursor, records (n, 4) u64 oldest-first, n <= depth).
+        A copy — safe to decode while the writer keeps appending; a
+        record being overwritten concurrently may read torn (one
+        record out of `depth`, oldest-first, and only on a LIVE tile —
+        post-mortem reads are exact)."""
+        raw = np.array(self._v, copy=True)
+        cur = int(raw[0])
+        recs = raw[TRACE_HDR_U64:TRACE_HDR_U64
+                   + self.depth * TRACE_REC_U64].reshape(
+                       self.depth, TRACE_REC_U64)
+        n = min(cur, self.depth)
+        if not n:
+            return cur, recs[:0]
+        idx = [(cur - n + i) & (self.depth - 1) for i in range(n)]
+        return cur, recs[idx]

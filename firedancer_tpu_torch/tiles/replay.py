@@ -2,7 +2,8 @@
 -> tower notifications (copy of the JAX package's tiles/replay.py:
 `normalize_replay`, and `ReplayCore`'s in-process path: `on_slice`,
 `_release`, `_gauge_pending`, `_replay_slot`, `_verify_entries`,
-`_execute` and the `expected` divergence verdict).
+`_execute`, the `expected` divergence verdict and the `diverge_block`
+chaos seam).
 
 The reference's replay tile (ref: src/discof/replay/fd_replay_tile.c:77-95)
 consumes ordered slices from reasm, schedules their transactions
@@ -37,8 +38,8 @@ when a repaired parent completes). The exec fan-out over the
 exec tile family (`fanout`, the [replay] section's `exec_tile_cnt` > 0
 and `redispatch_s`: ROADMAP.md queue A item 5, 5d), the snapshot
 restore gate and writer (`wait_restore`, `snapshot_*`: item 5, 5f)
-and the chaos seams (`diverge_block`, `crash_mid_snapshot`: item 2)
-are not here; the adapter and `normalize_replay` refuse them. A v0
+and with it the `crash_mid_snapshot` chaos seam are not here; the
+adapter, `normalize_replay` and `Topology.tile` refuse them. A v0
 transaction with address lookup tables is refused (item 15) where the
 reference resolves its tables. `on_span(kind, ns)`, when given, gets
 a host-clock span for each PoH check ("poh": one a release) and each
@@ -139,11 +140,19 @@ class ReplayCore:
         # seed the accounts lattice from the boot state (the reference
         # initializes accounts_lt_hash from the snapshot)
         self.hasher = BankHasher(lthash_of_root(self.funk, device), device)
+        # the diverge_block chaos seam (armed by the adapter's on_chaos)
+        self._diverge_seed: int | None = None
         self.metrics = {"slices": 0, "slots_replayed": 0, "entries": 0,
                         "txns": 0, "exec_ok": 0, "exec_fail": 0,
                         "poh_fail": 0, "buffered": 0, "waves": 0,
                         "parse_fail": 0, "divergent_slot": 0,
                         "behind": 0}
+
+    def diverge(self, seed: int):
+        """Fold a rogue account into the next replayed slot's delta, so
+        its bank hash is wrong: the divergence verdict must name that
+        slot, never a silent wrong state."""
+        self._diverge_seed = seed
 
     def _span(self, kind: str, t0: int):
         if self.on_span is not None:
@@ -243,6 +252,10 @@ class ReplayCore:
             hashlib.sha256(b"fdtpu-parent" + (slot - 1).to_bytes(
                 8, "little", signed=True)).digest()
         self.bank_hash_of.setdefault(slot - 1, parent_bank)
+        if self._diverge_seed is not None:
+            self.hasher.apply_delta([], [(b"\xfd" * 32, Account(
+                lamports=1 + self._diverge_seed % (1 << 32)))])
+            self._diverge_seed = None
         bank_hash = self.hasher.bank_hash(parent_bank, self._slot_sigs,
                                           tip)
         self.bank_hash_of[slot] = bank_hash

@@ -43,9 +43,27 @@ which stay the only accept authority (the RLC equation is cofactored).
 The boot warmup of the RLC path raises on failure: there is no silent
 switch to strict mode.
 
-Out of scope in this slice, and refused with NotImplementedError naming
-the ROADMAP.md item: devices > 1, chaos and trace. There is no CPU
-fallback: a device error propagates.
+Device faults (the reference's tiles/verify.py:417-610, 849-960): a
+dispatch is retried `device_retries` times (a chaos plan's
+`fail_dispatch` fails attempts on purpose, utils/chaos.py), and with
+`device_timeout_s` set the verdict wait spins on `Event.query()` up to
+that deadline, heartbeating every 256 spins, instead of blocking in
+`synchronize()`. A dispatch that fails every retry, a lost readback or a
+wait past its deadline raises out of `poll_once`: the stem marks the
+tile FAIL and the supervisor's policy applies (a restart boots a new
+process, whose warmup builds and launches the kernels again). The port
+has no CPU path on the card's behalf: the reference's degradation to
+utils/ed25519_ref (`device_fail_limit`, `_degrade`, :849-960) is
+refused (disco/unported.py), and so the `cpu_fallback` gauge stays 0.
+The boot warmup raises too: a kernel that does not build, load or
+launch makes the constructor fail.
+
+With a trace writer (`trace`) the tile records its ingest (EV_CONSUME)
+and publish (EV_PUBLISH) lineage, each dispatch (EV_TPU_DISPATCH: the
+launch) and readback (EV_TPU_READBACK: the event wait), and credit
+stalls (EV_BACKPRESSURE).
+
+Out of scope in this slice: devices > 1 (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -63,6 +81,9 @@ from ..ops import cuda_ed, cuda_msm
 from ..protocol.txn import MTU
 from ..runtime import CNC_RUN, Ring, Tcache
 from ..runtime.tango import lib as _lib
+from ..trace import chaos_event
+from ..trace import events as trace_ev
+from ..utils.chaos import ChaosDeviceError, ChaosPlan
 from ..utils.tempo import monotonic_ns
 
 _u8p = ct.POINTER(ct.c_uint8)
@@ -140,6 +161,7 @@ class _Shed:
     """A chunk the prefilter shed: every lane failed, nothing in flight."""
 
     __slots__ = ("ok",)
+    event = None
 
     def __init__(self, batch: int):
         self.ok = np.zeros(batch, bool)
@@ -156,7 +178,10 @@ class VerifyTile:
                  batch: int = 256, max_len: int = MTU, out_fseqs=None,
                  dedup_seed: bytes | None = None,
                  rr_cnt: int = 1, rr_idx: int = 0, devices: int = 1,
-                 chaos: dict | None = None, trace=None,
+                 device_retries: int = 2,
+                 device_timeout_s: float | None = None,
+                 chaos: dict | None = None,
+                 trace=None, trace_link: int = 0, trace_link_in: int = 0,
                  coalesce_us: float = 0.0, mode: str = "strict",
                  prefilter_shed: bool = True, device="cuda"):
         if mode not in ("strict", "bulk_prefilter"):
@@ -165,9 +190,6 @@ class VerifyTile:
         if int(devices) > 1:
             raise NotImplementedError(f"devices > 1 is {_ROADMAP} item 7 "
                                       f"(multi-GPU)")
-        if chaos or trace is not None:
-            raise NotImplementedError(
-                f"chaos and trace are {_ROADMAP} item 2")
         self.dev = _device.resolve(device)
         self.mode = mode
         # False: the prefilter counts but never sheds (every chunk goes
@@ -219,6 +241,15 @@ class VerifyTile:
         self._hold_sizes = np.zeros(batch, np.uint32)
         self._hold_n = 0
         self._hold_deadline = 0
+        # device faults: bounded retry and an optional verdict deadline;
+        # past them the failure raises
+        self.device_retries = max(0, int(device_retries))
+        self.device_timeout_s = device_timeout_s
+        self._chaos = ChaosPlan(chaos) if chaos else None
+        # flight recorder (None: untraced, one attribute check a hook)
+        self._trace = trace
+        self._trace_link = trace_link
+        self._trace_link_in = trace_link_in
         # device-attributed time: dispatch + readback, per batch
         self.tpu_hist = HistAccum()
         self.inflight = max(1, int(os.environ.get(
@@ -270,11 +301,46 @@ class VerifyTile:
             event.record()
         return _Verdicts(bs, event)
 
-    def _dispatch(self, bs: _StageBuf, uploaded: bool) -> _Verdicts:
-        t0 = monotonic_ns()
-        fut = self._device_verify(bs, uploaded)
-        self.tpu_hist.add(monotonic_ns() - t0)
-        return fut
+    def _dispatch(self, bs: _StageBuf, lanes: int, uploaded: bool):
+        """Guarded device dispatch: chaos injection and bounded retry.
+        -> a _Verdicts in flight; raises when every attempt failed."""
+        for _ in range(self.device_retries + 1):
+            try:
+                if self._chaos is not None and \
+                        self._chaos.take_dispatch_failure():
+                    chaos_event(self._trace, "fail_dispatch")
+                    raise ChaosDeviceError("injected dispatch failure")
+                t0 = monotonic_ns()
+                fut = self._device_verify(bs, uploaded)
+                self.tpu_hist.add(monotonic_ns() - t0)
+                if self._trace is not None:
+                    self._trace.span(trace_ev.EV_TPU_DISPATCH, t0,
+                                     count=lanes)
+                return fut
+            except Exception as e:
+                self.metrics["device_errors"] += 1
+                err = e
+        raise RuntimeError(f"verify: dispatch failed "
+                           f"{self.device_retries + 1} times") from err
+
+    def _read_verdicts(self, fut) -> np.ndarray:
+        """A chunk's verdicts, waited for up to device_timeout_s when set
+        (spinning on Event.query, never synchronize)."""
+        if not self.device_timeout_s or fut.event is None:
+            return fut.result()
+        deadline = time.perf_counter() + self.device_timeout_s
+        spins = 0
+        while not fut.event.query():
+            if time.perf_counter() >= deadline:
+                # the wedged-device signature
+                self.metrics["device_errors"] += 1
+                raise TimeoutError(f"verdicts not ready after "
+                                   f"{self.device_timeout_s} s")
+            spins += 1
+            if spins % 256 == 0 and self._cnc is not None:
+                self._cnc.heartbeat()
+            time.sleep(0.0005)
+        return fut.result()
 
     def _draw_z(self, n: int) -> np.ndarray:
         """Secret per-chunk RLC coefficients (n, 16) uint8."""
@@ -338,6 +404,7 @@ class VerifyTile:
                 self._drain(block=True)
             return 0
         consumed = n
+        mine = None
         if self.rr_cnt > 1:
             mine = (seqs[:n] % self.rr_cnt) == self.rr_idx
             buf, sizes = buf[:n][mine], sizes[:n][mine]
@@ -347,6 +414,12 @@ class VerifyTile:
         else:
             buf, sizes = buf[:n], sizes[:n]
         self.metrics["rx"] += n
+        if self._trace is not None:
+            # ingest lineage: the upstream producer's sigs
+            self._trace.frag_batch(
+                trace_ev.EV_CONSUME,
+                sigs[:consumed] if mine is None else sigs[:consumed][mine],
+                link=self._trace_link_in)
         if not self._coalesce_ns or (not self._hold_n and n >= self.batch):
             # no window, or a full gather with nothing held: dispatch the
             # gather buffer as it is
@@ -428,7 +501,7 @@ class VerifyTile:
             k = self._disp % len(self._bufsets)
             if self._bufset_fut[k] is not None:
                 # this staging set still feeds an in-flight batch
-                self._bufset_fut[k].result()
+                self._read_verdicts(self._bufset_fut[k])
                 self._bufset_fut[k] = None
             bs = self._bufsets[k]
             lanes = _lib.fdtpu_verify_assemble(
@@ -456,7 +529,7 @@ class VerifyTile:
                     self.metrics["rlc_shed"] += lanes
                     chunks.append((_Shed(self.batch), bs.txn[:lanes].copy()))
                     continue
-            fut = self._dispatch(bs, uploaded)
+            fut = self._dispatch(bs, lanes, uploaded)
             self._bufset_fut[k] = fut
             self._disp += 1
             self.metrics["batches"] += 1
@@ -503,15 +576,24 @@ class VerifyTile:
         txn_ok = cand.copy()
         covered = np.zeros(n, bool)
         rb_t0 = monotonic_ns()
-        for fut, live in rec["chunks"]:
-            lane_ok = fut.result()
-            covered[live] = True
-            # a txn passes only if ALL its signature lanes verified
-            failed = live[~lane_ok[:len(live)]]
-            txn_ok[failed] = False
+        try:
+            for fut, live in rec["chunks"]:
+                lane_ok = self._read_verdicts(fut)
+                covered[live] = True
+                # a txn passes only if ALL its signature lanes verified
+                failed = live[~lane_ok[:len(live)]]
+                txn_ok[failed] = False
+        except Exception:
+            # lost verdicts: the tile fails
+            self.metrics["device_errors"] += 1
+            raise
+        finally:
+            if rec["chunks"]:
+                self.tpu_hist.add(monotonic_ns() - rb_t0)
+                if self._trace is not None:
+                    self._trace.span(trace_ev.EV_TPU_READBACK, rb_t0,
+                                     count=len(rec["chunks"]))
         txn_ok &= covered
-        if rec["chunks"]:
-            self.tpu_hist.add(monotonic_ns() - rb_t0)
         self.metrics["verify_fail"] += int((cand & ~txn_ok).sum())
 
         # tcache insert only for txns whose signatures VERIFIED; a racing
@@ -526,10 +608,19 @@ class VerifyTile:
         mask = txn_ok.astype(np.uint8)
         start, fwd = 0, 0
         while True:
-            start, pub = self.out_ring.publish_batch(
+            # lineage stamps are taken before the frags become visible
+            pub_ts = monotonic_ns() if self._trace is not None else 0
+            stop, pub = self.out_ring.publish_batch(
                 rec["buf"], rec["sizes"], rec["tags"], mask,
                 fseqs=self.out_fseqs, start=start)
             fwd += pub
+            if self._trace is not None and pub:
+                # lineage: the dedup tags the downstream consumes carry
+                self._trace.frag_batch(
+                    trace_ev.EV_PUBLISH,
+                    rec["tags"][start:stop][mask[start:stop] != 0],
+                    link=self._trace_link, ts_ns=pub_ts)
+            start = stop
             if start >= n:
                 break
             if not self._wait_credits():
@@ -567,6 +658,7 @@ class VerifyTile:
         if not self.out_fseqs or self.out_ring.credits(self.out_fseqs) > 0:
             return True
         self.metrics["backpressure"] += 1
+        bp_t0 = monotonic_ns()
         spins = 0
         while self.out_ring.credits(self.out_fseqs) <= 0:
             spins += 1
@@ -576,6 +668,10 @@ class VerifyTile:
                     if self._cnc.state != CNC_RUN:
                         return False
                 time.sleep(50e-6)
+        if self._trace is not None:
+            # the whole credit stall as one span on the out link
+            self._trace.span(trace_ev.EV_BACKPRESSURE, bp_t0,
+                             link=self._trace_link)
         return True
 
     def flush(self):

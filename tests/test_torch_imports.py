@@ -45,7 +45,9 @@ def test_importing_every_module_loads_no_jax():
         "'tiles.shred', 'keyguard.tile', 'tools.leader_drain', "
         "'svm.accdb', 'svm.sysvars', 'svm.programs', "
         "'flamenco.bank_hash', 'shred.store', 'shred.fec_resolver', "
-        "'tiles.tower', 'tiles.replay'}\n"
+        "'tiles.tower', 'tiles.replay', 'trace', 'trace.events', "
+        "'trace.recorder', 'trace.export', 'trace.cli', "
+        "'trace.__main__', 'utils.chaos'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -138,6 +140,23 @@ def test_spawned_verify_tile_process_loads_no_jax():
               device="cpu"), "verify")
 
 
+def test_spawned_traced_verify_tile_with_a_fault_plan_loads_no_jax():
+    """The flight recorder's writer, the stem's chaos harness and the
+    verify tile's fault path in a tile process."""
+    from firedancer_tpu_torch.disco import Topology
+    _spawn_and_probe(
+        Topology(f"ttimpt{os.getpid()}", wksp_size=1 << 22,
+                 trace={"enable": True, "depth": 64})
+        .link("in", depth=16, external=True)
+        .link("out", depth=16, external=True)
+        .tcache("tc", depth=64)
+        .tile("verify", "verify", ins=["in"], outs=["out"], batch=16,
+              device="cpu", device_timeout_s=5.0, chaos={"events": [
+                  {"action": "fail_dispatch", "count": 1},
+                  {"action": "freeze_hb", "at_iter": 1 << 40}]}),
+        "verify")
+
+
 def test_spawned_bank_tile_process_loads_no_jax():
     """The bank tile with exec="svm" (the wave executor, its kernel's
     wrapper, funk, the conflict DAG, pack's cost model) on the CPU."""
@@ -150,6 +169,16 @@ def test_spawned_bank_tile_process_loads_no_jax():
         .tile("bank0", "bank", ins=["mb"], outs=["done", "poh"],
               exec="svm", poh_link="poh", forward_payloads=True,
               genesis_synth=16, device="cpu"), "bank0")
+
+
+@pytest.mark.parametrize("mod", [
+    "firedancer_tpu_torch.trace", "firedancer_tpu_torch.trace.cli",
+    "firedancer_tpu_torch.utils.chaos", "firedancer_tpu_torch.disco.stem",
+    "firedancer_tpu_torch.disco.supervise"])
+def test_trace_and_chaos_module_loads_no_jax(mod):
+    """Each module of the flight recorder and the chaos harness, imported
+    alone in a fresh interpreter."""
+    test_leader_leg_module_loads_no_jax(mod)
 
 
 @pytest.mark.parametrize("mod", [

@@ -147,8 +147,8 @@ def test_every_reference_kind_is_ported_or_refused():
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("trace", 2), ("prof", 6), ("shed", 3), ("chaos", 2), ("cpu_idx", 14),
-    ("cpu0", 14), ("lazy_ns", 14), ("lazy_auto", 14)])
+    ("prof", 6), ("shed", 3), ("cpu_idx", 14), ("cpu0", 14),
+    ("lazy_ns", 14), ("lazy_auto", 14)])
 def test_unported_tile_arg_is_refused_with_its_item(arg, item):
     """Refused in Topology.tile, whether the arg comes from code, from
     the config gate (which accepts every one of them, as the reference's

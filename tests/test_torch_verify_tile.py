@@ -211,9 +211,7 @@ def test_unported_floods_raise(action):
         chaos.attack_frames(action, 4)
 
 
-@pytest.mark.parametrize("kw", [{"devices": 2},
-                                {"chaos": {"fail_dispatch": 1}},
-                                {"trace": object()}])
+@pytest.mark.parametrize("kw", [{"devices": 2}])
 def test_out_of_scope_options_raise(kw):
     w = trt.Workspace(f"/fdtt_oos_{os.getpid()}", 1 << 20)
     try:
