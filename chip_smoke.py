@@ -107,6 +107,27 @@ and read just after:
             every unique txn passes dedup, and every tile halts cleanly.
             Every verify tile outside 18a's drills must end with
             cpu_fallback 0 and device_errors 0.
+  front     phase 19: the front door. 19a holds gossip/gossvf.py's
+            packets of 1, 2, 7, 18, 32 and 33 CRDS values (valid, forged,
+            torsion-malleated, unsigned) on the card to the plain
+            versions in both modes, and times a packet a mode
+            (tools/gossvf_bench.py); 19b runs three gossip tiles with
+            device_verify and gossvf_bulk over UDP on localhost until
+            they converge, then 512 flood_crds_spam datagrams and 16
+            forged ones into one (its peer table at most 64, a staked
+            origin's later value lands); 19c boots
+            firedancer_tpu_torch/cfg/flood.toml (sock -> verify
+            bulk_prefilter -> dedup -> sink) twice: first with a staked
+            sender that keeps the ring ahead of verify full of distinct
+            valid txns (its bucket raised), whose goodput is the door's
+            clean capacity; then as written, with a staked paced sender
+            at 80 frames/s and, from 6 s, 24 unstaked Sybil sockets
+            sending forged frames at 4x that capacity for 4 s: the door
+            sheds unstaked frames, the prefilter runs, every staked txn
+            is at the sink or covered by a counted drop (the door's, or
+            a chunk the prefilter shed), no forged frame past verify,
+            peers <= 64. A pool of worker processes signs 19c's txns and
+            runs 19a's plain versions while the card runs 19a and 19b.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -117,8 +138,9 @@ Any mismatch raises. The last line of output is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 and the line before it a JSON object with each of the nine kernels'
-launches on the paths, error against its plain version, time, plain time
-and bound (poh_verify and lthash also at the replay's own shapes).
+launches on the paths (phase 19's in process among them), error against
+its plain version, time, plain time and bound (poh_verify and lthash
+also at the replay's own shapes).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -209,6 +231,32 @@ BLAKE3_B = 4096          # phase 15: lanes of lengths 0-2048, and of 81 bytes
 RS_SETS = 64             # phase 16: 32:32 sets over the shredder's RS region
 SMALL_B = TILE_BATCH     # the second timed size: the tile's chunk
 RAGGED_B = 5000          # stage 2 at 79 blocks, the last chunk ragged
+GOSSVF_ITERS = 20        # phase 19a: packets timed a mode and size
+GOSSIP_SPAM = 512        # phase 19b: flood_crds_spam datagrams
+GOSSIP_FORGED = 16       # phase 19b: spam datagrams with a forged value
+# phase 19c, bench.py's flood stage defaults (bench.py:1150-1155):
+# FDTPU_BENCH_FLOOD_PROBE_PPS, _MULT and _SYBILS, and its clean window;
+# the attack runs 4 s, not bench.py's 8 (FDTPU_BENCH_FLOOD_S), to keep
+# the whole script within a minute of phases 1-18's time
+FLOOD_PROBE_PPS = 80.0
+FLOOD_MULT = 4.0
+FLOOD_SYBILS = 24
+FLOOD_ATTACK_S = 4.0
+FLOOD_CLEAN_S = 6.0
+# 19c's capacity boot: the saturating sender's fill and window, its pool
+# of distinct valid txns (the window's frames at the card's capacity
+# with room to spare), and the least share of the window's lanes that
+# must come in full gathers for the run to count as saturated
+FLOOD_CAP_FILL_S = 0.5
+FLOOD_CAP_S = 1.5
+FLOOD_CAP_MIN_S = 0.5
+FLOOD_CAP_POOL = 16000
+FLOOD_CAP_FULL = 0.9
+# 19c's attack boot: the swarm's worker processes (one interpreter caps a
+# Python sender near the rate needed), and how far above FLOOD_MULT x the
+# capacity it is paced so that what it sends is at least that
+FLOOD_SWARM_PROCS = 4
+FLOOD_PACE_OVER = 0.05
 
 
 def log(*a):
@@ -1581,6 +1629,443 @@ def run_fault_drills(root, card, frames7, out7, m7, rec10a) -> dict:
             "chaos": rec18c, "card": nvidia_smi()}
 
 
+def run_gossip_trio(card) -> dict:
+    """Phase 19b: three gossip tiles on the card over UDP on localhost, in
+    process (each polled, then its housekeeping run, as its stem would),
+    with device_verify and gossvf_bulk: g0 bootstraps to g1 and g2 and
+    polices its door with cfg/flood.toml's [shed] policy, the two others
+    staked by origin and by socket. They converge (every node holds the
+    three contact infos and votes); then GOSSIP_SPAM flood_crds_spam
+    datagrams from as many fake TEST-NET-2 addresses (pushes: never
+    answered) and GOSSIP_FORGED with a forged value go into g0's inject;
+    g0's peer table stays at most max_peers after every one, and a value
+    g1 publishes after the flood still lands on g0. -> record."""
+    from firedancer_tpu_torch.flamenco import gossip_wire as gw
+    from firedancer_tpu_torch.gossip.crds import KIND_NODE_INSTANCE, KIND_VOTE
+    from firedancer_tpu_torch.tiles.gossip import GossipTile
+    from firedancer_tpu_torch.tiles.synth import make_signed_txns
+    from firedancer_tpu_torch.utils.chaos import attack_frames
+    from firedancer_tpu_torch.utils.ed25519_ref import keypair
+    seeds = [hashlib.sha256(b"smoke-gossip-%d" % i).digest()
+             for i in range(3)]
+    pubs = [keypair(sd)[2] for sd in seeds]
+    vote_txn = make_signed_txns(1, seed=19)[0]
+    t0 = time.perf_counter()
+    kw = dict(device_verify=True, gossvf_bulk=True, device=DEVICE)
+    g1, g2 = (GossipTile(sd, **kw) for sd in seeds[1:])
+    shed = {"rate_pps": 300.0, "burst": 8, "max_peers": 64, "min_stake": 1,
+            "overload_hold_s": 2.0, "stakes": {
+                **{p.hex(): 1000 for p in pubs[1:]},
+                **{f"127.0.0.1:{g.addr[1]}": 1000 for g in (g1, g2)}}}
+    g0 = GossipTile(seeds[0], entrypoints=[g1.addr, g2.addr], shed=shed,
+                    **kw)
+    tiles = [g0, g1, g2]
+    boot_s = time.perf_counter() - t0
+
+    def drive(done, what, limit_s=120.0) -> tuple[int, float]:
+        t = time.perf_counter()
+        for r in range(100000):
+            for g in tiles:
+                g.poll_once()
+            for g in tiles:
+                g.housekeeping()
+            if done():
+                return r + 1, time.perf_counter() - t
+            assert time.perf_counter() - t < limit_s, \
+                f"19b: {what} not done: {[g.metrics for g in tiles]}"
+            time.sleep(0.002)
+    try:
+        for i, g in enumerate(tiles):
+            g.publish(KIND_VOTE, 0, gw.encode_vote(0, pubs[i], vote_txn,
+                                                  1000 + i))
+        rounds, conv_s = drive(lambda: all(
+            g.metrics["values"] >= 6 and g.metrics["contacts"] == 3
+            for g in tiles), "convergence")
+        for g in tiles:
+            votes = {v.origin for v in g.node.crds.values.values()
+                     if v.kind == KIND_VOTE}
+            assert votes == set(pubs), "19b: a node lacks a vote"
+            assert g.metrics["bad_msg"] == 0 and g.metrics["gossvf_bad"] == 0
+        spam = attack_frames("flood_crds_spam", GOSSIP_SPAM, seed=17)
+        forged = []
+        for f in spam[:GOSSIP_FORGED]:
+            f = bytearray(f)
+            f[44 + 40] ^= 0x10        # S of the first value's signature
+            forged.append(bytes(f))
+        peers_max = 0
+        t = time.perf_counter()
+        for k, f in enumerate(spam + forged):
+            g0.inject(f, (f"198.51.100.{k % 254 + 1}", 1024 + k % 60000))
+            peers_max = max(peers_max, len(g0.shed.peers))
+        inject_s = time.perf_counter() - t
+        assert peers_max <= 64, f"19b: peers reached {peers_max}"
+        g0.poll_once()                # its gauges, before the late value
+        m0 = dict(g0.metrics)
+        late = gw.encode_node_instance(pubs[1], 99_000, 1, 2)
+        g1.publish(KIND_NODE_INSTANCE, 0, late)
+        drive(lambda: (g0.node.crds.get(pubs[1], KIND_NODE_INSTANCE)
+                       is not None), "the staked value after the flood")
+        assert g0.node.crds.get(pubs[1], KIND_NODE_INSTANCE).data == late
+        g0.poll_once()
+        m = dict(g0.metrics)
+        assert m["peers"] <= 64 and m["gossvf_bad"] >= GOSSIP_FORGED
+        rec = {"boot_s": boot_s, "converge_rounds": rounds,
+               "converge_s": conv_s, "spam": len(spam),
+               "spam_forged": len(forged), "inject_s": inject_s,
+               "peers_max": peers_max, "gossvf_bad": m["gossvf_bad"],
+               "shed": m["shed"], "shed_unstaked": m["shed_unstaked"],
+               "bad_msg": m["bad_msg"], "values": m["values"],
+               "after_flood": {k: m0[k] for k in ("rx", "values", "peers")}}
+        log(f"19b: converged in {rounds} rounds ({conv_s:.2f} s, boot "
+            f"{boot_s:.2f} s with the bulk warmups); {len(spam)} spam + "
+            f"{len(forged)} forged datagrams into g0 in {inject_s:.2f} s, "
+            f"peers at most {peers_max}; g0 gossvf_bad {m['gossvf_bad']}, "
+            f"shed {m['shed']}, shed_unstaked {m['shed_unstaked']}, "
+            f"values {m['values']} {card}")
+        return rec
+    finally:
+        for g in tiles:
+            g.close()
+
+
+def _flood_boot(root, tag, shed):
+    """cfg/flood.toml with `shed` over its [shed] section and the verify
+    tile on DEVICE, booted as four tile processes -> (runner, boot s,
+    sock port)."""
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "flood.toml"),
+        overrides={"shed": shed,
+                   "tile": [{"name": "verify", "device": DEVICE}]})
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke19{tag}{os.getpid()}").build())
+    t0 = time.perf_counter()
+    try:
+        runner.start()
+        runner.wait_running(timeout_s=300)
+    except BaseException:
+        runner.halt()
+        runner.close()
+        raise
+    return runner, time.perf_counter() - t0, \
+        int(runner.metrics("sock")["port"])
+
+
+def _flood_halt(runner, tag) -> dict:
+    """Halt, require every tile's exit code 0 -> the last metrics."""
+    runner.halt()
+    for tn, p in runner.procs.items():
+        assert p.exitcode == 0, f"19c {tag}: tile {tn} exit code {p.exitcode}"
+    return {tn: runner.metrics(tn) for tn in ("sock", "verify", "dedup",
+                                              "sink")}
+
+
+def run_flood_capacity(root, card, pool) -> dict:
+    """Phase 19c, boot 1: the door's clean capacity (bench.py
+    _flood_bench's boot 1). cfg/flood.toml with one staked peer whose
+    token bucket does not bind (rate and burst raised; the watermark,
+    overload and drop-newest stay armed) and a WindowSender that keeps
+    the ring ahead of verify full of distinct valid txns from `pool`.
+    The sink's rate over FLOOD_CAP_S after FLOOD_CAP_FILL_S (or until
+    the pool runs dry) is the capacity. Held: the window lasted at least
+    FLOOD_CAP_MIN_S, the verify tile saw a
+    saturated ingest (at least FLOOD_CAP_FULL of the window's lanes
+    went through the RLC prefilter, which runs on full gathers), every
+    frame that reached the sink is valid and distinct (no drop but the
+    door's), cpu_fallback and device_errors 0, every tile exits 0."""
+    import socket
+    from firedancer_tpu_torch.tools.paced_sender import WindowSender
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    key = f"127.0.0.1:{probe.getsockname()[1]}"
+    runner, boot_s, port = _flood_boot(
+        root, "cap", {"stakes": {key: 1000}, "rate_pps": 1e9, "burst": 1e9})
+    sender = None
+    try:
+        depth = runner.plan["links"]["sock_verify"]["depth"]
+
+        def sink_rx():
+            runner.check_failures()
+            return runner.metrics("sink")["rx"]
+        sender = WindowSender(pool, port, sink_rx, depth - 64,
+                              sock=probe).start()
+        time.sleep(FLOOD_CAP_FILL_S)
+        v0, rx0, c0 = runner.metrics("verify"), sink_rx(), \
+            time.perf_counter()
+        # the window ends FLOOD_CAP_S on, or when the pool runs dry (the
+        # ring's backlog still holds verify saturated then)
+        while time.perf_counter() - c0 < FLOOD_CAP_S and not sender.dry:
+            time.sleep(0.01)
+        v1, rx1, c1 = runner.metrics("verify"), sink_rx(), \
+            time.perf_counter()
+        sent = sender.stop()
+        sender = None
+        deadline = time.time() + 120
+        while runner.metrics("verify")["rx"] < runner.metrics("sock")["rx"] \
+                or sink_rx() < runner.metrics("dedup")["tx"]:
+            assert time.time() < deadline, \
+                f"19c capacity: not drained: " \
+                f"{ {tn: runner.metrics(tn) for tn in runner.procs} }"
+            time.sleep(0.2)
+        m = _flood_halt(runner, "capacity")
+    finally:
+        if sender is not None:
+            sender.stop()
+        runner.halt()
+        runner.close()
+    assert c1 - c0 >= FLOOD_CAP_MIN_S, \
+        f"19c capacity: the pool of {len(pool)} ran dry {c1 - c0:.3f} s " \
+        f"into the window ({(rx1 - rx0) / (c1 - c0):.1f} frames/s)"
+    cap = (rx1 - rx0) / (c1 - c0)
+    lanes = v1["rx"] - v0["rx"]
+    full = (v1["rlc_lanes"] - v0["rlc_lanes"]) / max(1, lanes)
+    sock, v = m["sock"], m["verify"]
+    assert full >= FLOOD_CAP_FULL, \
+        f"19c capacity: only {full:.3f} of the window's lanes came in " \
+        f"full gathers; the probe did not saturate verify"
+    assert m["sink"]["rx"] + sock["shed"] + sock["shed_overflow"] == sent \
+        and v["verify_fail"] == v["dedup_drop"] == 0, \
+        f"19c capacity: {sent} sent, sink {m['sink']['rx']}; sock {sock}, " \
+        f"verify {v}"
+    no_fallback("19c capacity verify", v)
+    rec = {"capacity_fps": cap, "boot_s": boot_s, "sent": sent,
+           "window_lanes": lanes, "window_full_share": full,
+           "verify": {k: v[k] for k in ("rx", "tx", "batches",
+                                        "rlc_batches", "rlc_pass",
+                                        "rlc_lanes")},
+           "sock": {k: sock[k] for k in ("rx", "shed", "shed_overflow",
+                                         "backpressure")}}
+    log(f"19c capacity: {cap:.2f} staked frames/s at the sink over "
+        f"{c1 - c0:.3f} s with the ring ahead of verify kept full "
+        f"({full:.4f} of the window's {lanes} lanes through the prefilter's "
+        f"full gathers; {sent} sent, {sock['shed']} shed at the door, "
+        f"{v['batches']} strict batches, {v['rlc_batches']} RLC, boot "
+        f"{boot_s:.2f} s) {card}")
+    return rec
+
+
+def run_flood_door(root, card, txns, capacity) -> dict:
+    """Phase 19c, boot 2: cfg/flood.toml under attack (sock -> verify
+    bulk_prefilter on the card -> dedup -> sink, four tile processes).
+    A staked PacedSender at FLOOD_PROBE_PPS from its [shed.stakes] key;
+    from FLOOD_CLEAN_S on, FLOOD_SYBILS unstaked sockets send
+    attack_frames("flood_forged", 64) for FLOOD_ATTACK_S, spread over
+    FLOOD_SWARM_PROCS worker processes and paced FLOOD_PACE_OVER above
+    FLOOD_MULT x `capacity` (boot 1's). Then it drains and halts. Held:
+    the swarm sent at least FLOOD_MULT x `capacity`; the door
+    shed the flood (shed_unstaked > 0) and the sock-fed verify tile ran
+    the RLC prefilter (rlc_batches > 0); every staked txn sent is at the
+    sink or covered by a counted drop a staked txn can take: the door's
+    (rate sheds and drop-newest: shed - shed_unstaked, shed_overflow)
+    or the prefilter's (rlc_shed: a full chunk whose halves both fail
+    is shed whole, a staked lane in it too); every frame that passed
+    verify (a tap on verify_dedup) is a staked txn; peers <= 64;
+    cpu_fallback and device_errors 0; every tile exits 0. `txns`: the
+    staked sender's pool of distinct txns. -> record."""
+    import multiprocessing as mp
+    import socket
+    from concurrent.futures import ProcessPoolExecutor
+    from firedancer_tpu_torch.tools.leader_drain import LinkTap
+    from firedancer_tpu_torch.tools.paced_sender import PacedSender, swarm
+    from firedancer_tpu_torch.utils.chaos import attack_frames
+    staked = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    staked.bind(("127.0.0.1", 0))
+    key = f"127.0.0.1:{staked.getsockname()[1]}"
+    pool = len(txns)
+    forged = attack_frames("flood_forged", 64, seed=29)
+    procs = FLOOD_SWARM_PROCS
+    swarm_pool = ProcessPoolExecutor(procs,
+                                     mp_context=mp.get_context("spawn"))
+    # every worker up before the clock starts: each holds one of these
+    for f in [swarm_pool.submit(time.sleep, 0.5) for _ in range(procs)]:
+        f.result()
+    try:
+        runner, boot_s, port = _flood_boot(root, "c",
+                                           {"stakes": {key: 1000}})
+    except BaseException:
+        swarm_pool.shutdown()
+        raise
+    senders, tap = [], None
+    try:
+        tap = LinkTap(runner, "verify_dedup")
+
+        def sink_rx():
+            runner.check_failures()
+            return runner.metrics("sink")["rx"]
+        sender = PacedSender(txns, port, FLOOD_PROBE_PPS, sock=staked).start()
+        senders.append(sender)
+        t_start = time.perf_counter()
+        time.sleep(2.0)                        # pipeline fill excluded
+        rx0, c0 = sink_rx(), time.perf_counter()
+        time.sleep(max(0.0, t_start + FLOOD_CLEAN_S - time.perf_counter()))
+        rx1, c1 = sink_rx(), time.perf_counter()
+        clean = (rx1 - rx0) / (c1 - c0)
+        attack_pps = FLOOD_MULT * capacity * (1 + FLOOD_PACE_OVER)
+        jobs = [swarm_pool.submit(swarm, forged, port, attack_pps / procs,
+                                  FLOOD_SYBILS // procs, FLOOD_ATTACK_S)
+                for _ in range(procs)]
+        time.sleep(FLOOD_ATTACK_S)
+        rx2, c2 = sink_rx(), time.perf_counter()
+        attacked = (rx2 - rx1) / (c2 - c1)
+        overload_attack = runner.metrics("sock")["overload"]
+        done = [j.result() for j in jobs]
+        sent_forged = sum(n for n, _ in done)
+        forged_pps = sum(n / sec for n, sec in done)
+        sent = sender.stop()
+        senders.clear()
+        # drain: every datagram the door took is decided, and nothing
+        # moves for half a second
+        deadline, last = time.time() + 60, None
+        while True:
+            runner.check_failures()
+            m = {tn: runner.metrics(tn)
+                 for tn in ("sock", "verify", "dedup", "sink")}
+            v = m["verify"]
+            now = (m["sock"]["rx"], v["rx"], v["tx"], m["sink"]["rx"])
+            if v["rx"] == m["sock"]["rx"] and m["sink"]["rx"] == \
+                    m["dedup"]["tx"] and v["tx"] + v["verify_fail"] \
+                    + v["dedup_drop"] + v["parse_fail"] == v["rx"] \
+                    and now == last:
+                break
+            assert time.time() < deadline, f"19c: not drained: {m}"
+            last = now
+            time.sleep(0.5)
+        passed, tap = tap.stop(), None
+        m = _flood_halt(runner, "attack")
+    finally:
+        for p in senders:
+            p.stop()
+        swarm_pool.shutdown()
+        if tap is not None:
+            tap.close()          # its thread reads the ring
+        runner.halt()
+        runner.close()
+    sock, v = m["sock"], m["verify"]
+    staked_set = set(txns[:min(sent, pool)])
+    door_drops = sock["shed"] - sock["shed_unstaked"] + sock["shed_overflow"]
+    missing = sent - m["sink"]["rx"]
+    assert sent <= pool, f"19c: the staked sender wrapped its pool ({sent})"
+    assert forged_pps >= FLOOD_MULT * capacity, \
+        f"19c: the swarm sent {forged_pps:.0f}/s, under {FLOOD_MULT:g} x " \
+        f"capacity {capacity:.2f}"
+    assert sock["shed_unstaked"] > 0, f"19c: the door shed no flood: {sock}"
+    assert v["rlc_batches"] > 0, f"19c: the prefilter never ran: {v}"
+    assert 0 <= missing <= door_drops + v["rlc_shed"], \
+        f"19c: {sent} staked sent, sink {m['sink']['rx']}, door drops " \
+        f"{door_drops}, prefilter shed {v['rlc_shed']}; sock {sock}, " \
+        f"verify {v}"
+    assert all(f in staked_set for f in passed), \
+        "19c: a frame that is not a staked txn passed verify"
+    assert len(passed) == m["dedup"]["rx"] == m["sink"]["rx"], \
+        f"19c: tap {len(passed)}, dedup {m['dedup']['rx']}"
+    assert sock["peers"] <= 64, f"19c: peers {sock['peers']}"
+    no_fallback("19c verify", v)
+    rec = {"staked_sent": sent, "forged_sent": sent_forged,
+           "sink_rx": m["sink"]["rx"], "staked_missing": missing,
+           "door_staked_drops": door_drops, "boot_s": boot_s,
+           "capacity_fps": capacity, "clean_goodput_fps": clean,
+           "attack_paced_pps": attack_pps, "forged_sent_pps": forged_pps,
+           "swarm_procs": procs,
+           "attack_goodput_fps": attacked,
+           "goodput_ratio": attacked / clean if clean else 0.0,
+           "overload_at_attack_end": overload_attack,
+           "verify": {k: v[k] for k in (
+               "rx", "tx", "verify_fail", "dedup_drop", "batches",
+               "rlc_batches", "rlc_pass", "rlc_lanes", "rlc_shed", "rlc_ns",
+               "cpu_fallback", "device_errors")},
+           "sock": {k: sock[k] for k in (
+               "rx", "shed", "shed_unstaked", "shed_overflow", "overload",
+               "backpressure", "peers")}}
+    log(f"19c attack: staked goodput {clean:.2f} frames/s clean, "
+        f"{attacked:.2f} while {FLOOD_SYBILS} sybils in {procs} processes "
+        f"sent {forged_pps:.0f} forged/s ({forged_pps / capacity:.3f} x "
+        f"capacity {capacity:.2f}; paced at {attack_pps:.0f}) (ratio "
+        f"{rec['goodput_ratio']:.4f}); {sent_forged} forged "
+        f"and {sent} staked sent, {m['sink']['rx']} at the sink, "
+        f"{missing} missing against door drops a staked peer can take "
+        f"{door_drops} and prefilter-shed lanes {v['rlc_shed']}; verify "
+        f"rx {v['rx']}, rlc_batches {v['rlc_batches']}, rlc_pass "
+        f"{v['rlc_pass']}, rlc_shed {v['rlc_shed']}, strict batches "
+        f"{v['batches']}; sock rx {sock['rx']}, shed {sock['shed']}, "
+        f"shed_unstaked {sock['shed_unstaked']}, shed_overflow "
+        f"{sock['shed_overflow']}, overload {overload_attack} at the "
+        f"attack's end, backpressure {sock['backpressure']}, peers "
+        f"{sock['peers']} {card}")
+    return rec
+
+
+def run_front_door(root, card, counts, reset_counts):
+    """Phase 19: the front door. 19a gossvf's packets on the card
+    (tools/gossvf_bench.py), 19b the gossip trio, 19c cfg/flood.toml. A
+    pool of worker processes (one torch thread each) signs 19c's staked
+    txns (the capacity probe's and the staked sender's) and runs 19a's
+    plain versions meanwhile; 19a's times and 19c run after it has
+    stopped. -> (launches of 19a and 19b, record)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from firedancer_tpu_torch.tools import gossvf_bench as gb
+    from firedancer_tpu_torch.tools.paced_sender import staked_pool
+    t0 = time.perf_counter()
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    n_txns = int(FLOOD_PROBE_PPS * (FLOOD_CLEAN_S + FLOOD_ATTACK_S + 1))
+    chunk = -(-n_txns // workers)
+    cap_chunk = -(-FLOOD_CAP_POOL // workers)
+    with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"),
+                             initializer=gb.one_thread) as pool:
+        # the widest packets first: they are the longest jobs
+        plain = {name: pool.submit(gb.verdicts, name, "cpu")
+                 for name in reversed(gb.PACKETS)}
+        signing = [pool.submit(staked_pool, chunk, 23 + k)
+                   for k in range(workers)]
+        cap_signing = [pool.submit(staked_pool, cap_chunk, 1000 + k)
+                       for k in range(workers)]
+        log(f"== 19a. gossvf on the card: packets of "
+            f"{', '.join(gb.PACKETS)} values, both modes")
+        reset_counts()
+        got = {name: gb.verdicts(name, DEVICE) for name in gb.PACKETS}
+        path_a = counts()
+        log(f"19a launches {path_a}")
+        assert min(path_a[k] for k in ("sha512_ram", "ed25519_verify",
+                                       "msm_stage1", "msm_stage2")) > 0
+        log("== 19b. three gossip tiles on the card over UDP, then "
+            f"{GOSSIP_SPAM} flood_crds_spam datagrams")
+        reset_counts()
+        rec_b = run_gossip_trio(card)
+        path_b = counts()
+        log(f"19b launches {path_b}")
+        assert min(path_b[k] for k in ("sha512_ram", "msm_stage1",
+                                       "msm_stage2", "ed25519_verify")) > 0
+        gb.compare(got, {name: f.result() for name, f in plain.items()})
+        txns = [t for f in signing for t in f.result()]
+        cap_txns = [t for f in cap_signing for t in f.result()]
+    assert len(set(txns + cap_txns)) == len(txns) + len(cap_txns), \
+        "19c: the staked pools repeat"
+    log(f"19a: every packet's verdicts on the card == plain in both modes; "
+        f"{len(cap_txns)} + {len(txns)} staked txns signed for 19c (the "
+        f"pool's "
+        f"{workers} workers: {time.perf_counter() - t0:.1f} s)")
+    for name, modes in got.items():
+        log(f"  {name}: {sum(modes['individual'])} of "
+            f"{len(modes['individual'])} valid, bulk == individual")
+    times = gb.time_modes(iters=GOSSVF_ITERS)
+    for mode, by_n in times.items():
+        log(f"19a {mode}: ms per packet " + ", ".join(
+            f"{n} values {ms:.4f}" for n, ms in by_n.items())
+            + f" ({GOSSVF_ITERS} packets each, CUDA events) {card}")
+    log(f"== 19c. cfg/flood.toml, four tile processes: boot 1, the "
+        f"door's clean capacity (a saturating staked sender); boot 2, a "
+        f"staked sender at {FLOOD_PROBE_PPS:g}/s and, from "
+        f"{FLOOD_CLEAN_S:g} s for {FLOOD_ATTACK_S:g} s, {FLOOD_SYBILS} "
+        f"sybils at {FLOOD_MULT:g} x the capacity {card}")
+    rec_cap = run_flood_capacity(root, card, cap_txns)
+    rec_c = run_flood_door(root, card, txns, rec_cap["capacity_fps"])
+    path = {k: path_a[k] + path_b[k] for k in path_a}
+    return path, {"gossvf_ms": times, "gossip": rec_b,
+                  "flood_capacity": rec_cap, "flood": rec_c,
+                  "launches_19a": path_a, "launches_19b": path_b}
+
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -2242,8 +2727,13 @@ def main() -> int:
     rec18 = run_fault_drills(root, card, frames7, out7, m7, rec10a)
     log(f"18 record {json.dumps(rec18)}")
 
+    # 19. the front door: gossvf on the card (19a), three gossip tiles
+    # (19b) and cfg/flood.toml under a Sybil flood (19c)
+    front_path, rec19 = run_front_door(root, card, counts, reset_counts)
+    log(f"19 record {json.dumps(rec19)}")
+
     kernels = []
-    paths = (strict_path, rlc_path, flood_path)
+    paths = (strict_path, rlc_path, flood_path, front_path)
     for name, src, rep, err in (
             ("sha512", "firedancer_tpu_torch/csrc/sha512.cu",
              "firedancer_tpu/ops/pallas_sha.py:35", max(sha_err, ram_err)),

@@ -25,7 +25,8 @@ Schema (the reference's, cut to the kinds the port has):
     [[tile]]
     name = "verify"
     kind = "verify"          # synth | verify | dedup | sink | pack |
-                             # bank | poh | shred | sign | replay
+                             # bank | poh | shred | sign | replay |
+                             # sock | gossip
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
@@ -51,20 +52,30 @@ Schema (the reference's, cut to the kinds the port has):
     action = "crash"
     at_rx = 32
 
+    [shed]                   # front-door policing (disco/shed.py):
+    rate_pps = 1000.0        #  per-peer token buckets, bounded peer
+    max_peers = 4096         #  table, stake-weighted overload shedding
+                             #  for the ingest tiles (sock, gossip);
+    [shed.stakes]            #  [shed.stakes] maps peer keys ("ip:port"
+    "127.0.0.1:9001" = 500   #  or origin pubkey hex) to stake
+
+    [tile.shed]              # per-tile override (same keys; highest
+    rate_pps = 50.0          #  precedence), validated at topo.build
+
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
-    verify, dedup, sink, pack, bank, poh, shred, sign and replay, plus
-    `device` on verify, bank and replay (the card, "cuda", unless
-    "cpu"); a gated key the port has not ported (pack's `resolved_in`
-    and `bundle_in`, the bank's exec tile family, `genesis_ckpt`,
+    verify, dedup, sink, pack, bank, poh, shred, sign, replay, sock and
+    gossip, plus `device` on verify, bank, replay and gossip (the card,
+    "cuda", unless "cpu"); a gated key the port has not ported (pack's
+    `resolved_in` and `bundle_in`, the bank's exec tile family, `genesis_ckpt`,
     `rpc_port` and `ws_port`, the replay tile's exec fan-out and
     snapshot args) passes the gate and is refused by its adapter;
   * the [replay] section is validated by `tiles/replay.normalize_replay`
     and carried on the plan; it is taken with `exec_tile_cnt = 0` only
     (the exec fan-out is item 5);
   * each top-level section the reference accepts but the port has not
-    ported (slo, prof, shed, witness, funk, snapshot, flight, tune)
+    ported (slo, prof, witness, funk, snapshot, flight, tune)
     raises NotImplementedError naming its ROADMAP.md queue-A item, and
     so does FDTPU_TUNED_PROFILE (item 11); a known kind without an
     adapter, a gated key the port lacks (core pinning, the lazy
@@ -80,13 +91,14 @@ import difflib
 import os
 import tomllib
 
+from ..disco.shed import normalize_shed
 from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
 from ..tiles.replay import normalize_replay
 from ..trace import normalize_trace
 
 _TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "replay",
-                 *UNPORTED_SECTIONS}
+                 "shed", *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
 # the stem)
@@ -117,6 +129,9 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
                "slots_per_epoch", "exec_links", "exec_done",
                "redispatch_s", "expected", "wait_restore", "snapshot_path",
                "snapshot_every", "snapshot_compress", "device"),
+    "sock": ("port", "bind_addr", "batch", "mtu"),
+    "gossip": ("seed", "port", "bind_addr", "entrypoints", "publish",
+               "device_verify", "gossvf_bulk", "device"),
 }
 
 
@@ -202,8 +217,12 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
             refuse(f"the [{key}] section", item)
     if os.environ.get("FDTPU_TUNED_PROFILE"):
         refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
-    # fail before launch (trace/recorder.py and tiles/replay.py are the
-    # validators)
+    # fail before launch (trace/recorder.py, tiles/replay.py and
+    # disco/shed.py are the validators; per-tile `shed` overrides
+    # validate at Topology.build)
+    shed_cfg = cfg.get("shed")
+    if shed_cfg is not None:
+        normalize_shed(shed_cfg)
     trace_cfg = cfg.get("trace")
     if trace_cfg is not None:
         normalize_trace(trace_cfg)
@@ -213,7 +232,7 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     top = cfg.get("topology", {})
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
                     wksp_size=int(top.get("wksp_size", 1 << 26)),
-                    trace=trace_cfg, replay=replay_cfg)
+                    trace=trace_cfg, replay=replay_cfg, shed=shed_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))

@@ -12,8 +12,8 @@ Where the copy differs from the reference:
     already hold a CUDA context, which a forked child must not inherit;
     nothing in a tile process imports jax or the JAX package (the
     reference's `_setup_jax`, launch.py:40-51, is gone);
-  * `start` loads the native runtime and, when a verify, bank or
-    replay tile runs on the card, builds the CUDA kernels once in the
+  * `start` loads the native runtime and, when a verify, bank, replay
+    or gossip tile runs on the card, builds the CUDA kernels once in the
     runner before any tile spawns, so the tiles load finished libraries
     instead of racing to build them;
   * a tile whose adapter fails to construct (a kernel that does not
@@ -85,17 +85,20 @@ def plan_path(topology_name: str) -> str:
 
 def _on_card(t: dict) -> bool:
     """Does tile `t` of a plan run kernels on the card: a verify or replay
-    tile, or a bank tile with exec="svm", whose `device` is not "cpu"."""
+    tile, a bank tile with exec="svm" or a gossip tile with
+    `device_verify`, whose `device` is not "cpu"."""
     if t["kind"] == "bank" and t["args"].get("exec", "stub") != "svm":
         return False
-    return t["kind"] in ("verify", "bank", "replay") \
+    if t["kind"] == "gossip" and not t["args"].get("device_verify"):
+        return False
+    return t["kind"] in ("verify", "bank", "replay", "gossip") \
         and str(t["args"].get("device", "cuda")).startswith("cuda")
 
 
 def prebuild(plan: dict):
     """Build what the tile processes would otherwise build at once, in
     this process: the native runtime (loaded by importing runtime), and
-    the CUDA kernels when a verify, bank or replay tile runs on the card
+    the CUDA kernels when a tile runs kernels on the card (`_on_card`)
     and a card is there (without one, the tile fails its boot as it must)."""
     if not any(_on_card(t) for t in plan["tiles"].values()):
         return

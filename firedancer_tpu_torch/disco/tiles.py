@@ -2,14 +2,14 @@
 the adapters of the JAX package's disco/tiles.py that the port's paths
 run: synth, verify, dedup and sink on the sigverify path; pack, bank,
 poh, shred and sign on the leader's loop; shred in recover mode and
-replay on the follower's).
+replay on the follower's; sock and gossip at the front door).
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these ten kinds only; `Topology.tile` refuses
+  * the registry holds these twelve kinds only; `Topology.tile` refuses
     every other kind of the reference's registry (disco/unported.py),
     and `adapter_class` raises ValueError for a name without an
     adapter;
@@ -60,7 +60,13 @@ Where the copy differs from the reference:
     the bank-hash fold;
   * SignAdapter refuses a `keyswitch_off` in its plan entry: the port's
     plan carves no keyswitch region for the live identity hot-swap
-    (topo.py:460-465 in the reference, item 13).
+    (topo.py:460-465 in the reference, item 13);
+  * SockAdapter and GossipAdapter police their doors with the plan's
+    [shed] section and their own `shed` override (disco/shed.py); their
+    housekeeping reads the topology's pressure (`_shed_slo_poll`) but no
+    fdtune knob (item 11). GossipAdapter takes a `device` arg (default
+    "cuda") for gossvf and raises at construction when `device_verify`
+    is set and that device is not usable; the QUIC door is item 3b.
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ import time
 
 import numpy as np
 
+from .. import device as _device
 from ..keyguard.tile import SignHalted
 from ..protocol.txn import MTU
 from ..runtime import CNC_RUN
@@ -1442,6 +1449,133 @@ class SignAdapter:
 
     def in_seqs(self):
         return {ln: s for ln, s in zip(self._links, self.tile.seqs)}
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
+
+
+def _shed_for(ctx, args):
+    """Resolve one ingest tile's effective shed table from the plan's
+    [shed] section + the tile's own `shed` override (disco/shed.py).
+    None = no gate object, zero per-packet cost."""
+    from .shed import effective_shed
+    return effective_shed(ctx.plan.get("shed"), args.get("shed"))
+
+
+def _shed_slo_poll(ctx, gate):
+    """Cross-tile overload coupling, polled at housekeeping cadence:
+    an [slo] breach anywhere (the metric tile's slo_breach gauge, via
+    the shared PressureProbe roll-up) trips this tile's door into
+    stake-weighted shedding for the hold window. The port has no metric
+    tile yet (item 8), so the probe reads no breach; the reference's
+    fdtune shed_tighten knob on the same poll is item 11."""
+    if gate is None:
+        return
+    probe = getattr(ctx, "_pressure_probe", None)
+    if probe is None:
+        from .shed import PressureProbe
+        probe = ctx._pressure_probe = PressureProbe(ctx.plan, ctx.wksp)
+    if probe.overloaded():
+        gate.trip_overload()
+
+
+@register("sock")
+class SockAdapter:
+    """UDP socket ingest (ref: src/disco/net/sock/fd_sock_tile.c).
+    args: port (0 = ephemeral; bound port published in metrics),
+    bind_addr, batch, mtu, shed (per-tile policing override —
+    disco/shed.py; merged over the topology [shed] section)."""
+
+    METRICS = ["rx", "bytes", "oversz", "backpressure", "shed",
+               "shed_unstaked", "shed_overflow", "peers", "overload",
+               "port"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.sock import SockTile
+        self.ctx = ctx
+        out = _single(ctx.out_rings, "out link", ctx.tile_name)
+        fseqs = _single(ctx.out_fseqs, "out link", ctx.tile_name)
+        self.tile = SockTile(
+            out, fseqs, port=int(args.get("port", 0)),
+            bind_addr=args.get("bind_addr", "127.0.0.1"),
+            batch=int(args.get("batch", 64)),
+            mtu=int(args.get("mtu", 1500)),
+            shed=_shed_for(ctx, args))
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def housekeeping(self):
+        _shed_slo_poll(self.ctx, self.tile.shed)
+
+    def on_halt(self):
+        self.tile.close()
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
+
+
+@register("gossip")
+class GossipAdapter:
+    """Gossip tile (ref: src/discof/gossip/ + src/flamenco/gossip/):
+    CRDS over UDP with signed values. args: seed (hex), port,
+    bind_addr, entrypoints (["host:port", ...]), publish (list of
+    {kind, index, data_hex} values to originate at boot),
+    device_verify (check each packet's values as one batch on the
+    card, gossip/gossvf.py; default false: the host oracle),
+    gossvf_bulk (front that batch with the RLC bulk kernels —
+    gossvf mode="bulk"), device ("cuda" | "cpu", gossvf's device),
+    shed (per-tile policing override, merged over the topology [shed]
+    section)."""
+
+    METRICS = ["gossvf_bad", "rx", "tx", "values", "contacts",
+               "bad_msg", "shed", "shed_unstaked", "peers",
+               "overload", "port"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.gossip import GossipTile
+        self.ctx = ctx
+        device = args.get("device", "cuda")
+        device_verify = bool(args.get("device_verify", False))
+        if device_verify:
+            _device.resolve(device)        # no usable card: raise
+        self.tile = GossipTile(
+            bytes.fromhex(args["seed"]),
+            port=int(args.get("port", 0)),
+            bind_addr=args.get("bind_addr", "127.0.0.1"),
+            entrypoints=args.get("entrypoints", ()),
+            device_verify=device_verify,
+            gossvf_bulk=bool(args.get("gossvf_bulk", False)),
+            shed=_shed_for(ctx, args), device=device)
+        self._attack_peer = 0
+        for v in args.get("publish", []):
+            self.tile.publish(int(v["kind"]), int(v.get("index", 0)),
+                              bytes.fromhex(v["data_hex"]))
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def on_chaos(self, ev: dict):
+        """flood_crds_spam traffic plan: validly signed CRDS push spam
+        from many throwaway unstaked origins (the Sybil flood),
+        injected through the policed rx path from fake TEST-NET-2
+        socket addresses — the bounded peer table + stake gate must
+        absorb it without growing."""
+        if ev["action"] != "flood_crds_spam":
+            return
+        for f in attack_frames(ev["action"], ev["frames"],
+                               seed=ev["seed"]):
+            self._attack_peer += 1
+            self.tile.inject(
+                f, (f"198.51.100.{self._attack_peer % 254 + 1}",
+                    1024 + self._attack_peer % 60000))
+
+    def housekeeping(self):
+        self.tile.housekeeping()
+        _shed_slo_poll(self.ctx, self.tile.shed)
+
+    def on_halt(self):
+        self.tile.close()
 
     def metrics_items(self):
         return dict(self.tile.metrics)

@@ -16,15 +16,15 @@ waited on and must tolerate overruns.
 Where the copy differs from the reference:
   * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
     topo.py:256), so both packages' topologies can run side by side;
-  * `Topology()` takes the [trace] and [replay] sections only, none of
-    the reference's other section keywords (topo.py:85-126: slo, prof,
-    shed, funk, snapshot, flight, tune); app.config refuses those
+  * `Topology()` takes the [trace], [replay] and [shed] sections only,
+    none of the reference's other section keywords (topo.py:85-126:
+    slo, prof, funk, snapshot, flight, tune); app.config refuses those
     sections;
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
-    :460-465, with it), the per-tile args the port lacks (the prof and
-    shed overrides, :366-459, and core pinning: `cpu_idx`, and `cpu0`
+    :460-465, with it), the per-tile args the port lacks (the prof
+    override, :366-459, and core pinning: `cpu_idx`, and `cpu0`
     of `sharded_tile`, :153-220) and a chaos plan naming an action whose
     tile kind or seam is not ported (the reference ignores such an
     action); it refuses the verify tile's `device_fail_limit` by design
@@ -45,6 +45,7 @@ from ..runtime import Workspace, Ring, Fseq, Cnc, Tcache, TraceRing
 from ..trace import effective_trace, normalize_trace, writer_for
 from . import tiles as tiles_mod
 from .metrics import HIST_REGION_U64, LINK_CONS_U64, LINK_PROD_U64
+from .shed import normalize_shed
 from .supervise import SUP_SLOT_MIN, normalize_policy
 from .unported import (REFUSED_TILE_ARGS, UNPORTED_CHAOS_ACTIONS,
                        UNPORTED_KINDS, UNPORTED_TILE_ARGS, refuse,
@@ -74,7 +75,8 @@ class Topology:
     """Declare links/tiles/objects, then build() into a wksp."""
 
     def __init__(self, name: str, wksp_size: int = 1 << 26,
-                 trace: dict | None = None, replay: dict | None = None):
+                 trace: dict | None = None, replay: dict | None = None,
+                 shed: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
         # [trace] flight-recorder config (trace/recorder.py schema);
@@ -83,6 +85,10 @@ class Topology:
         # the [replay] section (tiles/replay.py's schema), validated at
         # build and carried on the plan for the replay tile
         self.replay = replay
+        # [shed] front-door policing defaults (disco/shed.py schema);
+        # ingest tiles resolve their effective gate from this + their
+        # own `shed` override at adapter construction
+        self.shed = shed
         self.links: dict[str, LinkSpec] = {}
         self.tiles: dict[str, TileSpec] = {}
         self.tcaches: dict[str, int] = {}           # name -> depth
@@ -200,6 +206,12 @@ class Topology:
         if unknown:
             raise ValueError(
                 f"trace.tiles names unknown tile(s) {sorted(unknown)}")
+        # [shed] policing defaults and the per-tile overrides: validated
+        # before launch (the reference's topo.py:306-312, :367-368)
+        shed = normalize_shed(self.shed) if self.shed is not None else None
+        for t in self.tiles.values():
+            if "shed" in t.args:
+                normalize_shed(t.args["shed"], per_tile=True)
         wksp_name = wksp_name or f"/fdtt_{self.name}"
         w = Workspace(wksp_name, self.wksp_size)
         plan: dict = {
@@ -208,7 +220,7 @@ class Topology:
             # per-boot seed shared by verify (tag computation) and dedup
             "seed": os.urandom(16).hex(),
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
-            "trace": trace_cfg, "replay": replay,
+            "trace": trace_cfg, "replay": replay, "shed": shed,
         }
 
         def zeroed(nbytes: int) -> int:

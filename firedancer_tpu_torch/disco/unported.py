@@ -20,17 +20,17 @@ from __future__ import annotations
 
 # topology sections of the reference (the JAX package's
 # disco/topo.py:85-126 and app/config.py's top-level tables)
-UNPORTED_SECTIONS = {"prof": 6, "slo": 8, "shed": 3,
+UNPORTED_SECTIONS = {"prof": 6, "slo": 8,
                      "funk": 5, "snapshot": 5, "flight": 10,
                      "tune": 11, "witness": 6}
 
 # per-tile args of the reference that the port has not ported: the
-# prof/shed overrides its build reads (topo.py:366-459), core pinning
+# prof override its build reads (topo.py:366-459), core pinning
 # (launch.py:52-57, topo.py:219), the stem's lazy housekeeping cadence
 # (stem.py:36-52) and the shred tile's fault seam for the repair tile's
 # tests (tiles/shred.py:87)
 UNPORTED_TILE_ARGS = {
-    "prof": 6, "shed": 3,
+    "prof": 6,
     "drop_slot_every": 13,
     **dict.fromkeys(("cpu_idx", "cpu0", "lazy_ns", "lazy_auto"), 14),
 }
@@ -46,18 +46,19 @@ REFUSED_TILE_ARGS = {
 }
 
 # chaos actions (utils/chaos.ACTIONS) whose tile kind or seam is not
-# ported: the QUIC and gossip doors' floods, and the snapshot drills of
-# snapld and of the replay's snapshot writer (the reference ignores an
-# action no tile takes; the port refuses it)
+# ported: the QUIC door's flood (item 3b: the door needs AES-GCM from
+# the `cryptography` package), and the snapshot drills of snapld and of
+# the replay's snapshot writer (the reference ignores an action no tile
+# takes; the port refuses it)
 UNPORTED_CHAOS_ACTIONS = {
-    "flood_malformed_quic": 3, "flood_crds_spam": 3,
+    "flood_malformed_quic": "3b",
     **dict.fromkeys(("crash_mid_snapshot", "corrupt_checkpt_frame",
                      "stale_snapshot_offer"), "5f"),
 }
 
 # every kind of the reference's tile registry without an adapter here
 UNPORTED_KINDS = {
-    **dict.fromkeys(("sock", "quic", "gossip"), 3),
+    "quic": "3b",
     **dict.fromkeys(("exec", "resolv", "snapld", "snapdc", "snapin"), 5),
     "metric": 8, "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,

@@ -1,2 +1,3 @@
-"""flamenco: the runtime's state commitments (copy of the bank hash of
-the JAX package's flamenco/)."""
+"""flamenco: the runtime's state commitments and the gossip wire codec
+(copies of the bank hash and gossip_wire of the JAX package's
+flamenco/)."""

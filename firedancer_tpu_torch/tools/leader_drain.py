@@ -194,10 +194,15 @@ class LinkTap:
             if not self._drain():
                 time.sleep(self.poll_s)
 
-    def stop(self) -> list[bytes]:
-        """Stop, take what is left, and return every frame in order."""
+    def close(self):
+        """End the tap's thread (again: a no-op); the ring may be
+        unmapped after it."""
         self._stop.set()
         self._thread.join()
+
+    def stop(self) -> list[bytes]:
+        """Stop, take what is left, and return every frame in order."""
+        self.close()
         while self._drain():
             pass
         if self.overruns:

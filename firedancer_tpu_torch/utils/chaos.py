@@ -1,8 +1,9 @@
 """Chaos harness: seeded, deterministic fault plans for tile topologies,
-and adversarial traffic for the verify tile's front door (copy of the JAX
-package's utils/chaos.py: ChaosPlan, ChaosDeviceError, the ACTIONS
-tuples, attack_frames, _txn_pool, torsion_sign and its torsion point,
-plus an undecodable point encoding).
+and adversarial traffic for the verify tile's and the gossip tile's front
+doors (copy of the JAX package's utils/chaos.py: ChaosPlan,
+ChaosDeviceError, the ACTIONS tuples, attack_frames, _txn_pool,
+crds_spam_datagrams, torsion_sign and its torsion point, plus an
+undecodable point encoding).
 
 A fault plan is plain data in a tile's args (`chaos = {...}`), flows
 through the topology plan like any other arg, and fires inside the tile
@@ -18,6 +19,7 @@ process:
        {"action": "fail_dispatch", "count": 3},          # verify tile
        {"action": "fail_dispatch", "count": -1},         # persistent
        {"action": "flood_forged", "at_iter": 6, "frames": 24},
+       {"action": "flood_crds_spam", "at_iter": 6, "frames": 512},
        {"action": "diverge_block", "at_rx": 3},          # replay tile
      ]}
 
@@ -26,15 +28,16 @@ two-element list is a seeded-uniform pick in [lo, hi]. Each event fires
 at most once per process. The stem runs crash, freeze_hb, wedge and
 stall_fseq (STEM_ACTIONS) itself and hands every other action to the
 tile adapter's `on_chaos` after recording it (disco/stem.py); the
-verify tile consumes `fail_dispatch` (tiles/verify.py). The same spec
+verify tile consumes `fail_dispatch` (tiles/verify.py), the gossip tile
+`flood_crds_spam` (disco/tiles.GossipAdapter). The same spec
 gives the same firing points and attack bytes as the reference.
 
 The floods pre-render a small pool of hostile payloads (the host crypto
 runs once) that attack_frames replays to the requested count, byte-equal
 to the reference's. The actions whose tile kind or door is not ported
-(the QUIC and CRDS floods, ROADMAP.md queue A item 3; the snapshot
-drills, item 5f) are refused when a topology is built
-(disco/unported.py); attack_frames refuses the two floods too.
+(the QUIC flood, ROADMAP.md queue A item 3b; the snapshot drills, item
+5f) are refused when a topology is built (disco/unported.py);
+attack_frames refuses the QUIC flood too.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ SNAPSHOT_ACTIONS = ("crash_mid_snapshot", "corrupt_checkpt_frame",
                     "stale_snapshot_offer", "diverge_block")
 ACTIONS = STEM_ACTIONS + ("fail_dispatch",) + TRAFFIC_ACTIONS \
     + SNAPSHOT_ACTIONS
-_PORTED = ("flood_forged", "flood_torsion", "flood_dup")
+_PORTED = ("flood_forged", "flood_torsion", "flood_dup", "flood_crds_spam")
 
 _POOL = 8           # distinct payloads per action pool
 
@@ -209,15 +212,50 @@ def undecodable_point(seed: int) -> np.ndarray:
             return np.frombuffer(bytes(b), np.uint8).copy()
 
 
+def crds_spam_datagrams(n_peers: int, per_peer: int = 2,
+                        seed: int = 0) -> list[bytes]:
+    """Gossip CRDS push spam: VALIDLY SIGNED NodeInstance values from
+    `n_peers` throwaway origins, encoded as real push containers — the
+    Sybil flood: every signature verifies, every origin is unstaked,
+    so only the peer table bound + stake-weighted shedding stop it."""
+    from ..flamenco import gossip_wire as gw
+    from ..gossip.crds import CrdsValue, KIND_NODE_INSTANCE
+    from . import ed25519_ref as ref
+    out = []
+    rng = random.Random(seed)
+    for p in range(n_peers):
+        kseed = hashlib.sha256(b"crds-spam-%d-%d" % (seed, p)).digest()
+        _, _, pub = ref.keypair(kseed)
+        vals = []
+        for j in range(per_peer):
+            # NodeInstance payload (56B fixed on the wire): pubkey +
+            # wallclock + token + instance id (gossip_wire
+            # _payload_size/V_NODE_INSTANCE)
+            wallclock = 1_000_000 + p * 1000 + j
+            data = pub + wallclock.to_bytes(8, "little") \
+                + rng.getrandbits(64).to_bytes(8, "little") \
+                + rng.getrandbits(64).to_bytes(8, "little")
+            v = CrdsValue(pub, KIND_NODE_INSTANCE, 0, wallclock, data)
+            sig = ref.sign(kseed, v.signable())
+            vals.append(CrdsValue(pub, KIND_NODE_INSTANCE, 0,
+                                  wallclock, data, sig))
+        out.append(gw.encode_container(
+            gw.MSG_PUSH, pub, [v.to_wire() for v in vals]))
+    return out
+
+
 def attack_frames(action: str, frames: int, seed: int = 0) -> list[bytes]:
-    """`frames` hostile payloads for a transaction flood, replayed from a
-    pool of at most 8 distinct ones."""
+    """`frames` hostile payloads for a transaction or CRDS flood,
+    replayed from a pool of at most 8 distinct ones."""
     if action not in TRAFFIC_ACTIONS:
         raise ValueError(f"unknown traffic action {action!r}")
     if action not in _PORTED:
         raise NotImplementedError(f"{action}: its door is not ported "
-                                  f"(ROADMAP.md queue A item 3)")
+                                  f"(ROADMAP.md queue A item 3b)")
     if frames <= 0:
         return []
-    pool = _txn_pool(action, min(frames, _POOL), seed)
+    if action == "flood_crds_spam":
+        pool = crds_spam_datagrams(min(frames, _POOL), seed=seed)
+    else:
+        pool = _txn_pool(action, min(frames, _POOL), seed)
     return [pool[i % len(pool)] for i in range(frames)]

@@ -562,3 +562,12 @@ def test_replay_on_card_matches_cpu(dev):
     assert cores[0].metrics["exec_ok"] == 8
     assert cuda_sha256.launches["poh_verify"] > n0[0]
     assert cuda_blake3.launches["lthash"] > n0[1]
+
+
+def test_gossvf_on_card_matches_plain(dev):
+    """gossvf's packets (1-33 CRDS values of every class) on the card, in
+    both modes, against the plain versions with generators of one
+    seed (tools/gossvf_bench.py, chip_smoke.py phase 19a)."""
+    from firedancer_tpu_torch.tools import gossvf_bench
+    got = gossvf_bench.check(str(dev))
+    assert set(got) == set(gossvf_bench.PACKETS)

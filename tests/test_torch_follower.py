@@ -81,6 +81,9 @@ def test_full_leader_follower_toml_drains_on_the_cpu():
         {"name": "replay", "device": "cpu"}]})
     runner = TopologyRunner(tconfig.build_topology(
         cfg, name=f"tff{os.getpid()}").build()).start()
+    # every mirrored shred, read as it is published: the shred count
+    # grows with the run's wall time, past the ring's depth under load
+    tap = leader_drain.LinkTap(runner, "shreds_mirror")
     try:
         runner.wait_running(timeout_s=120)
         runner.wait_idle("synth", "tx", FRAMES, timeout_s=120)
@@ -100,10 +103,11 @@ def test_full_leader_follower_toml_drains_on_the_cpu():
         assert r["txns"] == r["exec_ok"] == b["txns"] > 0
         assert sr["shreds"] == m["shredsink"]["rx"]
         assert m["towersink"]["rx"] == slots
-        wires = leader_drain.mirror_wires(runner)
+        wires = tap.stop()
         assert len(wires) == m["shredsink"]["rx"]
         blocks = leader_drain.tower_blocks(runner)
     finally:
+        tap.close()
         runner.halt()
         runner.close()
     pub = bytes.fromhex(next(t["leader_pubkey_hex"] for t in cfg["tile"]

@@ -47,7 +47,11 @@ def test_importing_every_module_loads_no_jax():
         "'flamenco.bank_hash', 'shred.store', 'shred.fec_resolver', "
         "'tiles.tower', 'tiles.replay', 'trace', 'trace.events', "
         "'trace.recorder', 'trace.export', 'trace.cli', "
-        "'trace.__main__', 'utils.chaos'}\n"
+        "'trace.__main__', 'utils.chaos', 'disco.shed', 'tiles.sock', "
+        "'tiles.gossip', 'gossip', 'gossip.gossvf', 'gossip.bloom', "
+        "'gossip.crds', 'gossip.active_set', 'gossip.protocol', "
+        "'flamenco.gossip_wire', 'tools.paced_sender', "
+        "'tools.gossvf_bench'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -169,6 +173,32 @@ def test_spawned_bank_tile_process_loads_no_jax():
         .tile("bank0", "bank", ins=["mb"], outs=["done", "poh"],
               exec="svm", poh_link="poh", forward_payloads=True,
               genesis_synth=16, device="cpu"), "bank0")
+
+
+def test_spawned_front_door_tile_processes_load_no_jax():
+    """The sock door with a [shed] policy, and the gossip tile with
+    gossvf on the plain versions (device_verify, gossvf_bulk, "cpu")."""
+    from firedancer_tpu_torch.disco import Topology
+    topo = (Topology(f"ttimpf{os.getpid()}", wksp_size=1 << 22,
+                     shed={"rate_pps": 50.0, "max_peers": 8})
+            .link("out", depth=16, external=True)
+            .tile("sock", "sock", outs=["out"], batch=8))
+    _spawn_and_probe(topo, "sock")
+    _spawn_and_probe(
+        Topology(f"ttimpg{os.getpid()}", wksp_size=1 << 22)
+        .tile("gossip", "gossip", seed=bytes(32).hex(), device="cpu",
+              device_verify=True, gossvf_bulk=True), "gossip")
+
+
+@pytest.mark.parametrize("mod", [
+    "firedancer_tpu_torch.disco.shed", "firedancer_tpu_torch.tiles.sock",
+    "firedancer_tpu_torch.tiles.gossip", "firedancer_tpu_torch.gossip.gossvf",
+    "firedancer_tpu_torch.flamenco.gossip_wire",
+    "firedancer_tpu_torch.tools.paced_sender"])
+def test_front_door_module_loads_no_jax(mod):
+    """Each module of the front door, imported alone in a fresh
+    interpreter."""
+    test_leader_leg_module_loads_no_jax(mod)
 
 
 @pytest.mark.parametrize("mod", [

@@ -429,6 +429,9 @@ def test_full_leader_toml_drains_on_the_cpu():
         {"name": "bank0", "device": "cpu"}]})
     runner = TopologyRunner(tconfig.build_topology(
         cfg, name=f"tlf{os.getpid()}").build()).start()
+    # every mirrored shred, read as it is published: the shred count
+    # grows with the run's wall time, past the ring's depth under load
+    tap = leader_drain.LinkTap(runner, "shreds_mirror")
     try:
         runner.wait_running(timeout_s=120)
         runner.wait_idle("synth", "tx", 192, timeout_s=120)
@@ -442,7 +445,7 @@ def test_full_leader_toml_drains_on_the_cpu():
             + sh["parity_shreds"] == sh["sent"] + sh["no_dest"]
         assert sg["signed"] == sh["fec_sets"] and sg["refused"] == 0
         assert sh["entries"] == m["poh"]["entries"]
-        wires = leader_drain.mirror_wires(runner)
+        wires = tap.stop()
         assert len(wires) == m["shredsink"]["rx"]
         pub = bytes.fromhex(next(t["identity_hex"] for t in cfg["tile"]
                                  if t["name"] == "shred"))
@@ -450,6 +453,7 @@ def test_full_leader_toml_drains_on_the_cpu():
         for tn, p in runner.procs.items():
             assert p.exitcode == 0, (tn, p.exitcode)
     finally:
+        tap.close()
         runner.halt()
         runner.close()
 

@@ -138,7 +138,7 @@ def test_unported_kind_is_refused_with_its_item(kind):
 def test_every_reference_kind_is_ported_or_refused():
     assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink",
                                     "pack", "bank", "poh", "shred",
-                                    "sign", "replay"}
+                                    "sign", "replay", "sock", "gossip"}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
@@ -147,7 +147,7 @@ def test_every_reference_kind_is_ported_or_refused():
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("prof", 6), ("shed", 3), ("cpu_idx", 14), ("cpu0", 14),
+    ("prof", 6), ("cpu_idx", 14), ("cpu0", 14),
     ("lazy_ns", 14), ("lazy_auto", 14)])
 def test_unported_tile_arg_is_refused_with_its_item(arg, item):
     """Refused in Topology.tile, whether the arg comes from code, from
@@ -173,7 +173,7 @@ def test_config_gate_accepts_the_reference_keys_plus_device():
         ref = jregistry.known_keys(kind)
         port = {"name", "kind", "ins", "outs", *tconfig.COMMON_KEYS,
                 *keys}
-        on_card = kind in ("verify", "bank", "replay")
+        on_card = kind in ("verify", "bank", "replay", "gossip")
         assert port - ref == ({"device"} if on_card else set())
         assert ref <= port
 
