@@ -80,7 +80,8 @@ and read just after:
             recover into the same slices. 17b boots
             firedancer_tpu_torch/cfg/leader_follower.toml (cfg/leader.toml
             with shredr -> replay -> towersink on its shred mirror; verify,
-            bank0 and replay on the card), drains the leader, then the
+            bank0 and replay on the card; 2048 synth frames, half the
+            file's, for the script's time), drains the leader, then the
             follower: every slot poh completed is replayed without a PoH
             failure, the replay tile launched both kernels in its own
             process, and every block frame it published carries the bank
@@ -128,6 +129,30 @@ and read just after:
             a chunk the prefilter shed), no forged frame past verify,
             peers <= 64. A pool of worker processes signs 19c's txns and
             runs 19a's plain versions while the card runs 19a and 19b.
+  execution phase 20: the exec tile family over the shm account store.
+  scaled    20a runs tools/exec_drills.py in process with every shard
+  out       on the card: the bank's fan-out over two exec tiles gives
+            the poh frames, done frags and balances of the in-process
+            bank on the CPU's plain wave scan;
+            no account key is in two shards' dispatch frames; a shard
+            dead at dispatch makes the bank cancel and redispatch the
+            wave (exec_redispatch, stale_xid) and balances come out
+            exactly once; ReplayCore over ExecFanout and two shards
+            gives the bank hash of InlineFanout on the CPU (plain wave
+            scan and lthash) in each of 64 slots, and every account
+            execute_block_serial's balance. 20b is
+            bench.py's exec-scale stage (tools/exec_scale.py: synth ->
+            verify x2 -> dedup -> resolv -> pack -> bank0 -> exec x N ->
+            bank0 -> poh -> shred <-> sign -> shredsink, less core
+            pinning) at N = 1, 2 and 4, 4096 frames unpaced, one boot
+            each, timed from RUN to drained: exec_scale_tps, the
+            saturating hop, every shard's txns and wave_launches, the
+            bank's exec_waves and exec_redispatch, each N exact on its
+            counts and every account in the shm store equal to
+            execute_block_serial's over the frames synth sent. 20c boots firedancer_tpu_torch/cfg/exec.toml with
+            exec0 crashing at its first frames under a restart policy:
+            it restarts, the loop drains, the store's lamports are
+            genesis's less the fees, every tile exits 0.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -138,7 +163,8 @@ Any mismatch raises. The last line of output is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 and the line before it a JSON object with each of the nine kernels'
-launches on the paths (phase 19's in process among them), error against
+launches on the paths (phase 19's in process among them, and the
+wave scans of phase 20's exec shards), error against
 its plain version, time, plain time and bound (poh_verify and lthash
 also at the replay's own shapes).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
@@ -255,11 +281,22 @@ FLOOD_CAP_FULL = 0.9
 # 19c's attack boot: the swarm's worker processes (one interpreter caps a
 # Python sender near the rate needed), and how far above FLOOD_MULT x the
 # capacity it is paced so that what it sends is at least that
+EXEC_SCALE_CNTS = (1, 2, 4)   # phase 20b: bench.py's exec_tile_cnt sweep
+EXEC_REPLAY_SLOTS = 64    # phase 20a: the replay fan-out's slots
+EXEC_REPLAY_PER_SLOT = 4  # transfers a slot
 FLOOD_SWARM_PROCS = 4
 FLOOD_PACE_OVER = 0.05
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's header line ("== ...") carries the script's
+    seconds so far."""
+    if a and str(a[0]).startswith("== "):
+        a = (f"== [{time.perf_counter() - T_START:.1f} s]"
+             + str(a[0])[2:],) + a[1:]
     print(*a, flush=True)
 
 
@@ -1193,6 +1230,9 @@ def run_hash_phases(dev, card, counts, reset_counts):
 
 
 FOLLOWER_LOSSY_SETS = 6   # phase 17a: FEC sets recovered from their parity
+# phase 17b: the synth count of cfg/leader_follower.toml (4096) halved to
+# keep the script near its time budget with phase 20 (PERF.md §4)
+FOLLOWER_FRAMES = 2048
 
 
 class _Capture:
@@ -1211,14 +1251,15 @@ class _Capture:
 
 def follower_cfg(root, device):
     """firedancer_tpu_torch/cfg/leader_follower.toml with verify, bank0
-    and replay on `device`; -> (config, the leader's pubkey, replay's
-    genesis_synth and hashes_per_tick)."""
+    and replay on `device` and FOLLOWER_FRAMES synth frames; -> (config,
+    the leader's pubkey, replay's genesis_synth and hashes_per_tick)."""
     from firedancer_tpu_torch.app.config import load_config
     cfg = load_config(
         os.path.join(root, "firedancer_tpu_torch", "cfg",
                      "leader_follower.toml"),
         overrides={"tile": [{"name": tn, "device": device}
-                            for tn in ("verify", "bank0", "replay")]})
+                            for tn in ("verify", "bank0", "replay")]
+                   + [{"name": "synth", "count": FOLLOWER_FRAMES}]})
     tiles = {t["name"]: t for t in cfg["tile"]}
     pub = bytes.fromhex(tiles["shredr"]["leader_pubkey_hex"])
     assert pub == bytes.fromhex(tiles["shred"]["identity_hex"])
@@ -1457,7 +1498,7 @@ def run_follower(root, dev, card, counts, reset_counts, wires12,
 
     # 17b. the topology: the leader with the follower leg on its mirror
     count = next(t["count"] for t in cfg["tile"] if t["name"] == "synth")
-    assert count == LEADER_FRAMES
+    assert count == FOLLOWER_FRAMES
     log(f"== 17b. topology: cfg/leader_follower.toml, {count} frames, "
         f"verify x2, bank0 and replay on the card {card}")
     runner = TopologyRunner(build_topology(
@@ -2064,6 +2105,175 @@ def run_front_door(root, card, counts, reset_counts):
     return path, {"gossvf_ms": times, "gossip": rec_b,
                   "flood_capacity": rec_cap, "flood": rec_c,
                   "launches_19a": path_a, "launches_19b": path_b}
+
+
+def run_exec_kill(root, card) -> dict:
+    """Phase 20c: cfg/exec.toml (two exec shards) booted through the config
+    loader and the runner app.run uses, verify, bank and exec tiles on
+    the card; exec0 crashes at its first frames (a seeded chaos plan) and
+    the restart policy respawns it. The loop drains by the conservation
+    rule with the resolv tile's drops, every transfer applies exactly
+    once (the store's lamports are genesis's less the fees burned), and
+    every tile exits 0 after the halt. -> record."""
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.disco.tiles import _synth_genesis
+    from firedancer_tpu_torch.pack.scheduler import FEE_PER_SIGNATURE
+    from firedancer_tpu_torch.tools import exec_scale, leader_drain
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "exec.toml"),
+        overrides={"tile": [
+            {"name": "verify", "device": DEVICE},
+            {"name": "bank0", "device": DEVICE},
+            {"name": "exec", "device": DEVICE,
+             "chaos": [{"seed": 1, "events": [{"action": "crash",
+                                                "at_rx": 1}]}, None],
+             "supervise": {"policy": "restart", "backoff_s": 0.05,
+                           "max_restarts": 3, "window_s": 60.0}}]})
+    count = next(t["count"] for t in cfg["tile"] if t["name"] == "synth")
+    unique = next(t["genesis_synth"] for t in cfg["tile"]
+                  if t["name"] == "bank0")
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke20c{os.getpid()}").build())
+    try:
+        t0 = time.perf_counter()
+        runner.start()
+        runner.wait_running(timeout_s=300)
+        boot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner.wait_idle("synth", "tx", count, timeout_s=300, poll_s=0.002)
+        dropped = leader_drain.wait_drained(runner, count, timeout_s=300)
+        wall = time.perf_counter() - t0
+        leader_drain.wait_restarted(runner, "exec0", timeout_s=120)
+        runner.halt()
+        m = {tn: runner.metrics(tn) for tn in runner.plan["tiles"]}
+        exits = {tn: p.exitcode for tn, p in runner.procs.items()}
+        lamports = exec_scale.store_lamports(runner)
+    finally:
+        runner.halt()
+        runner.close()
+    b, p = m["bank0"], m["pack"]
+    burned = FEE_PER_SIGNATURE * b["transfers"]
+    genesis = sum(_synth_genesis(unique).values())
+    for key, got, want in (
+            ("bank0.txns + drops", b["txns"] + dropped, count),
+            ("pack.completions", p["completions"], p["microblocks"]),
+            ("bank0.transfers", b["transfers"], b["txns"] - b["exec_skip"]),
+            ("bank0.exec_fail", b["exec_fail"], 0),
+            ("store lamports", lamports, genesis - burned)):
+        assert got == want, f"20c: {key} = {got}, expected {want}"
+    assert m["exec0"]["sup_restarts"] >= 1, f"20c: no restart {m['exec0']}"
+    assert all(c == 0 for c in exits.values()), f"20c: exit codes {exits}"
+    no_fallback("20c verify", m["verify"])
+    return {"boot_s": boot_s, "wall_s": wall, "count": count,
+            "dropped": dropped, "transfers": b["transfers"],
+            "exec_redispatch": b["exec_redispatch"],
+            "exec_waves": b["exec_waves"],
+            "exec0_restarts": m["exec0"]["sup_restarts"],
+            "stale_xid": {f"exec{i}": m[f"exec{i}"]["stale_xid"]
+                          for i in range(2)},
+            "exec_txns": {f"exec{i}": m[f"exec{i}"]["txns"]
+                          for i in range(2)},
+            "wave_launches": {f"exec{i}": m[f"exec{i}"]["wave_launches"]
+                              for i in range(2)},
+            "store_lamports": lamports, "exit_codes": exits}
+
+
+def run_exec_family(root, card, counts, reset_counts):
+    """Phase 20: the exec tile family on the card. 20a runs
+    tools/exec_drills.py in process (the fan-out over two shards byte for
+    byte with the in-process bank on the CPU, conflict isolation, the
+    shard death drill, and the replay's fan-out against InlineFanout on
+    the CPU over EXEC_REPLAY_SLOTS slots); 20b bench.py's exec-scale stage
+    (tools/exec_scale.py) at EXEC_SCALE_CNTS shards, one boot each; 20c
+    the supervised kill. -> (wave-scan launches on the paths, record)."""
+    from firedancer_tpu_torch.runtime import Workspace
+    from firedancer_tpu_torch.tiles.synth import make_signed_txns
+    from firedancer_tpu_torch.tools import exec_drills, exec_scale
+    log(f"== 20a. exec tile family in process on the card {card}")
+    t0 = time.perf_counter()
+    txns = make_signed_txns(EXEC_REPLAY_SLOTS * EXEC_REPLAY_PER_SLOT,
+                            seed=47)
+    log(f"signed {len(txns)} transfers in {time.perf_counter() - t0:.1f} s")
+    rec_a = {}
+    w = Workspace(f"/fdtt_smoke20a{os.getpid()}", 1 << 26)
+    try:
+        reset_counts()
+        bi = exec_drills.byte_identity(w, txns[:18], device=DEVICE)
+        ci = exec_drills.conflict_isolation(w, device=DEVICE)
+        sd = exec_drills.shard_death(w, txns[:12], device=DEVICE)
+        launches_a = counts()["wave_scan"]
+        rf = exec_drills.replay_fanout(w, txns, EXEC_REPLAY_SLOTS,
+                                       device=DEVICE)
+        launches_a += rf["launches"]
+    finally:
+        w.close()
+        w.unlink()
+    assert rf["launches"] >= EXEC_REPLAY_SLOTS, rf["launches"]
+    rec_a = {"byte_identity": {"poh_frames": len(bi["poh"]),
+                               "done_frags": len(bi["done"]),
+                               "transfers": bi["transfers"],
+                               "shard_txns": bi["shard_txns"]},
+             "conflict_isolation": {"frames": [len(f) for f in ci["wire"]]},
+             "shard_death": {k: sd[k] for k in ("exec_redispatch",
+                                                "stale_xid")},
+             "replay_fanout": {"slots": EXEC_REPLAY_SLOTS,
+                               "wall_s": rf["wall_s"],
+                               "exec_waves": rf["exec_waves"],
+                               "shard_txns": rf["shard_txns"],
+                               "launches": rf["launches"]},
+             "wave_launches": launches_a}
+    log(f"20a: fan-out over two shards == the in-process bank on the CPU "
+        f"({len(bi['poh'])} poh frames, {len(bi['done'])} done frags, "
+        f"{bi['transfers']} transfers, shards {bi['shard_txns']}); no "
+        f"account in two shards' frames; shard death: redispatch "
+        f"{sd['exec_redispatch']}, stale_xid {sd['stale_xid']}, balances "
+        f"exactly once; replay fan-out: {EXEC_REPLAY_SLOTS} slots, every "
+        f"bank hash == InlineFanout's on the CPU, {rf['exec_waves']} "
+        f"waves, shards "
+        f"{rf['shard_txns']} txns, {rf['launches']} wave scans, "
+        f"{rf['wall_s']:.3f} s; {launches_a} wave-scan launches in 20a "
+        f"{card}")
+    rec_b = {}
+    launches_b = 0
+    for n in EXEC_SCALE_CNTS:
+        log(f"== 20b. exec-scale stage: bench.py's exec leader loop at "
+            f"{n} exec shard(s), {LEADER_FRAMES} frames, unpaced {card}")
+        r = exec_scale.run_exec_scale(n, count=LEADER_FRAMES, device=DEVICE)
+        launches_b += sum(r["wave_launches"].values())
+        rec_b[n] = r
+        log(f"20b N={n}: exec_scale_tps {r['exec_scale_tps']:.1f} "
+            f"({r['txns']} bank txns in {r['wall_s']:.3f} s from RUN to "
+            f"drained; boot {r['boot_s']:.1f} s, halt {r['halt_s']:.1f} s)"
+            f", hop: top occupancy {r['top_occupancy_tile']}, first "
+            f"backpressured link {r['first_backpressured_link']}; exec "
+            f"txns {r['exec_txns']}, wave_launches {r['wave_launches']}; "
+            f"bank exec_waves {r['bank_exec_waves']}, exec_redispatch "
+            f"{r['bank_exec_redispatch']}; store lamports == genesis - "
+            f"{r['fees_burned']} fees, every account == "
+            f"execute_block_serial's {card}")
+    tps = {n: rec_b[n]["exec_scale_tps"] for n in EXEC_SCALE_CNTS}
+    mono = tps[2] >= tps[1] if 1 in tps and 2 in tps else None
+    log(f"20b exec_scale_tps {json.dumps(tps)}, exec_scale_monotonic_1_2 "
+        f"{mono} (reported, not gated) {card}")
+    log(f"== 20c. cfg/exec.toml, two exec shards, exec0 crashes and "
+        f"restarts {card}")
+    rec_c = run_exec_kill(root, card)
+    launches_c = sum(rec_c["wave_launches"].values())
+    log(f"20c: exec0 restarted {rec_c['exec0_restarts']} time(s), "
+        f"{rec_c['transfers']} transfers exactly once ({rec_c['dropped']} "
+        f"frames dropped at named hops), redispatch "
+        f"{rec_c['exec_redispatch']}, stale_xid {rec_c['stale_xid']}, "
+        f"drained in {rec_c['wall_s']:.3f} s after a {rec_c['boot_s']:.1f} "
+        f"s boot, every tile exit 0 {card}")
+    for key, r in rec_b.items():
+        r.pop("occupancy")
+    return launches_a + launches_b + launches_c, {
+        "20a": rec_a, "20b": {str(n): r for n, r in rec_b.items()},
+        "exec_scale_tps": {str(n): t for n, t in tps.items()},
+        "exec_scale_monotonic_1_2": mono, "20c": rec_c,
+        "wave_launches": {"20a": launches_a, "20b": launches_b,
+                          "20c": launches_c}}
 
 
 def load_vectors(root):
@@ -2732,6 +2942,12 @@ def main() -> int:
     front_path, rec19 = run_front_door(root, card, counts, reset_counts)
     log(f"19 record {json.dumps(rec19)}")
 
+    # 20. the exec tile family: in process (20a), bench.py's exec-scale
+    # stage at 1, 2 and 4 shards (20b) and the supervised kill (20c); the
+    # shards count their own wave-scan launches
+    exec_launches, rec20 = run_exec_family(root, card, counts, reset_counts)
+    log(f"20 record {json.dumps(rec20)}")
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
     for name, src, rep, err in (
@@ -2758,7 +2974,7 @@ def main() -> int:
                     "source": "firedancer_tpu_torch/csrc/wave_scan.cu",
                     "replaces": "firedancer_tpu/svm/executor.py:111",
                     "launches": exec_path["wave_scan"]
-                    + rec["bank_wave_launches"],
+                    + rec["bank_wave_launches"] + exec_launches,
                     "max_abs_err": wave_err, "ms": st["ms"],
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
@@ -2810,6 +3026,8 @@ def main() -> int:
                 "bank_hash_call_ms", "bank_hash_bound_ms",
                 "bank_hash_bound_by")})
     log(smi)
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - T_START:.1f} s {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,14 +26,16 @@ Schema (the reference's, cut to the kinds the port has):
     name = "verify"
     kind = "verify"          # synth | verify | dedup | sink | pack |
                              # bank | poh | shred | sign | replay |
-                             # sock | gossip
+                             # sock | gossip | exec | resolv
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
     # tile_cnt = 2           # rr-sharded scale-out: tiles verify0 and
     # outs = ["vd0", "vd1"]  #  verify1, one out link per shard;
     # tcache = ["tc0","tc1"] #  a list-valued tcache distributes one
-                             #  per shard
+                             #  per shard; an ins entry that is a
+                             #  list of tile_cnt links gives one to
+                             #  each shard (the exec tile family)
 
     [tile.supervise]         # per-tile restart policy (supervise.py)
     policy = "restart"       # "fail_fast" (default) | "restart"
@@ -62,20 +64,26 @@ Schema (the reference's, cut to the kinds the port has):
     [tile.shed]              # per-tile override (same keys; highest
     rate_pps = 50.0          #  precedence), validated at topo.build
 
+    [funk]                   # the account store (funk/shmfunk.py):
+    backend = "shm"          #  "process" (dict tree) | "shm" (carved
+    rec_max = 4096           #  into the workspace, shared by the bank,
+    txn_max = 256            #  the resolv tile and the exec tile
+    heap_mb = 16             #  family)
+
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
-    verify, dedup, sink, pack, bank, poh, shred, sign, replay, sock and
-    gossip, plus `device` on verify, bank, replay and gossip (the card,
-    "cuda", unless "cpu"); a gated key the port has not ported (pack's
-    `resolved_in` and `bundle_in`, the bank's exec tile family, `genesis_ckpt`,
-    `rpc_port` and `ws_port`, the replay tile's exec fan-out and
-    snapshot args) passes the gate and is refused by its adapter;
+    verify, dedup, sink, pack, bank, poh, shred, sign, replay, sock,
+    gossip, exec and resolv, plus `device` on verify, bank, replay,
+    gossip and exec (the card, "cuda", unless "cpu"); a gated key the
+    port has not ported (pack's `bundle_in`, the bank's `genesis_ckpt`,
+    `rpc_port` and `ws_port`, the replay tile's snapshot args) passes
+    the gate and is refused by its adapter;
   * the [replay] section is validated by `tiles/replay.normalize_replay`
-    and carried on the plan; it is taken with `exec_tile_cnt = 0` only
-    (the exec fan-out is item 5);
+    and the [funk] section by `funk/shmfunk.normalize_funk`, and both
+    are carried on the plan;
   * each top-level section the reference accepts but the port has not
-    ported (slo, prof, witness, funk, snapshot, flight, tune)
+    ported (slo, prof, witness, snapshot, flight, tune)
     raises NotImplementedError naming its ROADMAP.md queue-A item, and
     so does FDTPU_TUNED_PROFILE (item 11); a known kind without an
     adapter, a gated key the port lacks (core pinning, the lazy
@@ -94,11 +102,12 @@ import tomllib
 from ..disco.shed import normalize_shed
 from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
+from ..funk.shmfunk import normalize_funk
 from ..tiles.replay import normalize_replay
 from ..trace import normalize_trace
 
 _TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "replay",
-                 "shed", *UNPORTED_SECTIONS}
+                 "shed", "funk", *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
 # the stem)
@@ -132,6 +141,8 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
     "sock": ("port", "bind_addr", "batch", "mtu"),
     "gossip": ("seed", "port", "bind_addr", "entrypoints", "publish",
                "device_verify", "gossvf_bulk", "device"),
+    "exec": ("batch", "rr_cnt", "rr_idx", "tile_cnt", "cpu0", "device"),
+    "resolv": ("batch", "fee_payer_check"),
 }
 
 
@@ -217,9 +228,9 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
             refuse(f"the [{key}] section", item)
     if os.environ.get("FDTPU_TUNED_PROFILE"):
         refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
-    # fail before launch (trace/recorder.py, tiles/replay.py and
-    # disco/shed.py are the validators; per-tile `shed` overrides
-    # validate at Topology.build)
+    # fail before launch (trace/recorder.py, tiles/replay.py,
+    # funk/shmfunk.py and disco/shed.py are the validators; per-tile
+    # `shed` overrides validate at Topology.build)
     shed_cfg = cfg.get("shed")
     if shed_cfg is not None:
         normalize_shed(shed_cfg)
@@ -229,10 +240,14 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     replay_cfg = cfg.get("replay")
     if replay_cfg is not None:
         normalize_replay(replay_cfg)
+    funk_cfg = cfg.get("funk")
+    if funk_cfg is not None:
+        normalize_funk(funk_cfg)
     top = cfg.get("topology", {})
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
                     wksp_size=int(top.get("wksp_size", 1 << 26)),
-                    trace=trace_cfg, replay=replay_cfg, shed=shed_cfg)
+                    trace=trace_cfg, replay=replay_cfg, shed=shed_cfg,
+                    funk=funk_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))

@@ -1,15 +1,18 @@
 """Tile adapters + registry: kind string -> runnable tile object (copy of
 the adapters of the JAX package's disco/tiles.py that the port's paths
 run: synth, verify, dedup and sink on the sigverify path; pack, bank,
-poh, shred and sign on the leader's loop; shred in recover mode and
-replay on the follower's; sock and gossip at the front door).
+poh, shred and sign on the leader's loop, with resolv ahead of pack and
+the exec tile family behind the bank when execution is scaled out;
+shred in recover mode and replay on the follower's; sock and gossip at
+the front door), and the exec fan-out engine (ExecFanout) the bank and
+the replay share.
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these twelve kinds only; `Topology.tile` refuses
+  * the registry holds these fourteen kinds only; `Topology.tile` refuses
     every other kind of the reference's registry (disco/unported.py),
     and `adapter_class` raises ValueError for a name without an
     adapter;
@@ -28,14 +31,14 @@ Where the copy differs from the reference:
     append a batch; a publish record carries the time taken before its
     `publish_batch`, not after it as in the reference, so a consume
     never sorts before the publish it follows;
-  * PackAdapter refuses `resolved_in` (the resolv tile, item 5) and
-    `bundle_in` (the bundle tile, item 13);
+  * PackAdapter refuses `bundle_in` (the bundle tile, item 13);
   * BankAdapter runs exec="svm" (the wave executor, svm/executor.py, on
-    the card unless its `device` arg says "cpu") and exec="stub"; it
-    refuses exec="general" (the full host SVM, item 15), the exec tile
-    family (`exec_links`, `exec_done`, `redispatch_s`) and
-    `genesis_ckpt` (item 5), and the RPC and WebSocket surfaces
-    (`rpc_port`, `ws_port`, item 16). It boots by running one
+    the card unless its `device` arg says "cpu"; or, with `exec_links`,
+    the exec tile family over the shm store) and exec="stub"; it
+    refuses exec="general" (the full host SVM, item 15), `genesis_ckpt`
+    (item 5f, as the reference refuses it with exec links), and the RPC
+    and WebSocket surfaces (`rpc_port`, `ws_port`, item 16). It boots by
+    running one
     one-transfer wave through the kernel, so a kernel that does not
     build or launch fails the tile's boot, and it counts the kernel
     launches it makes after that in its `wave_launches` metric; its
@@ -47,12 +50,15 @@ Where the copy differs from the reference:
   * ShredAdapter runs mode="leader" and mode="recover" (the follower's
     FEC resolution, store and reassembly, tiles/shred.py
     ShredRecoverCore);
-  * ReplayAdapter runs the in-process replay (tiles/replay.py) with its
-    PoH check and bank hash on the card unless its `device` arg says
-    "cpu"; it refuses the exec fan-out (`exec_links`, `exec_done`,
-    `redispatch_s`) and the snapshot restore and writer
-    (`wait_restore`, `snapshot_path`, `snapshot_every`,
-    `snapshot_compress`), item 5. It boots by running lthash_of_root
+  * ExecAdapter takes a `device` arg (default "cuda") for its
+    WaveExecutor, boots by running one one-transfer wave through the
+    wave-scan kernel (as the bank does) and counts later launches in
+    `wave_launches`; it has no fdtune `exec_dispatch` knob (item 11);
+  * ReplayAdapter runs the replay (tiles/replay.py), in process or over
+    the exec fan-out, with its PoH check and bank hash on the card
+    unless its `device` arg says "cpu"; it refuses the snapshot restore
+    and writer (`wait_restore`, `snapshot_path`, `snapshot_every`,
+    `snapshot_compress`), item 5f. It boots by running lthash_of_root
     over its genesis and a one-entry poh_verify on its device (a kernel
     that does not build or launch fails the boot), counts later
     launches in `poh_launches` and `lthash_launches`, and its tpu
@@ -503,7 +509,8 @@ class PackAdapter:
     ONE credit-gated publish_batch on its link, and completion frags
     drain as one gather pass per done link.
 
-    args: txn_in (link), bank_links (ordered list), done_links (ordered
+    args: txn_in (link), resolved_in (txn_in carries the resolv tile's
+    RESOLVED frames), bank_links (ordered list), done_links (ordered
     list, one per bank), max_txn_per_microblock, wave (max outstanding
     microblocks per bank), batch, and the slot boundary source: slot_in
     (link carrying PoH slot frags, ref fd_poh.h leader slot handoff) or
@@ -514,12 +521,15 @@ class PackAdapter:
 
     def __init__(self, ctx, args):
         from ..pack import PackLimits, PackScheduler
-        from ..pack.scheduler import meta_from_payload
-        if args.get("resolved_in"):
-            refuse("pack arg 'resolved_in' (the resolv tile)", 5)
+        from ..pack.scheduler import meta_from_payload, meta_from_resolved
         if args.get("bundle_in"):
             refuse("pack arg 'bundle_in' (the bundle tile)", 13)
-        self._meta_from_payload = meta_from_payload
+        # resolved_in: txn_in carries RESOLVED frames from a resolv tile
+        # (account sets and cost computed upstream, the reference's
+        # resolv -> pack seam)
+        self._meta_from_payload = (meta_from_resolved
+                                   if args.get("resolved_in")
+                                   else meta_from_payload)
         self.ctx = ctx
         self.txn_in = args["txn_in"]
         self.bank_links = list(args["bank_links"])
@@ -665,6 +675,199 @@ class PackAdapter:
         return dict(self.m)
 
 
+# exec-family wire: bank -> exec dispatch frame is
+# u64 wave_seq | u64 xid | u16 txn_cnt, then txn_cnt x
+# (32B src | 32B dst | u64 amount | u64 fee); exec -> bank completion
+# frag is u64 wave_seq | u32 ok | u32 fail
+_EXEC_HDR = struct.Struct("<QQH")
+_EXEC_TXN = struct.Struct("<QQ")
+_EXEC_TXN_SZ = 64 + _EXEC_TXN.size
+_EXEC_DONE = struct.Struct("<QII")
+
+
+def _conflict_groups(txns):
+    """Union-find partition of a wave's transfers into account-disjoint
+    conflict groups, each group in original txn order. Groups can run
+    concurrently on different exec tiles without breaking the serial
+    fiction; txns INSIDE a group must execute in order on one tile
+    (pack only prevents conflicts against OTHER banks' outstanding
+    microblocks — same-bank microblocks may conflict pairwise)."""
+    parent = {}
+
+    def find(k):
+        while parent[k] != k:
+            parent[k] = parent[parent[k]]
+            k = parent[k]
+        return k
+
+    for t in txns:
+        parent.setdefault(t.src, t.src)
+        parent.setdefault(t.dst, t.dst)
+        ra, rb = find(t.src), find(t.dst)
+        if ra != rb:
+            parent[ra] = rb
+    groups = {}
+    for t in txns:
+        groups.setdefault(find(t.src), []).append(t)
+    return list(groups.values())
+
+
+class ExecFanout:
+    """Sharded exec-family wave scheduler: the bank's fan-out machinery,
+    which the replay tile's follower path runs too, so it catches up
+    over the SAME engine the leader executes with. Owns the per-shard
+    dispatch/completion rings, the one-fork-per-attempt discipline
+    (wave_seq == xid: one monotonic counter identifies both the fork
+    and the attempt, so a cancelled attempt's late completions can
+    never alias the retry's), the conflict-group round-robin across
+    shards (groups are account-disjoint across tiles; a group bigger
+    than a link frame splits into consecutive frames on the SAME ring,
+    executed in order at the fork layer), and timeout cancel +
+    whole-wave redispatch when a shard dies mid-wave — exactly-once
+    application, no wedged producer.
+
+    The OWNER supplies on_commit(tag, xid, ok, fail), called when a
+    wave fully completes: the bank publishes the fork immediately and
+    flushes its poh/done frames; replay folds the fork's delta into
+    the bank-hash lattice FIRST, then publishes. xid is None when the
+    wave carried no transfers (no fork was prepared). `m` is the
+    owner's metrics dict (needs exec_waves/exec_redispatch/overruns)."""
+
+    def __init__(self, ctx, funk, exec_links, exec_done, m,
+                 on_commit=None, redispatch_s=2.0):
+        self.ctx = ctx
+        self.funk = funk
+        self.m = m
+        self.on_commit = on_commit
+        self.redispatch_s = float(redispatch_s)
+        self.exec_links = list(exec_links)
+        self.exec_done = list(exec_done)
+        if len(self.exec_links) != len(self.exec_done):
+            raise ValueError(
+                f"{ctx.tile_name}: exec_links/exec_done must pair up, "
+                f"got {self.exec_links} / {self.exec_done}")
+        self._exec_out = [(ctx.out_rings[ln], ctx.out_fseqs[ln])
+                          for ln in self.exec_links]
+        self._done_rings = [ctx.in_rings[ln] for ln in self.exec_done]
+        self.done_seq = {ln: ctx.in_seq0.get(ln, 0)
+                         for ln in self.exec_done}
+        self._exec_cap = []
+        for ln in self.exec_links:
+            cap = (ctx.plan["links"][ln]["mtu"] - _EXEC_HDR.size) \
+                // _EXEC_TXN_SZ
+            if cap < 1:
+                raise ValueError(
+                    f"{ctx.tile_name}: exec link {ln} mtu "
+                    f"{ctx.plan['links'][ln]['mtu']} can't carry one "
+                    f"dispatch txn ({_EXEC_HDR.size + _EXEC_TXN_SZ}B)")
+            self._exec_cap.append(cap)
+        self._next_xid = 1
+        self.wave = None               # in-flight wave state
+
+    @property
+    def busy(self) -> bool:
+        return self.wave is not None
+
+    def dispatch(self, txns, tag=None):
+        """Start a wave (exactly ONE outstanding — waves stay serial,
+        so cross-wave conflicts need no tracking at all). `tag` rides
+        the wave untouched and comes back in on_commit."""
+        assert self.wave is None, "one wave outstanding"
+        self.wave = {"tag": tag, "txns": list(txns), "xid": None,
+                     "wave_seq": None, "remaining": 0, "ok": 0,
+                     "fail": 0, "deadline": None}
+        self._send()
+
+    def _send(self):
+        """(Re-)dispatch the in-flight wave under a FRESH fork:
+        conflict groups round-robin across the exec tiles, each group
+        intact and in order on ONE tile."""
+        w = self.wave
+        if not w["txns"]:
+            self._commit()
+            return
+        xid = self._next_xid
+        self._next_xid += 1
+        self.funk.txn_prepare(None, xid)
+        per_tile = [[] for _ in self.exec_links]
+        for gi, g in enumerate(_conflict_groups(w["txns"])):
+            per_tile[gi % len(per_tile)].extend(g)
+        cnc = getattr(self.ctx, "cnc", None)
+        sent = 0
+        for ti, tl in enumerate(per_tile):
+            if not tl:
+                continue
+            out, fseqs = self._exec_out[ti]
+            cap = self._exec_cap[ti]
+            frames = []
+            for i in range(0, len(tl), cap):
+                chunk = tl[i:i + cap]
+                body = b"".join(
+                    t.src + t.dst + _EXEC_TXN.pack(t.amount, t.fee)
+                    for t in chunk)
+                frames.append(
+                    (xid, _EXEC_HDR.pack(xid, xid, len(chunk)) + body))
+            publish_wave(out, fseqs, frames, cnc=cnc)
+            sent += len(frames)
+        w.update(xid=xid, wave_seq=xid, remaining=sent, ok=0, fail=0,
+                 deadline=time.monotonic() + self.redispatch_s)
+        self.m["exec_waves"] += 1
+
+    def poll(self, allow_redispatch=True) -> int:
+        """Drain completion frags; commit the wave when every dispatch
+        frame completed, cancel + re-dispatch whole under a fresh fork
+        on deadline (an exec tile died mid-wave and its ring rejoin
+        skipped the frames) — the store stays consistent, the owner
+        never wedges."""
+        total = 0
+        for ln, ring in zip(self.exec_done, self._done_rings):
+            n, self.done_seq[ln], buf, sizes, _sigs, ovr = \
+                ring.gather(self.done_seq[ln], 64, 64)
+            self.m["overruns"] += ovr
+            total += n
+            for i in range(n):
+                ws, ok, fail = _EXEC_DONE.unpack_from(
+                    bytes(buf[i, :sizes[i]]), 0)
+                w = self.wave
+                if w is None or ws != w["wave_seq"]:
+                    continue       # a cancelled attempt's leftovers
+                w["remaining"] -= 1
+                w["ok"] += ok
+                w["fail"] += fail
+        w = self.wave
+        if w is not None and w["wave_seq"] is not None:
+            if w["remaining"] <= 0:
+                self._commit()
+            elif allow_redispatch \
+                    and time.monotonic() > w["deadline"]:
+                self.m["exec_redispatch"] += 1
+                self.funk.txn_cancel(w["xid"])
+                self._send()
+        return total
+
+    def _commit(self):
+        w = self.wave
+        self.wave = None
+        if self.on_commit is not None:
+            self.on_commit(w["tag"], w["xid"], w["ok"], w["fail"])
+
+    def halt(self):
+        """Bounded drain, then cancel: a wave already dispatched gets
+        redispatch_s to complete (exec tiles are halting too); after
+        the window the fork is cancelled — no partial commits in the
+        store, no on_commit for a wave that never finished."""
+        t0 = time.monotonic()
+        while self.wave is not None \
+                and time.monotonic() - t0 < self.redispatch_s:
+            self.poll(allow_redispatch=False)
+            if self.wave is not None:
+                time.sleep(0.001)
+        if self.wave is not None:
+            if self.wave["xid"] is not None:
+                self.funk.txn_cancel(self.wave["xid"])
+            self.wave = None
+
+
 @register("bank")
 class BankAdapter:
     """Execution stage (ref: src/discoh/bank/fd_bank_tile.c shape:
@@ -680,6 +883,18 @@ class BankAdapter:
 
     exec="stub": count txns and ack (ring-plumbing tests).
 
+    Exec tile fan-out: with `exec_links`/`exec_done` the bank keeps only
+    wave scheduling, commit ordering and the PoH handoff; execution
+    moves to the exec tile family over the shm funk store (plan["funk"],
+    backend "shm"), through ExecFanout: the gathered wave's transfers
+    are partitioned into account-disjoint conflict groups, each shipped
+    intact and in order to one exec tile under ONE funk fork the bank
+    prepared. The bank publishes the fork only after every dispatch
+    frame completed; a wave that does not complete within
+    `redispatch_s` (an exec tile died mid-wave) is cancelled and
+    re-dispatched whole under a fresh fork. The genesis balances are
+    written into the shm store's root.
+
     Device-wave execution: the tile gathers up to `wave` microblocks per
     poll and executes them as ONE device dispatch. Their conflict
     tables are packed into one staging buffer whose balance-independent
@@ -693,15 +908,17 @@ class BankAdapter:
     args: exec, wave (microblocks per device wave), poh_link (optional
     out link name), forward_payloads, genesis ({pubkey hex: lamports}),
     genesis_synth (fund the first N synth signers), device ("cuda" |
-    "cpu"); the done link is the remaining out link."""
+    "cpu"), exec_links/exec_done (ordered per-exec-shard dispatch and
+    completion links), redispatch_s; the done link is the remaining
+    out link."""
 
     METRICS = ["microblocks", "txns", "transfers", "exec_skip",
-               "exec_fail", "overruns", "wave_launches"]
+               "exec_fail", "overruns", "wave_launches", "exec_waves",
+               "exec_redispatch"]
 
     def __init__(self, ctx, args):
-        for key, item in (("exec_links", 5), ("exec_done", 5),
-                          ("redispatch_s", 5), ("genesis_ckpt", 5),
-                          ("rpc_port", 16), ("ws_port", 16)):
+        for key, item in (("genesis_ckpt", "5f"), ("rpc_port", 16),
+                          ("ws_port", 16)):
             if args.get(key) is not None:
                 refuse(f"bank arg {key!r}", item)
         self.exec_mode = args.get("exec", "stub")
@@ -711,13 +928,24 @@ class BankAdapter:
             raise ValueError(f"bank {ctx.tile_name}: unknown exec "
                              f"{self.exec_mode!r}")
         self.ctx = ctx
-        if len(ctx.in_rings) != 1:
+        self.exec_links = list(args.get("exec_links") or [])
+        self.exec_done = list(args.get("exec_done") or [])
+        if len(self.exec_links) != len(self.exec_done):
+            raise ValueError(
+                f"bank {ctx.tile_name}: exec_links/exec_done must "
+                f"pair up, got {self.exec_links} / {self.exec_done}")
+        if self.exec_links and self.exec_mode != "svm":
+            raise ValueError(
+                f"bank {ctx.tile_name}: exec_links need exec=\"svm\"")
+        non_done = [ln for ln in ctx.in_rings if ln not in self.exec_done]
+        if len(non_done) != 1:
             raise ValueError(f"bank {ctx.tile_name}: expected one in "
-                             f"link, got {list(ctx.in_rings)}")
-        self.in_link = next(iter(ctx.in_rings))
+                             f"link, got {non_done}")
+        self.in_link = non_done[0]
         self.ring = ctx.in_rings[self.in_link]
         self.poh_link = args.get("poh_link")
-        done = [ln for ln in ctx.out_rings if ln != self.poh_link]
+        done = [ln for ln in ctx.out_rings
+                if ln != self.poh_link and ln not in self.exec_links]
         if len(done) != 1:
             raise ValueError(f"bank {ctx.tile_name}: expected one done "
                              f"link, got {done}")
@@ -750,7 +978,16 @@ class BankAdapter:
             from ..svm.executor import WaveExecutor
             self._cuda_wave = cuda_wave
             self._wx = WaveExecutor(args.get("device", "cuda"))
-            self.funk = Funk()
+            if self.exec_links:
+                fk = ctx.plan.get("funk") or {}
+                if fk.get("backend") != "shm" or "off" not in fk:
+                    raise ValueError(
+                        f"bank {ctx.tile_name}: exec_links need "
+                        f"[funk] backend=\"shm\"")
+                from ..funk.shmfunk import WireFunk
+                self.funk = WireFunk.from_plan(ctx.wksp, fk)
+            else:
+                self.funk = Funk()
             self.xid = None            # published root
             self._next_xid = 1
             # genesis balances: airdropped accounts (tests inject via
@@ -768,6 +1005,12 @@ class BankAdapter:
             self.tpu_hist = HistAccum()
         self.seq = ctx.in_seq0.get(self.in_link, 0)
         self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+        self.fanout = None             # exec-family wave scheduler
+        if self.exec_links:
+            self.fanout = ExecFanout(
+                ctx, self.funk, self.exec_links, self.exec_done,
+                self.m, on_commit=self._ef_commit,
+                redispatch_s=float(args.get("redispatch_s", 2.0)))
 
     def _warmup(self):
         """One one-transfer wave through the kernel on a scratch funk, so
@@ -829,6 +1072,8 @@ class BankAdapter:
         return txns, mixin
 
     def poll_once(self) -> int:
+        if self.exec_links:
+            return self._poll_exec_family()
         n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
             self.seq, self.wave, self.mtu)
         self.m["overruns"] += ovr
@@ -922,6 +1167,56 @@ class BankAdapter:
                      + mixin + blob))
         self._flush_wave(poh_frames, [r[2] for r in recs])
 
+    def _poll_exec_family(self) -> int:
+        """Exec fan-out scheduler loop: drain completion frags, then —
+        only with NO wave outstanding — gather the next wave and
+        dispatch it (ExecFanout keeps waves serial, so cross-wave
+        conflicts need no tracking at all)."""
+        work = self.fanout.poll()
+        if self.fanout.busy:
+            return work
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, self.wave, self.mtu)
+        self.m["overruns"] += ovr
+        if not n:
+            return work
+        recs, txns = [], []
+        for i in range(n):
+            frame = bytes(buf[i, :sizes[i]])
+            _bank, txn_cnt, mb_id, slot = struct.unpack_from(
+                "<HHQQ", frame, 0)
+            self.slot = max(self.slot, slot)
+            self.m["txns"] += txn_cnt
+            self.m["microblocks"] += 1
+            if txn_cnt:
+                t, mixin = self._parse_transfers(frame, txn_cnt)
+            else:
+                t, mixin = [], hashlib.sha256(b"").digest()
+            recs.append((frame, txn_cnt, mb_id, mixin))
+            txns.extend(t)
+        self.fanout.dispatch(txns, tag=recs)
+        return work + n
+
+    def _ef_commit(self, recs, xid, ok, fail):
+        """Fan-out wave complete: publish the fork, then flush the poh
+        mixin frames + completion frags in the original microblock
+        order (commit ordering stays with the bank, exactly the
+        in-process path's contract)."""
+        if xid is not None:
+            self.funk.txn_publish(xid)
+            self.m["transfers"] += ok
+            self.m["exec_fail"] += fail
+        poh_frames = []
+        if self.poh_out is not None:
+            for frame, txn_cnt, mb_id, mixin in recs:
+                if not txn_cnt:
+                    continue
+                blob = frame[20:] if self.fwd_payloads else b""
+                poh_frames.append(
+                    (mb_id, struct.pack("<QH", mb_id, txn_cnt)
+                     + mixin + blob))
+        self._flush_wave(poh_frames, [r[2] for r in recs])
+
     def _flush_wave(self, poh_frames, done_ids):
         cnc = getattr(self.ctx, "cnc", None)
         if poh_frames and self.poh_out is not None:
@@ -938,6 +1233,12 @@ class BankAdapter:
         # completions (the verify tile's flush contract)
         if self._pending is not None:
             self._finalize_wave()
+        if self.fanout is not None and self.fanout.busy:
+            # bounded drain then cancel (ExecFanout.halt): exec tiles
+            # are halting too, so after the window the fork is dropped
+            # rather than wedging the halt — no poh frame for a wave
+            # that never completed, no partial commits in the store
+            self.fanout.halt()
 
     def housekeeping(self):
         knobs = getattr(self.ctx, "knobs", None)
@@ -947,7 +1248,10 @@ class BankAdapter:
                 self.wave = max(1, v)
 
     def in_seqs(self):
-        return {self.in_link: self.seq}
+        s = {self.in_link: self.seq}
+        if self.fanout is not None:
+            s.update(self.fanout.done_seq)
+        return s
 
     def metrics_items(self):
         m = dict(self.m)
@@ -955,6 +1259,249 @@ class BankAdapter:
             m["wave_launches"] = (self._cuda_wave.launches["wave_scan"]
                                   - self._launch0)
         return m
+
+
+@register("exec")
+class ExecAdapter:
+    """Exec tile (ref: src/discof/exec/fd_exec_tile.c): one shard of the
+    bank's execution fan-out. Consumes the bank's conflict-group dispatch
+    frames, executes each through the WaveExecutor (one launch of the
+    wave-scan kernel a frame, on the card unless `device` says "cpu")
+    against the shm funk store AT THE FORK THE BANK PREPARED — dispatch
+    reads balances at the frame's xid itself, so a split group's later
+    frames see the earlier frames' commits (WireFunk's txn_prepare is
+    idempotent, which is what lets the WaveExecutor's
+    stage->dispatch->finalize seam run here unchanged) — and publishes
+    one completion frag per frame. A frame whose fork the bank already
+    cancelled (timeout redispatch) is abandoned with NO completion and
+    counted in `stale_xid`: the retry under the fresh fork supersedes
+    it.
+
+    Like the bank, the tile boots by running one one-transfer wave
+    through the kernel on a scratch in-process funk, so a kernel that
+    does not build or launch fails the tile's boot, and it counts the
+    launches it makes after that in its `wave_launches` metric. The
+    reference's housekeeping reads the fdtune `exec_dispatch` knob
+    (ROADMAP.md queue A item 11); this tile has no knobs.
+
+    args: batch (dispatch frames gathered per poll), device ("cuda" |
+    "cpu")."""
+
+    METRICS = ["frames", "txns", "ok", "fail", "stale_xid",
+               "overruns", "backpressure", "wave_launches"]
+
+    def __init__(self, ctx, args):
+        from ..funk.shmfunk import WireFunk
+        from ..ops import cuda_wave
+        from ..svm.executor import WaveExecutor
+        self.ctx = ctx
+        if len(ctx.in_rings) != 1:
+            raise ValueError(f"exec tile {ctx.tile_name}: one in link")
+        self.in_link = next(iter(ctx.in_rings))
+        self.ring = ctx.in_rings[self.in_link]
+        self.out = _single(ctx.out_rings, "out link", ctx.tile_name)
+        self.out_fseqs = _single(ctx.out_fseqs, "out link",
+                                 ctx.tile_name)
+        self.batch = max(1, int(args.get("batch", 8)))
+        fk = ctx.plan.get("funk") or {}
+        if fk.get("backend") != "shm" or "off" not in fk:
+            raise ValueError(
+                f"exec {ctx.tile_name}: needs [funk] backend=\"shm\"")
+        self.funk = WireFunk.from_plan(ctx.wksp, fk)
+        self._cuda_wave = cuda_wave
+        self._wx = WaveExecutor(args.get("device", "cuda"))
+        self.m = {k: 0 for k in self.METRICS}
+        self._warmup()
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+
+    def _warmup(self):
+        """The bank's boot wave (BankAdapter._warmup): one one-transfer
+        wave on a scratch in-process funk; launches from here on are
+        counted."""
+        from ..funk.funk import Funk
+        from ..svm.executor import SystemTxn
+        scratch = Funk()
+        scratch.rec_write(None, bytes(31) + b"\x01", 10)
+        wx = self._wx
+        disp = wx.dispatch(scratch, None, 1, wx.stage([SystemTxn(
+            bytes(31) + b"\x01", bytes(31) + b"\x02", 1, 1)]))
+        wx.finalize(scratch, disp)
+        self._launch0 = self._cuda_wave.launches["wave_scan"]
+
+    def poll_once(self) -> int:
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, self.batch, self.mtu)
+        self.m["overruns"] += ovr
+        if not n:
+            return 0
+        from ..funk import FunkTxnError
+        from ..svm.executor import STATUS_OK, SystemTxn
+        comps = []
+        for i in range(n):
+            frame = bytes(buf[i, :sizes[i]])
+            wave_seq, xid, cnt = _EXEC_HDR.unpack_from(frame, 0)
+            off = _EXEC_HDR.size
+            txns = []
+            for _ in range(cnt):
+                amt, fee = _EXEC_TXN.unpack_from(frame, off + 64)
+                txns.append(SystemTxn(
+                    src=frame[off:off + 32],
+                    dst=frame[off + 32:off + 64],
+                    amount=amt, fee=fee))
+                off += _EXEC_TXN_SZ
+            self.m["frames"] += 1
+            self.m["txns"] += cnt
+            try:
+                staged = self._wx.stage(txns)
+                disp = self._wx.dispatch(self.funk, xid, xid, staged)
+                st = self._wx.finalize(self.funk, disp)
+            except (FunkTxnError, KeyError, MemoryError):
+                self.m["stale_xid"] += 1
+                continue
+            ok = sum(1 for s in st if s == STATUS_OK)
+            self.m["ok"] += ok
+            self.m["fail"] += len(st) - ok
+            comps.append((wave_seq,
+                          _EXEC_DONE.pack(wave_seq, ok, len(st) - ok)))
+        if comps:
+            publish_wave(self.out, self.out_fseqs, comps,
+                         cnc=getattr(self.ctx, "cnc", None))
+        return n
+
+    def in_seqs(self):
+        return {self.in_link: self.seq}
+
+    def metrics_items(self):
+        return self.m | {"wave_launches": (
+            self._cuda_wave.launches["wave_scan"] - self._launch0)}
+
+
+@register("resolv")
+class ResolvAdapter:
+    """Resolution stage ahead of pack (ref: src/discof/resolv/
+    fd_resolv_tile.c): parse each txn once, resolve v0 address-table
+    loads against the shm account store, drop txns whose fee payer
+    can't cover the signature fee, and ship RESOLVED frames so pack
+    never re-parses and never needs account-db access (pack side:
+    resolved_in + pack/scheduler.py meta_from_resolved).
+
+    Without a shm [funk] section the tile still runs — legacy txns
+    resolve statically from their own account keys; v0 txns with
+    table loads are refused (alut_fail), exactly meta_from_payload's
+    rule — and the fee-payer gate is off (no store to read).
+
+    args: batch, fee_payer_check (default on when the store is
+    present)."""
+
+    METRICS = ["rx", "resolved", "parse_fail", "alut_fail",
+               "fee_fail", "oversz", "overruns", "backpressure"]
+
+    def __init__(self, ctx, args):
+        self.ctx = ctx
+        if len(ctx.in_rings) != 1:
+            raise ValueError(
+                f"resolv tile {ctx.tile_name}: one in link")
+        self.in_link = next(iter(ctx.in_rings))
+        self.ring = ctx.in_rings[self.in_link]
+        out = [ln for ln in ctx.out_rings]
+        if len(out) != 1:
+            raise ValueError(
+                f"resolv tile {ctx.tile_name}: one out link")
+        self.out_link = out[0]
+        self.out = ctx.out_rings[self.out_link]
+        self.out_fseqs = ctx.out_fseqs[self.out_link]
+        self.batch = max(1, int(args.get("batch", 64)))
+        self.db = None
+        fk = ctx.plan.get("funk") or {}
+        if fk.get("backend") == "shm" and "off" in fk:
+            from ..funk.shmfunk import WireFunk
+            from ..svm.accdb import AccDb
+            self.db = AccDb(WireFunk.from_plan(ctx.wksp, fk))
+        self.fee_check = bool(args.get("fee_payer_check",
+                                       self.db is not None))
+        if self.fee_check and self.db is None:
+            raise ValueError(
+                f"resolv {ctx.tile_name}: fee_payer_check needs "
+                f"[funk] backend=\"shm\"")
+        self.m = {k: 0 for k in self.METRICS}
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+        self.out_mtu = ctx.plan["links"][self.out_link]["mtu"]
+
+    def _resolve(self, payload):
+        """payload -> RESOLVED frame bytes, or None (counted drop).
+        The meta_from_payload cost/reward model with the v0 refusal
+        replaced by REAL table resolution against the store."""
+        from ..pack.cost import CostError
+        from ..pack.scheduler import (FEE_PER_SIGNATURE, TxnMeta,
+                                      serialize_resolved,
+                                      txn_cost_and_reward)
+        from ..protocol.txn import parse_txn
+        from ..svm.alut import AlutResolveError, resolve_loaded_keys
+        try:
+            t = parse_txn(payload)
+        except Exception:
+            self.m["parse_fail"] += 1
+            return None
+        keys = t.account_keys(payload)
+        flags = [t.is_writable(i) for i in range(t.acct_cnt)]
+        if t.version == 0 and t.aluts:
+            if self.db is None:
+                self.m["alut_fail"] += 1
+                return None
+            try:
+                lk, lw = resolve_loaded_keys(self.db, None, t,
+                                             slot=0)
+            except AlutResolveError:
+                self.m["alut_fail"] += 1
+                return None
+            keys, flags = keys + lk, flags + list(lw)
+        try:
+            cost, reward, vote = txn_cost_and_reward(t, payload)
+        except CostError:
+            self.m["parse_fail"] += 1
+            return None
+        if self.fee_check:
+            payer = self.db.peek(None, keys[0])
+            fee = FEE_PER_SIGNATURE * t.sig_cnt
+            if payer is None or payer.lamports < fee:
+                self.m["fee_fail"] += 1
+                return None
+        meta = TxnMeta(
+            payload, t, reward, cost,
+            tuple(k for k, w in zip(keys, flags) if w),
+            tuple(k for k, w in zip(keys, flags) if not w),
+            is_vote=vote)
+        return serialize_resolved(meta)
+
+    def poll_once(self) -> int:
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, self.batch, self.mtu)
+        self.m["overruns"] += ovr
+        if not n:
+            return 0
+        frames = []
+        for i in range(n):
+            self.m["rx"] += 1
+            out = self._resolve(bytes(buf[i, :sizes[i]]))
+            if out is None:
+                continue
+            if len(out) > self.out_mtu:
+                self.m["oversz"] += 1
+                continue
+            self.m["resolved"] += 1
+            frames.append((int(sigs[i]), out))
+        if frames:
+            publish_wave(self.out, self.out_fseqs, frames,
+                         cnc=getattr(self.ctx, "cnc", None))
+        return n
+
+    def in_seqs(self):
+        return {self.in_link: self.seq}
+
+    def metrics_items(self):
+        return dict(self.m)
 
 
 @register("poh")
@@ -1309,37 +1856,66 @@ class ReplayAdapter:
     hashes: a mismatch is a divergence VERDICT (metric + loud tile
     FAIL), never a silent wrong state.
 
+    Follower fan-out: with `exec_links`/`exec_done` the slot's transfers
+    execute over the exec tile family against the shm funk store, the
+    SAME ExecFanout engine the leader bank uses, so the shards replay a
+    slot in parallel with exactly-once commits across an exec-shard
+    crash.
+
     args: genesis ({pubkey_hex: lamports}), genesis_synth,
-    hashes_per_tick, verify_poh (both default from the plan's [replay]
-    section), slots_per_epoch, expected ({slot: bank_hash_hex}),
-    device ("cuda" | "cpu"). The exec fan-out (exec_links, exec_done,
-    redispatch_s) and the snapshot restore and writer (wait_restore,
-    snapshot_path, snapshot_every, snapshot_compress) are refused,
-    item 5."""
+    hashes_per_tick, verify_poh, redispatch_s (all three default from
+    the plan's [replay] section), slots_per_epoch, expected ({slot:
+    bank_hash_hex}), exec_links/exec_done (ordered per-shard dispatch
+    and completion links), device ("cuda" | "cpu"). The snapshot
+    restore and writer (wait_restore, snapshot_path, snapshot_every,
+    snapshot_compress) are refused, item 5f."""
 
     METRICS = ["slices", "slots_replayed", "entries", "txns", "exec_ok",
                "exec_fail", "poh_fail", "buffered", "waves",
-               "parse_fail", "divergent_slot", "behind", "overruns",
+               "parse_fail", "exec_skip", "exec_waves",
+               "exec_redispatch", "divergent_slot", "behind", "overruns",
                "poh_launches", "lthash_launches"]
 
     def __init__(self, ctx, args):
-        for key in ("exec_links", "exec_done", "redispatch_s",
-                    "wait_restore", "snapshot_path", "snapshot_every",
+        for key in ("wait_restore", "snapshot_path", "snapshot_every",
                     "snapshot_compress"):
             if args.get(key):
-                refuse(f"replay arg {key!r}", 5)
+                refuse(f"replay arg {key!r}", "5f")
         from .metrics import HistAccum
         from ..ops import cuda_blake3, cuda_sha256
         from ..tiles.replay import ReplayCore
         self.ctx = ctx
-        self.in_link = _single({ln: ln for ln in ctx.in_rings},
-                               "slice in link", ctx.tile_name)
+        self.exec_links = list(args.get("exec_links") or [])
+        self.exec_done = list(args.get("exec_done") or [])
+        non_done = [ln for ln in ctx.in_rings if ln not in self.exec_done]
+        if len(non_done) != 1:
+            raise ValueError(
+                f"replay tile {ctx.tile_name}: exactly one slice in "
+                f"link, got {non_done}")
+        self.in_link = non_done[0]
         self.ring = ctx.in_rings[self.in_link]
         genesis = {bytes.fromhex(k): int(v)
                    for k, v in args.get("genesis", {}).items()}
         if args.get("genesis_synth"):
             genesis.update(_synth_genesis(int(args["genesis_synth"])))
+        outs = {ln: r for ln, r in ctx.out_rings.items()
+                if ln not in self.exec_links}
+        out_fseqs = {ln: f for ln, f in ctx.out_fseqs.items()
+                     if ln not in self.exec_links}
         rp = ctx.plan.get("replay") or {}
+        funk = fanout = None
+        if self.exec_links:
+            fk = ctx.plan.get("funk") or {}
+            if fk.get("backend") != "shm" or "off" not in fk:
+                raise ValueError(
+                    f"replay {ctx.tile_name}: exec_links need "
+                    f"[funk] backend=\"shm\"")
+            from ..funk.shmfunk import WireFunk
+            funk = WireFunk.from_plan(ctx.wksp, fk)
+            fanout = ExecFanout(
+                ctx, funk, self.exec_links, self.exec_done, m={},
+                redispatch_s=float(args.get(
+                    "redispatch_s", rp.get("redispatch_s", 2.0))))
         expected = {int(s): bytes.fromhex(h)
                     for s, h in (args.get("expected") or {}).items()}
         self.device = args.get("device", "cuda")
@@ -1348,9 +1924,8 @@ class ReplayAdapter:
         # the core's boot runs lthash_of_root over the genesis on the
         # device: the lthash kernel's first launch
         self.core = ReplayCore(
-            out_ring=_single(ctx.out_rings, "tower out link",
-                             ctx.tile_name),
-            out_fseqs=_single(ctx.out_fseqs, "tower out link",
+            out_ring=_single(outs, "tower out link", ctx.tile_name),
+            out_fseqs=_single(out_fseqs, "tower out link",
                               ctx.tile_name),
             genesis=genesis,
             hashes_per_tick=int(args.get(
@@ -1358,9 +1933,11 @@ class ReplayAdapter:
             verify_poh=bool(args.get(
                 "verify_poh", rp.get("verify_poh", True))),
             slots_per_epoch=int(args.get("slots_per_epoch", 432_000)),
-            expected=expected, device=self.device,
-            cnc=getattr(ctx, "cnc", None),
+            funk=funk, fanout=fanout, expected=expected,
+            device=self.device, cnc=getattr(ctx, "cnc", None),
             on_span=lambda kind, ns: self.tpu_hist.add(ns))
+        if fanout is not None:
+            fanout.m = self.core.metrics   # shared counters, one dict
         self._warmup()
         self.seq = ctx.in_seq0.get(self.in_link, 0)
         self._ovr = 0
@@ -1401,12 +1978,19 @@ class ReplayAdapter:
         if ev["action"] == "diverge_block":
             self.core.diverge(int(ev.get("seed", 1)))
 
+    def on_halt(self):
+        if self.core.fanout is not None and self.core.fanout.busy:
+            self.core.fanout.halt()
+
     def in_seqs(self):
-        return {self.in_link: self.seq}
+        s = {self.in_link: self.seq}
+        if self.core.fanout is not None:
+            s.update(self.core.fanout.done_seq)
+        return s
 
     def metrics_items(self):
         return self.core.metrics | {
-            "overruns": self._ovr,
+            "overruns": self.core.metrics["overruns"] + self._ovr,
             "poh_launches": (self._cuda[0].launches["poh_verify"]
                              - self._launch0[0]),
             "lthash_launches": (self._cuda[1].launches["lthash"]

@@ -16,10 +16,10 @@ waited on and must tolerate overruns.
 Where the copy differs from the reference:
   * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
     topo.py:256), so both packages' topologies can run side by side;
-  * `Topology()` takes the [trace], [replay] and [shed] sections only,
-    none of the reference's other section keywords (topo.py:85-126:
-    slo, prof, funk, snapshot, flight, tune); app.config refuses those
-    sections;
+  * `Topology()` takes the [trace], [replay], [shed] and [funk]
+    sections only, none of the reference's other section keywords
+    (topo.py:85-126: slo, prof, snapshot, flight, tune); app.config
+    refuses those sections;
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
@@ -31,8 +31,12 @@ Where the copy differs from the reference:
     (ROADMAP.md C: the port does not degrade to the CPU); a name that
     is no kind at all is left to fail in its tile process, as in the
     reference;
-  * the plan carries no prof, funk, tune or slo regions, and TileCtx
-    has no prof or knob handles.
+  * the plan carries no prof, tune or slo regions, and TileCtx has no
+    prof or knob handles. With [funk] backend "shm" the build carves the
+    account store (runtime.Store) into the workspace and puts its offset
+    and heap size on plan["funk"], as the reference does
+    (topo.py:313-326); adapters join it through TileCtx's `plan` and
+    `wksp`.
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..runtime import Workspace, Ring, Fseq, Cnc, Tcache, TraceRing
+from ..funk.shmfunk import normalize_funk
+from ..runtime import Workspace, Ring, Fseq, Cnc, Store, Tcache, TraceRing
 from ..trace import effective_trace, normalize_trace, writer_for
 from . import tiles as tiles_mod
 from .metrics import HIST_REGION_U64, LINK_CONS_U64, LINK_PROD_U64
@@ -76,7 +81,7 @@ class Topology:
 
     def __init__(self, name: str, wksp_size: int = 1 << 26,
                  trace: dict | None = None, replay: dict | None = None,
-                 shed: dict | None = None):
+                 shed: dict | None = None, funk: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
         # [trace] flight-recorder config (trace/recorder.py schema);
@@ -89,6 +94,10 @@ class Topology:
         # ingest tiles resolve their effective gate from this + their
         # own `shed` override at adapter construction
         self.shed = shed
+        # [funk] account-store config (funk/shmfunk.py schema); backend
+        # "shm" makes build() carve the record/txn store into the wksp
+        # so bank + the resolv/exec tile family share one fork tree
+        self.funk = funk
         self.links: dict[str, LinkSpec] = {}
         self.tiles: dict[str, TileSpec] = {}
         self.tcaches: dict[str, int] = {}           # name -> depth
@@ -141,8 +150,13 @@ class Topology:
         list-valued `tcache`, `chaos` or `supervise` of length cnt
         distributes one per shard (a None entry: not on this shard, how a
         drill targets one shard); every other arg is shared.
-        The reference's per-shard in links (the exec family,
-        topo.py:173-203) are refused."""
+
+        Per-shard in links (the exec tile family): an `ins` entry that is
+        itself a list of cnt link names distributes one link per shard —
+        shard i consumes entry[i] instead of the shared link. This is how
+        an upstream ROUTING producer (the bank's conflict-group dispatch)
+        addresses a specific shard. The (link, reliable) tuple form stays
+        shared — a distribution entry is all-strings of length cnt."""
         cnt = int(cnt)
         if cnt < 1:
             raise ValueError(f"sharded tile {name}: cnt {cnt} < 1")
@@ -151,10 +165,22 @@ class Topology:
             raise ValueError(
                 f"sharded tile {name}: need one out link per shard "
                 f"({cnt}), got {outs}")
-        for e in ins:
-            if isinstance(e, (list, tuple)) and len(e) > 0 \
-                    and all(isinstance(x, str) for x in e):
-                refuse("per-shard in links (the exec tile family)", 5)
+
+        def _shard_ins(i):
+            out = []
+            for e in ins:
+                if isinstance(e, (list, tuple)) and len(e) > 0 \
+                        and all(isinstance(x, str) for x in e):
+                    if len(e) != cnt:
+                        raise ValueError(
+                            f"sharded tile {name}: per-shard ins "
+                            f"entry needs one link per shard ({cnt}),"
+                            f" got {list(e)}")
+                    out.append(e[i])
+                else:
+                    out.append(e)
+            return out
+
         for i in range(cnt):
             a = {}
             for k, v in args.items():
@@ -166,7 +192,8 @@ class Topology:
                     a[k] = v
             a["rr_cnt"] = cnt
             a["rr_idx"] = i
-            self.tile(f"{name}{i}", kind, ins=ins, outs=[outs[i]], **a)
+            self.tile(f"{name}{i}", kind, ins=_shard_ins(i),
+                      outs=[outs[i]], **a)
         return self
 
     def _validate(self):
@@ -209,6 +236,7 @@ class Topology:
         # [shed] policing defaults and the per-tile overrides: validated
         # before launch (the reference's topo.py:306-312, :367-368)
         shed = normalize_shed(self.shed) if self.shed is not None else None
+        funk = normalize_funk(self.funk)
         for t in self.tiles.values():
             if "shed" in t.args:
                 normalize_shed(t.args["shed"], per_tile=True)
@@ -221,6 +249,7 @@ class Topology:
             "seed": os.urandom(16).hex(),
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
             "trace": trace_cfg, "replay": replay, "shed": shed,
+            "funk": funk,
         }
 
         def zeroed(nbytes: int) -> int:
@@ -240,6 +269,15 @@ class Topology:
             for name, depth in self.tcaches.items():
                 tc = Tcache(w, depth=depth)
                 plan["tcaches"][name] = {"off": tc.off, "depth": depth}
+            # [funk] shm account store: offsets on the plan are the ABI;
+            # the bank, resolv and exec tiles join it through
+            # runtime.Store at plan["funk"]["off"]
+            fk = plan["funk"]
+            if fk["backend"] == "shm":
+                heap_sz = fk["heap_mb"] << 20
+                st = Store(w, rec_max=fk["rec_max"], txn_max=fk["txn_max"],
+                           heap_sz=heap_sz)
+                fk["off"], fk["heap_sz"] = st.off, heap_sz
             for tn, t in self.tiles.items():
                 for i in t.ins:
                     if i["reliable"]:

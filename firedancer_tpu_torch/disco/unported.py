@@ -5,24 +5,21 @@ ROADMAP.md queue-A item that ports it.
 `app.config.build_topology` refuses the sections, `Topology.tile` the
 kinds, the args (and `device_fail_limit`, which no item ports: the
 port's verify tile does not degrade to the CPU) and the chaos actions;
-the adapters refuse their own args (pack's `resolved_in`, item 5, and
-`bundle_in`, item 13; the bank's exec="general", item 15, exec tile
-family and `genesis_ckpt`, item 5, and `rpc_port` and `ws_port`, item
-16; the replay tile's exec fan-out and snapshot args, item 5; the sign
-tile's keyswitch region, item 13). The [replay] section is taken with
-`exec_tile_cnt = 0` only (`tiles/replay.normalize_replay` refuses the
-fan-out's settings, item 5), and the host executor refuses every
-program but the system program and ComputeBudget, and v0 transactions
-with address lookup tables (svm/programs.py, item 15). Nothing refused
-is silently ignored.
+the adapters refuse their own args (pack's `bundle_in`, item 13; the
+bank's exec="general", item 15, `genesis_ckpt`, item 5 (5f), and
+`rpc_port` and `ws_port`, item 16; the replay tile's snapshot args,
+item 5 (5f); the sign tile's keyswitch region, item 13). The host
+executor refuses every program but the system program and
+ComputeBudget, and v0 transactions with address lookup tables
+(svm/programs.py, item 15; the resolv tile resolves such tables with
+svm/alut.py's read half). Nothing refused is silently ignored.
 """
 from __future__ import annotations
 
 # topology sections of the reference (the JAX package's
 # disco/topo.py:85-126 and app/config.py's top-level tables)
-UNPORTED_SECTIONS = {"prof": 6, "slo": 8,
-                     "funk": 5, "snapshot": 5, "flight": 10,
-                     "tune": 11, "witness": 6}
+UNPORTED_SECTIONS = {"prof": 6, "slo": 8, "snapshot": "5f",
+                     "flight": 10, "tune": 11, "witness": 6}
 
 # per-tile args of the reference that the port has not ported: the
 # prof override its build reads (topo.py:366-459), core pinning
@@ -59,7 +56,7 @@ UNPORTED_CHAOS_ACTIONS = {
 # every kind of the reference's tile registry without an adapter here
 UNPORTED_KINDS = {
     "quic": "3b",
-    **dict.fromkeys(("exec", "resolv", "snapld", "snapdc", "snapin"), 5),
+    **dict.fromkeys(("snapld", "snapdc", "snapin"), "5f"),
     "metric": 8, "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,
     **dict.fromkeys(("tower", "repair", "send", "archiver",

@@ -773,4 +773,554 @@ int fdtpu_tcache_insert_batch(void *base, uint64_t off, const uint64_t *tags,
   return 0;
 }
 
+/* ---- funk store -------------------------------------------------------- */
+
+/* See fdtpu.h for the design contract. Layout at `off`:
+ *   StoreHdr | StoreTxn[txn_max] | StoreRec[rec_max]
+ *   | uint32_t map[map_cnt] | heap[heap_sz]
+ * The map holds rec idx+1 entries probed from store_hash(xid, key);
+ * deletion is backward-shift (the tcache idiom above), so probes never
+ * cross stale tombstones. The heap is power-of-two size classes
+ * (64 B .. 2 MiB, never split or coalesced — <= 2x waste, O(1) ops). */
+
+#define FDTPU_STORE_CLASSES 16
+#define FDTPU_STORE_DEPTH_MAX 128
+
+struct StoreHdr {
+  uint64_t magic;
+  uint64_t rec_max, txn_max, map_cnt, heap_sz;
+  uint64_t txn_off, rec_off, map_off, heap_off;  /* relative to store off */
+  std::atomic<uint64_t> lock;                    /* 0 free, else holder pid */
+  uint32_t root_head;                            /* root rec list, idx+1 */
+  uint32_t rec_free;                             /* rec freelist head, idx+1 */
+  uint64_t heap_used;                            /* bump cursor (bytes) */
+  uint64_t free_cls[FDTPU_STORE_CLASSES];        /* class freelists, off+1 */
+  uint64_t rec_cnt;
+  uint64_t pad[11];
+};
+static_assert(sizeof(StoreHdr) == 320, "store header ABI");
+
+struct StoreTxn {
+  uint64_t xid;       /* 0 = free slot (xid 0 is the root, never a slot) */
+  uint64_t parent;    /* 0 = child of root */
+  uint32_t rec_head;  /* idx+1 */
+  uint32_t pad0;
+  uint64_t pad[5];
+};
+static_assert(sizeof(StoreTxn) == 64, "store txn ABI");
+
+struct StoreRec {
+  uint8_t key[32];
+  uint64_t xid;
+  uint64_t val_off;   /* heap byte offset +1; 0 = empty value */
+  uint32_t val_sz;
+  uint32_t flags;     /* bit0 live, bit1 tombstone */
+  uint32_t next;      /* idx+1 in the owning layer's list */
+  uint32_t prev;      /* idx+1 (doubly linked: O(1) unlink on publish) */
+};
+static_assert(sizeof(StoreRec) == 64, "store rec ABI");
+
+static const uint64_t kStoreMagic = 0xfd79a9f07a960005ULL;
+
+static inline StoreHdr *store_hdr(void *base, uint64_t off) {
+  return reinterpret_cast<StoreHdr *>(at(base, off));
+}
+static inline StoreTxn *store_txns(void *base, uint64_t off, StoreHdr *h) {
+  return reinterpret_cast<StoreTxn *>(at(base, off + h->txn_off));
+}
+static inline StoreRec *store_recs(void *base, uint64_t off, StoreHdr *h) {
+  return reinterpret_cast<StoreRec *>(at(base, off + h->rec_off));
+}
+static inline uint32_t *store_map(void *base, uint64_t off, StoreHdr *h) {
+  return reinterpret_cast<uint32_t *>(at(base, off + h->map_off));
+}
+static inline uint8_t *store_heap(void *base, uint64_t off, StoreHdr *h) {
+  return at(base, off + h->heap_off);
+}
+
+static uint64_t store_hash(uint64_t xid, const uint8_t *key) {
+  uint64_t h = tmix(xid + 0x9e3779b97f4a7c15ULL), w;
+  for (int i = 0; i < 4; i++) {
+    std::memcpy(&w, key + 8 * i, 8);
+    h = tmix(h ^ w);
+  }
+  return h;
+}
+
+/* pid-owned spinlock: a holder that died mid-operation is detected via
+ * kill(pid, 0) == ESRCH and stolen, so a crashed exec tile can never
+ * wedge every other store user (the supervision-v2 restart contract).
+ * Mutations order their map/list updates so a stolen half-applied op is
+ * at worst a leaked rec slot, never a corrupt probe chain. */
+struct StoreLock {
+  std::atomic<uint64_t> *l;
+  explicit StoreLock(StoreHdr *h) : l(&h->lock) {
+    uint64_t me = (uint64_t)getpid();
+    for (uint64_t spin = 0;; spin++) {
+      uint64_t cur = 0;
+      if (l->compare_exchange_weak(cur, me, std::memory_order_acquire))
+        return;
+      if (cur && (spin & 1023) == 1023 &&
+          kill((pid_t)cur, 0) != 0 && errno == ESRCH)
+        l->compare_exchange_strong(cur, 0, std::memory_order_relaxed);
+    }
+  }
+  ~StoreLock() { l->store(0, std::memory_order_release); }
+};
+
+static int store_cls_of(uint64_t sz) {
+  for (int c = 0; c < FDTPU_STORE_CLASSES; c++)
+    if ((64ULL << c) >= sz) return c;
+  return -1;
+}
+
+/* returns heap byte offset +1, or 0 on exhaustion */
+static uint64_t store_heap_alloc(void *base, uint64_t off, StoreHdr *h,
+                                 uint64_t sz) {
+  int c = store_cls_of(sz);
+  if (c < 0) return 0;
+  if (h->free_cls[c]) {
+    uint64_t blk = h->free_cls[c] - 1;
+    uint64_t nxt;
+    std::memcpy(&nxt, store_heap(base, off, h) + blk, 8);
+    h->free_cls[c] = nxt;
+    return blk + 1;
+  }
+  uint64_t need = 64ULL << c;
+  if (h->heap_used + need > h->heap_sz) return 0;
+  uint64_t blk = h->heap_used;
+  h->heap_used += need;
+  return blk + 1;
+}
+
+static void store_heap_free(void *base, uint64_t off, StoreHdr *h,
+                            uint64_t val_off, uint64_t sz) {
+  if (!val_off) return;
+  int c = store_cls_of(sz);
+  uint64_t nxt = h->free_cls[c];
+  std::memcpy(store_heap(base, off, h) + (val_off - 1), &nxt, 8);
+  h->free_cls[c] = val_off;
+}
+
+/* map slot holding (xid, key), or -1 */
+static int64_t store_map_find(void *base, uint64_t off, StoreHdr *h,
+                              uint64_t xid, const uint8_t *key) {
+  uint32_t *map = store_map(base, off, h);
+  StoreRec *recs = store_recs(base, off, h);
+  uint64_t mask = h->map_cnt - 1;
+  uint64_t idx = store_hash(xid, key) & mask;
+  while (map[idx]) {
+    StoreRec *r = &recs[map[idx] - 1];
+    if (r->xid == xid && !std::memcmp(r->key, key, 32)) return (int64_t)idx;
+    idx = (idx + 1) & mask;
+  }
+  return -1;
+}
+
+static int store_map_insert(void *base, uint64_t off, StoreHdr *h,
+                            uint32_t rec_idx1) {
+  uint32_t *map = store_map(base, off, h);
+  StoreRec *recs = store_recs(base, off, h);
+  StoreRec *r = &recs[rec_idx1 - 1];
+  uint64_t mask = h->map_cnt - 1;
+  uint64_t idx = store_hash(r->xid, r->key) & mask;
+  for (uint64_t probes = 0; probes <= mask; probes++) {
+    if (!map[idx]) { map[idx] = rec_idx1; return 0; }
+    idx = (idx + 1) & mask;
+  }
+  return -6;
+}
+
+static void store_map_erase(void *base, uint64_t off, StoreHdr *h,
+                            uint64_t slot) {
+  uint32_t *map = store_map(base, off, h);
+  StoreRec *recs = store_recs(base, off, h);
+  uint64_t mask = h->map_cnt - 1;
+  map[slot] = 0;
+  uint64_t hole = slot, scan = (slot + 1) & mask;
+  while (map[scan]) {
+    StoreRec *r = &recs[map[scan] - 1];
+    uint64_t home = store_hash(r->xid, r->key) & mask;
+    if (((scan - home) & mask) >= ((scan - hole) & mask)) {
+      map[hole] = map[scan];
+      map[scan] = 0;
+      hole = scan;
+    }
+    scan = (scan + 1) & mask;
+  }
+}
+
+static StoreTxn *store_txn_find(void *base, uint64_t off, StoreHdr *h,
+                                uint64_t xid) {
+  if (!xid) return nullptr;
+  StoreTxn *t = store_txns(base, off, h);
+  for (uint64_t i = 0; i < h->txn_max; i++)
+    if (t[i].xid == xid) return &t[i];
+  return nullptr;
+}
+
+/* unlink rec idx+1 from its layer list (head passed by pointer) */
+static void store_list_unlink(StoreRec *recs, uint32_t *head,
+                              uint32_t idx1) {
+  StoreRec *r = &recs[idx1 - 1];
+  if (r->prev) recs[r->prev - 1].next = r->next;
+  else *head = r->next;
+  if (r->next) recs[r->next - 1].prev = r->prev;
+  r->next = r->prev = 0;
+}
+
+static void store_list_push(StoreRec *recs, uint32_t *head, uint32_t idx1) {
+  StoreRec *r = &recs[idx1 - 1];
+  r->next = *head;
+  r->prev = 0;
+  if (*head) recs[*head - 1].prev = idx1;
+  *head = idx1;
+}
+
+/* free one rec slot: erase from map, free heap, push on freelist */
+static void store_rec_free(void *base, uint64_t off, StoreHdr *h,
+                           uint32_t idx1) {
+  StoreRec *recs = store_recs(base, off, h);
+  StoreRec *r = &recs[idx1 - 1];
+  int64_t ms = store_map_find(base, off, h, r->xid, r->key);
+  if (ms >= 0) store_map_erase(base, off, h, (uint64_t)ms);
+  store_heap_free(base, off, h, r->val_off, r->val_sz);
+  r->flags = 0;
+  r->val_off = 0;
+  r->next = h->rec_free;
+  r->prev = 0;
+  h->rec_free = idx1;
+  h->rec_cnt--;
+}
+
+/* drop every record of one layer (cancel path) */
+static void store_drop_layer(void *base, uint64_t off, StoreHdr *h,
+                             uint32_t *head) {
+  StoreRec *recs = store_recs(base, off, h);
+  while (*head) {
+    uint32_t idx1 = *head;
+    store_list_unlink(recs, head, idx1);
+    store_rec_free(base, off, h, idx1);
+  }
+}
+
+uint64_t fdtpu_store_footprint(uint64_t rec_max, uint64_t txn_max,
+                               uint64_t heap_sz) {
+  uint64_t map_cnt = 1;
+  while (map_cnt < 4 * rec_max) map_cnt <<= 1;
+  return align_up(sizeof(StoreHdr)) + align_up(txn_max * sizeof(StoreTxn))
+       + align_up(rec_max * sizeof(StoreRec))
+       + align_up(map_cnt * sizeof(uint32_t)) + align_up(heap_sz);
+}
+
+int fdtpu_store_init(void *base, uint64_t off, uint64_t rec_max,
+                     uint64_t txn_max, uint64_t heap_sz) {
+  if (!rec_max || !txn_max || rec_max >= 0xffffffffULL) return -1;
+  StoreHdr *h = store_hdr(base, off);
+  std::memset(static_cast<void *>(h), 0, sizeof(StoreHdr));
+  uint64_t map_cnt = 1;
+  while (map_cnt < 4 * rec_max) map_cnt <<= 1;
+  h->rec_max = rec_max;
+  h->txn_max = txn_max;
+  h->map_cnt = map_cnt;
+  h->heap_sz = heap_sz;
+  h->txn_off = align_up(sizeof(StoreHdr));
+  h->rec_off = h->txn_off + align_up(txn_max * sizeof(StoreTxn));
+  h->map_off = h->rec_off + align_up(rec_max * sizeof(StoreRec));
+  h->heap_off = h->map_off + align_up(map_cnt * sizeof(uint32_t));
+  std::memset(at(base, off + h->txn_off), 0, txn_max * sizeof(StoreTxn));
+  std::memset(at(base, off + h->map_off), 0, map_cnt * sizeof(uint32_t));
+  StoreRec *recs = store_recs(base, off, h);
+  std::memset(recs, 0, rec_max * sizeof(StoreRec));
+  for (uint64_t i = 0; i < rec_max; i++)
+    recs[i].next = (i + 1 < rec_max) ? (uint32_t)(i + 2) : 0;
+  h->rec_free = 1;
+  h->magic = kStoreMagic;
+  return 0;
+}
+
+int fdtpu_store_txn_prepare(void *base, uint64_t off, uint64_t parent_xid,
+                            uint64_t xid) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  if (!xid || store_txn_find(base, off, h, xid)) return -1;
+  if (parent_xid) {
+    StoreTxn *p = store_txn_find(base, off, h, parent_xid);
+    if (!p) return -2;
+    uint64_t depth = 1, cur = parent_xid;
+    while (cur) {
+      if (++depth > FDTPU_STORE_DEPTH_MAX) return -3;
+      StoreTxn *pp = store_txn_find(base, off, h, cur);
+      if (!pp) break;
+      cur = pp->parent;
+    }
+  }
+  StoreTxn *t = store_txns(base, off, h);
+  for (uint64_t i = 0; i < h->txn_max; i++)
+    if (!t[i].xid) {
+      t[i].xid = xid;
+      t[i].parent = parent_xid;
+      t[i].rec_head = 0;
+      return 0;
+    }
+  return -4;
+}
+
+static void store_cancel_subtree(void *base, uint64_t off, StoreHdr *h,
+                                 uint64_t xid) {
+  StoreTxn *t = store_txns(base, off, h);
+  for (uint64_t i = 0; i < h->txn_max; i++)
+    if (t[i].xid && t[i].parent == xid)
+      store_cancel_subtree(base, off, h, t[i].xid);
+  StoreTxn *s = store_txn_find(base, off, h, xid);
+  if (s) {
+    store_drop_layer(base, off, h, &s->rec_head);
+    s->xid = 0;
+  }
+}
+
+int fdtpu_store_txn_cancel(void *base, uint64_t off, uint64_t xid) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  if (!store_txn_find(base, off, h, xid)) return -2;
+  store_cancel_subtree(base, off, h, xid);
+  return 0;
+}
+
+int fdtpu_store_txn_publish(void *base, uint64_t off, uint64_t xid) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  StoreTxn *t = store_txn_find(base, off, h, xid);
+  if (!t) return -2;
+  StoreTxn *txns = store_txns(base, off, h);
+  StoreRec *recs = store_recs(base, off, h);
+  /* ancestor chain, oldest first */
+  uint64_t chain[FDTPU_STORE_DEPTH_MAX];
+  int n_chain = 0;
+  for (uint64_t cur = xid; cur && n_chain < FDTPU_STORE_DEPTH_MAX;) {
+    chain[n_chain++] = cur;
+    StoreTxn *c = store_txn_find(base, off, h, cur);
+    cur = c ? c->parent : 0;
+  }
+  /* survivor marks BEFORE any slot is freed (walk-up needs parents) */
+  std::vector<uint8_t> keep(h->txn_max, 0);
+  for (uint64_t i = 0; i < h->txn_max; i++) {
+    if (!txns[i].xid) continue;
+    uint64_t cur = txns[i].xid;
+    for (int d = 0; cur && d <= FDTPU_STORE_DEPTH_MAX; d++) {
+      if (cur == xid) {
+        keep[i] = txns[i].xid != xid;  /* subtree below xid survives */
+        break;
+      }
+      StoreTxn *c = store_txn_find(base, off, h, cur);
+      cur = c ? c->parent : 0;
+    }
+  }
+  /* fold the chain into root, oldest ancestor first */
+  for (int ci = n_chain - 1; ci >= 0; ci--) {
+    StoreTxn *layer = store_txn_find(base, off, h, chain[ci]);
+    while (layer->rec_head) {
+      uint32_t idx1 = layer->rec_head;
+      StoreRec *r = &recs[idx1 - 1];
+      store_list_unlink(recs, &layer->rec_head, idx1);
+      int64_t ms = store_map_find(base, off, h, r->xid, r->key);
+      if (ms >= 0) store_map_erase(base, off, h, (uint64_t)ms);
+      int64_t root_ms = store_map_find(base, off, h, 0, r->key);
+      if (r->flags & 2) {                     /* tombstone: delete root rec */
+        if (root_ms >= 0) {
+          uint32_t ridx1 = store_map(base, off, h)[root_ms];
+          store_list_unlink(recs, &h->root_head, ridx1);
+          store_rec_free(base, off, h, ridx1);
+        }
+        store_heap_free(base, off, h, r->val_off, r->val_sz);
+        r->flags = 0;
+        r->val_off = 0;
+        r->next = h->rec_free;
+        h->rec_free = idx1;
+        h->rec_cnt--;
+      } else if (root_ms >= 0) {              /* move value into root rec */
+        StoreRec *rr = &recs[store_map(base, off, h)[root_ms] - 1];
+        store_heap_free(base, off, h, rr->val_off, rr->val_sz);
+        rr->val_off = r->val_off;
+        rr->val_sz = r->val_sz;
+        r->val_off = 0;                        /* value moved, not freed */
+        r->flags = 0;
+        r->next = h->rec_free;
+        h->rec_free = idx1;
+        h->rec_cnt--;
+      } else {                                 /* re-home rec under root */
+        r->xid = 0;
+        store_list_push(recs, &h->root_head, idx1);
+        store_map_insert(base, off, h, idx1);
+      }
+    }
+    layer->xid = 0;                            /* chain slot retires */
+  }
+  /* survivors re-parent to root; competitors die */
+  for (uint64_t i = 0; i < h->txn_max; i++) {
+    if (!txns[i].xid) continue;
+    if (txns[i].parent == xid) txns[i].parent = 0;
+    if (!keep[i]) {
+      store_drop_layer(base, off, h, &txns[i].rec_head);
+      txns[i].xid = 0;
+    }
+  }
+  return 0;
+}
+
+int fdtpu_store_txn_exists(void *base, uint64_t off, uint64_t xid) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  return store_txn_find(base, off, h, xid) != nullptr;
+}
+
+int64_t fdtpu_store_txn_parent(void *base, uint64_t off, uint64_t xid) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  StoreTxn *t = store_txn_find(base, off, h, xid);
+  return t ? (int64_t)t->parent : -2;
+}
+
+int64_t fdtpu_store_txn_children(void *base, uint64_t off, uint64_t xid,
+                                 uint64_t *out, int64_t cap) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  if (xid && !store_txn_find(base, off, h, xid)) return -2;
+  StoreTxn *t = store_txns(base, off, h);
+  int64_t n = 0;
+  for (uint64_t i = 0; i < h->txn_max; i++)
+    if (t[i].xid && t[i].parent == xid) {
+      if (n < cap) out[n] = t[i].xid;
+      n++;
+    }
+  return n;
+}
+
+int fdtpu_store_put(void *base, uint64_t off, uint64_t xid,
+                    const uint8_t *key, const uint8_t *val, uint64_t sz,
+                    int tombstone) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  StoreRec *recs = store_recs(base, off, h);
+  uint32_t *head = &h->root_head;
+  if (xid) {
+    StoreTxn *t = store_txn_find(base, off, h, xid);
+    if (!t) return -2;
+    head = &t->rec_head;
+  }
+  int64_t ms = store_map_find(base, off, h, xid, key);
+  if (!xid && tombstone) {                    /* root delete (rec_remove) */
+    if (ms >= 0) {
+      uint32_t idx1 = store_map(base, off, h)[ms];
+      store_list_unlink(recs, head, idx1);
+      store_rec_free(base, off, h, idx1);
+    }
+    return 0;
+  }
+  uint64_t new_off = 0;
+  if (!tombstone && sz) {                     /* alloc BEFORE freeing old */
+    new_off = store_heap_alloc(base, off, h, sz);
+    if (!new_off) return -5;
+    std::memcpy(store_heap(base, off, h) + (new_off - 1), val, sz);
+  }
+  if (ms >= 0) {                              /* overwrite in place */
+    StoreRec *r = &recs[store_map(base, off, h)[ms] - 1];
+    store_heap_free(base, off, h, r->val_off, r->val_sz);
+    r->val_off = new_off;
+    r->val_sz = (uint32_t)sz;
+    r->flags = tombstone ? 3u : 1u;
+    return 0;
+  }
+  if (!h->rec_free) {
+    store_heap_free(base, off, h, new_off, sz);
+    return -4;
+  }
+  uint32_t idx1 = h->rec_free;
+  StoreRec *r = &recs[idx1 - 1];
+  h->rec_free = r->next;
+  std::memcpy(r->key, key, 32);
+  r->xid = xid;
+  r->val_off = new_off;
+  r->val_sz = (uint32_t)sz;
+  r->flags = tombstone ? 3u : 1u;
+  r->next = r->prev = 0;
+  int rc = store_map_insert(base, off, h, idx1);
+  if (rc) {
+    store_heap_free(base, off, h, new_off, sz);
+    r->flags = 0;
+    r->next = h->rec_free;
+    h->rec_free = idx1;
+    return rc;
+  }
+  store_list_push(recs, head, idx1);
+  h->rec_cnt++;
+  return 0;
+}
+
+int64_t fdtpu_store_get(void *base, uint64_t off, uint64_t xid,
+                        const uint8_t *key, uint8_t *out, uint64_t cap) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  StoreRec *recs = store_recs(base, off, h);
+  uint64_t cur = xid;
+  for (int d = 0; d <= FDTPU_STORE_DEPTH_MAX; d++) {
+    if (cur && !store_txn_find(base, off, h, cur))
+      return d == 0 ? -2 : -1;                /* chain broke mid-walk */
+    int64_t ms = store_map_find(base, off, h, cur, key);
+    if (ms >= 0) {
+      StoreRec *r = &recs[store_map(base, off, h)[ms] - 1];
+      if (r->flags & 2) return -1;            /* tombstone shadows */
+      if (r->val_sz && out)
+        std::memcpy(out, store_heap(base, off, h) + (r->val_off - 1),
+                    r->val_sz < cap ? r->val_sz : cap);
+      return r->val_sz;
+    }
+    if (!cur) return -1;                      /* probed root; absent */
+    StoreTxn *t = store_txn_find(base, off, h, cur);
+    cur = t ? t->parent : 0;
+  }
+  return -1;
+}
+
+int64_t fdtpu_store_iter(void *base, uint64_t off, uint64_t xid,
+                         uint64_t *cursor, uint8_t *key_out,
+                         uint8_t *val_out, uint64_t cap,
+                         int32_t *tomb_out) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  StoreRec *recs = store_recs(base, off, h);
+  uint32_t idx1;
+  if (*cursor == 0) {
+    if (xid) {
+      StoreTxn *t = store_txn_find(base, off, h, xid);
+      if (!t) return -2;
+      idx1 = t->rec_head;
+    } else {
+      idx1 = h->root_head;
+    }
+  } else if (*cursor == UINT64_MAX) {
+    return -1;
+  } else {
+    idx1 = (uint32_t)*cursor;
+  }
+  if (!idx1) {
+    *cursor = UINT64_MAX;
+    return -1;
+  }
+  StoreRec *r = &recs[idx1 - 1];
+  std::memcpy(key_out, r->key, 32);
+  *tomb_out = (r->flags & 2) ? 1 : 0;
+  if (r->val_sz && val_out)
+    std::memcpy(val_out, store_heap(base, off, h) + (r->val_off - 1),
+                r->val_sz < cap ? r->val_sz : cap);
+  *cursor = r->next ? (uint64_t)r->next : UINT64_MAX;
+  return r->val_sz;
+}
+
+uint64_t fdtpu_store_rec_cnt(void *base, uint64_t off) {
+  StoreHdr *h = store_hdr(base, off);
+  StoreLock lk(h);
+  return h->rec_cnt;
+}
+
 }  /* extern "C" */

@@ -202,6 +202,54 @@ int fdtpu_tcache_query_batch(void *base, uint64_t off, const uint64_t *tags,
 int fdtpu_tcache_insert_batch(void *base, uint64_t off, const uint64_t *tags,
                               const uint8_t *mask, int64_t n, uint8_t *dup);
 
+/* ---- funk store: fork-aware shm record tree ---------------------------
+ * Re-expression of funk's prepare/cancel/publish transaction tree over
+ * the wksp offset ABI (ref: src/funk/fd_funk.h:28-90 — the reference
+ * backs the same semantics with relocatable shared-memory maps). The
+ * store is one carved region: a txn slot table, a fixed record-slot
+ * array, an open-address (xid, key) -> record map with backward-shift
+ * deletion (the tcache idiom), and a size-class heap for values. All
+ * mutations and queries serialize on a pid-owned spinlock whose dead
+ * holders are stolen (a killed exec tile must never wedge the store).
+ *
+ * xid 0 is the published root; keys are 32 bytes; error codes:
+ *   -1 not found / bad xid      -2 unknown txn
+ *   -3 fork depth limit         -4 slot table full
+ *   -5 heap exhausted           -6 map full                            */
+
+uint64_t fdtpu_store_footprint(uint64_t rec_max, uint64_t txn_max,
+                               uint64_t heap_sz);
+int      fdtpu_store_init(void *base, uint64_t off, uint64_t rec_max,
+                          uint64_t txn_max, uint64_t heap_sz);
+int      fdtpu_store_txn_prepare(void *base, uint64_t off,
+                                 uint64_t parent_xid, uint64_t xid);
+int      fdtpu_store_txn_cancel(void *base, uint64_t off, uint64_t xid);
+int      fdtpu_store_txn_publish(void *base, uint64_t off, uint64_t xid);
+int      fdtpu_store_txn_exists(void *base, uint64_t off, uint64_t xid);
+/* parent xid (0 = child of root), or -2 when xid is not in preparation */
+int64_t  fdtpu_store_txn_parent(void *base, uint64_t off, uint64_t xid);
+int64_t  fdtpu_store_txn_children(void *base, uint64_t off, uint64_t xid,
+                                  uint64_t *out, int64_t cap);
+/* Write (or tombstone) a record in layer `xid`. xid 0 writes the root
+ * directly; a root tombstone deletes the record (rec_remove(None)). */
+int      fdtpu_store_put(void *base, uint64_t off, uint64_t xid,
+                         const uint8_t *key, const uint8_t *val,
+                         uint64_t sz, int tombstone);
+/* Fork-visibility query: own layer, else nearest ancestor, else root.
+ * Returns value size (copying min(sz, cap) bytes into out), -1 when
+ * absent or tombstoned, -2 on unknown xid. */
+int64_t  fdtpu_store_get(void *base, uint64_t off, uint64_t xid,
+                         const uint8_t *key, uint8_t *out, uint64_t cap);
+/* Enumerate ONE layer's own records (no ancestor fold). *cursor must be
+ * 0 on the first call; returns value size per record (tombstones report
+ * size 0 with *tomb_out = 1), -1 at end, -2 on unknown xid. */
+int64_t  fdtpu_store_iter(void *base, uint64_t off, uint64_t xid,
+                          uint64_t *cursor, uint8_t *key_out,
+                          uint8_t *val_out, uint64_t cap,
+                          int32_t *tomb_out);
+/* Live record count (root + every in-preparation layer) — metrics. */
+uint64_t fdtpu_store_rec_cnt(void *base, uint64_t off);
+
 #ifdef __cplusplus
 }
 #endif

@@ -19,6 +19,7 @@ the call raises. `launches` counts kernel launches and nothing else."""
 from __future__ import annotations
 
 import ctypes as ct
+import threading
 
 import torch
 
@@ -30,6 +31,9 @@ STATUS_INSUFFICIENT = 1
 STATUS_FEE_FAIL = 2
 
 launches = {"wave_scan": 0}
+# exec shards polled on threads of one process (tools/exec_drills.py)
+# launch at once; the count is a read-modify-write
+_count_lock = threading.Lock()
 
 _ARGS = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
          ct.c_int] + [ct.c_void_p] * 5
@@ -152,7 +156,8 @@ def _launch(packed, bal_hi, bal_lo, a, w, c):
                 bal_lo.data_ptr(), a, out, out + 4 * a, out + 8 * a,
                 out + 4 * at, torch.cuda.current_stream().cuda_stream)
     _build.check_launch("wave_scan", rc)
-    launches["wave_scan"] += 1
+    with _count_lock:
+        launches["wave_scan"] += 1
     return buf[:n]
 
 

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's runtime/tango.py, trimmed to what the
 topology's main path uses: workspaces, frag rings with their per-join
-telemetry counters, fseqs, cncs, tcaches and the flight recorder's
+telemetry counters, fseqs, cncs, tcaches, the funk store (`Store`, the
+exec tile family's shared accounts) and the flight recorder's
 TraceRing (pure numpy; without the reference's `snapshot_since`, which
 serves the flight archive, ROADMAP.md queue A item 10). The library
 is built from `firedancer_tpu_torch/native/` by `make` at first use.
@@ -82,6 +83,20 @@ def _load():
                                                 u8p]),
         "fdtpu_tcache_insert_batch": (ct.c_int, [vp, u64, u64p, u8p, i64,
                                                  u8p]),
+        "fdtpu_store_footprint": (u64, [u64, u64, u64]),
+        "fdtpu_store_init": (ct.c_int, [vp, u64, u64, u64, u64]),
+        "fdtpu_store_txn_prepare": (ct.c_int, [vp, u64, u64, u64]),
+        "fdtpu_store_txn_cancel": (ct.c_int, [vp, u64, u64]),
+        "fdtpu_store_txn_publish": (ct.c_int, [vp, u64, u64]),
+        "fdtpu_store_txn_exists": (ct.c_int, [vp, u64, u64]),
+        "fdtpu_store_txn_parent": (i64, [vp, u64, u64]),
+        "fdtpu_store_txn_children": (i64, [vp, u64, u64, u64p, i64]),
+        "fdtpu_store_put": (ct.c_int, [vp, u64, u64, cp, cp, u64,
+                                       ct.c_int]),
+        "fdtpu_store_get": (i64, [vp, u64, u64, cp, u8p, u64]),
+        "fdtpu_store_iter": (i64, [vp, u64, u64, u64p, u8p, u8p, u64,
+                                   i32p]),
+        "fdtpu_store_rec_cnt": (u64, [vp, u64]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -483,3 +498,136 @@ class TraceRing:
             return cur, recs[:0]
         idx = [(cur - n + i) & (self.depth - 1) for i in range(n)]
         return cur, recs[idx]
+
+
+class Store:
+    """Raw view of a carved funk store region (native/fdtpu.cc store —
+    the fork-aware shm record tree). This layer speaks the native ABI
+    verbatim: u64 xids (0 = published root), 32-byte keys, bytes values,
+    negative error codes. The Python funk semantics (hashable xids,
+    typed values, FunkTxnError) live in funk/shmfunk.py; tiles attaching
+    cross-process use this class directly with wire-interned xids."""
+
+    def __init__(self, wksp: Workspace, off: int | None = None,
+                 rec_max: int = 4096, txn_max: int = 256,
+                 heap_sz: int = 1 << 24):
+        self.wksp = wksp
+        if off is None:
+            off = wksp.alloc(lib.fdtpu_store_footprint(
+                rec_max, txn_max, heap_sz))
+            rc = lib.fdtpu_store_init(wksp.base, off, rec_max, txn_max,
+                                      heap_sz)
+            if rc != 0:
+                raise ValueError(f"store init failed: {rc}")
+        self.off = off
+        # reusable value buffer, grown on demand (get() reports the true
+        # size so a too-small read retries once)
+        self._buf = (ct.c_uint8 * 4096)()
+
+    @staticmethod
+    def footprint(rec_max: int, txn_max: int, heap_sz: int) -> int:
+        return int(lib.fdtpu_store_footprint(rec_max, txn_max, heap_sz))
+
+    def _grow(self, n: int):
+        cap = len(self._buf)
+        while cap < n:
+            cap *= 2
+        self._buf = (ct.c_uint8 * cap)()
+
+    # -- txn tree (raw u64 xids) -------------------------------------------
+
+    def txn_prepare(self, parent_xid: int, xid: int) -> int:
+        return lib.fdtpu_store_txn_prepare(self.wksp.base, self.off,
+                                           parent_xid, xid)
+
+    def txn_cancel(self, xid: int) -> int:
+        return lib.fdtpu_store_txn_cancel(self.wksp.base, self.off, xid)
+
+    def txn_publish(self, xid: int) -> int:
+        return lib.fdtpu_store_txn_publish(self.wksp.base, self.off, xid)
+
+    def txn_exists(self, xid: int) -> bool:
+        return bool(lib.fdtpu_store_txn_exists(self.wksp.base, self.off,
+                                               xid))
+
+    def txn_parent(self, xid: int) -> int:
+        """Parent xid (0 = root child), -2 when xid is unknown."""
+        return int(lib.fdtpu_store_txn_parent(self.wksp.base, self.off,
+                                              xid))
+
+    def txn_children(self, xid: int) -> list[int]:
+        cap = 64
+        while True:
+            out = (ct.c_uint64 * cap)()
+            n = lib.fdtpu_store_txn_children(self.wksp.base, self.off,
+                                             xid, out, cap)
+            if n == -2:
+                raise KeyError(f"unknown txn {xid}")
+            if n <= cap:
+                return [int(out[i]) for i in range(n)]
+            cap = n
+
+    # -- records ------------------------------------------------------------
+
+    @staticmethod
+    def _key32(key: bytes) -> bytes:
+        """The native ABI reads EXACTLY 32 key bytes — a shorter python
+        buffer would make C hash whatever trails it in memory, which
+        differs per process (a record written by one tile becomes
+        unfindable from another)."""
+        if len(key) != 32:
+            raise ValueError(f"store keys are 32 bytes, got {len(key)}")
+        return key
+
+    def put(self, xid: int, key: bytes, val: bytes | None) -> int:
+        """val=None writes a tombstone (root: deletes the record)."""
+        key = self._key32(key)
+        if val is None:
+            return lib.fdtpu_store_put(self.wksp.base, self.off, xid,
+                                       key, None, 0, 1)
+        return lib.fdtpu_store_put(self.wksp.base, self.off, xid, key,
+                                   val, len(val), 0)
+
+    def get(self, xid: int, key: bytes) -> bytes | None:
+        """Fork-visibility query; None when absent/tombstoned. Raises on
+        unknown xid (matches funk's contract)."""
+        key = self._key32(key)
+        n = lib.fdtpu_store_get(self.wksp.base, self.off, xid, key,
+                                self._buf, len(self._buf))
+        if n == -1:
+            return None
+        if n == -2:
+            raise KeyError(f"unknown txn {xid}")
+        if n > len(self._buf):
+            self._grow(n)
+            n = lib.fdtpu_store_get(self.wksp.base, self.off, xid, key,
+                                    self._buf, len(self._buf))
+        return bytes(self._buf[:n])
+
+    def iter_layer(self, xid: int):
+        """Yield (key, val_bytes | None) for ONE layer's own records
+        (None = tombstone). xid 0 iterates the published root."""
+        cursor = ct.c_uint64(0)
+        key = (ct.c_uint8 * 32)()
+        tomb = ct.c_int32(0)
+        while True:
+            n = lib.fdtpu_store_iter(self.wksp.base, self.off, xid,
+                                     ct.byref(cursor), key, self._buf,
+                                     len(self._buf), ct.byref(tomb))
+            if n == -1:
+                return
+            if n == -2:
+                raise KeyError(f"unknown txn {xid}")
+            if n > len(self._buf):
+                # re-read this record with a grown buffer: back the
+                # cursor up by restarting is wrong (list may be long), so
+                # grow and re-fetch via get() on the captured key
+                self._grow(n)
+                k = bytes(key)
+                v = None if tomb.value else self.get(xid, k)
+                yield k, v
+                continue
+            yield bytes(key), (None if tomb.value else bytes(self._buf[:n]))
+
+    def rec_cnt(self) -> int:
+        return int(lib.fdtpu_store_rec_cnt(self.wksp.base, self.off))

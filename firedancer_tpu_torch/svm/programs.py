@@ -1,7 +1,9 @@
 """Host-side transaction executor + the native system program (copy of
 the JAX package's svm/programs.py: `TxnExecutor` (:967-1074),
 `TxnContext`, `InstrCtx`, `LogCollector`, `TxnResult`, `_exec_system`
-(:284) with its nonce and seed accounts, and `create_with_seed`).
+(:284) with its nonce and seed accounts, `create_with_seed`, and the
+PDA derivation `create_program_address` / `find_program_address` that
+svm/alut.py's `derive_table_address` uses).
 
 The reference's per-txn execution (load accounts, charge fees, dispatch
 instructions sequentially through native program handlers, commit or
@@ -94,6 +96,40 @@ def create_with_seed(base: bytes, seed: bytes, owner: bytes) -> bytes:
     derived addresses are NOT PDAs (no off-curve requirement),
     ref fd_system_program.c:389."""
     return hashlib.sha256(base + seed + owner).digest()
+
+
+MAX_SEEDS = 16                     # PDA seed count limit (Solana)
+MAX_SEED_LEN = 32
+PDA_MARKER = b"ProgramDerivedAddress"
+
+
+def create_program_address(seeds: list[bytes],
+                           program_id: bytes) -> bytes | None:
+    """sha256(seeds .. program_id .. marker); None if the result lies
+    ON the ed25519 curve (a PDA must have no private key)."""
+    from ..utils.ed25519_ref import pt_decompress
+    if len(seeds) > MAX_SEEDS or any(len(s) > MAX_SEED_LEN
+                                     for s in seeds):
+        return None
+    h = hashlib.sha256()
+    for s in seeds:
+        h.update(s)
+    h.update(program_id)
+    h.update(PDA_MARKER)
+    addr = h.digest()
+    if pt_decompress(addr) is not None:
+        return None                   # on-curve: invalid PDA
+    return addr
+
+
+def find_program_address(seeds: list[bytes],
+                         program_id: bytes) -> tuple[bytes, int]:
+    for bump in range(255, -1, -1):
+        addr = create_program_address(seeds + [bytes([bump])],
+                                      program_id)
+        if addr is not None:
+            return addr, bump
+    raise ValueError("no viable bump seed")
 
 
 def _read_seed_str(data: bytes, off: int):

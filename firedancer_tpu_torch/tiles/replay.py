@@ -1,9 +1,10 @@
 """Replay tile core: reassembled slices -> verified, executed blocks
 -> tower notifications (copy of the JAX package's tiles/replay.py:
-`normalize_replay`, and `ReplayCore`'s in-process path: `on_slice`,
-`_release`, `_gauge_pending`, `_replay_slot`, `_verify_entries`,
-`_execute`, the `expected` divergence verdict and the `diverge_block`
-chaos seam).
+`normalize_replay`, `ReplayCore` with `on_slice`, `_release`,
+`_gauge_pending`, `_replay_slot`, `_verify_entries`, `_execute`, the
+exec fan-out's `_extract_transfers`, `_execute_fanout` and
+`_fanout_commit`, the `expected` divergence verdict and the
+`diverge_block` chaos seam; and `InlineFanout`).
 
 The reference's replay tile (ref: src/discof/replay/fd_replay_tile.c:77-95)
 consumes ordered slices from reasm, schedules their transactions
@@ -18,6 +19,15 @@ order preserves the serial fiction), fold the slot's account delta
 into the bank-hash lattice on `device` (flamenco/bank_hash.py: the
 BLAKE3 kernel's `lthash` entry), and emit tower block frames keyed by
 the slot's bank hash.
+
+Follower fan-out: with `fanout` (disco/tiles.ExecFanout) the slot's
+transfers execute over the SAME sharded exec tile family the leader
+bank uses (conflict-group partition across the shards, one fork per
+attempt, timeout cancel and whole-wave redispatch on an exec-shard
+crash: exactly-once commits) against the shm funk store; each exec
+shard runs them on the wave-scan kernel. `InlineFanout` is its
+synchronous stand-in, the oracle a fan-out follower's bank hashes are
+held to.
 
 Out-of-order slots (repair back-fill) buffer until their parent
 replays: slices are per-slot complete, but execution must follow the
@@ -34,12 +44,11 @@ completes when it falls behind) are one batch, where the reference
 verifies a slot at a time; the verdicts are the same, and one launch
 serves them all. A release runs only slots whose final slice has come
 (the reference would also run a slot whose first slices are pending
-when a repaired parent completes). The exec fan-out over the
-exec tile family (`fanout`, the [replay] section's `exec_tile_cnt` > 0
-and `redispatch_s`: ROADMAP.md queue A item 5, 5d), the snapshot
-restore gate and writer (`wait_restore`, `snapshot_*`: item 5, 5f)
-and with it the `crash_mid_snapshot` chaos seam are not here; the
-adapter, `normalize_replay` and `Topology.tile` refuse them. A v0
+when a repaired parent completes). `InlineFanout` takes a `device`
+for its WaveExecutor. The snapshot restore gate and writer
+(`wait_restore`, `snapshot_*`: ROADMAP.md queue A item 5f) and with
+it the `crash_mid_snapshot` chaos seam are not here; the adapter and
+`Topology.tile` refuse them. A v0
 transaction with address lookup tables is refused (item 15) where the
 reference resolves its tables. `on_span(kind, ns)`, when given, gets
 a host-clock span for each PoH check ("poh": one a release) and each
@@ -76,9 +85,7 @@ REPLAY_DEFAULTS = {
 
 def normalize_replay(spec) -> dict:
     """Validate + default-fill a [replay] table: raises ValueError with
-    a did-you-mean on an unknown key or a bad value, and refuses the
-    fan-out settings (`exec_tile_cnt` other than 0, `redispatch_s`:
-    item 5)."""
+    a did-you-mean on an unknown key or a bad value."""
     out = dict(REPLAY_DEFAULTS)
     if spec is None:
         return out
@@ -96,10 +103,10 @@ def normalize_replay(spec) -> dict:
     if out["exec_tile_cnt"] < 0:
         raise ValueError(f"replay.exec_tile_cnt must be >= 0, got "
                          f"{out['exec_tile_cnt']}")
-    if out["exec_tile_cnt"]:
-        refuse("[replay] exec_tile_cnt > 0 (the exec fan-out)", 5)
-    if "redispatch_s" in spec:
-        refuse("[replay] redispatch_s (the exec fan-out's timeout)", 5)
+    out["redispatch_s"] = float(out["redispatch_s"])
+    if out["redispatch_s"] <= 0:
+        raise ValueError(f"replay.redispatch_s must be > 0, got "
+                         f"{out['redispatch_s']}")
     out["verify_poh"] = bool(out["verify_poh"])
     out["hashes_per_tick"] = int(out["hashes_per_tick"])
     if out["hashes_per_tick"] < 1:
@@ -113,9 +120,12 @@ class ReplayCore:
                  genesis: dict[bytes, int] | None = None,
                  hashes_per_tick: int = 16, verify_poh: bool = True,
                  slots_per_epoch: int = 432_000, funk=None,
-                 expected: dict[int, bytes] | None = None,
+                 fanout=None, expected: dict[int, bytes] | None = None,
                  device="cuda", cnc=None, on_span=None):
         self.funk = funk if funk is not None else Funk()
+        self.fanout = fanout
+        if fanout is not None:
+            fanout.on_commit = self._fanout_commit
         self.cnc = cnc
         self.device = device
         self.on_span = on_span
@@ -124,7 +134,9 @@ class ReplayCore:
         for key, bal in (genesis or {}).items():
             self.funk.rec_write(None, key32(key),
                                 Account(lamports=int(bal)))
-        self.executor = TxnExecutor(self.db)
+        # the host executor drives the in-process path; the fan-out
+        # path ships transfers to the exec shards instead
+        self.executor = TxnExecutor(self.db) if fanout is None else None
         self.out_ring = out_ring
         self.out_fseqs = out_fseqs
         self.hashes_per_tick = hashes_per_tick
@@ -145,7 +157,9 @@ class ReplayCore:
         self.metrics = {"slices": 0, "slots_replayed": 0, "entries": 0,
                         "txns": 0, "exec_ok": 0, "exec_fail": 0,
                         "poh_fail": 0, "buffered": 0, "waves": 0,
-                        "parse_fail": 0, "divergent_slot": 0,
+                        "parse_fail": 0, "exec_skip": 0,
+                        "exec_waves": 0, "exec_redispatch": 0,
+                        "overruns": 0, "divergent_slot": 0,
                         "behind": 0}
 
     def diverge(self, seed: int):
@@ -324,8 +338,14 @@ class ReplayCore:
         """Stage the slot's txns into the conflict DAG and execute in
         wave order (any wave-internal order preserves the serial
         fiction; rdisp.waves() is the device-dispatch shape), then fold
-        the slot's account delta into the lattice."""
+        the slot's account delta into the lattice. With a fanout the
+        transfers ship to the exec shards instead: the conflict-group
+        partition subsumes the DAG's ordering (linked transfers stay on
+        one shard, in order)."""
         if not txns:
+            return
+        if self.fanout is not None:
+            self._execute_fanout(slot, txns)
             return
         dag = ConflictDag()
         parsed = []
@@ -369,3 +389,110 @@ class ReplayCore:
         self.hasher.apply_txn_delta(self.funk, xid)
         self._span("bank_hash", t0)
         self.funk.txn_publish(xid)
+
+    # -- exec fan-out (the follower path) -----------------------------------
+
+    def _extract_transfers(self, txns: list[bytes]):
+        """Raw signed payloads -> (SystemTxn transfers in txn order,
+        total signature count). The SAME system-program Transfer
+        decode the bank's fan-out uses (discriminant 2 + u64 lamports,
+        fee on each txn's first match only), so leader and follower
+        execute identical work for identical blocks."""
+        from ..pack.cost import SYSTEM_PROGRAM_ID
+        from ..pack.scheduler import FEE_PER_SIGNATURE
+        from ..svm.executor import SystemTxn
+        transfers, sig_cnt = [], 0
+        for t in txns:
+            try:
+                p = parse_txn(t)
+            except Exception:
+                self.metrics["parse_fail"] += 1
+                continue
+            sig_cnt += p.sig_cnt
+            keys = p.account_keys(t)
+            matched = 0
+            for ins in p.instrs:
+                data = t[ins.data_off:ins.data_off + ins.data_sz]
+                if (keys[ins.prog_idx] == SYSTEM_PROGRAM_ID
+                        and len(data) == 12
+                        and data[:4] == b"\x02\x00\x00\x00"
+                        and len(ins.acct_idxs) >= 2):
+                    amt = int.from_bytes(data[4:12], "little")
+                    transfers.append(SystemTxn(
+                        src=keys[ins.acct_idxs[0]],
+                        dst=keys[ins.acct_idxs[1]], amount=amt,
+                        fee=0 if matched
+                        else FEE_PER_SIGNATURE * p.sig_cnt))
+                    matched += 1
+            if not matched:
+                self.metrics["exec_skip"] += 1
+        return transfers, sig_cnt
+
+    def _execute_fanout(self, slot: int, txns: list[bytes]):
+        """Dispatch the slot's transfers as ONE fan-out wave and spin
+        it to completion (the fanout owns timeout cancel + whole-wave
+        redispatch, so an exec-shard crash costs a retry, never a
+        partial commit). The spin keeps heartbeating and aborts on
+        halt — a dying follower must not wedge on a dead shard."""
+        transfers, self._slot_sigs = self._extract_transfers(txns)
+        if not transfers:
+            return
+        self.metrics["waves"] += 1
+        self.fanout.dispatch(transfers)
+        while self.fanout.busy:
+            self.fanout.poll()
+            if self.cnc is not None:
+                self.cnc.heartbeat()
+                if self.cnc.state != CNC_RUN:
+                    self.fanout.halt()
+                    return
+            time.sleep(20e-6)
+
+    def _fanout_commit(self, tag, xid, ok, fail):
+        """Fan-out wave complete: fold the fork's account delta into
+        the bank-hash lattice BEFORE publishing it (the delta scan
+        reads parent-visible old values, so order matters), then
+        count."""
+        if xid is not None:
+            t0 = time.perf_counter_ns()
+            self.hasher.apply_txn_delta(self.funk, xid)
+            self._span("bank_hash", t0)
+            self.funk.txn_publish(xid)
+        self.metrics["txns"] += ok + fail
+        self.metrics["exec_ok"] += ok
+        self.metrics["exec_fail"] += fail
+
+
+class InlineFanout:
+    """Synchronous stand-in for disco/tiles.ExecFanout: the SAME
+    WaveExecutor transfer semantics against a funk fork, zero rings.
+    This is the leader-side ORACLE for the catch-up drills: a ReplayCore
+    driven by it executes transfers through the identical
+    stage/dispatch/finalize engine the exec shards run, which is what
+    makes its per-slot bank hashes a valid `expected` pin for a real
+    fan-out follower. `device` is its WaveExecutor's."""
+
+    def __init__(self, funk, device="cuda"):
+        from ..svm.executor import WaveExecutor
+        self.funk, self._wx = funk, WaveExecutor(device)
+        self.on_commit = None
+        self.busy = False
+        self._next_xid = 1
+
+    def dispatch(self, txns, tag=None):
+        from ..svm.executor import STATUS_OK
+        xid, ok, fail = None, 0, 0
+        if txns:
+            xid = self._next_xid
+            self._next_xid += 1
+            st = self._wx.finalize(self.funk, self._wx.dispatch(
+                self.funk, None, xid, self._wx.stage(txns)))
+            ok = sum(1 for s in st if s == STATUS_OK)
+            fail = len(st) - ok
+        self.on_commit(tag, xid, ok, fail)
+
+    def poll(self, allow_redispatch=True):
+        return 0
+
+    def halt(self):
+        pass

@@ -1,12 +1,16 @@
 """Drains of the leader topology (firedancer_tpu_torch/cfg/leader.toml,
-and cfg/leader_follower.toml with its follower leg) booted by a
-TopologyRunner, and the checks of what it mirrored; used by
-chip_smoke.py phases 12 and 17 and tests/test_torch_leader.py and
-test_torch_follower.py.
+cfg/leader_follower.toml with its follower leg, and cfg/exec.toml's
+exec tile family) booted by a TopologyRunner, and the checks of what it
+mirrored; used by chip_smoke.py phases 12, 17 and 20 and
+tests/test_torch_leader.py, test_torch_follower.py and
+test_torch_exec_tile.py.
 
 `wait_drained` is bench.py's `_leader_wait_drained` (bench.py:554-583):
 every synth frame has a terminal outcome, executed by bank0 or dropped at
-a named hop, and pack has retired every microblock. The loop itself never
+a named hop (with a resolv tile, its parse, lookup-table, fee-payer and
+oversize drops too), and pack has retired every microblock; unlike
+bench.py it reads pack's retirement only from a flush of pack's metrics
+that has scheduled every txn bank0 took. The loop itself never
 goes quiet (poh ticks on), so `drain_shred_leg` then halts every tile
 upstream of the shred tile, whose stems flush what they staged, waits
 until the shred tile has taken every entry poh published and shredsink
@@ -18,6 +22,7 @@ replayed every slot poh completed, and halts them. `check_mirror` reads
 the shreds still in the mirror ring and holds each to its FEC set's
 merkle root (its proof) and the root to the set's signature;
 `tower_blocks` reads the replay tile's block frames still in its ring;
+`wait_restarted` waits out a drill's crashed tile's respawn;
 `LinkTap` keeps every frame a link publishes, from its first, where the
 ring holds only its last `depth`.
 """
@@ -36,8 +41,13 @@ def verify_shards(runner) -> list[str]:
 
 def dropped(runner) -> int:
     """Frames dropped at a named hop: dedup's duplicates, pack's parse
-    failures and each verify shard's parse, dedup and verify failures."""
+    failures, each verify shard's parse, dedup and verify failures, and
+    a resolv tile's parse, lookup-table, fee-payer and oversize drops
+    (bench.py's `resolv=True`)."""
     n = runner.metrics("dedup")["dup"] + runner.metrics("pack")["parse_fail"]
+    if "resolv" in runner.plan["tiles"]:
+        r = runner.metrics("resolv")
+        n += r["parse_fail"] + r["alut_fail"] + r["fee_fail"] + r["oversz"]
     for tn in verify_shards(runner):
         v = runner.metrics(tn)
         n += v["parse_fail"] + v["dedup_drop"] + v["verify_fail"]
@@ -47,17 +57,41 @@ def dropped(runner) -> int:
 def wait_drained(runner, count: int, timeout_s: float,
                  poll_s: float = 0.002) -> int:
     """Block until bank0's txns plus the dropped frames reach `count`
-    and pack's completions equal its microblocks. -> dropped."""
+    and pack's completions equal its microblocks, in a snapshot of
+    pack's metrics that has scheduled every txn bank0 took: each tile
+    flushes its metrics at its own cadence, and an older flush of pack
+    can show its completions equal to its microblocks before the last
+    microblocks. -> dropped."""
     deadline = time.monotonic() + timeout_s
     while True:
         runner.check_failures()
         p, b = runner.metrics("pack"), runner.metrics("bank0")
         d = dropped(runner)
-        if b["txns"] + d >= count and p["completions"] == p["microblocks"]:
+        if b["txns"] + d >= count and p["scheduled"] >= b["txns"] \
+                and p["completions"] == p["microblocks"]:
             return d
         if time.monotonic() > deadline:
             raise TimeoutError(f"leader loop never drained: pack {p}, "
                                f"bank {b}, dropped {d}")
+        time.sleep(poll_s)
+
+
+def wait_restarted(runner, tile: str, timeout_s: float,
+                   poll_s: float = 0.01) -> int:
+    """Block until the supervisor has respawned `tile` at least once and
+    the respawn is running (a drill's crash can land after the loop has
+    drained: a halt must not find the tile dead or half booted).
+    -> its restarts."""
+    from ..runtime import CNC_RUN
+    deadline = time.monotonic() + timeout_s
+    while True:
+        runner.check_failures()
+        n = runner.metrics(tile)["sup_restarts"]
+        if n >= 1 and runner._cnc(tile).state == CNC_RUN:
+            return n
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{tile} was not respawned and running: "
+                               f"{runner.metrics(tile)}")
         time.sleep(poll_s)
 
 

@@ -564,6 +564,37 @@ def test_replay_on_card_matches_cpu(dev):
     assert cuda_blake3.launches["lthash"] > n0[1]
 
 
+def test_exec_tiles_on_card_match_plain(dev):
+    """The exec tile family with its shards on the card (each frame one
+    launch of the wave-scan kernel) against the same drills on the plain
+    wave scan: the fan-out's poh frames, done frags and balances, the
+    shard death drill's, and the replay fan-out's bank hashes
+    (tools/exec_drills.py, chip_smoke.py phase 20a)."""
+    import os
+    from firedancer_tpu_torch.ops import cuda_wave
+    from firedancer_tpu_torch.runtime import Workspace
+    from firedancer_tpu_torch.tiles.synth import make_signed_txns
+    from firedancer_tpu_torch.tools import exec_drills
+    txns = make_signed_txns(24, seed=77)
+    got = {}
+    for d in ("cuda", "cpu"):
+        w = Workspace(f"/fdtt_cx{os.getpid()}", 1 << 26)
+        try:
+            n0 = cuda_wave.launches["wave_scan"]
+            bi = exec_drills.byte_identity(w, txns[:18], device=d)
+            sd = exec_drills.shard_death(w, txns[:12], device=d)
+            rf = exec_drills.replay_fanout(w, txns, 4, device=d)
+            got[d] = (bi["poh"], bi["done"], bi["balances"], sd["poh"],
+                      sd["balances"], rf["bank_hashes"])
+            if d == "cuda":
+                assert cuda_wave.launches["wave_scan"] > n0
+                assert rf["launches"] >= sum(rf["shard_frames"]) > 0
+        finally:
+            w.close()
+            w.unlink()
+    assert got["cuda"] == got["cpu"]
+
+
 def test_gossvf_on_card_matches_plain(dev):
     """gossvf's packets (1-33 CRDS values of every class) on the card, in
     both modes, against the plain versions with generators of one

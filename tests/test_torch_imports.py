@@ -51,7 +51,8 @@ def test_importing_every_module_loads_no_jax():
         "'tiles.gossip', 'gossip', 'gossip.gossvf', 'gossip.bloom', "
         "'gossip.crds', 'gossip.active_set', 'gossip.protocol', "
         "'flamenco.gossip_wire', 'tools.paced_sender', "
-        "'tools.gossvf_bench'}\n"
+        "'tools.gossvf_bench', 'funk.shmfunk', 'svm.alut', "
+        "'tools.exec_drills'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -188,6 +189,46 @@ def test_spawned_front_door_tile_processes_load_no_jax():
         Topology(f"ttimpg{os.getpid()}", wksp_size=1 << 22)
         .tile("gossip", "gossip", seed=bytes(32).hex(), device="cpu",
               device_verify=True, gossvf_bulk=True), "gossip")
+
+
+def test_spawned_exec_family_tile_processes_load_no_jax():
+    """An exec tile (its boot wave on the plain wave scan), a resolv tile
+    with the fee-payer gate, and a replay tile with the exec fan-out,
+    each joined to a [funk] shm store carved by the build."""
+    from firedancer_tpu_torch.disco import Topology
+
+    def topo(tag):
+        return Topology(f"ttimpx{tag}{os.getpid()}", wksp_size=1 << 24,
+                        funk={"backend": "shm", "heap_mb": 1,
+                              "rec_max": 256, "txn_max": 16})
+    _spawn_and_probe(
+        topo("e").link("disp", depth=16, mtu=4096, external=True)
+        .link("done", depth=16, mtu=64, external=True)
+        .tile("exec0", "exec", ins=["disp"], outs=["done"], batch=8,
+              device="cpu"), "exec0")
+    _spawn_and_probe(
+        topo("r").link("in", depth=16, external=True)
+        .link("out", depth=16, mtu=2048, external=True)
+        .tile("resolv", "resolv", ins=["in"], outs=["out"]), "resolv")
+    _spawn_and_probe(
+        topo("p").link("slices", depth=16, mtu=1 << 16, external=True)
+        .link("tower", depth=16, mtu=128, external=True)
+        .link("disp", depth=16, mtu=4096, external=True)
+        .link("done", depth=16, mtu=64, external=True)
+        .tile("replay", "replay", ins=["slices", ("done", False)],
+              outs=["tower", "disp"], exec_links=["disp"],
+              exec_done=["done"], genesis_synth=4, device="cpu"),
+        "replay")
+
+
+@pytest.mark.parametrize("mod", [
+    "firedancer_tpu_torch.funk.shmfunk", "firedancer_tpu_torch.svm.alut",
+    "firedancer_tpu_torch.disco.tiles",
+    "firedancer_tpu_torch.tools.exec_drills"])
+def test_exec_family_module_loads_no_jax(mod):
+    """Each module of the exec tile family, the shm store and resolv,
+    imported alone in a fresh interpreter."""
+    test_leader_leg_module_loads_no_jax(mod)
 
 
 @pytest.mark.parametrize("mod", [

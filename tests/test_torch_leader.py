@@ -4,7 +4,7 @@ adapters in-process over each package's own shm rings, fed the same
 frames: every out frame byte-identical and every funk balance equal
 (tests/test_leader_batch.py:120, :150, :232, :281, :348); then the port's
 leader topology spawned on the CPU (tests/test_leader_batch.py:532), the
-refusals, cfg/leader.toml held to bench.py's `_leader_topology`, the whole
+refusals and the exec fan-out's args taken as the reference takes them, cfg/leader.toml held to bench.py's `_leader_topology`, the whole
 of cfg/leader.toml (shred, sign and shredsink included) drained on the
 CPU, and `app.run` on cfg/leader.toml."""
 import dataclasses
@@ -295,13 +295,9 @@ def test_poh_wave_backpressure_resumes_exact(wksps):
 
 @pytest.mark.parametrize("kind,arg,item", [
     ("bank", {"exec": "general"}, 15),
-    ("bank", {"exec_links": ["x"]}, 5),
-    ("bank", {"exec_done": ["x"]}, 5),
-    ("bank", {"redispatch_s": 2.0}, 5),
-    ("bank", {"genesis_ckpt": "g.bin"}, 5),
+    ("bank", {"genesis_ckpt": "g.bin"}, "5f"),
     ("bank", {"rpc_port": 0}, 16),
     ("bank", {"ws_port": 0}, 16),
-    ("pack", {"resolved_in": True}, 5),
     ("pack", {"bundle_in": "bundles"}, 13)])
 def test_unported_adapter_arg_is_refused_with_its_item(wksps, kind, arg,
                                                        item):
@@ -310,6 +306,30 @@ def test_unported_adapter_arg_is_refused_with_its_item(wksps, kind, arg,
     with pytest.raises(NotImplementedError,
                        match=f"queue A item {item}$"):
         Rig(trt, ttiles, wksps[1], kind, args, **links)
+
+
+@pytest.mark.parametrize("kind,arg", [
+    ("bank", {"exec_links": ["poh"]}), ("bank", {"exec_done": ["mb"]}),
+    ("bank", {"redispatch_s": 2.0}), ("pack", {"resolved_in": True})])
+def test_ported_fanout_arg_acts_as_the_reference(wksps, kind, arg):
+    """The args the exec tile family brought (tests/test_torch_exec_tile.py
+    drives them): both packages' adapters take them alike. An
+    `exec_links` or `exec_done` without its pair raises the reference's
+    ValueError; a lone `redispatch_s` and pack's `resolved_in` build."""
+    links = BANK_LINKS if kind == "bank" else PACK_LINKS
+    args = {**({"exec": "svm", "poh_link": "poh"} if kind == "bank"
+               else PACK_ARGS), **arg}
+    got = []
+    for (rt, tiles), w, a in zip(PKGS, wksps, (args, {
+            **args, **({"device": "cpu"} if kind == "bank" else {})})):
+        try:
+            Rig(rt, tiles, w, kind, a, **links)
+            got.append("ok")
+        except ValueError as e:
+            got.append(str(e))
+    assert got[1] == got[0]
+    assert (got[1] == "ok") == ("redispatch_s" in arg
+                                or "resolved_in" in arg)
 
 
 def test_bank_on_the_card_without_one_raises(wksps):

@@ -4,9 +4,13 @@ and their adapters) against the JAX package's: slots shredded by the
 port's leader core are recovered (also from parity) into the same slices,
 and replayed into the same per-slot bank hashes, PoH tips, tower frames
 and metrics; out-of-order slots buffer, a tampered entry hash is a PoH
-failure, and an `expected` mismatch raises, in both packages. The
-reference runs at hashes_per_tick=8, as tests/test_repair_replay.py:197
-does. Exact: hashes and frames are bytes."""
+failure, and an `expected` mismatch raises, in both packages. The exec
+fan-out (ReplayCore over ExecFanout and exec shards, the ReplayAdapter's
+`exec_links`) gives the bank hashes and tower frames of the reference's
+InlineFanout oracle, also across a dead shard's redispatch
+(tests/test_follower.py). The reference runs at hashes_per_tick=8, as
+tests/test_repair_replay.py:197 does. Exact: hashes and frames are
+bytes."""
 import hashlib
 import os
 import struct
@@ -25,6 +29,7 @@ from firedancer_tpu_torch.shred.shred_dest import ClusterNode
 from firedancer_tpu_torch.tiles import replay as treplay
 from firedancer_tpu_torch.tiles import shred as tshred
 from firedancer_tpu_torch.tiles.tower import pack_block, parse_block
+from firedancer_tpu_torch.tools import exec_drills
 from firedancer_tpu_torch.utils.ed25519_ref import keypair, sign
 
 SEED = bytes(range(32))
@@ -237,18 +242,22 @@ def test_expected_mismatch_raises_in_both(run):
 
 
 def test_normalize_replay_matches_reference_and_refuses_the_fanout():
+    """The [replay] section as the reference takes it: the fan-out's
+    `exec_tile_cnt` and `redispatch_s` are accepted, and a bad value of
+    either raises ValueError in both packages."""
     for spec in (None, {}, {"hashes_per_tick": 64, "verify_poh": False},
-                 {"exec_tile_cnt": 0}):
+                 {"exec_tile_cnt": 0}, {"exec_tile_cnt": 2},
+                 {"redispatch_s": 1.0}, {"redispatch_s": "3"},
+                 {"exec_tile_cnt": 4, "redispatch_s": 0.5}):
         assert treplay.normalize_replay(spec) == \
             jreplay.normalize_replay(spec)
     with pytest.raises(ValueError, match="did you mean 'hashes_per_tick'"):
         treplay.normalize_replay({"hashes_per_tik": 3})
-    with pytest.raises(ValueError):
-        treplay.normalize_replay({"hashes_per_tick": 0})
-    with pytest.raises(NotImplementedError, match="queue A item 5$"):
-        treplay.normalize_replay({"exec_tile_cnt": 2})
-    with pytest.raises(NotImplementedError, match="queue A item 5$"):
-        treplay.normalize_replay({"redispatch_s": 1.0})
+    for bad in ({"hashes_per_tick": 0}, {"redispatch_s": 0},
+                {"redispatch_s": -1.0}, {"exec_tile_cnt": -1}):
+        for mod in (treplay, jreplay):
+            with pytest.raises(ValueError):
+                mod.normalize_replay(bad)
 
 
 @pytest.fixture
@@ -320,10 +329,22 @@ def test_adapters_recover_and_replay_over_rings(wksp, run):
     {"snapshot_every": 4}, {"snapshot_compress": True}])
 def test_replay_adapter_refuses_fanout_and_snapshots_with_item_5(wksp,
                                                                  arg):
-    with pytest.raises(NotImplementedError, match="queue A item 5$"):
-        ttiles.REGISTRY["replay"](
+    """The snapshot restore and writer stay refused, naming item 5f. The
+    fan-out's args are the reference's: `exec_links` without a shm store
+    is the reference's ValueError, and `exec_done` or `redispatch_s`
+    alone change nothing."""
+    def make():
+        return ttiles.REGISTRY["replay"](
             _ctx(wksp, {"slices": (16, 1 << 16)}, {"tower": (16, 128)}),
             {"device": "cpu", **arg})
+    if "exec_links" in arg:
+        with pytest.raises(ValueError, match="need \\[funk\\] backend"):
+            make()
+    elif "exec_done" in arg or "redispatch_s" in arg:
+        assert make().core.fanout is None
+    else:
+        with pytest.raises(NotImplementedError, match="queue A item 5f$"):
+            make()
 
 
 def test_replay_adapter_on_the_card_without_one_fails_its_boot(wksp):
@@ -334,3 +355,96 @@ def test_replay_adapter_on_the_card_without_one_fails_its_boot(wksp):
         ttiles.REGISTRY["replay"](
             _ctx(wksp, {"slices": (16, 1 << 16)}, {"tower": (16, 128)}),
             {"genesis_synth": 16})
+
+
+# -- the exec fan-out ---------------------------------------------------
+
+def test_replay_fanout_bank_hashes_match_reference(wksp):
+    """Eight slots of signed transfers through ReplayCore over ExecFanout
+    and two exec shards (tools/exec_drills.replay_fanout: every slot's
+    bank hash equal to the port's InlineFanout, balances exactly once)
+    give the reference InlineFanout oracle's bank hash in every slot
+    (tests/test_follower.py's harness)."""
+    from test_follower import _mk_oracle, _slot_slices
+    txns = make_signed_txns(64, seed=47)
+    got = exec_drills.replay_fanout(wksp, txns, 8, device="cpu")
+    oracle = _mk_oracle({k: v for k, v in GENESIS.items()
+                         if k in _genesis8()})
+    slices = _slot_slices(txns, 8)
+    assert slices == exec_drills.slot_slices(txns, 8)
+    for s in range(1, 9):
+        oracle.on_slice(slices[s])
+    assert got["bank_hashes"] == {s: oracle.bank_hash_of[s]
+                                  for s in range(1, 9)}
+    assert got["exec_waves"] == 8 and got["exec_redispatch"] == 0
+    assert min(got["shard_txns"]) > 0
+
+
+def test_follower_exec_shard_death_redispatch(wksp):
+    """The reference's drill (tests/test_follower.py): shard 0 dead at
+    dispatch, so the deadline cancels the fork and redispatches under a
+    fresh one; when the shard rejoins (its ring re-read from seq 0) it
+    abandons the cancelled forks' frames, the wave completes, the slot's
+    bank hash is the reference oracle's and balances come out once."""
+    from test_follower import _mk_oracle, _slot_slices
+    txns = make_signed_txns(8, seed=47)
+    got = exec_drills.replay_fanout(wksp, txns, 1, device="cpu",
+                                    dead_shard_s=1.0, redispatch_s=0.3)
+    oracle = _mk_oracle({k: v for k, v in GENESIS.items()
+                         if k in _genesis8()})
+    oracle.on_slice(_slot_slices(txns, 1)[1])
+    assert got["bank_hashes"] == {1: oracle.bank_hash_of[1]}
+    assert got["exec_redispatch"] >= 1 and got["stale_xid"] >= 1
+
+
+def _genesis8():
+    return {keypair(synth_signer_seed(i))[-1] for i in range(8)}
+
+
+def test_replay_adapter_fanout_over_rings_matches_reference(wksp, run):
+    """ReplayAdapter with `exec_links` over two ExecAdapters (polled on
+    threads) and the plan's shm store, PoH verified, on the run's
+    slices: the tower frames and bank hashes of the reference's
+    ReplayCore over InlineFanout, the fan-out's counts in the tile's
+    metrics."""
+    from firedancer_tpu.funk.funk import Funk as JFunk
+    frames = run[1]["port"][0]
+    jf = JFunk()
+    ref = jreplay.ReplayCore(out_ring=Capture(), genesis=GENESIS,
+                             hashes_per_tick=HPT, funk=jf,
+                             fanout=jreplay.InlineFanout(jf))
+    for f in frames:
+        ref.on_slice(f)
+    funk_plan = exec_drills.store_plan(wksp)
+    ins = {"slices": (64, 1 << 16), "exec_done0": (64, 64),
+           "exec_done1": (64, 64)}
+    outs = {"tower": (64, 128), "exec_disp0": (64, 4096),
+            "exec_disp1": (64, 4096)}
+    ctx = _ctx(wksp, ins, outs, plan={"funk": funk_plan, "replay":
+                                      treplay.normalize_replay(
+                                          {"hashes_per_tick": HPT})})
+    ctx.wksp = wksp
+    rp = ttiles.REGISTRY["replay"](ctx, {
+        "genesis": {k.hex(): v for k, v in GENESIS.items()},
+        "device": "cpu", "exec_links": ["exec_disp0", "exec_disp1"],
+        "exec_done": ["exec_done0", "exec_done1"]})
+    rings = {**ctx.in_rings, **ctx.out_rings}
+    shards = exec_drills.ShardThreads()
+    for i in range(2):
+        shards.run(ttiles.REGISTRY["exec"](exec_drills.exec_ctx(
+            wksp, ctx.plan, rings, i), {"device": "cpu"}))
+    try:
+        for f in frames:
+            ctx.in_rings["slices"].publish(f)
+        while rp.poll_once():
+            pass
+    finally:
+        shards.join()
+    assert _drain(ctx.out_rings["tower"]) == ref.out_ring.frames
+    assert rp.core.bank_hash_of == ref.bank_hash_of
+    m = rp.metrics_items()
+    assert set(m) == set(ttiles.REGISTRY["replay"].METRICS)
+    assert m["slots_replayed"] == 6 and m["poh_fail"] == 0
+    assert m["exec_ok"] == ref.metrics["exec_ok"] == 80
+    assert m["exec_waves"] == 4 and m["exec_redispatch"] == 0
+    assert rp.in_seqs()["exec_done0"] + rp.in_seqs()["exec_done1"] >= 4

@@ -138,7 +138,8 @@ def test_unported_kind_is_refused_with_its_item(kind):
 def test_every_reference_kind_is_ported_or_refused():
     assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink",
                                     "pack", "bank", "poh", "shred",
-                                    "sign", "replay", "sock", "gossip"}
+                                    "sign", "replay", "sock", "gossip",
+                                    "exec", "resolv"}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
@@ -173,7 +174,7 @@ def test_config_gate_accepts_the_reference_keys_plus_device():
         ref = jregistry.known_keys(kind)
         port = {"name", "kind", "ins", "outs", *tconfig.COMMON_KEYS,
                 *keys}
-        on_card = kind in ("verify", "bank", "replay", "gossip")
+        on_card = kind in ("verify", "bank", "replay", "gossip", "exec")
         assert port - ref == ({"device"} if on_card else set())
         assert ref <= port
 
