@@ -30,7 +30,11 @@ and read just after:
             saturation under which the prefilter runs): the verify tile
             runs the kernels in its own process, so its batch counts
             stand for their launches; each prints the record bench.py's
-            _e2e_run prints;
+            _e2e_run prints; 10c runs 10a's topology as bench.py's
+            _e2e_run runs it by default, with the fdprof sampler at 29 Hz
+            on every tile, and prints its record with e2e_profile (every
+            tile's region holds samples, the verify tile's top frames
+            name its poll, no kernel loaded after the warmup);
   execution phases 11-12: the leader's execution leg. 11 holds the
             wave-scan kernel (csrc/wave_scan.cu) to its plain version,
             and times it, at five shapes (tools/wave_bench.py): bank0's
@@ -45,9 +49,11 @@ and read just after:
             pipelined WaveExecutor (stage k+1 before finalize k) against
             the serial oracle; 12 boots
             firedancer_tpu_torch/cfg/leader.toml (bench.py's leader
-            topology less its core pinning: synth -> verify x2 -> dedup
-            -> pack -> bank0 -> poh -> shred <-> sign -> shredsink, nine
-            kinds in eleven processes, verify and bank on the card),
+            topology: synth -> verify x2 -> dedup -> pack -> bank0 ->
+            poh -> shred <-> sign -> shredsink, nine kinds in eleven
+            processes, verify and bank on the card, the verify shards
+            pinned by bench.py's rule, cpu0 = 1 when os.cpu_count() >=
+            shards + 6, each shard's affinity checked),
             waits until all 4096 frames are accounted for by bench.py's
             conservation rule and prints the leader rate (bench.py's
             e2e_leader_tps); then drains the shred leg and holds
@@ -118,17 +124,28 @@ and read just after:
             forged ones into one (its peer table at most 64, a staked
             origin's later value lands); 19c boots
             firedancer_tpu_torch/cfg/flood.toml (sock -> verify
-            bulk_prefilter -> dedup -> sink) twice: first with a staked
-            sender that keeps the ring ahead of verify full of distinct
-            valid txns (its bucket raised), whose goodput is the door's
-            clean capacity; then as written, with a staked paced sender
-            at 80 frames/s and, from 6 s, 24 unstaked Sybil sockets
-            sending forged frames at 4x that capacity for 4 s: the door
+            bulk_prefilter -> dedup -> sink) twice, as bench.py's
+            _flood_bench does: first without the metric tile, with a
+            staked sender that keeps the ring ahead of verify full of
+            distinct valid txns (its bucket raised), whose goodput is the
+            door's clean capacity, then on the same boot the clean
+            reference at 0.33x that capacity (capped by the staked
+            pool); then as written, its metric tile's SLO engine judging
+            sink.rx rate > 0.8x the reference, with a staked paced sender
+            at the reference's rate: the engine sees the floor held, a
+            4 s baseline, then 24 unstaked Sybil sockets send forged
+            frames at 4x the capacity for 4 s while the breach ticks are
+            counted, then up to 30 s for a breach to clear: the door
             sheds unstaked frames, the prefilter runs, every staked txn
-            is at the sink or covered by a counted drop (the door's, or
-            a chunk the prefilter shed), no forged frame past verify,
-            peers <= 64. A pool of worker processes signs 19c's txns and
-            runs 19a's plain versions while the card runs 19a and 19b.
+            is at the sink or covered by a counted drop (the door's,
+            the host's before the door under the flood, counted as the
+            datagrams sent less those the door read, or a chunk the
+            prefilter shed), no forged frame past verify,
+            peers <= 64, no watchdog trip, the door in overload whenever
+            the engine reads a breach; bench.py's flood_* keys and
+            flood_pass are printed, not gated. A pool of worker
+            processes signs 19c's txns and runs 19a's plain versions
+            while the card runs 19a and 19b.
   execution phase 20: the exec tile family over the shm account store.
   scaled    20a runs tools/exec_drills.py in process with every shard
   out       on the card: the bank's fan-out over two exec tiles gives
@@ -153,6 +170,18 @@ and read just after:
             exec0 crashing at its first frames under a restart policy:
             it restarts, the loop drains, the store's lamports are
             genesis's less the fees, every tile exits 0.
+  observe   phase 21: the breach-triggered device capture.
+            cfg/sigverify.toml with [prof] (47 Hz, 200 ms windows,
+            breach_capture verify), an [slo] target that cannot hold
+            (verify.work p99 < 1ns), a metric tile and a paced synth
+            whose replays reach the card: the breach rings the verify
+            tile's doorbell, its housekeeping opens a torch.profiler
+            window around its own launches and acks; the manifest names
+            sha512_kernel and ed25519_verify_kernel, the ring holds
+            EV_PROF_CAPTURE and EV_COMPILE, /metrics, /healthz and
+            /summary.json answer, the monitor recovers the breach, and
+            the merged bundle puts the kernels beside the host slices;
+            the card's busy share over the window is reported.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -164,7 +193,8 @@ Any mismatch raises. The last line of output is
 
 and the line before it a JSON object with each of the nine kernels'
 launches on the paths (phase 19's in process among them, and the
-wave scans of phase 20's exec shards), error against
+wave scans of phase 20's exec shards; the topology phases' verify
+batches, and the launches phase 21's capture recorded), error against
 its plain version, time, plain time and bound (poh_verify and lthash
 also at the replay's own shapes).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
@@ -191,6 +221,7 @@ FLOOD_CHUNKS = 4          # all-forged chunks of TILE_BATCH frames (phase 9)
 FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
 TOPO_FRAMES = 65536       # phase 10a: cfg/sigverify.toml's synth count
 TOPO_PREFILTER_FRAMES = 16384   # phase 10b, bulk_prefilter
+E2E_PROF_HZ = 29.0        # phase 10c: bench.py's default FDTPU_BENCH_PROF_HZ
 TRACE_DEPTH = 1 << 17     # phase 18b: records a tile ring (a 65,536-frame run)
 PERSISTENT = {"events": [{"action": "fail_dispatch", "count": -1}]}
 LEADER_FRAMES = 4096      # phase 12: cfg/leader.toml's synth count
@@ -261,14 +292,12 @@ GOSSVF_ITERS = 20        # phase 19a: packets timed a mode and size
 GOSSIP_SPAM = 512        # phase 19b: flood_crds_spam datagrams
 GOSSIP_FORGED = 16       # phase 19b: spam datagrams with a forged value
 # phase 19c, bench.py's flood stage defaults (bench.py:1150-1155):
-# FDTPU_BENCH_FLOOD_PROBE_PPS, _MULT and _SYBILS, and its clean window;
-# the attack runs 4 s, not bench.py's 8 (FDTPU_BENCH_FLOOD_S), to keep
-# the whole script within a minute of phases 1-18's time
-FLOOD_PROBE_PPS = 80.0
+# FDTPU_BENCH_FLOOD_MULT and _SYBILS; the attack runs 4 s, not bench.py's
+# 8 (FDTPU_BENCH_FLOOD_S): over 8 s the swarm's four processes, sharing
+# the host's eight cores with the tiles, once sent under 4x the capacity
 FLOOD_MULT = 4.0
 FLOOD_SYBILS = 24
 FLOOD_ATTACK_S = 4.0
-FLOOD_CLEAN_S = 6.0
 # 19c's capacity boot: the saturating sender's fill and window, its pool
 # of distinct valid txns (the window's frames at the card's capacity
 # with room to spare), and the least share of the window's lanes that
@@ -278,6 +307,31 @@ FLOOD_CAP_S = 1.5
 FLOOD_CAP_MIN_S = 0.5
 FLOOD_CAP_POOL = 16000
 FLOOD_CAP_FULL = 0.9
+# 19c's clean reference and SLO judge (bench.py:1211-1330): the staked
+# rate as a share of the capacity, capped by the staked pool over the
+# seconds the staked sender runs (boot 1's settle and reference, boot
+# 2's settle, baseline and attack, and FLOOD_STAKED_SLACK_S for the SLO
+# wait and a breach's clearing: a boot breach took 17 s to clear on the
+# card, its slow window full of the boot's samples; bench.py's cap allows
+# 120 s of a longer protocol); the fast window by bench.py's rule (4 s
+# on a host of four cores or more, against its 8 s attack) cut with the
+# attack, so that a breach can fire inside it; and bench.py's longest
+# waits
+FLOOD_CLEAN_SHARE = 0.33
+FLOOD_STAKED_POOL = 32000
+FLOOD_REF_SETTLE_S = 2.0
+FLOOD_REF_S = 4.0
+FLOOD_SLO_FAST_S = (4.0 if (os.cpu_count() or 1) >= 4 else 8.0) \
+    * FLOOD_ATTACK_S / 8.0
+FLOOD_SLO_WAIT_S = 30.0
+FLOOD_BASELINE_S = 4.0
+FLOOD_CLEAR_S = 30.0
+FLOOD_SLO_SETTLE_S = FLOOD_SLO_FAST_S + 1.0
+FLOOD_TRIP_S = 0.5            # a breach read -> the door in overload
+FLOOD_STAKED_SLACK_S = 30.0
+FLOOD_PROTOCOL_S = (FLOOD_REF_SETTLE_S + FLOOD_REF_S + FLOOD_SLO_SETTLE_S
+                    + FLOOD_BASELINE_S + FLOOD_ATTACK_S
+                    + FLOOD_STAKED_SLACK_S)
 # 19c's attack boot: the swarm's worker processes (one interpreter caps a
 # Python sender near the rate needed), and how far above FLOOD_MULT x the
 # capacity it is paced so that what it sends is at least that
@@ -286,6 +340,22 @@ EXEC_REPLAY_SLOTS = 64    # phase 20a: the replay fan-out's slots
 EXEC_REPLAY_PER_SLOT = 4  # transfers a slot
 FLOOD_SWARM_PROCS = 4
 FLOOD_PACE_OVER = 0.05
+# phase 21: the synth's pace, frames (it runs on through the capture;
+# the phase halts once the capture is acked) and unique pool, larger than
+# the verify tile's in-flight window (CAPTURE_BATCH lanes x
+# (FDTPU_VERIFY_INFLIGHT + 1)) so that a replay is never deferred behind
+# its own first copy (the synth signs the pool at boot with the
+# pure-Python signer: 8192 took minutes, so the batch is cut from the
+# file's 2048); bench.py's leader tcache depth for that pool (max(16, 1
+# << (bit_length(unique) - 4)), bench.py:434-442), so replays are
+# verified again; and the trace ring that keeps the verify tile's boot
+# records
+CAPTURE_RATE_TPS = 50000.0
+CAPTURE_FRAMES = 1 << 20
+CAPTURE_BATCH = 256
+CAPTURE_UNIQUE = 1024
+CAPTURE_TCACHE = max(16, 1 << (CAPTURE_UNIQUE.bit_length() - 4))
+CAPTURE_TRACE_DEPTH = 1 << 18
 
 
 T_START = time.perf_counter()
@@ -589,7 +659,7 @@ def run_chaos_drill(root, tag):
 
 
 def run_topology(root, tag, count, verify_last=False, trace=None,
-                 on_halted=None, **verify):
+                 on_halted=None, prof=None, **verify):
     """Phase 10: boot the port's main path as four tile processes,
     firedancer_tpu_torch/cfg/sigverify.toml with `count` frames and the
     verify args `verify`, through app.config and TopologyRunner, with
@@ -601,10 +671,10 @@ def run_topology(root, tag, count, verify_last=False, trace=None,
     then halts the tiles and reads their flushed telemetry, each link's
     producer and consumer counts held to the frames that crossed it.
     -> (record as bench.py's _e2e_run prints it, verify metrics). Raises
-    on a count mismatch, a dead tile or a timeout. `trace` is a [trace]
-    section to run with; `on_halted(runner)` reads the halted topology
-    before its workspace goes, and its result joins the record as
-    "trace"."""
+    on a count mismatch, a dead tile or a timeout. `trace` and `prof` are
+    [trace] and [prof] sections to run with; `on_halted(runner)` reads
+    the halted topology before its workspace goes, and its result joins
+    the record as "trace"."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     from firedancer_tpu_torch.disco.launch import TopologyRunner
     from firedancer_tpu_torch.disco.metrics import (
@@ -613,6 +683,8 @@ def run_topology(root, tag, count, verify_last=False, trace=None,
                      {"name": "verify", "device": DEVICE, **verify}]}
     if trace is not None:
         over["trace"] = trace
+    if prof is not None:
+        over["prof"] = prof
     cfg = load_config(
         os.path.join(root, "firedancer_tpu_torch", "cfg", "sigverify.toml"),
         overrides=over)
@@ -719,9 +791,70 @@ def run_topology(root, tag, count, verify_last=False, trace=None,
             os.environ["FDTPU_VERIFY_INFLIGHT"] = env0
 
 
+def run_profiled_e2e(root, card, rec10a) -> dict:
+    """Phase 10c: bench.py's _e2e_run as bench.py runs it by default
+    (bench.py:205-325): cfg/sigverify.toml (10a's run) with [prof] on at
+    E2E_PROF_HZ over every tile, the verify tile on the card. Prints
+    bench.py's record (e2e_tps, e2e_verify_work_p99_ms, e2e_stage_budget,
+    e2e_link_budget and e2e_profile: prof.profile_summary plus
+    verify_device, the tpu histogram's sum over the wall, the kernel
+    loads, the loads after the warmup and the warmup's seconds). Held:
+    every tile's region holds samples, the verify tile's top frames name
+    its poll, no kernel was loaded after the warmup, and run_topology's
+    checks (every frame accounted for, cpu_fallback and device_errors
+    0). -> the record."""
+    from firedancer_tpu_torch.disco.metrics import read_hists
+    from firedancer_tpu_torch.prof import profile_summary
+
+    def on_halted(runner):
+        return {"profile": profile_summary(runner.plan, runner.wksp),
+                "tpu_sum_ns": read_hists(runner.wksp, runner.plan,
+                                         "verify")["tpu"]["sum_ns"]}
+    rec, v = run_topology(root, "10c", TOPO_FRAMES, on_halted=on_halted,
+                          prof={"enable": True, "hz": E2E_PROF_HZ})
+    got = rec.pop("trace")
+    prof = got["profile"]
+    assert set(prof) == {"synth", "verify", "dedup", "sink"}, sorted(prof)
+    for tn, p in prof.items():
+        assert p["samples"] > 0, f"10c: no samples in {tn}'s region"
+    top = [t["stack"] for t in prof["verify"]["top"]]
+    assert any("poll_once" in st for st in top), \
+        f"10c: the verify tile's top frames name no poll: {top}"
+    assert v["tpu_jit_compiles"] > 0 and v["tpu_jit_cache_miss"] == 0, \
+        f"10c: kernel loads after the warmup: {v}"
+    wall = rec["e2e_wall_s"]
+    prof["verify_device"] = {
+        "occupancy": got["tpu_sum_ns"] / 1e9 / wall if wall else 0.0,
+        "compiles": v["tpu_jit_compiles"],
+        "cache_miss": v["tpu_jit_cache_miss"],
+        "compile_s": v["tpu_compile_ns"] / 1e9}
+    out = {"e2e_tps": rec["e2e_tps"], "e2e_count": rec["e2e_count"],
+           "e2e_wall_s": wall,
+           "e2e_verify_work_p99_ms": rec["verify_work_p99_ms"],
+           "e2e_stage_budget": rec["stage_budget"],
+           "e2e_link_budget": rec["link_budget"], "e2e_profile": prof,
+           "boot_s": rec["boot_s"], "verify_batches": v["batches"]}
+    log(f"10c record {json.dumps(out)}")
+    log(f"10c: e2e {out['e2e_tps']:.0f} frames/s with the sampler at "
+        f"{E2E_PROF_HZ:g} Hz on every tile, against 10a's "
+        f"{rec10a['e2e_tps']:.0f} in this call (the sampler's cost, not "
+        f"gated); verify work p99 {out['e2e_verify_work_p99_ms']:.4f} ms; "
+        f"samples " + ", ".join(f"{tn} {p['samples']}" for tn, p in
+                                sorted(prof.items()) if "samples" in p)
+        + f"; verify's top stack {top[0]!r}; device occupancy "
+        f"{prof['verify_device']['occupancy']:.4f}, kernel loads "
+        f"{v['tpu_jit_compiles']} (after the warmup "
+        f"{v['tpu_jit_cache_miss']}), warmup {v['tpu_compile_ns'] / 1e9:.2f}"
+        f" s {card}")
+    return out
+
+
 def run_leader(root, tag):
     """Phase 12: boot firedancer_tpu_torch/cfg/leader.toml with verify and
-    bank on the card, wait until every tile runs, then until the synth
+    bank on the card, its two verify shards pinned by bench.py's rule
+    (cpu0 = 1 when os.cpu_count() >= shards + 6; each shard process's
+    affinity held to one core of the launcher's set, avail[(cpu0 + i) %
+    len(avail)]), wait until every tile runs, then until the synth
     has published its 4096 frames and every one is accounted for
     (bench.py's _leader_wait_drained: bank0 txns plus the frames dropped
     at a named hop equal the count, and pack has retired every
@@ -737,19 +870,39 @@ def run_leader(root, tag):
     from firedancer_tpu_torch.disco.metrics import (
         link_lag, quantile_ns, read_hists, read_link_metrics)
     from firedancer_tpu_torch.tools import leader_drain
+    # bench.py's pinning rule (bench.py:444-445, :502): the verify shards
+    # get a core each from cpu0 = 1 when the host has verify_tiles + 6
+    cpus = os.cpu_count() or 1
+    vt = next(t.get("tile_cnt", 1) for t in load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "leader.toml"))
+        ["tile"] if t["name"] == "verify")
+    cpu0 = 1 if cpus >= vt + 6 else None
     cfg = load_config(
         os.path.join(root, "firedancer_tpu_torch", "cfg", "leader.toml"),
-        overrides={"tile": [{"name": "verify", "device": DEVICE},
+        overrides={"tile": [{"name": "verify", "device": DEVICE,
+                             **({} if cpu0 is None else {"cpu0": cpu0})},
                             {"name": "bank0", "device": DEVICE}]})
     count = next(t["count"] for t in cfg["tile"] if t["name"] == "synth")
     assert count == LEADER_FRAMES
     runner = TopologyRunner(build_topology(
         cfg, name=f"smoke{tag}{os.getpid()}").build())
     shards = [tn for tn in runner.plan["tiles"] if tn.startswith("verify")]
+    avail = sorted(os.sched_getaffinity(0))
     try:
         t_boot = time.perf_counter()
         runner.start()
         runner.wait_running(timeout_s=300)
+        pinned = {}
+        for i, tn in enumerate(shards):
+            got = os.sched_getaffinity(runner.procs[tn].pid)
+            want = set(avail) if cpu0 is None \
+                else {avail[(cpu0 + i) % len(avail)]}
+            assert got == want, f"12: {tn} runs on {sorted(got)}, " \
+                f"expected {sorted(want)}"
+            pinned[tn] = sorted(got)
+        log(f"12: os.cpu_count() {cpus}, the launcher's affinity set "
+            f"{avail}; bench.py's rule (cpus >= {vt} + 6) gives cpu0 "
+            f"{cpu0}: verify shards on {pinned}")
         t0 = time.perf_counter()
         # each tile's work so far (boot-time ticks and slot frags), so the
         # budget below counts the drain window's work only
@@ -822,6 +975,8 @@ def run_leader(root, tag):
             assert links[ln]["lost"] == 0, f"link {ln}: {links[ln]}"
         bh = read_hists(runner.wksp, runner.plan, "bank0")
         return {
+            "cpu_count": cpus, "launcher_affinity": avail, "cpu0": cpu0,
+            "verify_affinity": pinned,
             "e2e_leader_tps": b["txns"] / wall, "e2e_leader_count":
             b["txns"], "e2e_leader_wall_s": wall, "boot_s": t0 - t_boot,
             "bank_microblocks": b["microblocks"],
@@ -1769,16 +1924,22 @@ def run_gossip_trio(card) -> dict:
             g.close()
 
 
-def _flood_boot(root, tag, shed):
+def _flood_boot(root, tag, shed, slo=None):
     """cfg/flood.toml with `shed` over its [shed] section and the verify
-    tile on DEVICE, booted as four tile processes -> (runner, boot s,
-    sock port)."""
+    tile on DEVICE, booted as tile processes -> (runner, boot s, sock
+    port). With `slo` (an [slo] section over the file's) the metric tile
+    runs and judges; without it the boot drops the metric tile and the
+    [slo] section, as bench.py's capacity boot has none."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     from firedancer_tpu_torch.disco.launch import TopologyRunner
     cfg = load_config(
         os.path.join(root, "firedancer_tpu_torch", "cfg", "flood.toml"),
         overrides={"shed": shed,
-                   "tile": [{"name": "verify", "device": DEVICE}]})
+                   "tile": [{"name": "verify", "device": DEVICE}],
+                   **({} if slo is None else {"slo": slo})})
+    if slo is None:
+        cfg.pop("slo")
+        cfg["tile"] = [t for t in cfg["tile"] if t["kind"] != "metric"]
     runner = TopologyRunner(build_topology(
         cfg, name=f"smoke19{tag}{os.getpid()}").build())
     t0 = time.perf_counter()
@@ -1798,30 +1959,60 @@ def _flood_halt(runner, tag) -> dict:
     runner.halt()
     for tn, p in runner.procs.items():
         assert p.exitcode == 0, f"19c {tag}: tile {tn} exit code {p.exitcode}"
-    return {tn: runner.metrics(tn) for tn in ("sock", "verify", "dedup",
-                                              "sink")}
+    return {tn: runner.metrics(tn) for tn in runner.procs}
 
 
-def run_flood_capacity(root, card, pool) -> dict:
-    """Phase 19c, boot 1: the door's clean capacity (bench.py
-    _flood_bench's boot 1). cfg/flood.toml with one staked peer whose
-    token bucket does not bind (rate and burst raised; the watermark,
-    overload and drop-newest stay armed) and a WindowSender that keeps
-    the ring ahead of verify full of distinct valid txns from `pool`.
-    The sink's rate over FLOOD_CAP_S after FLOOD_CAP_FILL_S (or until
-    the pool runs dry) is the capacity. Held: the window lasted at least
-    FLOOD_CAP_MIN_S, the verify tile saw a
-    saturated ingest (at least FLOOD_CAP_FULL of the window's lanes
-    went through the RLC prefilter, which runs on full gathers), every
-    frame that reached the sink is valid and distinct (no drop but the
-    door's), cpu_fallback and device_errors 0, every tile exits 0."""
+def _flood_drained(runner, tag, timeout_s=120):
+    """Wait until every datagram the door took is decided, the sink has
+    what dedup forwarded, and nothing moves for half a second."""
+    deadline, last = time.time() + timeout_s, None
+    while True:
+        runner.check_failures()
+        m = {tn: runner.metrics(tn)
+             for tn in ("sock", "verify", "dedup", "sink")}
+        v = m["verify"]
+        now = (m["sock"]["rx"], v["rx"], v["tx"], m["sink"]["rx"])
+        if v["rx"] == m["sock"]["rx"] and m["sink"]["rx"] == \
+                m["dedup"]["tx"] and v["tx"] + v["verify_fail"] \
+                + v["dedup_drop"] + v["parse_fail"] == v["rx"] \
+                and now == last:
+            return m
+        assert time.time() < deadline, f"19c {tag}: not drained: {m}"
+        last = now
+        time.sleep(0.5)
+
+
+def run_flood_capacity(root, card, pool, staked) -> dict:
+    """Phase 19c, boot 1 (bench.py _flood_bench's boot 1, :1183-1241):
+    cfg/flood.toml without its metric tile, two staked peers whose token
+    buckets do not bind (rate and burst raised; the watermark, overload
+    and drop-newest stay armed). First the capacity probe: a
+    WindowSender keeps the ring ahead of verify full of distinct valid
+    txns from `pool`; the sink's rate over FLOOD_CAP_S after
+    FLOOD_CAP_FILL_S (or until the pool runs dry) is the capacity. Then,
+    on the same boot once drained, the unsaturated clean reference: a
+    PacedSender at clean_pps = FLOOD_CLEAN_SHARE x capacity, capped by
+    the staked pool over FLOOD_PROTOCOL_S (bench.py caps it over 120 s
+    of its longer protocol), from `staked`; the sink's rate over
+    FLOOD_REF_S after FLOOD_REF_SETTLE_S is the reference. Held: the
+    window lasted at least FLOOD_CAP_MIN_S, the verify tile saw a
+    saturated ingest (at least FLOOD_CAP_FULL of the window's lanes went
+    through the RLC prefilter, which runs on full gathers), every frame
+    that reached the sink is valid and distinct (no drop but the
+    door's), cpu_fallback and device_errors 0, every tile exits 0. ->
+    record with capacity_fps, clean_pps, clean_ref_fps, floor (bench.py's
+    0.8 x min(clean_ref, clean_pps)) and ref_sent (the staked txns the
+    reference used)."""
     import socket
-    from firedancer_tpu_torch.tools.paced_sender import WindowSender
+    from firedancer_tpu_torch.tools.paced_sender import (PacedSender,
+                                                         WindowSender)
     probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     probe.bind(("127.0.0.1", 0))
-    key = f"127.0.0.1:{probe.getsockname()[1]}"
+    ref = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    ref.bind(("127.0.0.1", 0))
+    keys = {f"127.0.0.1:{s.getsockname()[1]}": 1000 for s in (probe, ref)}
     runner, boot_s, port = _flood_boot(
-        root, "cap", {"stakes": {key: 1000}, "rate_pps": 1e9, "burst": 1e9})
+        root, "cap", {"stakes": keys, "rate_pps": 1e9, "burst": 1e9})
     sender = None
     try:
         depth = runner.plan["links"]["sock_verify"]["depth"]
@@ -1842,36 +2033,46 @@ def run_flood_capacity(root, card, pool) -> dict:
             time.perf_counter()
         sent = sender.stop()
         sender = None
-        deadline = time.time() + 120
-        while runner.metrics("verify")["rx"] < runner.metrics("sock")["rx"] \
-                or sink_rx() < runner.metrics("dedup")["tx"]:
-            assert time.time() < deadline, \
-                f"19c capacity: not drained: " \
-                f"{ {tn: runner.metrics(tn) for tn in runner.procs} }"
-            time.sleep(0.2)
+        _flood_drained(runner, "capacity")
+        assert c1 - c0 >= FLOOD_CAP_MIN_S, \
+            f"19c capacity: the pool of {len(pool)} ran dry " \
+            f"{c1 - c0:.3f} s into the window " \
+            f"({(rx1 - rx0) / (c1 - c0):.1f} frames/s)"
+        cap = (rx1 - rx0) / (c1 - c0)
+        # the unsaturated clean reference on the same boot
+        clean_pps = min(FLOOD_CLEAN_SHARE * cap,
+                        len(staked) / FLOOD_PROTOCOL_S)
+        sender = PacedSender(staked, port, clean_pps, sock=ref).start()
+        time.sleep(FLOOD_REF_SETTLE_S)
+        rx2, c2 = sink_rx(), time.perf_counter()
+        time.sleep(FLOOD_REF_S)
+        rx3, c3 = sink_rx(), time.perf_counter()
+        ref_sent = sender.stop()
+        sender = None
+        clean_ref = (rx3 - rx2) / (c3 - c2)
+        _flood_drained(runner, "clean reference")
         m = _flood_halt(runner, "capacity")
     finally:
         if sender is not None:
             sender.stop()
         runner.halt()
         runner.close()
-    assert c1 - c0 >= FLOOD_CAP_MIN_S, \
-        f"19c capacity: the pool of {len(pool)} ran dry {c1 - c0:.3f} s " \
-        f"into the window ({(rx1 - rx0) / (c1 - c0):.1f} frames/s)"
-    cap = (rx1 - rx0) / (c1 - c0)
     lanes = v1["rx"] - v0["rx"]
     full = (v1["rlc_lanes"] - v0["rlc_lanes"]) / max(1, lanes)
     sock, v = m["sock"], m["verify"]
     assert full >= FLOOD_CAP_FULL, \
         f"19c capacity: only {full:.3f} of the window's lanes came in " \
         f"full gathers; the probe did not saturate verify"
-    assert m["sink"]["rx"] + sock["shed"] + sock["shed_overflow"] == sent \
-        and v["verify_fail"] == v["dedup_drop"] == 0, \
-        f"19c capacity: {sent} sent, sink {m['sink']['rx']}; sock {sock}, " \
-        f"verify {v}"
+    assert m["sink"]["rx"] + sock["shed"] + sock["shed_overflow"] == \
+        sent + ref_sent and v["verify_fail"] == v["dedup_drop"] == 0, \
+        f"19c capacity: {sent} + {ref_sent} sent, sink {m['sink']['rx']}; " \
+        f"sock {sock}, verify {v}"
     no_fallback("19c capacity verify", v)
+    floor = 0.8 * min(clean_ref, clean_pps)
     rec = {"capacity_fps": cap, "boot_s": boot_s, "sent": sent,
            "window_lanes": lanes, "window_full_share": full,
+           "clean_pps": clean_pps, "clean_ref_fps": clean_ref,
+           "ref_sent": ref_sent, "floor": floor,
            "verify": {k: v[k] for k in ("rx", "tx", "batches",
                                         "rlc_batches", "rlc_pass",
                                         "rlc_lanes")},
@@ -1882,34 +2083,57 @@ def run_flood_capacity(root, card, pool) -> dict:
         f"({full:.4f} of the window's {lanes} lanes through the prefilter's "
         f"full gathers; {sent} sent, {sock['shed']} shed at the door, "
         f"{v['batches']} strict batches, {v['rlc_batches']} RLC, boot "
-        f"{boot_s:.2f} s) {card}")
+        f"{boot_s:.2f} s); clean reference {clean_ref:.2f} frames/s at "
+        f"{clean_pps:.2f} offered ({FLOOD_CLEAN_SHARE:g} x capacity, "
+        f"capped by {len(staked)} staked txns over {FLOOD_PROTOCOL_S:g} s)"
+        f", floor {floor:.2f}/s {card}")
     return rec
 
 
-def run_flood_door(root, card, txns, capacity) -> dict:
-    """Phase 19c, boot 2: cfg/flood.toml under attack (sock -> verify
-    bulk_prefilter on the card -> dedup -> sink, four tile processes).
-    A staked PacedSender at FLOOD_PROBE_PPS from its [shed.stakes] key;
-    from FLOOD_CLEAN_S on, FLOOD_SYBILS unstaked sockets send
-    attack_frames("flood_forged", 64) for FLOOD_ATTACK_S, spread over
-    FLOOD_SWARM_PROCS worker processes and paced FLOOD_PACE_OVER above
-    FLOOD_MULT x `capacity` (boot 1's). Then it drains and halts. Held:
-    the swarm sent at least FLOOD_MULT x `capacity`; the door
-    shed the flood (shed_unstaked > 0) and the sock-fed verify tile ran
-    the RLC prefilter (rlc_batches > 0); every staked txn sent is at the
-    sink or covered by a counted drop a staked txn can take: the door's
-    (rate sheds and drop-newest: shed - shed_unstaked, shed_overflow)
-    or the prefilter's (rlc_shed: a full chunk whose halves both fail
-    is shed whole, a staked lane in it too); every frame that passed
-    verify (a tap on verify_dedup) is a staked txn; peers <= 64;
-    cpu_fallback and device_errors 0; every tile exits 0. `txns`: the
-    staked sender's pool of distinct txns. -> record."""
+def run_flood_door(root, card, txns, cap) -> dict:
+    """Phase 19c, boot 2 (bench.py _flood_bench's boot 2, :1243-1330):
+    cfg/flood.toml under attack, judged by its metric tile's SLO engine
+    with the target `sink.rx rate > floor/s` (fast_window_s
+    FLOOD_SLO_FAST_S on this host, bench.py's rule; slow 20, burns 1.0
+    and 0.5) and bench.py's per-peer rate max(20, 3 x clean_pps). A
+    staked PacedSender runs at clean_pps (boot 1's `cap` record) from its
+    [shed.stakes] key. Once a fast window has passed (FLOOD_SLO_SETTLE_S:
+    the boot's breach, if any, has fired), as bench.py runs it: wait
+    until the engine has evaluated with no breach (asserted), take the
+    clean baseline over FLOOD_BASELINE_S, run the attack (FLOOD_SYBILS
+    unstaked sockets sending attack_frames("flood_forged", 64) for
+    FLOOD_ATTACK_S, spread over FLOOD_SWARM_PROCS worker processes, paced
+    FLOOD_PACE_OVER above FLOOD_MULT x the capacity) counting the ticks
+    the engine reads a breach, then give a breach up to FLOOD_CLEAR_S to
+    clear. Then it drains and halts.
+
+    Held: slo_evals > 0 and no breach before the attack; the swarm sent
+    at least FLOOD_MULT x the capacity; the door shed the flood
+    (shed_unstaked > 0) and the sock-fed verify tile ran the RLC
+    prefilter (rlc_batches > 0); the staked txns are held, each loss
+    where it happened: before the door, the staked datagrams the door
+    never read (sent less its rx_staked) are no more than every peer's
+    datagrams that it never read (under the flood the host's network
+    stack loses some at the door's full socket); at the door, every
+    staked datagram it read was shed by its gate (shed_staked) or
+    published to verify (a tap on sock_verify), but for a short
+    publish's stake-blind drops (shed_overflow); past the door, every
+    staked txn published to verify is at the sink but for the
+    prefilter's sheds (rlc_shed: a full chunk whose halves both fail is
+    shed whole, a staked lane in it too); every frame that passed verify
+    (a tap on verify_dedup) is a staked txn; peers <= 64; no watchdog
+    trip; the door's overload was up at every tick the engine read a
+    breach, the boot's included (the `_shed_slo_poll` coupling); cpu_fallback and device_errors 0; every
+    tile exits 0. `txns`: the staked sender's pool of distinct txns. ->
+    record with bench.py's flood_* keys."""
     import multiprocessing as mp
     import socket
     from concurrent.futures import ProcessPoolExecutor
     from firedancer_tpu_torch.tools.leader_drain import LinkTap
     from firedancer_tpu_torch.tools.paced_sender import PacedSender, swarm
     from firedancer_tpu_torch.utils.chaos import attack_frames
+    capacity, clean_pps, floor = cap["capacity_fps"], cap["clean_pps"], \
+        cap["floor"]
     staked = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     staked.bind(("127.0.0.1", 0))
     key = f"127.0.0.1:{staked.getsockname()[1]}"
@@ -1921,95 +2145,188 @@ def run_flood_door(root, card, txns, capacity) -> dict:
     # every worker up before the clock starts: each holds one of these
     for f in [swarm_pool.submit(time.sleep, 0.5) for _ in range(procs)]:
         f.result()
+    slo = {"fast_window_s": FLOOD_SLO_FAST_S, "slow_window_s": 20.0,
+           "burn_fast": 1.0, "burn_slow": 0.5,
+           "target": [{"name": "flood-goodput",
+                       "expr": f"sink.rx rate > {floor:.1f}/s"}]}
     try:
-        runner, boot_s, port = _flood_boot(root, "c",
-                                           {"stakes": {key: 1000}})
+        runner, boot_s, port = _flood_boot(
+            root, "c", {"stakes": {key: 1000},
+                        "rate_pps": max(20.0, 3 * clean_pps)}, slo=slo)
     except BaseException:
         swarm_pool.shutdown()
         raise
-    senders, tap = [], None
+    senders, taps = [], []
     try:
-        tap = LinkTap(runner, "verify_dedup")
+        taps = [LinkTap(runner, "sock_verify", batch=1024),
+                LinkTap(runner, "verify_dedup")]
 
-        def sink_rx():
+        def metric():
             runner.check_failures()
-            return runner.metrics("sink")["rx"]
-        sender = PacedSender(txns, port, FLOOD_PROBE_PPS, sock=staked).start()
+            return runner.metrics("metric")
+
+        def door_overload():
+            # the sock tile trips its door at its next housekeeping (some
+            # 10 ms apart) after the metric tile flushed the breach, then
+            # flushes; a door that is not up within FLOOD_TRIP_S is not
+            # coupled
+            deadline = time.monotonic() + FLOOD_TRIP_S
+            while True:
+                up = runner.metrics("sock")["overload"]
+                if up or time.monotonic() > deadline:
+                    return up
+                time.sleep(0.02)
+        sender = PacedSender(txns, port, clean_pps, sock=staked).start()
         senders.append(sender)
-        t_start = time.perf_counter()
-        time.sleep(2.0)                        # pipeline fill excluded
-        rx0, c0 = sink_rx(), time.perf_counter()
-        time.sleep(max(0.0, t_start + FLOOD_CLEAN_S - time.perf_counter()))
-        rx1, c1 = sink_rx(), time.perf_counter()
+        # the boot window legitimately starts breached (the metric tile
+        # samples the sink's rate from its own RUN, before the verify tile
+        # runs and the staked traffic flows): let a fast window pass, so
+        # a boot breach has fired, then wait for the engine to see the
+        # floor held, as bench.py does; a tick that reads a breach reads
+        # the door's overload too
+        overload_at_breach = []
+        boot_ticks = 0
+        settle = time.monotonic() + FLOOD_SLO_SETTLE_S
+        deadline = settle + FLOOD_SLO_WAIT_S
+        while time.monotonic() < deadline:
+            mm = metric()
+            if mm["slo_breach"]:
+                boot_ticks += 1
+                overload_at_breach.append(door_overload())
+            elif mm["slo_evals"] > 0 and time.monotonic() >= settle:
+                break
+            time.sleep(0.2)
+        mm = metric()
+        assert mm["slo_evals"] > 0 and mm["slo_breach"] == 0, \
+            f"19c: clean staked traffic never satisfied the floor: {mm}"
+        pre_breaches = mm["slo_breaches"]
+        rx0, c0 = runner.metrics("sink")["rx"], time.perf_counter()
+        time.sleep(FLOOD_BASELINE_S)
+        rx1, c1 = runner.metrics("sink")["rx"], time.perf_counter()
         clean = (rx1 - rx0) / (c1 - c0)
+        mm = metric()
+        assert mm["slo_breach"] == 0 and mm["slo_breaches"] == \
+            pre_breaches, f"19c: the floor broke before the attack: {mm}"
         attack_pps = FLOOD_MULT * capacity * (1 + FLOOD_PACE_OVER)
         jobs = [swarm_pool.submit(swarm, forged, port, attack_pps / procs,
                                   FLOOD_SYBILS // procs, FLOOD_ATTACK_S)
                 for _ in range(procs)]
-        time.sleep(FLOOD_ATTACK_S)
-        rx2, c2 = sink_rx(), time.perf_counter()
+        peers_peak = breach_ticks = 0
+        while time.perf_counter() - c1 < FLOOD_ATTACK_S:
+            peers_peak = max(peers_peak, runner.metrics("sock")["peers"])
+            if metric()["slo_breach"]:
+                breach_ticks += 1
+                overload_at_breach.append(door_overload())
+            time.sleep(0.2)
+        rx2, c2 = runner.metrics("sink")["rx"], time.perf_counter()
         attacked = (rx2 - rx1) / (c2 - c1)
         overload_attack = runner.metrics("sock")["overload"]
         done = [j.result() for j in jobs]
         sent_forged = sum(n for n, _ in done)
         forged_pps = sum(n / sec for n, sec in done)
+        # recovery: the staked sender runs on, and the breach must clear
+        t_clear = time.perf_counter()
+        deadline = time.monotonic() + FLOOD_CLEAR_S
+        while time.monotonic() < deadline:
+            if metric()["slo_breach"] == 0:
+                break
+            overload_at_breach.append(door_overload())
+            time.sleep(0.2)
+        clear_s = time.perf_counter() - t_clear
+        mm = metric()
         sent = sender.stop()
         senders.clear()
-        # drain: every datagram the door took is decided, and nothing
-        # moves for half a second
-        deadline, last = time.time() + 60, None
-        while True:
-            runner.check_failures()
-            m = {tn: runner.metrics(tn)
-                 for tn in ("sock", "verify", "dedup", "sink")}
-            v = m["verify"]
-            now = (m["sock"]["rx"], v["rx"], v["tx"], m["sink"]["rx"])
-            if v["rx"] == m["sock"]["rx"] and m["sink"]["rx"] == \
-                    m["dedup"]["tx"] and v["tx"] + v["verify_fail"] \
-                    + v["dedup_drop"] + v["parse_fail"] == v["rx"] \
-                    and now == last:
-                break
-            assert time.time() < deadline, f"19c: not drained: {m}"
-            last = now
-            time.sleep(0.5)
-        passed, tap = tap.stop(), None
+        _flood_drained(runner, "attack", timeout_s=60)
+        published, passed = (t.stop() for t in taps)
+        taps = []
         m = _flood_halt(runner, "attack")
     finally:
         for p in senders:
             p.stop()
         swarm_pool.shutdown()
-        if tap is not None:
-            tap.close()          # its thread reads the ring
+        for t in taps:
+            t.close()            # its thread reads the ring
         runner.halt()
         runner.close()
     sock, v = m["sock"], m["verify"]
     staked_set = set(txns[:min(sent, pool)])
-    door_drops = sock["shed"] - sock["shed_unstaked"] + sock["shed_overflow"]
+    at_verify = sum(f in staked_set for f in published)
     missing = sent - m["sink"]["rx"]
+    # datagrams every peer sent that the door never read: lost in the
+    # host's network stack under the flood (the door counts each one it
+    # reads: published, shed, oversized or dropped at a short publish)
+    door_read = sock["rx"] + sock["shed"] + sock["oversz"] \
+        + sock["shed_overflow"]
+    lost_before_door = sent + sent_forged - door_read
+    staked_lost = sent - sock["rx_staked"]
+    staked_unpublished = sock["rx_staked"] - sock["shed_staked"] - at_verify
+    staked_past_door = at_verify - m["sink"]["rx"]
+    trips = sum(mt.get("sup_watchdog_trips", 0) for mt in m.values())
+    breaches = mm["slo_breaches"] - pre_breaches
     assert sent <= pool, f"19c: the staked sender wrapped its pool ({sent})"
     assert forged_pps >= FLOOD_MULT * capacity, \
         f"19c: the swarm sent {forged_pps:.0f}/s, under {FLOOD_MULT:g} x " \
         f"capacity {capacity:.2f}"
     assert sock["shed_unstaked"] > 0, f"19c: the door shed no flood: {sock}"
     assert v["rlc_batches"] > 0, f"19c: the prefilter never ran: {v}"
-    assert 0 <= missing <= door_drops + v["rlc_shed"], \
-        f"19c: {sent} staked sent, sink {m['sink']['rx']}, door drops " \
-        f"{door_drops}, prefilter shed {v['rlc_shed']}; sock {sock}, " \
-        f"verify {v}"
+    assert 0 <= staked_lost <= lost_before_door, \
+        f"19c: {sent} staked sent, the door read {sock['rx_staked']} of " \
+        f"them; it never read {lost_before_door} of all the " \
+        f"{sent + sent_forged} sent: {sock}"
+    assert 0 <= staked_unpublished <= sock["shed_overflow"], \
+        f"19c: the door read {sock['rx_staked']} staked, shed " \
+        f"{sock['shed_staked']} and published {at_verify} of them: {sock}"
+    assert 0 <= staked_past_door <= v["rlc_shed"], \
+        f"19c: {at_verify} staked published to verify, sink " \
+        f"{m['sink']['rx']}, prefilter shed {v['rlc_shed']}: verify {v}"
     assert all(f in staked_set for f in passed), \
         "19c: a frame that is not a staked txn passed verify"
     assert len(passed) == m["dedup"]["rx"] == m["sink"]["rx"], \
         f"19c: tap {len(passed)}, dedup {m['dedup']['rx']}"
     assert sock["peers"] <= 64, f"19c: peers {sock['peers']}"
+    assert trips == 0, f"19c: {trips} watchdog trips"
+    assert all(overload_at_breach), \
+        f"19c: a breach with the door not in overload: {overload_at_breach}"
     no_fallback("19c verify", v)
-    rec = {"staked_sent": sent, "forged_sent": sent_forged,
+    clean_eff = min(clean, clean_pps)
+    flood = {
+        "flood_capacity_tps": capacity,
+        "flood_clean_ref_tps": cap["clean_ref_fps"],
+        "flood_clean_tps": clean,
+        "flood_goodput_tps": attacked,
+        "flood_goodput_ratio": attacked / clean_eff if clean_eff else 0.0,
+        "flood_offered_attack_pps": forged_pps,
+        "flood_attack_mult": forged_pps / clean if clean else 0.0,
+        "flood_shed_pct": 100.0 * sock["shed"] / max(1, sock["shed"]
+                                                     + sock["rx"]),
+        "flood_peers_peak": peers_peak,
+        "flood_peers_bound": sock["peers"] <= 64,
+        "flood_slo_breaches": breaches,
+        "flood_slo_breach_final": mm["slo_breach"],
+        "flood_watchdog_trips": trips,
+        "flood_rlc_shed": v["rlc_shed"],
+        "flood_rlc_batches": v["rlc_batches"],
+        "flood_rlc_lanes": v["rlc_lanes"],
+        "flood_rlc_pass": v["rlc_pass"],
+        "flood_verify_fail": v["verify_fail"],
+    }
+    flood["flood_pass"] = (breaches == 0 and trips == 0
+                           and flood["flood_peers_bound"]
+                           and flood["flood_goodput_ratio"] >= 0.8)
+    rec = {**flood, "staked_sent": sent, "forged_sent": sent_forged,
            "sink_rx": m["sink"]["rx"], "staked_missing": missing,
-           "door_staked_drops": door_drops, "boot_s": boot_s,
-           "capacity_fps": capacity, "clean_goodput_fps": clean,
-           "attack_paced_pps": attack_pps, "forged_sent_pps": forged_pps,
-           "swarm_procs": procs,
-           "attack_goodput_fps": attacked,
-           "goodput_ratio": attacked / clean if clean else 0.0,
+           "staked_lost_before_door": staked_lost,
+           "door_staked_read": sock["rx_staked"],
+           "door_staked_shed": sock["shed_staked"],
+           "staked_at_verify": at_verify,
+           "lost_before_door": lost_before_door,
+           "boot_s": boot_s, "clean_pps": clean_pps, "floor": floor,
+           "slo_fast_window_s": FLOOD_SLO_FAST_S, "slo_evals":
+           mm["slo_evals"], "slo_boot_breaches": pre_breaches,
+           "boot_breach_ticks": boot_ticks, "breach_ticks": breach_ticks,
+           "overload_at_breach_ticks": len(overload_at_breach),
+           "breach_clear_s": clear_s,
+           "attack_paced_pps": attack_pps, "swarm_procs": procs,
            "overload_at_attack_end": overload_attack,
            "verify": {k: v[k] for k in (
                "rx", "tx", "verify_fail", "dedup_drop", "batches",
@@ -2018,21 +2335,29 @@ def run_flood_door(root, card, txns, capacity) -> dict:
            "sock": {k: sock[k] for k in (
                "rx", "shed", "shed_unstaked", "shed_overflow", "overload",
                "backpressure", "peers")}}
-    log(f"19c attack: staked goodput {clean:.2f} frames/s clean, "
-        f"{attacked:.2f} while {FLOOD_SYBILS} sybils in {procs} processes "
-        f"sent {forged_pps:.0f} forged/s ({forged_pps / capacity:.3f} x "
-        f"capacity {capacity:.2f}; paced at {attack_pps:.0f}) (ratio "
-        f"{rec['goodput_ratio']:.4f}); {sent_forged} forged "
-        f"and {sent} staked sent, {m['sink']['rx']} at the sink, "
-        f"{missing} missing against door drops a staked peer can take "
-        f"{door_drops} and prefilter-shed lanes {v['rlc_shed']}; verify "
-        f"rx {v['rx']}, rlc_batches {v['rlc_batches']}, rlc_pass "
-        f"{v['rlc_pass']}, rlc_shed {v['rlc_shed']}, strict batches "
-        f"{v['batches']}; sock rx {sock['rx']}, shed {sock['shed']}, "
-        f"shed_unstaked {sock['shed_unstaked']}, shed_overflow "
-        f"{sock['shed_overflow']}, overload {overload_attack} at the "
-        f"attack's end, backpressure {sock['backpressure']}, peers "
-        f"{sock['peers']} {card}")
+    log(f"19c flood {json.dumps(flood)}")
+    log(f"19c attack: staked goodput {clean:.2f} frames/s clean at "
+        f"{clean_pps:.2f} offered, {attacked:.2f} while {FLOOD_SYBILS} "
+        f"sybils in {procs} processes sent {forged_pps:.0f} forged/s "
+        f"({forged_pps / capacity:.3f} x capacity {capacity:.2f}; paced at "
+        f"{attack_pps:.0f}) (ratio {flood['flood_goodput_ratio']:.4f}); the "
+        f"SLO engine (sink.rx rate > {floor:.1f}/s over "
+        f"{FLOOD_SLO_FAST_S:g} s) evaluated {mm['slo_evals']} times, "
+        f"{breaches} breaches, {breach_ticks} ticks breached in the "
+        f"attack, final {mm['slo_breach']} after {clear_s:.1f} s; "
+        f"flood_pass {flood['flood_pass']}; {sent_forged} forged and "
+        f"{sent} staked sent: {staked_lost} lost before the door (of "
+        f"{lost_before_door} datagrams of all peers the door never read), "
+        f"{sock['rx_staked']} read by the door, {sock['shed_staked']} shed "
+        f"there, {at_verify} published to verify, {m['sink']['rx']} at the "
+        f"sink ({missing} missing) against "
+        f"prefilter-shed lanes {v['rlc_shed']}; verify rx {v['rx']}, "
+        f"rlc_batches {v['rlc_batches']}, rlc_pass {v['rlc_pass']}, "
+        f"rlc_shed {v['rlc_shed']}, strict batches {v['batches']}; sock rx "
+        f"{sock['rx']}, shed {sock['shed']}, shed_unstaked "
+        f"{sock['shed_unstaked']}, shed_overflow {sock['shed_overflow']}, "
+        f"overload {overload_attack} at the attack's end, backpressure "
+        f"{sock['backpressure']}, peers {sock['peers']} {card}")
     return rec
 
 
@@ -2049,8 +2374,7 @@ def run_front_door(root, card, counts, reset_counts):
     from firedancer_tpu_torch.tools.paced_sender import staked_pool
     t0 = time.perf_counter()
     workers = max(1, (os.cpu_count() or 2) - 1)
-    n_txns = int(FLOOD_PROBE_PPS * (FLOOD_CLEAN_S + FLOOD_ATTACK_S + 1))
-    chunk = -(-n_txns // workers)
+    chunk = -(-FLOOD_STAKED_POOL // workers)
     cap_chunk = -(-FLOOD_CAP_POOL // workers)
     with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"),
                              initializer=gb.one_thread) as pool:
@@ -2094,17 +2418,219 @@ def run_front_door(root, card, counts, reset_counts):
         log(f"19a {mode}: ms per packet " + ", ".join(
             f"{n} values {ms:.4f}" for n, ms in by_n.items())
             + f" ({GOSSVF_ITERS} packets each, CUDA events) {card}")
-    log(f"== 19c. cfg/flood.toml, four tile processes: boot 1, the "
-        f"door's clean capacity (a saturating staked sender); boot 2, a "
-        f"staked sender at {FLOOD_PROBE_PPS:g}/s and, from "
-        f"{FLOOD_CLEAN_S:g} s for {FLOOD_ATTACK_S:g} s, {FLOOD_SYBILS} "
-        f"sybils at {FLOOD_MULT:g} x the capacity {card}")
-    rec_cap = run_flood_capacity(root, card, cap_txns)
-    rec_c = run_flood_door(root, card, txns, rec_cap["capacity_fps"])
+    log(f"== 19c. cfg/flood.toml: boot 1, the door's clean capacity (a "
+        f"saturating staked sender) and the clean reference at "
+        f"{FLOOD_CLEAN_SHARE:g} x it; boot 2 with the metric tile judging "
+        f"sink.rx rate > 0.8 x the reference: a staked sender at the "
+        f"reference's rate and, after the SLO wait and a "
+        f"{FLOOD_BASELINE_S:g} s baseline, {FLOOD_SYBILS} sybils at "
+        f"{FLOOD_MULT:g} x the capacity for {FLOOD_ATTACK_S:g} s {card}")
+    rec_cap = run_flood_capacity(root, card, cap_txns, txns)
+    rec_c = run_flood_door(root, card, txns[rec_cap["ref_sent"]:], rec_cap)
     path = {k: path_a[k] + path_b[k] for k in path_a}
     return path, {"gossvf_ms": times, "gossip": rec_b,
                   "flood_capacity": rec_cap, "flood": rec_c,
                   "launches_19a": path_a, "launches_19b": path_b}
+
+
+_PROM_SAMPLE = None
+
+
+def kernel_base(name: str) -> str:
+    """A demangled kernel name without its return type, template
+    arguments and parameters: "void sha512_kernel<true>(...)" ->
+    "sha512_kernel"."""
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("<")[0].split("(")[0]
+
+
+def _prometheus_labels(text: str) -> tuple[set, set]:
+    """Every line of a /metrics body is a TYPE line or a sample of a
+    TYPE-declared family with a label block -> (tile labels, link
+    labels). Raises on a line that does not parse."""
+    import re
+    global _PROM_SAMPLE
+    if _PROM_SAMPLE is None:
+        _PROM_SAMPLE = re.compile(
+            r'^([a-zA-Z_:][a-zA-Z0-9_:]*)\{(.*)\} '
+            r'(-?[0-9.]+(?:[eE][+-]?[0-9]+)?|\+Inf|NaN)$')
+    assert text.endswith("\n"), "/metrics does not end with a newline"
+    types, tiles, links = set(), set(), set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            types.add(line.split()[2])
+            continue
+        m = _PROM_SAMPLE.match(line)
+        assert m, f"/metrics: unparseable line {line!r}"
+        fam = m.group(1)
+        for suf in ("_bucket", "_sum", "_count"):
+            if fam.endswith(suf) and fam[:-len(suf)] in types:
+                fam = fam[:-len(suf)]
+        assert fam in types, f"/metrics: {fam} has no TYPE line"
+        labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                 m.group(2)))
+        if "tile" in labels:
+            tiles.add(labels["tile"])
+        if "link" in labels:
+            links.add(labels["link"])
+    return tiles, links
+
+
+def run_capture_drill(root, card) -> dict:
+    """Phase 21: the breach-triggered device capture on the card (the
+    reference's drill, tests/test_prof.py:357-420, made to launch through
+    the window). cfg/sigverify.toml with [prof] as the JAX package's
+    cfg/default.toml:33-39 (hz 47, capture_ms 200, breach_capture
+    ["verify"]), [slo] with `impossible-latency` (verify.work p99 < 1ns,
+    fast_window_s 0.4), [trace] on verify and metric, a metric tile, the
+    synth paced at CAPTURE_RATE_TPS over CAPTURE_FRAMES frames, the
+    verify batch at CAPTURE_BATCH and its tcache at bench.py's leader
+    depth (bench.py:434-442: below the unique pool, so replays are
+    verified again instead of dropped before the card; the pool,
+    CAPTURE_UNIQUE, larger than the verify tile's in-flight window). The
+    verify tile, which a breach captures, warms
+    its profiler at boot. Held: the doorbell acked and prof_captures >= 1;
+    the manifest ok; its kernels name sha512_kernel (sha512_ram's entry)
+    and ed25519_verify_kernel, each launched at least once in the window;
+    EV_PROF_CAPTURE and EV_COMPILE in the verify ring; /metrics parses
+    and names every tile and link; /healthz 200; /summary.json's first
+    slo_history entry is impossible-latency's breach; the monitor's
+    slo_breach_events recovers it from shm; prof.merged_chrome puts host
+    slices of at least two tiles and the verify tile's kernels on one
+    timeline (the kernels inside the verify ring's span). Reported: the
+    card's busy share over the window. -> record."""
+    import urllib.error
+    import urllib.request
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco import monitor
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.prof import merged_chrome, region_for
+    from firedancer_tpu_torch.prof.device import capture_manifest_path
+    from firedancer_tpu_torch.trace import read_rings
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "sigverify.toml"),
+        overrides={
+            "prof": {"enable": True, "hz": 47, "slots": 256, "ring": 2048,
+                     "capture_ms": 200.0, "breach_capture": ["verify"]},
+            "slo": {"fast_window_s": 0.4, "slow_window_s": 30.0,
+                    "target": [{"name": "impossible-latency",
+                                "expr": "verify.work p99 < 1ns"}]},
+            "trace": {"enable": True, "depth": CAPTURE_TRACE_DEPTH,
+                      "sample": 16, "tiles": ["verify", "metric"]},
+            "tcache": [{"name": "verify_tc", "depth": CAPTURE_TCACHE}],
+            "tile": [{"name": "synth", "count": CAPTURE_FRAMES,
+                      "unique": CAPTURE_UNIQUE,
+                      "rate_tps": CAPTURE_RATE_TPS},
+                     {"name": "verify", "device": DEVICE,
+                      "batch": CAPTURE_BATCH},
+                     {"name": "metric", "kind": "metric", "port": 0}]})
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke21{os.getpid()}").build())
+    plan = runner.plan
+    manifest = capture_manifest_path(plan["topology"], "verify")
+    try:
+        t0 = time.perf_counter()
+        runner.start()
+        runner.wait_running(timeout_s=300)
+        boot_s = time.perf_counter() - t0
+        runner.wait_idle("verify", "prof_captures", 1, timeout_s=120,
+                         poll_s=0.02)
+        captured_s = time.perf_counter() - t0 - boot_s
+        region = region_for(plan, runner.wksp, "verify")
+        assert region.capture_ack >= 1, "21: the doorbell was never acked"
+        port = runner.metrics("metric")["port"]
+
+        def get(path):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+        status, body = get("/metrics")
+        assert status == 200, f"21: /metrics {status}"
+        tiles, links = _prometheus_labels(body.decode())
+        assert tiles == set(plan["tiles"]) and links == set(plan["links"]),\
+            f"21: /metrics names {sorted(tiles)}, {sorted(links)}"
+        health_status, body = get("/healthz")
+        health = json.loads(body)
+        assert health_status == 200 and health["ok"], f"21: {health}"
+        status, body = get("/summary.json")
+        summary = json.loads(body)
+        first = summary["slo_history"][0]
+        assert (first["target"], first["kind"]) == \
+            ("impossible-latency", "breach"), summary["slo_history"]
+        events = monitor.slo_breach_events(plan, runner.wksp)
+        assert events and events[0]["target"] == "impossible-latency", \
+            events
+        vm = runner.metrics("verify")
+        mm = runner.metrics("metric")
+        runner.halt()
+        for tn, p in runner.procs.items():
+            assert p.exitcode == 0, f"21: tile {tn} exit code {p.exitcode}"
+        with open(manifest) as f:
+            doc = json.load(f)
+        assert doc["ok"], f"21: the capture failed: {doc['error']}"
+
+        by = {}
+        for name, k in doc["kernels"].items():
+            b = by.setdefault(kernel_base(name), {"launches": 0, "us": 0.0})
+            b["launches"] += k["launches"]
+            b["us"] += k["us"]
+        for want in ("sha512_kernel", "ed25519_verify_kernel"):
+            assert by.get(want, {}).get("launches", 0) >= 1, \
+                f"21: the capture recorded no {want}: {sorted(doc['kernels'])}"
+        evs = read_rings(plan, runner.wksp, tiles=["verify"])["verify"]
+        names = {e["ev"] for e in evs}
+        assert {"prof_capture", "compile"} <= names, sorted(names)
+        bundle = merged_chrome(plan, runner.wksp)
+        thread = {e["tid"]: e["args"]["name"] for e in bundle["traceEvents"]
+                  if e.get("name") == "thread_name"}
+        slices = {}
+        for e in bundle["traceEvents"]:
+            if e.get("ph") == "X" and e.get("tid") in thread:
+                slices.setdefault(thread[e["tid"]], []).append(e)
+        hosts = [t for t in slices if t.endswith("/host")]
+        assert len(hosts) >= 2, f"21: host slices of {hosts}"
+        kern = slices.get("verify/device", [])
+        assert kern, "21: no kernel on the verify tile's device track"
+        ring_ts = [e["ts"] for e in evs]
+        lo, hi = min(ring_ts) / 1e3, max(ring_ts) / 1e3
+        assert all(lo <= e["ts"] <= hi for e in kern), \
+            "21: a kernel lies outside the verify ring's span"
+    finally:
+        runner.halt()
+        runner.close()
+        for path in (manifest,):
+            if os.path.exists(path):
+                os.unlink(path)
+    no_fallback("21 verify", vm)
+    rec = {"boot_s": boot_s, "capture_after_run_s": captured_s,
+           "prof_captures": vm["prof_captures"],
+           "slo_breaches": mm["slo_breaches"], "slo_evals": mm["slo_evals"],
+           "device_busy_share": doc["device_busy_share"],
+           "device_busy_ms": doc["device_busy_ms"],
+           "recorded_ms": doc["recorded_ms"], "window_ms": doc["window_ms"],
+           "start_ms": doc["start_ms"], "stop_ms": doc["stop_ms"],
+           "warm_ms": doc["warm_ms"], "clock": doc["clock"],
+           "kernels": by, "kernel_names": sorted(doc["kernels"]),
+           "verify_batches": vm["batches"],
+           "tpu_jit_compiles": vm["tpu_jit_compiles"],
+           "tpu_mem_bytes": vm["tpu_mem_bytes"],
+           "host_tracks": sorted(hosts), "device_slices": len(kern),
+           "healthz": health_status, "breach_events": events}
+    log(f"21 record {json.dumps(rec)}")
+    log(f"21: a breach of impossible-latency rang the verify tile's "
+        f"doorbell {captured_s:.2f} s after RUN (boot {boot_s:.1f} s, the "
+        f"profiler's start-up {doc['warm_ms']:.1f} ms paid at boot); the "
+        f"{doc['recorded_ms']:.1f} ms window (start {doc['start_ms']:.2f} "
+        f"ms, stop {doc['stop_ms']:.2f} ms) recorded " + ", ".join(
+            f"{n} x{k['launches']} ({k['us']:.1f} µs)"
+            for n, k in sorted(by.items()))
+        + f"; the card busy {100 * doc['device_busy_share']:.2f}% of the "
+        f"window ({doc['device_busy_ms']:.3f} ms) {card}")
+    return rec
 
 
 def run_exec_kill(root, card) -> dict:
@@ -2817,6 +3343,12 @@ def main() -> int:
             assert v["rlc_pass"] == v["rlc_batches"] and \
                 v["rlc_shed"] == 0, "a valid chunk failed the RLC equation"
 
+    # 10c. bench.py's _e2e_run as it runs by default: 10a's topology with
+    # the fdprof sampler on every tile at 29 Hz
+    log(f"== 10c. topology profiled: cfg/sigverify.toml, {TOPO_FRAMES} "
+        f"frames, [prof] at {E2E_PROF_HZ:g} Hz on every tile {card}")
+    rec10c = run_profiled_e2e(root, card, rec10a)
+
     # 11. the leader's execution leg in process: the wave-scan kernel
     # against its plain version at phase 11's five shapes
     # (firedancer_tpu_torch/tools/wave_bench.py: bank0's wave, the bank's
@@ -2903,7 +3435,8 @@ def main() -> int:
     # wave scans it launches in its own process (wave_launches), the
     # verify shards their strict batches
     log(f"== 12. topology: cfg/leader.toml, {LEADER_FRAMES} frames, "
-        f"verify x2 and bank0 on the card {card}")
+        f"verify x2 (pinned by bench.py's rule) and bank0 on the card "
+        f"{card}")
     rec, wires12 = run_leader(root, "12")
     log(f"12 record {json.dumps(rec)}")
     log(f"12: e2e_leader_tps {rec['e2e_leader_tps']:.1f} "
@@ -2947,6 +3480,13 @@ def main() -> int:
     # shards count their own wave-scan launches
     exec_launches, rec20 = run_exec_family(root, card, counts, reset_counts)
     log(f"20 record {json.dumps(rec20)}")
+
+    # 21. the breach-triggered device capture: the metric tile's SLO
+    # engine rings the verify tile's doorbell, which opens a
+    # torch.profiler window around its own launches
+    log(f"== 21. cfg/sigverify.toml with [prof], [slo] and a metric tile: "
+        f"the breach-triggered torch.profiler capture on the card {card}")
+    rec21 = run_capture_drill(root, card)
 
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
@@ -3025,6 +3565,29 @@ def main() -> int:
                 "call_ms", "chain_floor_ms", "bank_hash_ms",
                 "bank_hash_call_ms", "bank_hash_bound_ms",
                 "bank_hash_bound_by")})
+    # the verify tiles of the topology phases launch in their own
+    # processes: their batches a phase (each strict batch one sha512_ram
+    # and one ed25519_verify launch, each RLC batch one of each stage),
+    # and the launches phase 21's capture recorded by each __global__
+    strict_b = {"10c": rec10c["verify_batches"],
+                "12": sum(rec["verify_batches"].values()),
+                "19c": rec19["flood"]["verify"]["batches"],
+                "21": rec21["verify_batches"]}
+    rlc_b = {"19c": rec19["flood"]["verify"]["rlc_batches"]}
+    glob = {"sha512": "sha512_kernel", "sha512_ram": "sha512_kernel",
+            "ed25519_verify": "ed25519_verify_kernel",
+            "msm_stage1": "msm_stage1_kernel",
+            "msm_stage2": "msm_stage2_kernel",
+            "wave_scan": "wave_scan_kernel", "sha256": "sha256_kernel",
+            "poh_verify": "poh_verify_kernel", "blake3": "b3_kernel",
+            "lthash": "b3_kernel"}
+    for k in kernels:
+        if k["name"] in ("sha512", "sha512_ram", "ed25519_verify"):
+            k["tile_batches"] = strict_b
+        elif k["name"] in ("msm_stage1", "msm_stage2"):
+            k["tile_batches"] = rlc_b
+        k["capture_launches_21"] = rec21["kernels"].get(
+            glob[k["name"]], {}).get("launches", 0)
     log(smi)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - T_START:.1f} s {card}")

@@ -26,7 +26,7 @@ Schema (the reference's, cut to the kinds the port has):
     name = "verify"
     kind = "verify"          # synth | verify | dedup | sink | pack |
                              # bank | poh | shred | sign | replay |
-                             # sock | gossip | exec | resolv
+                             # sock | gossip | exec | resolv | metric
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
@@ -49,6 +49,35 @@ Schema (the reference's, cut to the kinds the port has):
 
     [tile.trace]             # per-tile override (opt out/in, depth,
     sample = 16              #  sample)
+
+    [prof]                   # fdprof continuous profiler (prof/recorder.py)
+    enable = true            # default false: unprofiled tiles pay one
+    hz = 97                  #  attribute check, no sampler thread
+    slots = 256              # folded-stack table entries (power of two)
+    ring = 2048              # timestamped sample ring (power of two)
+    tiles = ["verify"]       # optional allowlist (default: all tiles)
+    capture_ms = 200.0       # device-trace window (torch.profiler)
+    breach_capture = ["verify"]  # SLO breach -> device capture here
+
+    [tile.prof]              # per-tile override (opt out/in, hz,
+    hz = 29                  #  slots, ring, stack_depth)
+
+    [slo]                    # service-level objectives (disco/slo.py),
+    fast_window_s = 5.0      #  evaluated by the metric tile; breaches
+    slow_window_s = 60.0     #  flip its slo_breach gauge, leave an
+    burn_fast = 1.0          #  EV_SLO trace event, and dump next to
+    burn_slow = 0.5          #  the supervisor black boxes
+
+    [[slo.target]]           # one objective per table (merged by name
+    name = "verify-latency"  #  across layers); expr grammar:
+    expr = "verify.work p99 < 500us"   # <source> [agg] <op> <threshold>
+                             #  sources: tile.metric, tile.wait|work|tpu,
+                             #  link.<link>.<counter>
+
+    cpu_idx = 3              # per tile: pin its process to that core
+    cpu0 = 1                 # sharded: shard i pins to core cpu0 + i
+    lazy_ns = 2000000        # per tile: the housekeeping interval, or
+    lazy_auto = true         #  one derived from its out links' depth
 
     [[tile.chaos.events]]    # seeded fault plan (utils/chaos.py)
     action = "crash"
@@ -74,24 +103,26 @@ Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
     verify, dedup, sink, pack, bank, poh, shred, sign, replay, sock,
-    gossip, exec and resolv, plus `device` on verify, bank, replay,
-    gossip and exec (the card, "cuda", unless "cpu"); a gated key the
-    port has not ported (pack's `bundle_in`, the bank's `genesis_ckpt`,
-    `rpc_port` and `ws_port`, the replay tile's snapshot args) passes
-    the gate and is refused by its adapter;
+    gossip, exec, resolv and metric, plus `device` on verify, bank,
+    replay, gossip and exec (the card, "cuda", unless "cpu"); a gated
+    key the port has not ported (pack's `bundle_in`, the bank's
+    `genesis_ckpt`, `rpc_port` and `ws_port`, the replay tile's snapshot
+    args) passes the gate and is refused by its adapter;
   * the [replay] section is validated by `tiles/replay.normalize_replay`
     and the [funk] section by `funk/shmfunk.normalize_funk`, and both
     are carried on the plan;
   * each top-level section the reference accepts but the port has not
-    ported (slo, prof, witness, snapshot, flight, tune)
-    raises NotImplementedError naming its ROADMAP.md queue-A item, and
-    so does FDTPU_TUNED_PROFILE (item 11); a known kind without an
-    adapter, a gated key the port lacks (core pinning, the lazy
-    cadence, and the verify tile's `device_fail_limit`, which it
-    refuses by design) and a chaos action of an unported kind pass the
-    gate and are refused by `Topology.tile` (disco/unported.py);
-  * `cpu0` is handed to `Topology.tile` as it is, which refuses it
-    (the reference turns it into `cpu_idx`, config.py:323-335).
+    ported (witness, snapshot, flight, tune) raises NotImplementedError
+    naming its ROADMAP.md queue-A item, and so does
+    FDTPU_TUNED_PROFILE (item 11); a known kind without an adapter, a
+    gated key the port lacks (the verify tile's `device_fail_limit`,
+    which it refuses by design) and a chaos action of an unported kind
+    pass the gate and are refused by `Topology.tile`
+    (disco/unported.py).
+
+As in the reference, `cpu0` on a sharded tile pins shard i to core
+cpu0 + i, and on an unsharded tile it becomes that tile's `cpu_idx`
+(config.py:323-335); [[slo.target]] arrays merge by name across layers.
 """
 from __future__ import annotations
 
@@ -100,14 +131,16 @@ import os
 import tomllib
 
 from ..disco.shed import normalize_shed
+from ..disco.slo import normalize_slo
 from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
 from ..funk.shmfunk import normalize_funk
+from ..prof import normalize_prof
 from ..tiles.replay import normalize_replay
 from ..trace import normalize_trace
 
-_TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "replay",
-                 "shed", "funk", *UNPORTED_SECTIONS}
+_TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "slo",
+                 "prof", "replay", "shed", "funk", *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
 # the stem)
@@ -143,6 +176,7 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
                "device_verify", "gossvf_bulk", "device"),
     "exec": ("batch", "rr_cnt", "rr_idx", "tile_cnt", "cpu0", "device"),
     "resolv": ("batch", "fee_payer_check"),
+    "metric": ("port", "bind_addr", "healthz_stale_s"),
 }
 
 
@@ -193,7 +227,14 @@ def load_config(*paths, overrides: dict | None = None) -> dict:
                                               layer[key], str(p))
         for key in _TOP_SECTIONS - {"link", "tcache", "tile"}:
             if key in layer:
-                cfg[key] = _deep_merge(cfg.get(key, {}), layer[key])
+                merged = _deep_merge(cfg.get(key, {}), layer[key])
+                if key == "slo" and "target" in layer[key]:
+                    # [[slo.target]] arrays merge by name, as [[tile]]:
+                    # a layer can tighten one objective alone
+                    merged["target"] = _merge_named_lists(
+                        cfg.get(key, {}).get("target", []),
+                        layer[key]["target"], str(p))
+                cfg[key] = merged
     return cfg
 
 
@@ -229,8 +270,9 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     if os.environ.get("FDTPU_TUNED_PROFILE"):
         refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
     # fail before launch (trace/recorder.py, tiles/replay.py,
-    # funk/shmfunk.py and disco/shed.py are the validators; per-tile
-    # `shed` overrides validate at Topology.build)
+    # funk/shmfunk.py, disco/shed.py, disco/slo.py and prof/recorder.py
+    # are the validators; per-tile `shed` and `prof` overrides validate,
+    # and SLO targets resolve, at Topology.build)
     shed_cfg = cfg.get("shed")
     if shed_cfg is not None:
         normalize_shed(shed_cfg)
@@ -243,11 +285,17 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     funk_cfg = cfg.get("funk")
     if funk_cfg is not None:
         normalize_funk(funk_cfg)
+    slo_cfg = cfg.get("slo")
+    if slo_cfg is not None:
+        normalize_slo(slo_cfg)
+    prof_cfg = cfg.get("prof")
+    if prof_cfg is not None:
+        normalize_prof(prof_cfg)
     top = cfg.get("topology", {})
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
                     wksp_size=int(top.get("wksp_size", 1 << 26)),
                     trace=trace_cfg, replay=replay_cfg, shed=shed_cfg,
-                    funk=funk_cfg)
+                    funk=funk_cfg, slo=slo_cfg, prof=prof_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))
@@ -266,11 +314,15 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
             args["supervise"] = _deep_merge(default_sup,
                                             args.get("supervise", {}))
         tile_cnt = int(args.pop("tile_cnt", 1) or 1)
+        cpu0 = args.pop("cpu0", None)
         if tile_cnt > 1:
             topo.sharded_tile(t["name"], t["kind"], tile_cnt,
                               ins=t.get("ins", ()),
-                              outs=t.get("outs", ()), **args)
+                              outs=t.get("outs", ()), cpu0=cpu0, **args)
         else:
+            if cpu0 is not None:
+                # cpu0 on an unsharded tile pins it (shard 0)
+                args["cpu_idx"] = int(cpu0)
             topo.tile(t["name"], t["kind"], ins=t.get("ins", ()),
                       outs=t.get("outs", ()), **args)
     return topo

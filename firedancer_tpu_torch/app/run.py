@@ -11,7 +11,9 @@ periodically, and tears down on SIGINT or after --duration seconds.
 `--device` (default cuda) sets `device` on every verify, bank, replay,
 gossip and exec tile: on the card their kernels run; without one the first such
 tile fails its boot, the supervisor tears the topology down and the
-command exits 1. `cpu` runs the kernels' plain versions.
+command exits 1. `cpu` runs the kernels' plain versions. A metric tile
+takes no device: it reads shared memory only. The table also lists the
+recent SLO breaches, when the topology has an [slo] section.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import sys
 import time
 
 from ..disco.launch import TopologyRunner
-from ..disco.monitor import format_table, snapshot
+from ..disco.monitor import (format_slo_events, format_table,
+                             slo_breach_events, snapshot)
 from .config import build_topology, load_config
 
 
@@ -55,8 +58,10 @@ def main(argv=None) -> int:
             runner.check_failures()
             now = time.monotonic()
             if now >= next_print:
-                print(format_table(snapshot(runner.plan, runner.wksp)),
-                      flush=True)
+                frame = format_table(snapshot(runner.plan, runner.wksp))
+                slo = format_slo_events(
+                    slo_breach_events(runner.plan, runner.wksp))
+                print(frame + ("\n" + slo if slo else ""), flush=True)
                 next_print = now + args.interval
             time.sleep(0.05)
     except KeyboardInterrupt:

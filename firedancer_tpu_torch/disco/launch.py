@@ -22,9 +22,12 @@ Where the copy differs from the reference:
     the topology down; a tile halted while it booted exits without
     running;
   * the plan file is `/dev/shm/fdtt_<name>.plan.json`, and no pid file
-    is written (it serves the cswtch tile, ROADMAP.md queue A item 12);
-  * no core pinning (launch.py:52-57): `Topology.tile` refuses
-    `cpu_idx` (item 14).
+    is written (it serves the cswtch tile, ROADMAP.md queue A item 12).
+
+Core pinning is the reference's (launch.py:52-57): a tile's `cpu_idx`
+arg pins its process with `os.sched_setaffinity` to the cpu_idx-th core
+of the process's affinity set (modulo its size), before anything else
+runs in the tile process.
 """
 from __future__ import annotations
 
@@ -44,6 +47,12 @@ from .topo import TileCtx
 def tile_main(plan: dict, tile_name: str):
     """Entry point of a tile process (ref: fd_topo_run_tile)."""
     args = plan["tiles"][tile_name]["args"]
+    # core pinning (ref: src/util/tile/fd_tile.h:6-38): this tile process
+    # to one core of the set it may run on
+    cpu_idx = args.get("cpu_idx")
+    if cpu_idx is not None:
+        avail = sorted(os.sched_getaffinity(0))
+        os.sched_setaffinity(0, {avail[int(cpu_idx) % len(avail)]})
     # sandbox hardening (ref: src/util/sandbox/fd_sandbox.h, the
     # python-enforceable subset)
     if args.get("sandbox"):

@@ -1,6 +1,7 @@
-"""Metrics: log2 latency histograms and per-link telemetry blocks (copy
-of the JAX package's disco/metrics.py:30-220; its prometheus renderer
-waits for the metric tile, ROADMAP.md queue A item 8).
+"""Metrics: log2 latency histograms, per-link telemetry blocks and the
+prometheus text the metric tile serves (copy of the JAX package's
+disco/metrics.py; ref: src/disco/metrics/fd_metrics.h,
+fd_prometheus.c).
 
 Histogram region layout per tile (all u64, little-endian, single writer):
 
@@ -158,3 +159,151 @@ def quantile_ns(hist: dict, q: float) -> int:
         if cum >= target and cum > 0:
             return 1 << (i + 1)
     return 1 << NBUCKETS
+
+
+# ---------------------------------------------------------------------------
+# prometheus text rendering (ref: src/disco/metrics/fd_prometheus.c)
+# ---------------------------------------------------------------------------
+
+def _esc(s: str) -> str:
+    return s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _render_hist(lines: list[str], base: str, lab: str, h: dict):
+    """One histogram family in exposition format: cumulative buckets,
+    folding the clamp/overflow bucket into +Inf, monotone even against
+    a raced flush (count and buckets are written at distinct
+    instants — the clamp below keeps the series consistent)."""
+    cum = 0
+    for i, c in enumerate(h["buckets"][:-1]):
+        cum += c
+        le = (1 << (i + 1)) / 1e9
+        lines.append(f'{base}_bucket{{{lab},le="{le:g}"}} {cum}')
+    total = max(h["count"], cum + h["buckets"][-1])
+    lines.append(f'{base}_bucket{{{lab},le="+Inf"}} {total}')
+    lines.append(f'{base}_sum{{{lab}}} {h["sum_ns"] / 1e9:g}')
+    lines.append(f'{base}_count{{{lab}}} {total}')
+
+
+def render_prometheus(plan: dict, wksp) -> str:
+    """All tiles' named counters, wait/work/tpu histograms, liveness,
+    per-link telemetry, and device (`tpu_*`) series, in prometheus text
+    exposition format. Reader-side only (any process attached to the
+    workspace can render)."""
+    from ..runtime import Cnc, CNC_RUN
+    from . import topo as topo_mod
+
+    topo = _esc(plan.get("topology", "?"))
+    lines = [
+        "# TYPE fdtpu_tile_up gauge",
+        "# TYPE fdtpu_heartbeat_age_ticks gauge",
+        "# TYPE fdtpu_tile_metric counter",
+        "# TYPE fdtpu_tile_gauge gauge",
+    ]
+    hist_lines: list[str] = []
+    tpu_hist_lines: list[str] = []
+    # DEVICE_SERIES-declared slots are the device-telemetry series:
+    # promoted to their own family (fdtpu_tile_<name>) instead of the
+    # generic name-labeled series, so dashboards get first-class
+    # metric names (declaration rides the plan like GAUGES; topo.build
+    # rejects names that would shadow a built-in family)
+    tpu_series: dict[str, tuple[str, list[str]]] = {}
+    now = topo_mod.now_ticks()
+    for tn, spec in plan["tiles"].items():
+        lab = f'topology="{topo}",tile="{_esc(tn)}",kind="{_esc(spec["kind"])}"'
+        cnc = Cnc(wksp, off=spec["cnc_off"])
+        up = 1 if cnc.state == CNC_RUN else 0
+        lines.append(f"fdtpu_tile_up{{{lab}}} {up}")
+        age = max(0, now - cnc.last_heartbeat)
+        lines.append(f"fdtpu_heartbeat_age_ticks{{{lab}}} {age}")
+        vals = topo_mod.read_metrics(wksp, plan, tn)
+        gauges = set(spec.get("metrics_gauges", []))
+        device = set(spec.get("metrics_device", []))
+        for i, nm in enumerate(spec.get("metrics_names", [])):
+            if i >= len(vals):
+                break
+            # adapters DECLARE their gauge slots (class GAUGES) and
+            # device-series slots (class DEVICE_SERIES); the renderer
+            # never infers types or families from names
+            is_gauge = nm in gauges
+            if nm in device:
+                fam = f"fdtpu_tile_{nm}"
+                typ, out = tpu_series.setdefault(
+                    fam, ("gauge" if is_gauge else "counter", []))
+                out.append(f'{fam}{{{lab}}} {int(vals[i])}')
+                continue
+            series = "fdtpu_tile_gauge" if is_gauge \
+                else "fdtpu_tile_metric"
+            lines.append(
+                f'{series}{{{lab},name="{_esc(nm)}"}} {int(vals[i])}')
+        # supervisor counters (restarts / watchdog trips / down gauge)
+        # live in the region's top slots — same region, fixed indices
+        from .supervise import SUP_GAUGES, sup_counters
+        for nm, val in sup_counters(vals).items():
+            series = "fdtpu_tile_gauge" if nm in SUP_GAUGES \
+                else "fdtpu_tile_metric"
+            lines.append(f'{series}{{{lab},name="{nm}"}} {val}')
+        for kind, h in read_hists(wksp, plan, tn).items():
+            if kind == "tpu":
+                # device-time attribution: only tiles that actually
+                # drive a device populate it — zero-count tiles stay
+                # out of the exposition (no empty series per tile)
+                if h["count"]:
+                    _render_hist(tpu_hist_lines,
+                                 "fdtpu_tile_tpu_seconds", lab, h)
+                continue
+            _render_hist(hist_lines, f"fdtpu_poll_{kind}_seconds",
+                         lab, h)
+    if hist_lines:
+        lines.append("# TYPE fdtpu_poll_wait_seconds histogram")
+        lines.append("# TYPE fdtpu_poll_work_seconds histogram")
+        lines.extend(hist_lines)
+    if tpu_hist_lines:
+        lines.append("# TYPE fdtpu_tile_tpu_seconds histogram")
+        lines.extend(tpu_hist_lines)
+    for fam in sorted(tpu_series):
+        typ, out = tpu_series[fam]
+        lines.append(f"# TYPE {fam} {typ}")
+        lines.extend(out)
+    lines.extend(_render_links(plan, wksp, topo))
+    return "\n".join(lines) + "\n"
+
+
+def _render_links(plan: dict, wksp, topo: str) -> list[str]:
+    """fdtpu_link_* per-link series, labeled link/producer/consumer —
+    the per-hop half of the exposition (publish counters from the
+    producer block, consume counters + latency histogram per consumer,
+    and the derived lag gauge = published - consumed)."""
+    links = read_link_metrics(wksp, plan)
+    if not links:
+        return []
+    lines = [
+        "# TYPE fdtpu_link_pub counter",
+        "# TYPE fdtpu_link_pub_bytes counter",
+        "# TYPE fdtpu_link_backpressure counter",
+        "# TYPE fdtpu_link_consumed counter",
+        "# TYPE fdtpu_link_bytes counter",
+        "# TYPE fdtpu_link_overruns counter",
+        "# TYPE fdtpu_link_lag gauge",
+    ]
+    hist_lines: list[str] = []
+    for ln in sorted(links):
+        rec = links[ln]
+        prod = _esc(rec["producer"] or "external")
+        plab = f'topology="{topo}",link="{_esc(ln)}",producer="{prod}"'
+        for nm in LINK_PROD_COUNTERS:
+            lines.append(f'fdtpu_link_{nm}{{{plab}}} {rec[nm]}')
+        for tn in sorted(rec["consumers"]):
+            c = rec["consumers"][tn]
+            clab = f'{plab},consumer="{_esc(tn)}"'
+            for nm in LINK_CONS_COUNTERS:
+                lines.append(f'fdtpu_link_{nm}{{{clab}}} {c[nm]}')
+            lines.append(f'fdtpu_link_lag{{{clab}}} '
+                         f'{link_lag(rec, tn)}')
+            if c["hist"]["count"]:
+                _render_hist(hist_lines, "fdtpu_link_consume_seconds",
+                             clab, c["hist"])
+    if hist_lines:
+        lines.append("# TYPE fdtpu_link_consume_seconds histogram")
+        lines.extend(hist_lines)
+    return lines

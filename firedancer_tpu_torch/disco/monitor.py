@@ -1,8 +1,7 @@
 """Monitor: read every tile's heartbeat + metrics from shared memory
 (copy of the JAX package's disco/monitor.py:43-230, with each traced
-tile's trace cursor; without the SLO events, whose trace reads are the
-metric tile's EV_SLO records, and the flight archive: ROADMAP.md queue
-A items 8 and 10).
+tile's trace cursor and the SLO breach events; without the flight
+archive, ROADMAP.md queue A item 10).
 
 The reference's `monitor` command attaches to the running validator's
 shm and prints per-tile status snapshots
@@ -17,8 +16,11 @@ import json
 from ..runtime import (Workspace, Cnc, TraceRing, CNC_BOOT, CNC_RUN,
                        CNC_HALT, CNC_FAIL)
 from . import topo as topo_mod
+from ..trace import events as trace_ev
+from ..trace.export import read_rings
 from .launch import plan_path
 from .metrics import link_lag, quantile_ns, read_hists, read_link_metrics
+from .slo import slo_dump_path
 from .supervise import sup_counters
 
 _STATE = {CNC_BOOT: "boot", CNC_RUN: "run", CNC_HALT: "halt",
@@ -89,12 +91,63 @@ def links_table(link_metrics: dict) -> dict:
 
 
 def full_snapshot(plan: dict, wksp: Workspace) -> dict:
-    """Tiles + per-link telemetry in one JSON-able document."""
+    """Tiles, per-link telemetry and the recent SLO breaches in one
+    JSON-able document."""
     return {
         "topology": plan.get("topology", "?"),
         "tiles": snapshot(plan, wksp),
         "links": links_table(read_link_metrics(wksp, plan)),
+        "slo_events": slo_breach_events(plan, wksp),
     }
+
+
+def slo_breach_events(plan: dict, wksp: Workspace,
+                      limit: int = 8) -> list[dict]:
+    """Recent SLO breaches recovered from shm alone: the EV_SLO records
+    in the metric tile's flight-recorder ring, plus the engine's
+    per-target dumps (/dev/shm/fdtt_<topo>.slo.<target>.json) for
+    breaches the wrapping ring has overwritten, so the monitor shows a
+    flapping objective without the metric tile's HTTP surface, and
+    post-mortem."""
+    targets = [t["name"] for t in (plan.get("slo") or {})
+               .get("target", [])]
+    out: list[dict] = []
+    metric_tiles = [tn for tn, spec in plan["tiles"].items()
+                    if spec["kind"] == "metric"
+                    and spec.get("trace_off") is not None]
+    for tn, evs in read_rings(plan, wksp, tiles=metric_tiles).items():
+        for e in evs:
+            if e["etype"] != trace_ev.EV_SLO:
+                continue
+            idx = e["count"]
+            out.append({"ts": e["ts"],
+                        "target": targets[idx]
+                        if idx < len(targets) else f"?{idx}",
+                        "value": e["arg"]})
+    seen = {r["target"] for r in out}
+    for name in targets:
+        if name in seen:
+            continue
+        try:
+            with open(slo_dump_path(plan.get("topology", "?"),
+                                    name)) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        out.append({"ts": doc.get("dumped_at_ns", 0), "target": name,
+                    "value": doc.get("value"),
+                    "breaches": doc.get("breaches")})
+    out.sort(key=lambda r: r["ts"])
+    return out[-limit:]
+
+
+def format_slo_events(events: list[dict]) -> str:
+    if not events:
+        return ""
+    lines = ["recent SLO breaches (newest last):"]
+    for e in events:
+        lines.append(f"  ts={e['ts']} {e['target']} value={e['value']}")
+    return "\n".join(lines)
 
 
 def _delta_str(v: int, prev: int | None) -> str:

@@ -1,6 +1,5 @@
 """Load shedding + per-peer policing: the overload front door (copy of
-the JAX package's disco/shed.py, with the class PressureProbe of its
-disco/slo.py).
+the JAX package's disco/shed.py).
 
 An internet-facing validator's ingest tiles (sock/quic/gossip) meet
 the open internet BEFORE any expensive work runs — the reference's
@@ -54,18 +53,16 @@ Where the copy differs from the reference:
     reference's lint/registry.suggest (fdlint is not ported);
   * PeerGate has no `set_tighten`: the fdtune shed_tighten knob is
     ROADMAP.md queue A item 11, and the port's TileCtx carries no knobs;
-  * the port has no metric tile yet (item 8), so `slo_breach_count`
-    and PressureProbe's gauge read 0 in every topology it can build;
-    PressureProbe's per-link producer-backpressure delta reads the
-    port's `prod_metrics_off` blocks (disco/topo.py).
+  * PressureProbe, the overload roll-up the ingest doors poll, lives in
+    disco/slo.py as in the reference and is imported here for the
+    callers that reach it through this module.
 """
 from __future__ import annotations
 
 import difflib
 
-import numpy as np
-
 from ..utils.tempo import monotonic_ns
+from .slo import PressureProbe  # noqa: F401
 
 SHED_DEFAULTS = {
     "enable": True,
@@ -200,7 +197,8 @@ class PeerGate:
 
     __slots__ = ("rate", "burst", "max_peers", "min_stake", "hold_ns",
                  "stakes", "peers", "overload_until", "shed_total",
-                 "shed_rate", "shed_unstaked", "shed_drop", "evicted")
+                 "shed_rate", "shed_unstaked", "shed_drop", "evicted",
+                 "staked_rx", "staked_shed")
 
     def __init__(self, cfg: dict):
         cfg = normalize_shed(cfg)
@@ -221,6 +219,11 @@ class PeerGate:
         self.shed_unstaked = 0
         self.shed_drop = 0            # drop-newest at a full door
         self.evicted = 0
+        # the packets of peers with a stake the gate saw, and those of
+        # them it shed: the door's own staked accounting (a harness
+        # holds what it sent against it); not among `counters()`
+        self.staked_rx = 0
+        self.staked_shed = 0
 
     # -- identity ------------------------------------------------------------
 
@@ -269,6 +272,13 @@ class PeerGate:
             now = monotonic_ns()
         key = self.key_of(addr)
         stake = self.stakes.get(key, 0)
+        ok = self._admit(key, stake, now)
+        if stake:
+            self.staked_rx += 1
+            self.staked_shed += not ok
+        return ok
+
+    def _admit(self, key: str, stake: int, now: int) -> bool:
         if now < self.overload_until and stake < self.min_stake:
             self.shed_total += 1
             self.shed_unstaked += 1
@@ -326,8 +336,12 @@ class PeerGate:
         same thing on both shed paths."""
         self.shed_total += 1
         self.shed_drop += 1
-        if self.stakes.get(self.key_of(addr), 0) < self.min_stake:
+        stake = self.stakes.get(self.key_of(addr), 0)
+        if stake < self.min_stake:
             self.shed_unstaked += 1
+        if stake:
+            self.staked_rx += 1
+            self.staked_shed += 1
 
     # -- metrics -------------------------------------------------------------
 
@@ -336,89 +350,3 @@ class PeerGate:
                 "shed_unstaked": self.shed_unstaked,
                 "peers": len(self.peers),
                 "overload": 1 if self.overloaded() else 0}
-
-
-class PressureProbe:
-    """ONE definition of \"the topology is under pressure\", readable
-    from any tile at housekeeping cadence: the metric tile's
-    slo_breach gauge (is any objective burning NOW), the slo_breaches
-    counter delta (did a breach edge land since the last poll — the
-    cross-process burn approximation), and the worst per-link producer
-    backpressure delta with its link name (WHERE the topology is
-    saturating). The ingest doors poll it (disco/tiles._shed_slo_poll);
-    the reference's fdtune controller reads the same roll-up (item 11),
-    so \"overloaded\" will mean the same thing to both."""
-
-    def __init__(self, plan: dict, wksp):
-        self.plan, self.wksp = plan, wksp
-        self._metric_tile = None
-        self._breach_idx = self._breaches_idx = None
-        for tn, spec in plan.get("tiles", {}).items():
-            if spec.get("kind") != "metric":
-                continue
-            names = spec.get("metrics_names", [])
-            if "slo_breach" in names and "slo_breaches" in names:
-                self._metric_tile = tn
-                self._breach_idx = names.index("slo_breach")
-                self._breaches_idx = names.index("slo_breaches")
-                break
-        self._link_offs = {
-            ln: li["prod_metrics_off"]
-            for ln, li in plan.get("links", {}).items()
-            if li.get("prod_metrics_off") is not None}
-        self._last_bp: dict[str, int] = {}
-        self._last_breaches: int | None = None
-
-    def _gauge(self) -> tuple[int, int]:
-        """(slo_breach gauge, slo_breaches counter) — (0, 0) when the
-        topology has no metric tile / no SLO engine."""
-        if self._metric_tile is None:
-            return 0, 0
-        from . import topo as topo_mod
-        try:
-            vals = topo_mod.read_metrics(self.wksp, self.plan,
-                                         self._metric_tile)
-            return (int(vals[self._breach_idx]),
-                    int(vals[self._breaches_idx]))
-        except Exception:        # noqa: BLE001 — teardown race
-            return 0, 0
-
-    def link_pressure(self) -> tuple[int, str | None]:
-        """(worst per-link producer-backpressure delta since the last
-        poll, that link's name) — the saturating-hop attribution."""
-        from .metrics import LINK_PROD_COUNTERS, LINK_PROD_U64
-        bp_i = LINK_PROD_COUNTERS.index("backpressure")
-        worst_delta, worst_link = 0, None
-        for ln, off in self._link_offs.items():
-            try:
-                raw = self.wksp.view(off, LINK_PROD_U64 * 8) \
-                    .view(np.uint64).copy()
-            except Exception:    # noqa: BLE001 — teardown race
-                continue
-            bp = int(raw[bp_i])
-            delta = bp - self._last_bp.get(ln, bp)
-            self._last_bp[ln] = bp
-            if delta > worst_delta:
-                worst_delta, worst_link = delta, ln
-        return worst_delta, worst_link
-
-    def overloaded(self) -> bool:
-        """The cheap form for ingest-door polling: is any objective
-        burning right now (one metric-tile read, no link scan)."""
-        return self._gauge()[0] > 0
-
-    def poll(self) -> dict:
-        """One pressure sample: {breached, burn, bp_delta, worst_link,
-        overloaded}. `burn` is 1.0 when a breach edge landed since the
-        last poll (new slo_breaches), else 0 — the cross-process
-        approximation of the engine's fast-window fraction."""
-        breached, breaches = self._gauge()
-        burn = 0.0
-        if self._last_breaches is not None and \
-                breaches > self._last_breaches:
-            burn = 1.0
-        self._last_breaches = breaches
-        bp_delta, worst = self.link_pressure()
-        return {"breached": breached, "burn": burn,
-                "bp_delta": bp_delta, "worst_link": worst,
-                "overloaded": bool(breached)}

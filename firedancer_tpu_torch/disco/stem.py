@@ -1,8 +1,6 @@
 """Stem: the tile run loop (copy of the JAX package's disco/stem.py:30-377
-with its chaos harness and trace hooks, without the profiler hooks
-(ROADMAP.md queue A item 6) and the pinned or depth-derived housekeeping
-cadence (`lazy_ns`, `lazy_auto`, item 14); a tile arg asking for those
-is refused by `Topology.tile`, disco/unported.py).
+with its chaos harness, trace and fdprof hooks, and the pinned or
+depth-derived housekeeping cadence, `lazy_ns` and `lazy_auto`).
 
 Re-expression of the reference's run loop (ref: src/disco/stem/
 fd_stem.c:1-168, :240 run1, :385 the main for(;;)). A tile object
@@ -24,13 +22,22 @@ the wait/work/tpu histograms, and flushing tile metrics and the per-link
 telemetry counters into shared memory. With a chaos plan in the tile's
 args (utils/chaos.py) it fires the plan's events; with a trace ring
 (`ctx.trace`) it records BOOT, a WAIT span per idle streak, WORK spans
-(one a `sample` productive polls, summed), HOUSEKEEP, FAIL and HALT. An
-untraced tile's only cost is the cached `None` check.
+(one a `sample` productive polls, summed), HOUSEKEEP, FAIL and HALT; with
+a profile region (`ctx.prof`) it runs the fdprof sampler thread from RUN
+to any exit and tells it, each poll, whether the loop waits, works or
+housekeeps and which in link it served. An untraced, unprofiled tile's
+only cost is the cached `None` checks.
+
+The housekeeping interval is `hk_interval_s` unless the tile's args pin
+it (`lazy_ns`) or ask for the depth-derived cadence (`lazy_auto`:
+utils/tempo.lazy_default of the smallest out-link depth, clamped to
+[100 µs, 50 ms]).
 """
 from __future__ import annotations
 
 import os
 import random
+import threading
 import time
 
 from ..runtime import CNC_RUN, CNC_HALT, CNC_FAIL
@@ -38,6 +45,7 @@ from ..trace import chaos_event
 from ..trace import events as trace_ev
 from ..utils import log
 from ..utils.chaos import ChaosPlan
+from ..utils.tempo import lazy_default
 from .metrics import HIST_U64, HistAccum
 
 
@@ -47,6 +55,20 @@ class Stem:
         """ctx: TileCtx (cnc/metrics/fseqs); tile: the callback object."""
         self.ctx, self.tile = ctx, tile
         self.hk_interval_s = hk_interval_s
+        # tempo-derived cadence (ref: fd_tempo_lazy_default): a pinned
+        # lazy_ns, or lazy_auto (credits must return some 10x faster
+        # than the smallest out-link window drains)
+        args = ctx.spec.get("args", {})
+        if args.get("lazy_ns"):
+            self.hk_interval_s = int(args["lazy_ns"]) * 1e-9
+        elif args.get("lazy_auto"):
+            depths = [ctx.plan["links"][ln]["depth"]
+                      for ln in getattr(ctx, "out_rings", {})]
+            if depths:
+                # floor: the Python loop's useful granularity (100 µs);
+                # ceiling: heartbeats stay frequent
+                self.hk_interval_s = min(0.05, max(
+                    1e-4, lazy_default(min(depths)) * 1e-9))
         self.idle_sleep_s = idle_sleep_s
         # slot-name ABI: the plan's names, in slot order
         self._metrics_names = ctx.spec["metrics_names"]
@@ -68,7 +90,7 @@ class Stem:
         self._link_seen = {ln: ctx.in_rings[ln].m_consumed
                            for ln in self._link_hists}
         # chaos harness: a seeded fault plan from the tile's args
-        chaos = ctx.spec.get("args", {}).get("chaos")
+        chaos = args.get("chaos")
         self._chaos = ChaosPlan(chaos) if chaos else None
         self._hb_frozen = False
         self._wedged = False
@@ -76,6 +98,14 @@ class Stem:
         # flight recorder: None on an untraced tile, the whole disabled
         # path
         self._trace = getattr(ctx, "trace", None)
+        # fdprof: None on an unprofiled tile. The sampler thread starts
+        # in run() (it samples the stem's thread); _prof_state is the
+        # channel the loop stores wait/work/housekeep and the active in
+        # link into, one attribute store a poll. A sample sees the state
+        # set after the previous poll.
+        self._prof_region = getattr(ctx, "prof", None)
+        self._prof_state = None
+        self._sampler = None
         self._wait_t0: int | None = None      # idle-streak start (ns)
         # with sample > 1 one EV_WORK record sums the last `sample`
         # productive polls
@@ -106,6 +136,14 @@ class Stem:
                 hook = getattr(self.tile, "on_chaos", None)
                 if hook is not None:
                     hook(ev)
+
+    def _stop_sampler(self):
+        """Stop the fdprof sampler on any loop exit; the shm region keeps
+        the aggregate."""
+        if self._sampler is not None:
+            self._sampler.stop()
+            self._sampler = None
+            self._prof_state = None
 
     def _trace_flush(self, tr):
         """Close out pending trace state on any loop exit: the summed but
@@ -166,6 +204,18 @@ class Stem:
         cnc = self.ctx.cnc
         cnc.heartbeat()
         cnc.state = CNC_RUN
+        if self._prof_region is not None and self._sampler is None:
+            # the host sampling profiler over this thread: the daemon
+            # sampler walks its stack at prof_hz into the shm region
+            from ..prof import ProfState, Sampler
+            spec = self.ctx.spec
+            self._prof_state = ProfState()
+            self._sampler = Sampler(
+                self._prof_region, float(spec.get("prof_hz", 97.0)),
+                threading.get_ident(), self._prof_state,
+                stack_depth=int(spec.get("prof_stack_depth", 16)),
+            ).start()
+        ps = self._prof_state
         if tr is not None:
             tr.event(trace_ev.EV_BOOT)
         # jittered lazy interval (fd_stem.c: avoid phase-locking tiles)
@@ -188,9 +238,12 @@ class Stem:
                             self._trace_flush(tr)
                             tr.event(trace_ev.EV_FAIL)
                         self._flush_metrics()
+                        self._stop_sampler()
                         return
                     hk_t0 = time.perf_counter_ns() if tr is not None \
                         else 0
+                    if ps is not None:
+                        ps.state = 2          # fdprof: housekeep
                     self._update_in_fseqs()
                     hk = getattr(self.tile, "housekeeping", None)
                     if hk is not None:
@@ -213,12 +266,16 @@ class Stem:
                 # an idle poll is time spent waiting on upstream, a
                 # productive one is work
                 self._hists["work" if n else "wait"].add(t1 - t0)
+                if ps is not None:
+                    ps.state = 1 if n else 0  # fdprof: work / wait
                 if n:
                     for ln, h in self._link_hists.items():
                         c = self.ctx.in_rings[ln].m_consumed
                         if c != self._link_seen[ln]:
                             self._link_seen[ln] = c
                             h.add(t1 - t0)
+                            if ps is not None:
+                                ps.link = ln  # fdprof: active in link
                 if tr is not None:
                     # one WAIT span per idle streak (from its first empty
                     # poll to the start of the next productive one), one
@@ -256,6 +313,7 @@ class Stem:
                 self._trace_flush(tr)
                 tr.event(trace_ev.EV_FAIL)
             self._flush_metrics()
+            self._stop_sampler()
             log.err(f"tile failed: {e!r}")
             raise
         # drain-side bookkeeping before exit; the reference flushes
@@ -269,4 +327,5 @@ class Stem:
         if tr is not None:
             self._trace_flush(tr)
             tr.event(trace_ev.EV_HALT)
+        self._stop_sampler()
         cnc.state = CNC_HALT

@@ -12,19 +12,25 @@ and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these fourteen kinds only; `Topology.tile` refuses
-    every other kind of the reference's registry (disco/unported.py),
-    and `adapter_class` raises ValueError for a name without an
-    adapter;
+  * the registry holds these fifteen kinds only (the fourteen above and
+    the metric tile); `Topology.tile` refuses every other kind of the
+    reference's registry (disco/unported.py), and `adapter_class` raises
+    ValueError for a name without an adapter;
   * VerifyAdapter wraps the port's VerifyTile, which runs on the card
     unless its `device` arg (default "cuda") says "cpu"; that arg is the
     port's counterpart of the reference's FDTPU_JAX_PLATFORM override
     (tiles.py:120-133). It takes `device_retries` and
     `device_timeout_s`, never the reference's `device_fail_limit`
     (`Topology.tile` refuses it: the port does not degrade to the CPU,
-    tiles/verify.py), and it has no JAX compile and memory series, no
-    profiler capture (tiles.py:357-426, item 6) and no fdtune knob hook
-    (item 11);
+    tiles/verify.py), and no fdtune knob hook (item 11). Its device
+    series are the reference's names (tiles.py:303-314, :355-427):
+    `tpu_jit_compiles` counts the kernel entry points the process
+    loaded through ops/_build.py (prof/device.kernel_loads),
+    `tpu_jit_cache_miss` those loaded after the warmup (the reference's:
+    compiles past the first), `tpu_mem_bytes` is
+    torch.cuda.memory_allocated of the tile's card (0 on the CPU), and
+    a profiled tile's housekeeping serves the capture doorbell with a
+    torch.profiler window (prof/device.py);
   * the trace hooks are the reference's: EV_PUBLISH on synth, verify
     and dedup, EV_CONSUME on verify, dedup, sink and shred (the
     reference's `_gather_all`, tiles.py:38-60), as one vectorized
@@ -69,14 +75,23 @@ Where the copy differs from the reference:
     (topo.py:460-465 in the reference, item 13);
   * SockAdapter and GossipAdapter police their doors with the plan's
     [shed] section and their own `shed` override (disco/shed.py); their
-    housekeeping reads the topology's pressure (`_shed_slo_poll`) but no
-    fdtune knob (item 11). GossipAdapter takes a `device` arg (default
-    "cuda") for gossvf and raises at construction when `device_verify`
-    is set and that device is not usable; the QUIC door is item 3b.
+    housekeeping reads the topology's pressure (`_shed_slo_poll`: a
+    breach on the metric tile trips the door) but no fdtune knob (item
+    11). GossipAdapter takes a `device` arg (default "cuda") for gossvf
+    and raises at construction when `device_verify` is set and that
+    device is not usable; the QUIC door is item 3b; gossvf is not
+    profiled (no capture doorbell on the gossip tile);
+  * MetricAdapter is the reference's (tiles.py:2844-2985): /metrics,
+    /summary.json and /healthz from shm, and the SLO engine at its
+    housekeeping, which rings each [prof] breach_capture tile's
+    doorbell on a breach. It reads only shared memory and touches no
+    device; /summary.json's `catchup` block reads 0 for the replay
+    metrics the port's replay tile lacks.
 """
 from __future__ import annotations
 
 import hashlib
+import json
 import struct
 import time
 
@@ -325,9 +340,19 @@ class VerifyAdapter:
                "overruns", "batches", "backpressure", "device_errors",
                "cpu_fallback", "rlc_batches", "rlc_pass", "rlc_lanes",
                "rlc_shed", "rlc_ns",
-               # batches in flight, and the boot warmup's wall time (the
-               # kernels' build and first launch)
-               "tpu_inflight", "tpu_compile_ns"]
+               # device telemetry, promoted by the prometheus renderer
+               # to fdtpu_tile_tpu_* series: kernel entry points loaded,
+               # those loaded after the warmup, batches in flight, card
+               # bytes allocated
+               "tpu_jit_compiles", "tpu_jit_cache_miss",
+               "tpu_inflight", "tpu_mem_bytes",
+               # the boot warmup's wall time (the kernels' build and
+               # first launch), and device-capture windows served
+               "tpu_compile_ns", "prof_captures"]
+    GAUGES = ["cpu_fallback", "tpu_jit_compiles", "tpu_jit_cache_miss",
+              "tpu_inflight", "tpu_mem_bytes", "tpu_compile_ns"]
+    DEVICE_SERIES = ["tpu_jit_compiles", "tpu_jit_cache_miss",
+                     "tpu_inflight", "tpu_mem_bytes", "tpu_compile_ns"]
 
     def __init__(self, ctx, args):
         from ..tiles.verify import VerifyTile
@@ -365,20 +390,60 @@ class VerifyAdapter:
         # device-time attribution: the stem flushes this accumulator
         # into the tile's third (tpu) histogram slot
         self.tpu_hist = self.tile.tpu_hist
+        # fdprof device side, polled at housekeeping, never in the hot
+        # loop: kernel-load events (EV_COMPILE, and a manifest when
+        # profiled) and the capture doorbell
+        from ..prof.device import CompileWatch, DeviceCapture, kernel_loads
+        self._boot_loads = kernel_loads()
+        prof = getattr(ctx, "prof", None)
+        self._compile_watch = CompileWatch(
+            ctx.plan, ctx.tile_name, kernel_loads, trace=tr,
+            mem_fn=self._device_mem, manifest=prof is not None,
+            boot=self._boot_loads)
+        # a tile a breach captures warms the profiler at boot (CUPTI's
+        # start-up took seconds: prof/device.py)
+        warm = ctx.tile_name in ((ctx.plan.get("prof") or {})
+                                 .get("breach_capture") or ())
+        self._capture = DeviceCapture(
+            ctx.plan, ctx.tile_name, prof, trace=tr,
+            device=str(self.tile.dev), warm=warm) \
+            if prof is not None else None
 
     def poll_once(self) -> int:
         return self.tile.poll_once()
 
+    def housekeeping(self):
+        self._compile_watch.poll()
+        if self._capture is not None:
+            self._capture.poll()
+
     def on_halt(self):
+        if self._capture is not None:
+            self._capture.flush()   # never leave the doorbell hanging
         self.tile.flush()      # publish verdicts already in flight
 
     def in_seqs(self):
         return {self.in_link: self.tile.seq}
 
+    def _device_mem(self) -> int:
+        """Bytes the caching allocator holds for tensors on the tile's
+        card; 0 on the CPU."""
+        if self.tile.dev.type != "cuda":
+            return 0
+        import torch
+        return int(torch.cuda.memory_allocated(self.tile.dev))
+
     def metrics_items(self):
+        from ..prof.device import kernel_loads
         m = dict(self.tile.metrics)
+        loads = kernel_loads()
+        m["tpu_jit_compiles"] = loads
+        m["tpu_jit_cache_miss"] = max(0, loads - self._boot_loads)
         m["tpu_inflight"] = len(self.tile._pending)
+        m["tpu_mem_bytes"] = self._device_mem()
         m["tpu_compile_ns"] = self.tile.compile_ns
+        m["prof_captures"] = self._capture.captures \
+            if self._capture is not None else 0
         return m
 
 
@@ -2038,6 +2103,149 @@ class SignAdapter:
         return dict(self.tile.metrics)
 
 
+@register("metric")
+class MetricAdapter:
+    """The observability tile (ref: src/disco/metrics/fd_metric_tile.c
+    + fd_prometheus.c): an HTTP endpoint rendered straight from the
+    shared-memory metrics/cnc/link regions — reader-side only, so it
+    survives any other tile's death — plus the SLO engine evaluated at
+    the housekeeping cadence.
+
+      GET /metrics       prometheus text (tile counters, wait/work/tpu
+                         histograms, fdtpu_link_* per-link telemetry)
+      GET /summary.json  the monitor snapshot + link table + SLO state
+      GET /healthz       CNC + heartbeat-staleness roll-up: 200 when
+                         every tile is RUN with a fresh heartbeat,
+                         503 (with per-tile detail) otherwise
+
+    args: port (0 = ephemeral; bound port published in the "port"
+    metric), bind_addr, healthz_stale_s (heartbeat age that flips a
+    tile unhealthy, default 5s)."""
+
+    METRICS = ["port", "scrapes", "requests", "slo_breach",
+               "slo_breaches", "slo_evals"]
+    GAUGES = ["port", "slo_breach"]
+
+    def __init__(self, ctx, args):
+        from .httpd import Counter, TileHttpServer
+        from .metrics import render_prometheus
+        from .slo import SloEngine
+        self.ctx = ctx
+        self._scrapes = Counter()
+        self.stale_ticks = int(
+            float(args.get("healthz_stale_s", 5.0)) * 1e9)
+        # SLO objectives ride the plan ([slo] section, validated at
+        # build); breaches land in THIS tile's flight-recorder ring
+        self.engine = SloEngine(ctx.plan, ctx.wksp,
+                                trace=getattr(ctx, "trace", None))
+
+        def metrics_route():
+            self._scrapes.bump()
+            body = render_prometheus(ctx.plan, ctx.wksp).encode()
+            return 200, "text/plain; version=0.0.4", body
+
+        def summary_route():
+            # the ONE summary-document shape (monitor --json emits the
+            # same), plus the SLO state only this tile can evaluate —
+            # including the breach-history ring, so a flapping
+            # objective reads straight off /summary.json
+            from .monitor import full_snapshot
+            body = json.dumps({
+                **full_snapshot(ctx.plan, ctx.wksp),
+                "slo": self.engine.status(),
+                "slo_history": list(self.engine.history),
+                "catchup": self._catchup(),
+            }).encode()
+            return 200, "application/json", body
+
+        def healthz_route():
+            doc = self._healthz()
+            return (200 if doc["ok"] else 503), "application/json", \
+                json.dumps(doc).encode()
+
+        self.server = TileHttpServer(
+            {"/metrics": metrics_route, "/": metrics_route,
+             "/summary.json": summary_route, "/healthz": healthz_route},
+            port=int(args.get("port", 0)),
+            bind_addr=args.get("bind_addr", "127.0.0.1"))
+        self.port = self.server.port
+
+    def _catchup(self) -> dict | None:
+        """Replay progress as a summary block: per replay tile its
+        catch-up slots (a metric the port's replay tile lacks reads 0).
+        None when the topology has no replay tile."""
+        from . import topo as topo_mod
+        out = {}
+        for tn, spec in self.ctx.plan["tiles"].items():
+            if spec["kind"] != "replay":
+                continue
+            names = spec.get("metrics_names", [])
+            vals = topo_mod.read_metrics(self.ctx.wksp, self.ctx.plan,
+                                         tn)
+            m = {nm: int(vals[i]) for i, nm in enumerate(names)}
+            out[tn] = {k: m.get(k, 0) for k in
+                       ("slots_replayed", "divergent_slot",
+                        "restore_slot", "behind", "buffered")}
+        return out or None
+
+    def _healthz(self) -> dict:
+        from ..runtime import Cnc, CNC_RUN
+        from . import topo as topo_mod
+        from .monitor import _STATE
+        now = topo_mod.now_ticks()
+        tiles = {}
+        ok = True
+        for tn, spec in self.ctx.plan["tiles"].items():
+            cnc = Cnc(self.ctx.wksp, off=spec["cnc_off"])
+            state = cnc.state
+            age = max(0, now - cnc.last_heartbeat)
+            stale = age > self.stale_ticks
+            healthy = state == CNC_RUN and not stale
+            ok = ok and healthy
+            tiles[tn] = {
+                "state": _STATE.get(state, f"?{state}"),
+                "hb_age_ticks": age, "stale": stale,
+                "healthy": healthy,
+            }
+        return {"ok": ok, "tiles": tiles,
+                # informational: a burning SLO is a service problem,
+                # not a liveness one — it must not flip readiness
+                "slo_breached": [n for n, s in
+                                 self.engine.status().items()
+                                 if s["breached"]]}
+
+    def housekeeping(self):
+        from ..utils import log
+        for ev in self.engine.sample():
+            log.warning(f"slo {ev['kind']}: {ev['target']} "
+                        f"({ev['expr']}) value={ev['value']}")
+            if ev["kind"] != "breach":
+                continue
+            # SLO-breach-triggered device capture (fdprof): ring the
+            # doorbell on each [prof] breach_capture tile; its own
+            # housekeeping runs the bounded torch.profiler window and
+            # acks, so the breach ships with its device attribution
+            for tn in (self.ctx.plan.get("prof") or {}).get(
+                    "breach_capture") or ():
+                from ..prof.device import request_capture
+                request_capture(self.ctx.plan, self.ctx.wksp, tn)
+
+    def poll_once(self) -> int:
+        return 0
+
+    def on_halt(self):
+        self.server.close()
+
+    def metrics_items(self):
+        return {"port": self.port,
+                "scrapes": self._scrapes.value,
+                "requests": self.server.requests.value,
+                "slo_breach": self.engine.breached,
+                "slo_breaches": self.engine.total_breaches,
+                "slo_evals": self.engine.evals}
+
+
+
 def _shed_for(ctx, args):
     """Resolve one ingest tile's effective shed table from the plan's
     [shed] section + the tile's own `shed` override (disco/shed.py).
@@ -2050,14 +2258,13 @@ def _shed_slo_poll(ctx, gate):
     """Cross-tile overload coupling, polled at housekeeping cadence:
     an [slo] breach anywhere (the metric tile's slo_breach gauge, via
     the shared PressureProbe roll-up) trips this tile's door into
-    stake-weighted shedding for the hold window. The port has no metric
-    tile yet (item 8), so the probe reads no breach; the reference's
-    fdtune shed_tighten knob on the same poll is item 11."""
+    stake-weighted shedding for the hold window. The reference's fdtune
+    shed_tighten knob on the same poll is item 11."""
     if gate is None:
         return
     probe = getattr(ctx, "_pressure_probe", None)
     if probe is None:
-        from .shed import PressureProbe
+        from .slo import PressureProbe
         probe = ctx._pressure_probe = PressureProbe(ctx.plan, ctx.wksp)
     if probe.overloaded():
         gate.trip_overload()
@@ -2072,7 +2279,7 @@ class SockAdapter:
 
     METRICS = ["rx", "bytes", "oversz", "backpressure", "shed",
                "shed_unstaked", "shed_overflow", "peers", "overload",
-               "port"]
+               "port", "rx_staked", "shed_staked"]
 
     def __init__(self, ctx, args):
         from ..tiles.sock import SockTile
@@ -2096,7 +2303,13 @@ class SockAdapter:
         self.tile.close()
 
     def metrics_items(self):
-        return dict(self.tile.metrics)
+        # the port's two more: the datagrams of staked peers the door
+        # read, and those of them it shed (the gate's staked_rx and
+        # staked_shed; 0 without a gate)
+        gate = self.tile.shed
+        return {**self.tile.metrics,
+                "rx_staked": gate.staked_rx if gate else 0,
+                "shed_staked": gate.staked_shed if gate else 0}
 
 
 @register("gossip")

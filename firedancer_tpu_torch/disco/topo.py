@@ -16,27 +16,32 @@ waited on and must tolerate overruns.
 Where the copy differs from the reference:
   * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
     topo.py:256), so both packages' topologies can run side by side;
-  * `Topology()` takes the [trace], [replay], [shed] and [funk]
-    sections only, none of the reference's other section keywords
-    (topo.py:85-126: slo, prof, snapshot, flight, tune); app.config
-    refuses those sections;
+  * `Topology()` takes the [trace], [slo], [prof], [replay], [shed] and
+    [funk] sections, none of the reference's snapshot, flight and tune
+    (topo.py:85-126); app.config refuses those sections;
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
-    :460-465, with it), the per-tile args the port lacks (the prof
-    override, :366-459, and core pinning: `cpu_idx`, and `cpu0`
-    of `sharded_tile`, :153-220) and a chaos plan naming an action whose
-    tile kind or seam is not ported (the reference ignores such an
-    action); it refuses the verify tile's `device_fail_limit` by design
-    (ROADMAP.md C: the port does not degrade to the CPU); a name that
-    is no kind at all is left to fail in its tile process, as in the
-    reference;
-  * the plan carries no prof, tune or slo regions, and TileCtx has no
-    prof or knob handles. With [funk] backend "shm" the build carves the
-    account store (runtime.Store) into the workspace and puts its offset
-    and heap size on plan["funk"], as the reference does
-    (topo.py:313-326); adapters join it through TileCtx's `plan` and
-    `wksp`.
+    :460-465, with it), the per-tile args the port lacks and a chaos
+    plan naming an action whose tile kind or seam is not ported (the
+    reference ignores such an action); it refuses the verify tile's
+    `device_fail_limit` by design (ROADMAP.md C: the port does not
+    degrade to the CPU); a name that is no kind at all is left to fail
+    in its tile process, as in the reference;
+  * the plan carries no tune or keyswitch regions, and TileCtx has no
+    knob handle. With [funk] backend "shm" the build carves the account
+    store (runtime.Store) into the workspace and puts its offset and
+    heap size on plan["funk"], as the reference does (topo.py:313-326);
+    adapters join it through TileCtx's `plan` and `wksp`.
+
+As in the reference, `sharded_tile(..., cpu0=)` gives shard i
+`cpu_idx = cpu0 + i` (the launcher pins it); the [slo] targets resolve
+against the built plan's tiles, metric slots and links (disco/slo.py);
+the [prof] section is normalized and each profiled tile gets a
+ProfRegion (prof/recorder.py) with its `prof_*` plan keys, and
+TileCtx.prof is its region (None when unprofiled). Each tile's plan
+entry names its adapter's GAUGES and DEVICE_SERIES slots
+(`metrics_gauges`, `metrics_device`) for the prometheus renderer.
 """
 from __future__ import annotations
 
@@ -46,17 +51,24 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..funk.shmfunk import normalize_funk
+from ..prof import ProfRegion, effective_prof, normalize_prof, region_for
 from ..runtime import Workspace, Ring, Fseq, Cnc, Store, Tcache, TraceRing
 from ..trace import effective_trace, normalize_trace, writer_for
 from . import tiles as tiles_mod
 from .metrics import HIST_REGION_U64, LINK_CONS_U64, LINK_PROD_U64
 from .shed import normalize_shed
+from .slo import normalize_slo, resolve_slo
 from .supervise import SUP_SLOT_MIN, normalize_policy
 from .unported import (REFUSED_TILE_ARGS, UNPORTED_CHAOS_ACTIONS,
                        UNPORTED_KINDS, UNPORTED_TILE_ARGS, refuse,
                        refuse_by_design)
 
 METRICS_SLOTS = 64          # u64 counters per tile
+
+# fdtpu_tile_<name> families the renderer already emits; a promoted
+# device series may not shadow them (checked at build)
+_RESERVED_TILE_FAMILIES = ("metric", "gauge", "liveness_seconds",
+                           "tpu_seconds")
 
 
 @dataclass
@@ -81,12 +93,18 @@ class Topology:
 
     def __init__(self, name: str, wksp_size: int = 1 << 26,
                  trace: dict | None = None, replay: dict | None = None,
-                 shed: dict | None = None, funk: dict | None = None):
+                 shed: dict | None = None, funk: dict | None = None,
+                 slo: dict | None = None, prof: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
         # [trace] flight-recorder config (trace/recorder.py schema);
         # validated at build so a typo fails before launch
         self.trace = trace
+        # [slo] objectives (disco/slo.py schema); targets resolve
+        # against the declared tiles, metrics and links at build
+        self.slo = slo
+        # [prof] continuous-profiler config (prof/recorder.py schema)
+        self.prof = prof
         # the [replay] section (tiles/replay.py's schema), validated at
         # build and carried on the plan for the replay tile
         self.replay = replay
@@ -140,7 +158,7 @@ class Topology:
         return self
 
     def sharded_tile(self, name: str, kind: str, cnt: int, ins=(),
-                     outs=(), **args):
+                     outs=(), cpu0: int | None = None, **args):
         """Round-robin scale-out (the reference's multi-verify-tile
         layout, fd_verify_tile.c:49-53): `cnt` shards of one consumer
         kind. Shard i becomes tile f"{name}{i}" with rr_cnt=cnt /
@@ -149,7 +167,9 @@ class Topology:
         since links are SPMC; the downstream stage fans in. A
         list-valued `tcache`, `chaos` or `supervise` of length cnt
         distributes one per shard (a None entry: not on this shard, how a
-        drill targets one shard); every other arg is shared.
+        drill targets one shard); every other arg is shared. cpu0 pins
+        shard i to core cpu0 + i (the launcher's cpu_idx, taken modulo
+        the cores the process may run on).
 
         Per-shard in links (the exec tile family): an `ins` entry that is
         itself a list of cnt link names distributes one link per shard —
@@ -192,6 +212,8 @@ class Topology:
                     a[k] = v
             a["rr_cnt"] = cnt
             a["rr_idx"] = i
+            if cpu0 is not None:
+                a["cpu_idx"] = int(cpu0) + i
             self.tile(f"{name}{i}", kind, ins=_shard_ins(i),
                       outs=[outs[i]], **a)
         return self
@@ -240,6 +262,15 @@ class Topology:
         for t in self.tiles.values():
             if "shed" in t.args:
                 normalize_shed(t.args["shed"], per_tile=True)
+        # [prof]: profiled tiles get a region and their prof_* keys, an
+        # unprofiled one neither, so its TileCtx.prof stays None
+        prof_cfg = normalize_prof(self.prof)
+        for key in ("tiles", "breach_capture"):
+            unknown = set(prof_cfg[key] or ()) - set(self.tiles)
+            if unknown:
+                raise ValueError(f"prof.{key} names unknown tile(s) "
+                                 f"{sorted(unknown)}")
+        slo_cfg = normalize_slo(self.slo)
         wksp_name = wksp_name or f"/fdtt_{self.name}"
         w = Workspace(wksp_name, self.wksp_size)
         plan: dict = {
@@ -249,7 +280,7 @@ class Topology:
             "seed": os.urandom(16).hex(),
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
             "trace": trace_cfg, "replay": replay, "shed": shed,
-            "funk": funk,
+            "funk": funk, "prof": prof_cfg,
         }
 
         def zeroed(nbytes: int) -> int:
@@ -283,8 +314,8 @@ class Topology:
                     if i["reliable"]:
                         plan["fseqs"][f"{i['link']}:{tn}"] = Fseq(w).off
                 cnc = Cnc(w)
-                names = list(getattr(tiles_mod.REGISTRY.get(t.kind),
-                                     "METRICS", []))
+                cls = tiles_mod.REGISTRY.get(t.kind)
+                names = list(getattr(cls, "METRICS", []))
                 if len(names) > SUP_SLOT_MIN:
                     raise ValueError(
                         f"tile kind {t.kind}: {len(names)} metric slots "
@@ -306,7 +337,22 @@ class Topology:
                     "hist_u64": HIST_REGION_U64,
                     # explicit slot-name ABI: readers match by name
                     "metrics_names": names,
+                    # declared, never inferred from names: the
+                    # prometheus series type and the promoted families
+                    "metrics_gauges": list(getattr(cls, "GAUGES", [])),
+                    "metrics_device": list(getattr(cls, "DEVICE_SERIES",
+                                                   [])),
                 }
+                for nm in plan["tiles"][tn]["metrics_device"]:
+                    if nm not in names:
+                        raise ValueError(
+                            f"tile kind {t.kind}: DEVICE_SERIES {nm!r} is "
+                            f"not a declared metric slot")
+                    if nm in _RESERVED_TILE_FAMILIES:
+                        raise ValueError(
+                            f"tile kind {t.kind}: DEVICE_SERIES {nm!r} "
+                            f"would shadow the built-in fdtpu_tile_{nm} "
+                            f"family")
                 # flight-recorder ring, carved next to the metric slots;
                 # an untraced tile gets no region and no plan keys, so
                 # its TileCtx.trace stays None
@@ -318,6 +364,23 @@ class Topology:
                         trace_off=TraceRing.create(w, eff["depth"]).off,
                         trace_depth=eff["depth"],
                         trace_sample=eff["sample"])
+                # profile region: folded-stack table, sample ring and
+                # capture doorbell, for profiled tiles only
+                peff = effective_prof(
+                    prof_cfg, tn,
+                    normalize_prof(t.args.get("prof"), per_tile=True))
+                if peff is not None:
+                    plan["tiles"][tn].update(
+                        prof_off=ProfRegion.create(
+                            w, peff["slots"], peff["ring"]).off,
+                        prof_slots=peff["slots"], prof_ring=peff["ring"],
+                        prof_hz=peff["hz"],
+                        prof_stack_depth=peff["stack_depth"])
+            # [slo]: every target resolves against what this plan
+            # declares, so a dangling objective fails the build, not the
+            # metric tile's first pass
+            resolve_slo(slo_cfg, plan)
+            plan["slo"] = slo_cfg
         except Exception:
             w.close()
             w.unlink()
@@ -333,9 +396,10 @@ class Topology:
 class TileCtx:
     """A tile process's view of the plan: joined workspace, in/out rings,
     fseqs (own consumer fseqs + downstream reliable fseqs for each out
-    link), tcaches, cnc, metric and per-link telemetry views, and the
-    flight recorder's writer (`trace`, None on an untraced tile: the
-    whole disabled path)."""
+    link), tcaches, cnc, metric and per-link telemetry views, the flight
+    recorder's writer (`trace`, None on an untraced tile: the whole
+    disabled path) and the profile region (`prof`, None when
+    unprofiled)."""
 
     def __init__(self, plan: dict, tile_name: str):
         self.plan, self.tile_name = plan, tile_name
@@ -385,6 +449,9 @@ class TileCtx:
             for name, tc in plan["tcaches"].items()
         }
         self.trace = writer_for(plan, self.wksp, tile_name)
+        # continuous profiler: None unless build carved a region for
+        # this tile (the stem starts a sampler only then)
+        self.prof = region_for(plan, self.wksp, tile_name)
 
         # per-link telemetry views: consumer blocks for the in links,
         # producer blocks for the out links, flushed by the stem

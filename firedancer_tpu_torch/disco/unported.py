@@ -17,20 +17,15 @@ svm/alut.py's read half). Nothing refused is silently ignored.
 from __future__ import annotations
 
 # topology sections of the reference (the JAX package's
-# disco/topo.py:85-126 and app/config.py's top-level tables)
-UNPORTED_SECTIONS = {"prof": 6, "slo": 8, "snapshot": "5f",
-                     "flight": 10, "tune": 11, "witness": 6}
+# disco/topo.py:85-126 and app/config.py's top-level tables); [witness]
+# is the device probe of witness/ (item 6's other half, 6b)
+UNPORTED_SECTIONS = {"snapshot": "5f", "flight": 10, "tune": 11,
+                     "witness": "6b"}
 
 # per-tile args of the reference that the port has not ported: the
-# prof override its build reads (topo.py:366-459), core pinning
-# (launch.py:52-57, topo.py:219), the stem's lazy housekeeping cadence
-# (stem.py:36-52) and the shred tile's fault seam for the repair tile's
-# tests (tiles/shred.py:87)
-UNPORTED_TILE_ARGS = {
-    "prof": 6,
-    "drop_slot_every": 13,
-    **dict.fromkeys(("cpu_idx", "cpu0", "lazy_ns", "lazy_auto"), 14),
-}
+# shred tile's fault seam for the repair tile's tests
+# (tiles/shred.py:87)
+UNPORTED_TILE_ARGS = {"drop_slot_every": 13}
 
 # per-tile args of the reference that the port refuses by design (a
 # deliberate difference, ROADMAP.md C, not a queue-A item): the verify
@@ -57,7 +52,7 @@ UNPORTED_CHAOS_ACTIONS = {
 UNPORTED_KINDS = {
     "quic": "3b",
     **dict.fromkeys(("snapld", "snapdc", "snapin"), "5f"),
-    "metric": 8, "gui": 9, "flight": 10, "controller": 11,
+    "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,
     **dict.fromkeys(("tower", "repair", "send", "archiver",
                      "playback", "bundle", "plugin", "vinyl", "ipecho",

@@ -12,8 +12,8 @@ Every tile of the loop shares the shm account store ([funk] backend
 exec_done links, as in bench.py: a reliable edge there closes a credit
 cycle. bench.py pins the verify shards to `cpu0 + i` only when the host
 has `verify_tiles + exec_cnt + 7` cores; on a host of eight it gives
-`cpu0 = None` at every N, which is this topology (core pinning is
-ROADMAP.md queue A item 14).
+`cpu0 = None` at every N, which is this topology (it never pins; a
+sharded tile takes `cpu0` where a caller wants the rule).
 
 `run_exec_scale` times one boot as bench.py does: from every tile at
 RUN until every synth frame is accounted for (tools/leader_drain.py's

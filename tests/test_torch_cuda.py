@@ -602,3 +602,49 @@ def test_gossvf_on_card_matches_plain(dev):
     from firedancer_tpu_torch.tools import gossvf_bench
     got = gossvf_bench.check(str(dev))
     assert set(got) == set(gossvf_bench.PACKETS)
+
+
+def test_device_capture_names_the_strict_kernels(dev, tmp_path):
+    """A prof/device.py DeviceCapture window around the strict path on the
+    card: torch.profiler records the kernels of the ctypes-loaded
+    libraries (each with its own static cudart), so the manifest names
+    sha512_kernel and ed25519_verify_kernel with their launches, the
+    kernel events lie inside the recorded window on the monotonic clock,
+    and the busy share is a fraction."""
+    import json
+    import os
+    from firedancer_tpu_torch.prof import ProfRegion
+    from firedancer_tpu_torch.prof import device as pdev
+    from firedancer_tpu_torch.runtime import Workspace
+    from firedancer_tpu_torch.utils.tempo import monotonic_ns
+    w = Workspace(f"/fdtt_tcap{os.getpid()}", 1 << 20)
+    plan = {"topology": f"tcap{os.getpid()}", "prof": {"capture_ms": 30.0}}
+    path = pdev.capture_manifest_path(plan["topology"], "verify")
+    try:
+        region = ProfRegion.create(w, 64, 64)
+        cap = pdev.DeviceCapture(plan, "verify", region, device="cuda",
+                                 warm=True)
+        batch = _signed(256, 128, 9)
+        cuda_ed.verify_batch(*batch)
+        region.request_capture()
+        cap.poll()
+        launches = 0
+        while cap.poll() is None:
+            cuda_ed.verify_batch(*batch)
+            launches += 1
+        doc = json.load(open(path))
+        assert doc["ok"], doc["error"]
+        names = {n.removeprefix("void ").split("<")[0].split("(")[0]:
+                 k["launches"] for n, k in doc["kernels"].items()}
+        assert names["sha512_kernel"] >= launches
+        assert names["ed25519_verify_kernel"] >= launches
+        assert 0 < doc["device_busy_share"] <= 1
+        assert doc["clock"] == "mark" and doc["kernel_events"]
+        t0 = doc["t1_ns"] - int(doc["recorded_ms"] * 1e6)
+        for _, ts, dur in doc["kernel_events"]:
+            assert t0 - 10**6 <= ts <= doc["t1_ns"] <= monotonic_ns()
+    finally:
+        w.close()
+        Workspace.unlink_name(w.name)
+        if os.path.exists(path):
+            os.unlink(path)

@@ -268,7 +268,10 @@ def test_flood_toml_loads_with_the_door_policy():
     cfg = load_config(FLOOD_TOML)
     topo = build_topology(cfg, name="tflood")
     assert {t.kind for t in topo.tiles.values()} == {"sock", "verify",
-                                                     "dedup", "sink"}
+                                                     "dedup", "sink",
+                                                     "metric"}
+    assert [t["expr"] for t in topo.slo["target"]] == \
+        ["sink.rx rate > 10/s"]
     assert topo.shed["max_peers"] == 64 and topo.shed["burst"] == 8
     assert topo.shed["stakes"] == {"127.0.0.1:9100": 1000}
     v = topo.tiles["verify"].args
@@ -299,7 +302,10 @@ def test_flood_toml_boots_and_polices_on_the_cpu():
     verify, and every tile halts cleanly. A dispatch on the plain
     versions costs about a second whatever its lanes, so the verify tile
     coalesces its gathers, and the door's buckets are deeper than the
-    file's for the burst."""
+    file's for the burst. The CPU cannot hold the file's goodput
+    objective (10 frames/s at the sink), whose breach would trip the door
+    into shedding these unstaked sockets, so the metric tile judges one
+    it holds (tests/test_torch_metric_tile.py has the breach)."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     from firedancer_tpu_torch.disco.launch import TopologyRunner
     staked = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
@@ -307,6 +313,8 @@ def test_flood_toml_boots_and_polices_on_the_cpu():
     key = f"127.0.0.1:{staked.getsockname()[1]}"
     cfg = load_config(FLOOD_TOML, overrides={
         "shed": {"stakes": {key: 1000}, "burst": 64},
+        "slo": {"target": [{"name": "flood-goodput",
+                            "expr": "sink.rx >= 0"}]},
         "tile": [{"name": "verify", "device": "cpu",
                   "coalesce_us": 300000}]})
     runner = TopologyRunner(build_topology(
@@ -344,6 +352,8 @@ def test_flood_toml_boots_and_polices_on_the_cpu():
         assert v["tx"] == n and v["rx"] == 2 * n
         # verify_fail counts the lanes the prefilter shed (rlc_shed) too
         assert v["verify_fail"] + v["dedup_drop"] == n
+        m = runner.metrics("metric")
+        assert m["slo_evals"] > 0 and m["slo_breaches"] == 0
         runner.halt()
         assert all(p.exitcode == 0 for p in runner.procs.values())
     finally:
@@ -437,14 +447,32 @@ def test_mutated_datagrams_never_leave_inject(seed):
     nothing raises out of the port's narrowed catch, and both tiles end
     with equal metrics and stores. A PruneMessage whose origin count
     runs past the datagram goes to the port only (the reference builds
-    that many slices first)."""
+    that many slices first). Each tile's own ContactInfo names its
+    socket's ephemeral port, so its hash differed between the two tiles,
+    and a mutated PullRequest's bloom could hold one tile's hash and not
+    the other's: one tile answered with one datagram more (tx 52 against
+    51 at inject 62 of seed 0, in 9 of 108 runs here). So the
+    harness republishes both tiles' ContactInfo at one address before
+    the first inject, and drains the socket the answers go to."""
     from test_torch_gossip_wire import _messages, _prune_count_overruns
     rng = np.random.default_rng(seed)
     msgs = list(_messages(gw).values())
     tiles = [RefGossipTile(SEEDS[0]), GossipTile(SEEDS[0])]
+    for t in tiles:
+        t.node.now_ms = 1                  # strictly newer than boot's
+        t.node.publish_contact_info(("127.0.0.1", 8001))
+        t.node.now_ms = 0
     sink = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     sink.bind(("127.0.0.1", 0))
+    sink.setblocking(False)
     here = ("127.0.0.1", sink.getsockname()[1])
+
+    def drain():
+        while True:
+            try:
+                sink.recv(65536)
+            except BlockingIOError:
+                return
     try:
         port_only = 0
         for _ in range(200):
@@ -458,10 +486,12 @@ def test_mutated_datagrams_never_leave_inject(seed):
             data = bytes(data)
             if _prune_count_overruns(data):
                 tiles[1].inject(data, here)
+                drain()
                 port_only += 1
                 continue
             for t in tiles:
                 t.inject(data, here)
+                drain()
         m = [dict(t.metrics) for t in tiles]
         for d in m:
             d.pop("port")

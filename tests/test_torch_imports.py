@@ -52,7 +52,9 @@ def test_importing_every_module_loads_no_jax():
         "'gossip.crds', 'gossip.active_set', 'gossip.protocol', "
         "'flamenco.gossip_wire', 'tools.paced_sender', "
         "'tools.gossvf_bench', 'funk.shmfunk', 'svm.alut', "
-        "'tools.exec_drills'}\n"
+        "'tools.exec_drills', 'disco.slo', 'disco.httpd', 'prof', "
+        "'prof.recorder', 'prof.device', 'prof.export', 'prof.cli', "
+        "'prof.__main__'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -95,24 +97,30 @@ def test_rlc_verify_batch_without_device_raises_without_a_card(entry):
                              z[:, :16])
 
 
-def _tile_probe(plan, tile_name, q):
+def _tile_probe(plan, tile_name, q, extra):
     """Run a tile process's entry point, then report the forbidden
-    modules it holds."""
+    modules it holds (and the error of `extra`, code run after it)."""
     from firedancer_tpu_torch.disco.launch import tile_main
     tile_main(plan, tile_name)
-    q.put(sorted(k for k in sys.modules if _forbidden(k)))
+    bad = sorted(k for k in sys.modules if _forbidden(k))
+    try:
+        exec(extra or "")
+    except AssertionError as e:
+        bad.append(f"extra: {e!r}")
+    q.put(bad)
 
 
-def _spawn_and_probe(topo, tn):
+def _spawn_and_probe(topo, tn, extra=None):
     """Spawn tile `tn` of `topo` through the launcher's entry point, wait
-    for RUN, halt it, and hold it to loading no forbidden module."""
+    for RUN, halt it, and hold it to loading no forbidden module (and to
+    the assertions of `extra`, run in the tile process after it)."""
     from firedancer_tpu_torch.runtime import (CNC_HALT, CNC_RUN, Cnc,
                                               Workspace)
     plan = topo.build()
     w = Workspace(plan["wksp"]["name"], plan["wksp"]["size"], create=False)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    p = ctx.Process(target=_tile_probe, args=(plan, tn, q),
+    p = ctx.Process(target=_tile_probe, args=(plan, tn, q, extra),
                     daemon=True)
     p.start()
     try:
@@ -227,6 +235,39 @@ def test_spawned_exec_family_tile_processes_load_no_jax():
     "firedancer_tpu_torch.tools.exec_drills"])
 def test_exec_family_module_loads_no_jax(mod):
     """Each module of the exec tile family, the shm store and resolv,
+    imported alone in a fresh interpreter."""
+    test_leader_leg_module_loads_no_jax(mod)
+
+
+def test_spawned_metric_tile_process_loads_no_jax_and_no_cuda():
+    """The metric tile (its HTTP server, the SLO engine with a target,
+    the prometheus renderer) and a profiled verify tile on the CPU whose
+    breach capture is warmed at boot: neither holds jax, and the metric
+    tile never initialises CUDA."""
+    from firedancer_tpu_torch.disco import Topology
+    _spawn_and_probe(
+        Topology(f"ttimpm{os.getpid()}", wksp_size=1 << 22,
+                 slo={"target": [{"name": "t",
+                                  "expr": "verify.work p99 < 1ms"}]},
+                 prof={"enable": True, "hz": 97,
+                       "breach_capture": ["verify"]})
+        .link("in", depth=16, external=True)
+        .link("out", depth=16, external=True)
+        .tcache("tc", depth=64)
+        .tile("verify", "verify", ins=["in"], outs=["out"], batch=16,
+              device="cpu")
+        .tile("metric", "metric", port=0), "metric",
+        extra="import torch; assert not torch.cuda.is_initialized()")
+
+
+@pytest.mark.parametrize("mod", [
+    "firedancer_tpu_torch.disco.slo", "firedancer_tpu_torch.disco.httpd",
+    "firedancer_tpu_torch.disco.metrics",
+    "firedancer_tpu_torch.disco.monitor", "firedancer_tpu_torch.prof",
+    "firedancer_tpu_torch.prof.device", "firedancer_tpu_torch.prof.export",
+    "firedancer_tpu_torch.prof.cli"])
+def test_observatory_module_loads_no_jax(mod):
+    """Each module of the metric tile, the SLO engine and fdprof,
     imported alone in a fresh interpreter."""
     test_leader_leg_module_loads_no_jax(mod)
 

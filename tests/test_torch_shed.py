@@ -207,6 +207,28 @@ def test_overload_sheds_unstaked_and_recovers_on_expiry():
                             "overload": 0}
 
 
+def test_gate_counts_staked_packets_read_and_shed():
+    """The port's staked accounting, which the sock tile publishes as
+    rx_staked and shed_staked: every packet of a peer with a stake,
+    admitted, shed by its bucket or dropped at a full door, and none of
+    an unstaked peer's; the counters stay the reference's."""
+    from firedancer_tpu_torch.disco import tiles as ttiles
+    cfg = {"rate_pps": 1.0, "burst": 2, "max_peers": 16,
+           "stakes": {"10.0.0.1:5": 10}}
+    gates = [rshed.PeerGate(cfg), tshed.PeerGate(cfg)]
+    staked, sybil = ("10.0.0.1", 5), ("6.6.6.6", 1)
+    for g in gates:
+        for addr in (staked,) * 3 + (sybil,) * 3:
+            g.admit(addr, 0)
+        g.count_drop(staked)
+        g.count_drop(sybil)
+    assert (gates[1].staked_rx, gates[1].staked_shed) == (4, 2)
+    assert gates[1].counters() == gates[0].counters()
+    assert gates[1].shed_total == gates[0].shed_total == 4
+    assert ttiles.REGISTRY["sock"].METRICS[-2:] == ["rx_staked",
+                                                    "shed_staked"]
+
+
 # -- the [shed] section through config load and Topology.build -------------
 
 def _cfg(**over):

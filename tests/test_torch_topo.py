@@ -30,7 +30,7 @@ from firedancer_tpu_torch.disco import tiles as ttiles
 from firedancer_tpu_torch.disco.monitor import attach, format_table, snapshot
 from firedancer_tpu_torch.disco.stem import Stem
 from firedancer_tpu_torch.disco.unported import (
-    UNPORTED_KINDS, UNPORTED_SECTIONS)
+    UNPORTED_KINDS, UNPORTED_SECTIONS, UNPORTED_TILE_ARGS)
 from firedancer_tpu_torch.tiles import synth as tsynth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,7 +139,7 @@ def test_every_reference_kind_is_ported_or_refused():
     assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink",
                                     "pack", "bank", "poh", "shred",
                                     "sign", "replay", "sock", "gossip",
-                                    "exec", "resolv"}
+                                    "exec", "resolv", "metric"}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
@@ -147,26 +147,22 @@ def test_every_reference_kind_is_ported_or_refused():
         tconfig._validate_tile_keys({"name": "t", "kind": "nosuch_kind"})
 
 
-@pytest.mark.parametrize("arg,item", [
-    ("prof", 6), ("cpu_idx", 14), ("cpu0", 14),
-    ("lazy_ns", 14), ("lazy_auto", 14)])
+@pytest.mark.parametrize("arg,item", sorted(UNPORTED_TILE_ARGS.items()))
 def test_unported_tile_arg_is_refused_with_its_item(arg, item):
     """Refused in Topology.tile, whether the arg comes from code, from
-    the config gate (which accepts every one of them, as the reference's
-    does) or through a sharded tile."""
+    the config gate (which accepts it on the shred tile, as the
+    reference's does) or through sharded_tile. Core pinning, the lazy
+    cadence and the prof override are ported
+    (tests/test_torch_placement.py, tests/test_torch_prof.py)."""
     match = f"queue A item {item}"
     with pytest.raises(NotImplementedError, match=match):
-        Topology("ta").tile("a", "synth", **{arg: 1})
-    cfg = tconfig.load_config(TOML, overrides={
-        "tile": [{"name": "verify", arg: 1}]})
+        Topology("ta").tile("a", "shred", **{arg: 1})
     with pytest.raises(NotImplementedError, match=match):
-        tconfig.build_topology(cfg)
-    cfg = tconfig.load_config(TOML, overrides={
-        "tile": [{"name": "verify", arg: 1, "tile_cnt": 2,
-                  "outs": ["vd0", "vd1"]}],
-        "link": [{"name": "vd0"}, {"name": "vd1"}]})
+        tconfig.build_topology(
+            {"tile": [{"name": "s", "kind": "shred", arg: 1}]})
     with pytest.raises(NotImplementedError, match=match):
-        tconfig.build_topology(cfg)
+        Topology("ta").sharded_tile("s", "shred", 2, outs=["a", "b"],
+                                    **{arg: 1})
 
 
 def test_config_gate_accepts_the_reference_keys_plus_device():
