@@ -182,6 +182,33 @@ and read just after:
             /summary.json answer, the monitor recovers the breach, and
             the merged bundle puts the kernels beside the host slices;
             the card's busy share over the window is reported.
+  cold      phase 22: the cold-start follower (tools/catchup.py).
+  start     22a (only where the `zstandard` package imports; else
+            snapdc and snapin format="archive" must refuse to boot,
+            naming it, and only the fold below runs over the same
+            accounts): 2^20 accounts from the seed (system accounts
+            and 165-byte token-sized ones) written by
+            write_snapshot_archive (its manifest's lattice on the card)
+            and streamed through SnapLoader -> SnapDecompress ->
+            ArchiveInserter on rings: lattice_ok, every account
+            restored, the fold == the plain version's (and 4096 lanes
+            one by one), an archive of 2048 accounts with one lamport
+            flipped refused with nothing installed; the fold's launches
+            timed with CUDA events beside their bound. 22b: bench.py's
+            catch-up stage at its defaults (snapld -> snapin into the
+            shm store, playback -> replay behind its restore gate over
+            two exec shards): restore slot 4, no divergent slot, every
+            replayed bank hash and every store account == the CPU
+            oracle's, wave scans in both shards and lthash in the
+            replay. 22c: the same with 2^18 funded accounts in the
+            snapshot, the restore split (snapin's restore, the gate's
+            store read and fold) and the gate's fold timed. 22d: the
+            drills: corrupt_checkpt_frame and stale_snapshot_offer
+            refused with the store untouched, crash_mid_snapshot on a
+            supervised snapld (restarted, the stream from byte 0,
+            restored) and on the replay's writer (the previous file
+            intact, the .tmp refused), and the bank booted from a
+            genesis_ckpt == booted from its dict.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -196,7 +223,8 @@ launches on the paths (phase 19's in process among them, and the
 wave scans of phase 20's exec shards; the topology phases' verify
 batches, and the launches phase 21's capture recorded), error against
 its plain version, time, plain time and bound (poh_verify and lthash
-also at the replay's own shapes).
+also at the replay's own shapes, lthash at phase 22's restore shapes;
+phase 22's wave scans and lthash launches are counted in).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -333,12 +361,14 @@ FLOOD_PROTOCOL_S = (FLOOD_REF_SETTLE_S + FLOOD_REF_S + FLOOD_SLO_SETTLE_S
                     + FLOOD_BASELINE_S + FLOOD_ATTACK_S
                     + FLOOD_STAKED_SLACK_S)
 # 19c's attack boot: the swarm's worker processes (one interpreter caps a
-# Python sender near the rate needed), and how far above FLOOD_MULT x the
-# capacity it is paced so that what it sends is at least that
+# Python sender near the rate needed; four sent 28,525/s against 4 x a
+# capacity of 7,768 on one host, so six share it), and how far above
+# FLOOD_MULT x the capacity it is paced so that what it sends is at least
+# that
 EXEC_SCALE_CNTS = (1, 2, 4)   # phase 20b: bench.py's exec_tile_cnt sweep
 EXEC_REPLAY_SLOTS = 64    # phase 20a: the replay fan-out's slots
 EXEC_REPLAY_PER_SLOT = 4  # transfers a slot
-FLOOD_SWARM_PROCS = 4
+FLOOD_SWARM_PROCS = 6
 FLOOD_PACE_OVER = 0.05
 # phase 21: the synth's pace, frames (it runs on through the capture;
 # the phase halts once the capture is acked) and unique pool, larger than
@@ -356,6 +386,15 @@ CAPTURE_BATCH = 256
 CAPTURE_UNIQUE = 1024
 CAPTURE_TCACHE = max(16, 1 << (CAPTURE_UNIQUE.bit_length() - 4))
 CAPTURE_TRACE_DEPTH = 1 << 18
+# phase 22: the real-format restore's accounts (22a) and the tamper
+# drill's smaller archive, the snapshot of 22c (a mainnet snapshot's
+# order of 10^9 accounts cut to 2^18, PERF.md section 4), the lanes held
+# one by one to the plain version, and the seed
+COLD_ARCHIVE_ACCOUNTS = 1 << 20
+COLD_TAMPER_ACCOUNTS = 2048
+COLD_STATE_ACCOUNTS = 1 << 18
+COLD_SAMPLE = 4096
+COLD_SEED = 22
 
 
 T_START = time.perf_counter()
@@ -2802,6 +2841,264 @@ def run_exec_family(root, card, counts, reset_counts):
                           "20c": launches_c}}
 
 
+def fold_timing(items, card, tag: str) -> dict:
+    """The lthash fold of `items` [(pubkey, Account)] as a restore runs
+    it (flamenco/bank_hash.accounts_lthash: LT_CHUNK lanes a launch, the
+    partial sums added mod 2^16), with the lanes staged on the card first:
+    the launches alone and the fold (launches and on-card sums) timed with
+    CUDA events, the plain version's time and sum over the first chunk
+    held to the kernel's, its first COLD_SAMPLE lanes lane by lane, and
+    the bound of the launches' work (tools/blake3_bench.work)."""
+    from firedancer_tpu_torch.flamenco.bank_hash import (
+        LT_CHUNK, lane_msgs, serialize_account)
+    from firedancer_tpu_torch.ops import blake3 as b3
+    from firedancer_tpu_torch.ops import cuda_blake3
+    from firedancer_tpu_torch.tools import blake3_bench
+    raws = [serialize_account(pk, a) for pk, a in items if a.lamports]
+    chunks = []
+    for i in range(0, len(raws), LT_CHUNK):
+        m, ln = lane_msgs(raws[i:i + LT_CHUNK])
+        chunks.append((torch.from_numpy(m).to(DEVICE),
+                       torch.from_numpy(ln).to(DEVICE)))
+
+    def fold(kern):
+        acc = None
+        for m, ln in chunks:
+            part = b3.lthash_reduce(kern(m, ln))
+            acc = part if acc is None else b3.lthash_add(acc, part)
+        return acc
+
+    m0, l0 = chunks[0][0][:COLD_SAMPLE], chunks[0][1][:COLD_SAMPLE]
+    lane_err = int((cuda_blake3.lthash(m0, l0)
+                    - b3.lthash_plain(m0, l0)).abs().max())
+    # the plain version is slow (13 s at 2^20 lanes): its time and its
+    # sum are the first chunk's, held to the kernel's first chunk
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = b3.lthash_reduce(b3.lthash_plain(*chunks[0]))
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    fold_err = int((b3.lthash_reduce(cuda_blake3.lthash(*chunks[0]))
+                    - plain).abs().max())
+    assert lane_err == 0 and fold_err == 0, (tag, lane_err, fold_err)
+    ms = cuda_ms(lambda: [cuda_blake3.lthash(m, ln) for m, ln in chunks], 3)
+    fold_ms = cuda_ms(lambda: fold(cuda_blake3.lthash), 3)
+    lens = np.concatenate([ln.cpu().numpy() for _, ln in chunks])
+    w = blake3_bench.work(lens, "lthash")
+    rec = {"lanes": len(raws), "launches": len(chunks),
+           "width": max(int(m.shape[1]) for m, _ in chunks),
+           "ms": ms, "fold_ms": fold_ms, "plain_ms": plain_ms,
+           "plain_lanes": int(chunks[0][0].shape[0]),
+           "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+           "max_abs_err": max(lane_err, fold_err)}
+    log(f"{tag}: lthash fold of {rec['lanes']} lanes (width {rec['width']},"
+        f" {rec['launches']} launches of at most {LT_CHUNK}): kernel == "
+        f"plain (the first launch's sum, and {COLD_SAMPLE} lanes one by "
+        f"one), max_abs_err 0; launches {ms:.4f} ms, fold with the on-card "
+        f"sums {fold_ms:.4f} ms (CUDA events), plain {plain_ms:.2f} ms for "
+        f"the first {rec['plain_lanes']} lanes, bound "
+        f"{w['bound_ms']:.5f} ms ({w['bound_by']}), "
+        f"{ms / w['bound_ms']:.1f}x {card}")
+    del chunks
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_archive_restore(w, tmp, card, counts, reset_counts) -> dict:
+    """22a: the real-format restore at COLD_ARCHIVE_ACCOUNTS, or, where
+    the `zstandard` package does not import, the refusal of snapdc and
+    snapin format="archive" to boot and the restore's lthash fold alone
+    over the same accounts. -> its record ("lthash_launches": the
+    manifest's and the restore's)."""
+    from firedancer_tpu_torch.tools import catchup
+    try:
+        import zstandard
+    except ImportError:
+        log(f"== 22a. the `zstandard` package does not import: snapdc and "
+            f"snapin format=\"archive\" must refuse to boot {card}")
+        from firedancer_tpu_torch.runtime import Ring
+        from firedancer_tpu_torch.tiles.snapshot import (ArchiveInserter,
+                                                          SnapDecompress)
+        ring = Ring.create(w, depth=8, mtu=4096)
+        for make in (lambda: SnapDecompress(ring, ring, []),
+                     lambda: ArchiveInserter(ring, device=DEVICE)):
+            try:
+                make()
+            except ModuleNotFoundError as e:
+                assert "zstandard" in str(e), e
+            else:
+                raise AssertionError("booted without zstandard")
+        log("22a: snapdc and snapin format=\"archive\" raised "
+            "ModuleNotFoundError naming zstandard; the restore's lthash "
+            "fold alone, over the archive's accounts")
+        accts = catchup.archive_accounts(COLD_ARCHIVE_ACCOUNTS,
+                                         seed=COLD_SEED)
+        return {"zstandard": None, "lthash_launches": 0,
+                "fold": fold_timing(list(accts.items()), card, "22a")}
+    log(f"== 22a. the real-format restore: {COLD_ARCHIVE_ACCOUNTS} accounts "
+        f"through SnapLoader -> SnapDecompress -> ArchiveInserter, zstandard "
+        f"{zstandard.__version__} {card}")
+    t0 = time.perf_counter()
+    accts = catchup.archive_accounts(COLD_ARCHIVE_ACCOUNTS, seed=COLD_SEED)
+    make_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "snap.tar.zst")
+    reset_counts()
+    t0 = time.perf_counter()
+    catchup.write_archive(path, 22, accts, device=DEVICE)
+    write_s = time.perf_counter() - t0
+    write_launches = counts()["lthash"]
+    reset_counts()
+    r = catchup.archive_restore(w, path, device=DEVICE)
+    restore_launches = counts()["lthash"]
+    m = r["metrics"]
+    assert r["error"] is None and m["lattice_ok"] == 1 \
+        and m["restored"] == 1 and m["slot"] == 22, r["error"]
+    assert m["accounts"] == COLD_ARCHIVE_ACCOUNTS, m
+    assert r["funk"].root_items() == accts, \
+        "a restored account != the archive's"
+    assert write_launches >= 1 and restore_launches >= 1, \
+        (write_launches, restore_launches)
+    out = {"zstandard": zstandard.__version__,
+           "accounts": COLD_ARCHIVE_ACCOUNTS, "make_s": make_s,
+           "write_s": write_s, "restore_s": r["wall_s"],
+           "archive_bytes": os.path.getsize(path),
+           "raw_bytes": r["raw_bytes"], "frags": r["frags"],
+           "lthash_launches": write_launches + restore_launches}
+    log(f"22a: {COLD_ARCHIVE_ACCOUNTS} accounts written in {write_s:.2f} s "
+        f"({out['archive_bytes']} B of zstd, {r['raw_bytes']} B of tar; the "
+        f"manifest's lattice in {write_launches} lthash launches), restored "
+        f"in {r['wall_s']:.2f} s ({r['frags']} frags; lattice_ok 1 in "
+        f"{restore_launches} launches), every account == the archive's "
+        f"{card}")
+    del r
+    out["fold"] = fold_timing(list(accts.items()), card, "22a")
+    small = dict(list(accts.items())[:COLD_TAMPER_ACCOUNTS])
+    del accts
+    good, bad = os.path.join(tmp, "s.tar.zst"), os.path.join(tmp, "t.tar.zst")
+    catchup.write_archive(good, 7, small, device=DEVICE)
+    catchup.tamper_archive(good, bad, 7)
+    reset_counts()
+    t = catchup.archive_restore(w, bad, device=DEVICE)
+    out["lthash_launches"] += counts()["lthash"]
+    assert t["error"] and "lattice" in t["error"] \
+        and not t["funk"].root_items() \
+        and t["metrics"]["lattice_ok"] == 0, (t["error"], t["metrics"])
+    log(f"22a: an archive of {COLD_TAMPER_ACCOUNTS} accounts with one "
+        f"lamport flipped: {t['error']!r}, nothing installed")
+    return out
+
+
+def run_cold_start(root, card, counts, reset_counts):
+    """Phase 22: the cold-start follower on the card (tools/catchup.py).
+    22c's fixture (its CPU oracle folds 2^18 accounts on the plain
+    lthash) builds in a worker process while 22a and 22b run.
+    -> ({"wave_scan": n, "lthash": n} launches on its paths, record)."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from firedancer_tpu_torch.runtime import Workspace
+    from firedancer_tpu_torch.svm.accdb import Account
+    from firedancer_tpu_torch.tiles.synth import make_signed_txns
+    from firedancer_tpu_torch.tools import catchup, exec_drills
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fdtt_smoke22_")
+    w = Workspace(f"/fdtt_smoke22{os.getpid()}", 1 << 27)
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    try:
+        os.makedirs(os.path.join(tmp, "c"))
+        fx_c = pool.submit(catchup.catchup_fixture, os.path.join(tmp, "c"),
+                           accounts=COLD_STATE_ACCOUNTS, seed=COLD_SEED)
+        rec = {"22a": run_archive_restore(w, tmp, card, counts,
+                                          reset_counts)}
+        launches = {"wave_scan": 0,
+                    "lthash": rec["22a"].pop("lthash_launches")}
+        fx_b = catchup.catchup_fixture(tmp)
+        for tag, accounts in (("22b", 0), ("22c", COLD_STATE_ACCOUNTS)):
+            log(f"== {tag}. bench.py's catch-up stage "
+                f"({catchup.COUNT} txns, {catchup.UNIQUE} signers, "
+                f"{catchup.SLOTS} slots, the snapshot at slot "
+                f"{catchup.SNAP_SLOT}, {catchup.EXEC_TILES} exec shards)"
+                + (f" with {accounts} funded accounts in the snapshot"
+                   if accounts else "") + f" {card}")
+            fx = fx_c.result() if accounts else fx_b
+            r = catchup.run_catchup(device=DEVICE, accounts=accounts,
+                                    fixture=fx)
+            launches["wave_scan"] += sum(r["wave_launches"].values())
+            launches["lthash"] += r["lthash_launches"]
+            rec[tag] = r
+            log(f"{tag}: replay_tps {r['replay_tps']:.1f} ({r['txns']} txns "
+                f"over {r['catchup_slots']} slots in {r['catchup_s']:.3f} s "
+                f"from RUN), catchup_s {r['catchup_s']:.3f}, restore slot "
+                f"{r['catchup_restore_slot']}, divergent slot "
+                f"{r['catchup_divergent_slot']}, exec waves "
+                f"{r['catchup_exec_waves']}; {r['bank_hashes']} bank hashes "
+                f"and {r['accounts']} store accounts == the CPU oracle's; "
+                f"wave_launches {r['wave_launches']}, lthash_launches "
+                f"{r['lthash_launches']}; snapin's restore "
+                f"{r['snapin_restore_s']:.3f} s of {r['snapshot_bytes']} B, "
+                f"the gate {r['gate_s']:.3f} s (store read "
+                f"{r['gate_read_s']:.3f} s, fold {r['gate_fold_s']:.3f} s); "
+                f"the CPU oracle's fixture {r['fixture_s']:.1f} s, boot "
+                f"{r['boot_s']:.1f} s {card}")
+        gen = catchup.funded_accounts(COLD_STATE_ACCOUNTS, seed=COLD_SEED)
+        rec["22c"]["fold"] = fold_timing(
+            [(k, Account(lamports=v)) for k, v in gen.items()], card, "22c")
+        del gen, fx
+
+        log(f"== 22d. the cold-start drills {card}")
+        stale = catchup.stale_snapshot(fx_b, os.path.join(tmp, "stale.ckpt"),
+                                       catchup.SNAP_SLOT - 2)
+        d = {"snapshot": catchup.snapshot_drills(w, fx_b["snap"], stale,
+                                                 catchup.SNAP_SLOT)}
+        for action in ("corrupt_checkpt_frame", "stale_snapshot_offer"):
+            log(f"22d {action}: snapin refused "
+                f"({d['snapshot'][action]['error']!r}), no record and no "
+                f"restore marker in the store")
+        d["snapld_crash"] = catchup.snapld_crash_drill(fx_b["snap"],
+                                                       catchup.SNAP_SLOT)
+        log(f"22d crash_mid_snapshot on snapld: restarted "
+            f"{d['snapld_crash']['restarts']} time, the stream from byte 0 "
+            f"({d['snapld_crash']['loader_frags']} frags after the restart, "
+            f"{d['snapld_crash']['snapin_frags']} at snapin), "
+            f"{d['snapld_crash']['accounts']} accounts restored in "
+            f"{d['snapld_crash']['wall_s']:.2f} s")
+        d["writer_crash"] = catchup.writer_crash_drill(
+            fx_b["snap"], fx_b["tail"], fx_b["expected"], catchup.SNAP_SLOT,
+            tmp, device=DEVICE)
+        log(f"22d crash_mid_snapshot on the replay's writer: exit "
+            f"{d['writer_crash']['exitcode']}, the slot-"
+            f"{d['writer_crash']['intact_slot']} snapshot intact and "
+            f"restored with the oracle's bank hash, the "
+            f"{d['writer_crash']['tmp_bytes']}-byte .tmp refused "
+            f"({d['writer_crash']['tmp_refused']!r})")
+        reset_counts()
+        d["genesis_ckpt"] = exec_drills.genesis_ckpt_boot(
+            w, make_signed_txns(18, seed=47), os.path.join(tmp, "g.ckpt"),
+            device=DEVICE)
+        gk = counts()["wave_scan"]
+        assert gk >= 2 and all(n >= 1 for n in
+                               d["genesis_ckpt"]["wave_launches"]), \
+            (gk, d["genesis_ckpt"])
+        launches["wave_scan"] += gk
+        log(f"22d genesis_ckpt: the bank booted from the checkpoint == "
+            f"booted from its dict ({d['genesis_ckpt']['transfers']} "
+            f"transfers, {d['genesis_ckpt']['poh_frames']} poh frames, "
+            f"{d['genesis_ckpt']['accounts']} accounts), wave scans "
+            f"{d['genesis_ckpt']['wave_launches']} {card}")
+        rec["22d"] = d
+    finally:
+        pool.shutdown(cancel_futures=True)
+        w.close()
+        w.unlink()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"22: {rec['wall_s']:.1f} s; launches on its paths {launches} {card}")
+    return launches, rec
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -3488,6 +3785,12 @@ def main() -> int:
         f"the breach-triggered torch.profiler capture on the card {card}")
     rec21 = run_capture_drill(root, card)
 
+    # 22. the cold-start follower: the real-format restore (22a),
+    # bench.py's catch-up stage (22b), at 2^18 accounts (22c), the drills
+    # (22d); the exec shards and the replay tile count their own launches
+    cold_launches, rec22 = run_cold_start(root, card, counts, reset_counts)
+    log(f"22 record {json.dumps(rec22, default=str)}")
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
     for name, src, rep, err in (
@@ -3514,13 +3817,15 @@ def main() -> int:
                     "source": "firedancer_tpu_torch/csrc/wave_scan.cu",
                     "replaces": "firedancer_tpu/svm/executor.py:111",
                     "launches": exec_path["wave_scan"]
-                    + rec["bank_wave_launches"] + exec_launches,
+                    + rec["bank_wave_launches"] + exec_launches
+                    + cold_launches["wave_scan"],
                     "max_abs_err": wave_err, "ms": st["ms"],
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
     # the follower's replay tile counts its own launches in the topology
     tile_launches = {"poh_verify": rec17["poh_launches"],
-                     "lthash": rec17["lthash_launches"]}
+                     "lthash": rec17["lthash_launches"]
+                     + cold_launches["lthash"]}
     for name, src, rep in (
             ("sha256", "sha256.cu", "firedancer_tpu/ops/sha2.py:211"),
             ("poh_verify", "sha256.cu", "firedancer_tpu/ops/poh.py:41"),
@@ -3565,6 +3870,20 @@ def main() -> int:
                 "call_ms", "chain_floor_ms", "bank_hash_ms",
                 "bank_hash_call_ms", "bank_hash_bound_ms",
                 "bank_hash_bound_by")})
+        if name == "lthash":
+            # phase 22's folds of a whole store: 22a's archive (where
+            # zstandard imports) and 22c's restore gate, CUDA events
+            kernels[-1].update(cold_launches=cold_launches["lthash"],
+                               restore_ms=[
+                {"shape": f"{f['lanes']} x {f['width']} B", **{
+                    k: f[k] for k in ("launches", "ms", "fold_ms",
+                                      "plain_ms", "plain_lanes", "bound_ms",
+                                      "bound_by", "max_abs_err")}}
+                for f in (rec22["22a"].get("fold"), rec22["22c"]["fold"])
+                if f])
+            kernels[-1]["max_abs_err"] = max(
+                [kernels[-1]["max_abs_err"]]
+                + [f["max_abs_err"] for f in kernels[-1]["restore_ms"]])
     # the verify tiles of the topology phases launch in their own
     # processes: their batches a phase (each strict batch one sha512_ram
     # and one ed25519_verify launch, each RLC batch one of each stage),

@@ -26,7 +26,9 @@ Schema (the reference's, cut to the kinds the port has):
     name = "verify"
     kind = "verify"          # synth | verify | dedup | sink | pack |
                              # bank | poh | shred | sign | replay |
-                             # sock | gossip | exec | resolv | metric
+                             # sock | gossip | exec | resolv | metric |
+                             # archiver | playback | snapld | snapdc |
+                             # snapin
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
@@ -99,20 +101,28 @@ Schema (the reference's, cut to the kinds the port has):
     txn_max = 256            #  the resolv tile and the exec tile
     heap_mb = 16             #  family)
 
+    [snapshot]               # cold start (tiles/snapshot.py): the file
+    path = "snap.ckpt"       #  snapld streams and the replay writes,
+    min_slot = 4             #  snapin's staleness gate, the replay's
+    every_slots = 0          #  write cadence, zlib frames, snapld's
+    compress = true          #  frag size
+    chunk = 4096
+
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
     verify, dedup, sink, pack, bank, poh, shred, sign, replay, sock,
-    gossip, exec, resolv and metric, plus `device` on verify, bank,
-    replay, gossip and exec (the card, "cuda", unless "cpu"); a gated
-    key the port has not ported (pack's `bundle_in`, the bank's
-    `genesis_ckpt`, `rpc_port` and `ws_port`, the replay tile's snapshot
-    args) passes the gate and is refused by its adapter;
-  * the [replay] section is validated by `tiles/replay.normalize_replay`
-    and the [funk] section by `funk/shmfunk.normalize_funk`, and both
-    are carried on the plan;
+    gossip, exec, resolv, metric, archiver, playback, snapld, snapdc and
+    snapin, plus `device` on verify, bank, replay, gossip, exec and
+    snapin (the card, "cuda", unless "cpu"); a gated key the port has
+    not ported (pack's `bundle_in`, the bank's `rpc_port` and
+    `ws_port`) passes the gate and is refused by its adapter;
+  * the [replay] section is validated by `tiles/replay.normalize_replay`,
+    the [funk] section by `funk/shmfunk.normalize_funk` and the
+    [snapshot] section by `tiles/snapshot.normalize_snapshot`, and all
+    three are carried on the plan;
   * each top-level section the reference accepts but the port has not
-    ported (witness, snapshot, flight, tune) raises NotImplementedError
+    ported (witness, flight, tune) raises NotImplementedError
     naming its ROADMAP.md queue-A item, and so does
     FDTPU_TUNED_PROFILE (item 11); a known kind without an adapter, a
     gated key the port lacks (the verify tile's `device_fail_limit`,
@@ -137,10 +147,12 @@ from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
 from ..funk.shmfunk import normalize_funk
 from ..prof import normalize_prof
 from ..tiles.replay import normalize_replay
+from ..tiles.snapshot import normalize_snapshot
 from ..trace import normalize_trace
 
 _TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "slo",
-                 "prof", "replay", "shed", "funk", *UNPORTED_SECTIONS}
+                 "prof", "replay", "shed", "funk", "snapshot",
+                 *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
 # the stem)
@@ -177,6 +189,11 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
     "exec": ("batch", "rr_cnt", "rr_idx", "tile_cnt", "cpu0", "device"),
     "resolv": ("batch", "fee_payer_check"),
     "metric": ("port", "bind_addr", "healthz_stale_s"),
+    "archiver": ("path",),
+    "playback": ("path",),
+    "snapld": ("path", "chunk", "stale_path"),
+    "snapdc": (),
+    "snapin": ("format", "min_slot", "device"),
 }
 
 
@@ -270,9 +287,10 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     if os.environ.get("FDTPU_TUNED_PROFILE"):
         refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
     # fail before launch (trace/recorder.py, tiles/replay.py,
-    # funk/shmfunk.py, disco/shed.py, disco/slo.py and prof/recorder.py
-    # are the validators; per-tile `shed` and `prof` overrides validate,
-    # and SLO targets resolve, at Topology.build)
+    # tiles/snapshot.py, funk/shmfunk.py, disco/shed.py, disco/slo.py
+    # and prof/recorder.py are the validators; per-tile `shed` and
+    # `prof` overrides validate, and SLO targets resolve, at
+    # Topology.build)
     shed_cfg = cfg.get("shed")
     if shed_cfg is not None:
         normalize_shed(shed_cfg)
@@ -285,6 +303,9 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     funk_cfg = cfg.get("funk")
     if funk_cfg is not None:
         normalize_funk(funk_cfg)
+    snap_cfg = cfg.get("snapshot")
+    if snap_cfg is not None:
+        normalize_snapshot(snap_cfg)
     slo_cfg = cfg.get("slo")
     if slo_cfg is not None:
         normalize_slo(slo_cfg)
@@ -295,7 +316,8 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
                     wksp_size=int(top.get("wksp_size", 1 << 26)),
                     trace=trace_cfg, replay=replay_cfg, shed=shed_cfg,
-                    funk=funk_cfg, slo=slo_cfg, prof=prof_cfg)
+                    funk=funk_cfg, slo=slo_cfg, prof=prof_cfg,
+                    snapshot=snap_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))

@@ -9,7 +9,7 @@ Loads the config stack, materializes the topology, spawns every tile,
 runs the supervisor (fail-fast by default), prints the monitor table
 periodically, and tears down on SIGINT or after --duration seconds.
 `--device` (default cuda) sets `device` on every verify, bank, replay,
-gossip and exec tile: on the card their kernels run; without one the first such
+gossip, exec and snapin tile: on the card their kernels run; without one the first such
 tile fails its boot, the supervisor tears the topology down and the
 command exits 1. `cpu` runs the kernels' plain versions. A metric tile
 takes no device: it reads shared memory only. The table also lists the
@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("config", nargs="+", help="TOML layers, later wins")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="device of every verify, bank, replay, "
-                         "gossip and exec tile")
+                         "gossip, exec and snapin tile")
     ap.add_argument("--duration", type=float, default=0.0,
                     help="seconds to run (0 = until SIGINT)")
     ap.add_argument("--name", default=None, help="topology name override")
@@ -45,7 +45,8 @@ def main(argv=None) -> int:
 
     topo = build_topology(load_config(*args.config), name=args.name)
     for t in topo.tiles.values():
-        if t.kind in ("verify", "bank", "replay", "gossip", "exec"):
+        if t.kind in ("verify", "bank", "replay", "gossip", "exec",
+                      "snapin"):
             t.args["device"] = args.device
     runner = TopologyRunner(topo.build()).start()
     try:

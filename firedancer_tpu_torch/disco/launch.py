@@ -94,13 +94,17 @@ def plan_path(topology_name: str) -> str:
 
 def _on_card(t: dict) -> bool:
     """Does tile `t` of a plan run kernels on the card: a verify, replay or
-    exec tile, a bank tile with exec="svm" or a gossip tile with
-    `device_verify`, whose `device` is not "cpu"."""
+    exec tile, a bank tile with exec="svm", a gossip tile with
+    `device_verify` or a snapin tile with format="archive", whose
+    `device` is not "cpu"."""
     if t["kind"] == "bank" and t["args"].get("exec", "stub") != "svm":
         return False
     if t["kind"] == "gossip" and not t["args"].get("device_verify"):
         return False
-    return t["kind"] in ("verify", "bank", "replay", "gossip", "exec") \
+    if t["kind"] == "snapin" and t["args"].get("format") != "archive":
+        return False
+    return t["kind"] in ("verify", "bank", "replay", "gossip", "exec",
+                         "snapin") \
         and str(t["args"].get("device", "cuda")).startswith("cuda")
 
 

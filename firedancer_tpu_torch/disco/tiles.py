@@ -4,15 +4,16 @@ run: synth, verify, dedup and sink on the sigverify path; pack, bank,
 poh, shred and sign on the leader's loop, with resolv ahead of pack and
 the exec tile family behind the bank when execution is scaled out;
 shred in recover mode and replay on the follower's; sock and gossip at
-the front door), and the exec fan-out engine (ExecFanout) the bank and
-the replay share.
+the front door; the cold-start follower's snapld, snapdc and snapin with
+the replay's restore gate, and the archiver and playback tiles), and the
+exec fan-out engine (ExecFanout) the bank and the replay share.
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these fifteen kinds only (the fourteen above and
+  * the registry holds these twenty kinds only (the nineteen above and
     the metric tile); `Topology.tile` refuses every other kind of the
     reference's registry (disco/unported.py), and `adapter_class` raises
     ValueError for a name without an adapter;
@@ -41,9 +42,10 @@ Where the copy differs from the reference:
   * BankAdapter runs exec="svm" (the wave executor, svm/executor.py, on
     the card unless its `device` arg says "cpu"; or, with `exec_links`,
     the exec tile family over the shm store) and exec="stub"; it
-    refuses exec="general" (the full host SVM, item 15), `genesis_ckpt`
-    (item 5f, as the reference refuses it with exec links), and the RPC
-    and WebSocket surfaces (`rpc_port`, `ws_port`, item 16). It boots by
+    refuses exec="general" (the full host SVM, item 15) and the RPC
+    and WebSocket surfaces (`rpc_port`, `ws_port`, item 16); its
+    `genesis_ckpt` restores a process funk (utils/checkpt.funk_restore)
+    and, as in the reference, is refused with exec links. It boots by
     running one
     one-transfer wave through the kernel, so a kernel that does not
     build or launch fails the tile's boot, and it counts the kernel
@@ -62,14 +64,21 @@ Where the copy differs from the reference:
     `wave_launches`; it has no fdtune `exec_dispatch` knob (item 11);
   * ReplayAdapter runs the replay (tiles/replay.py), in process or over
     the exec fan-out, with its PoH check and bank hash on the card
-    unless its `device` arg says "cpu"; it refuses the snapshot restore
-    and writer (`wait_restore`, `snapshot_path`, `snapshot_every`,
-    `snapshot_compress`), item 5f. It boots by running lthash_of_root
+    unless its `device` arg says "cpu", and the follower's cold start
+    (`wait_restore`: the restore gate folds the whole restored store on
+    the device) and snapshot writer (`snapshot_path`, `snapshot_every`,
+    `snapshot_compress`). It boots by running lthash_of_root
     over its genesis and a one-entry poh_verify on its device (a kernel
     that does not build or launch fails the boot), counts later
     launches in `poh_launches` and `lthash_launches`, and its tpu
     histogram holds each slot's host-clock spans of the PoH check and
-    the bank-hash fold;
+    the bank-hash fold, and the restore gate's; its `restore_*_us`
+    metrics split the gate (the port's own, beside the reference's);
+  * SnapLdAdapter, SnapDcAdapter and ArchiverAdapter/PlaybackAdapter
+    are the reference's; SnapInAdapter takes a `device` (default
+    "cuda") for format="archive"'s lattice check, and snapdc and
+    format="archive" raise at construction without the `zstandard`
+    package, naming it;
   * SignAdapter refuses a `keyswitch_off` in its plan entry: the port's
     plan carves no keyswitch region for the live identity hot-swap
     (topo.py:460-465 in the reference, item 13);
@@ -85,8 +94,8 @@ Where the copy differs from the reference:
     /summary.json and /healthz from shm, and the SLO engine at its
     housekeeping, which rings each [prof] breach_capture tile's
     doorbell on a breach. It reads only shared memory and touches no
-    device; /summary.json's `catchup` block reads 0 for the replay
-    metrics the port's replay tile lacks.
+    device; /summary.json's `catchup` block reads the replay tile's
+    metrics as the reference's does.
 """
 from __future__ import annotations
 
@@ -982,8 +991,7 @@ class BankAdapter:
                "exec_redispatch"]
 
     def __init__(self, ctx, args):
-        for key, item in (("genesis_ckpt", "5f"), ("rpc_port", 16),
-                          ("ws_port", 16)):
+        for key, item in (("rpc_port", 16), ("ws_port", 16)):
             if args.get(key) is not None:
                 refuse(f"bank arg {key!r}", item)
         self.exec_mode = args.get("exec", "stub")
@@ -1043,7 +1051,14 @@ class BankAdapter:
             from ..svm.executor import WaveExecutor
             self._cuda_wave = cuda_wave
             self._wx = WaveExecutor(args.get("device", "cuda"))
+            # genesis checkpoint: restore the WHOLE boot state
+            # (utils/checkpt.funk_restore) into a process funk; the
+            # exec fan-out's shm store takes none, as in the reference
             if self.exec_links:
+                if args.get("genesis_ckpt"):
+                    raise ValueError(
+                        f"bank {ctx.tile_name}: genesis_ckpt is "
+                        f"process-funk only, not exec fan-out")
                 fk = ctx.plan.get("funk") or {}
                 if fk.get("backend") != "shm" or "off" not in fk:
                     raise ValueError(
@@ -1051,6 +1066,10 @@ class BankAdapter:
                         f"[funk] backend=\"shm\"")
                 from ..funk.shmfunk import WireFunk
                 self.funk = WireFunk.from_plan(ctx.wksp, fk)
+            elif args.get("genesis_ckpt"):
+                from ..utils.checkpt import funk_restore
+                with open(args["genesis_ckpt"], "rb") as gf:
+                    self.funk = funk_restore(Funk, gf)
             else:
                 self.funk = Funk()
             self.xid = None            # published root
@@ -1931,21 +1950,26 @@ class ReplayAdapter:
     hashes_per_tick, verify_poh, redispatch_s (all three default from
     the plan's [replay] section), slots_per_epoch, expected ({slot:
     bank_hash_hex}), exec_links/exec_done (ordered per-shard dispatch
-    and completion links), device ("cuda" | "cpu"). The snapshot
-    restore and writer (wait_restore, snapshot_path, snapshot_every,
-    snapshot_compress) are refused, item 5f."""
+    and completion links), device ("cuda" | "cpu"), wait_restore,
+    snapshot_path, snapshot_every, snapshot_compress (the last three
+    default from the plan's [snapshot] section).
+
+    Cold start: with `wait_restore` the tile buffers slices and polls
+    the store root for snapin's restore marker each poll; when it lands
+    the core folds the whole restored store on the device (its span in
+    the tpu histogram; `restore_read_us`, `restore_fold_us` and
+    `restore_gate_us` split it) and replays the tail from the snapshot
+    slot."""
 
     METRICS = ["slices", "slots_replayed", "entries", "txns", "exec_ok",
                "exec_fail", "poh_fail", "buffered", "waves",
                "parse_fail", "exec_skip", "exec_waves",
-               "exec_redispatch", "divergent_slot", "behind", "overruns",
-               "poh_launches", "lthash_launches"]
+               "exec_redispatch", "divergent_slot", "snapshots",
+               "restore_slot", "behind", "overruns", "poh_launches",
+               "lthash_launches", "restore_read_us", "restore_fold_us",
+               "restore_gate_us"]
 
     def __init__(self, ctx, args):
-        for key in ("wait_restore", "snapshot_path", "snapshot_every",
-                    "snapshot_compress"):
-            if args.get(key):
-                refuse(f"replay arg {key!r}", "5f")
         from .metrics import HistAccum
         from ..ops import cuda_blake3, cuda_sha256
         from ..tiles.replay import ReplayCore
@@ -1968,6 +1992,7 @@ class ReplayAdapter:
         out_fseqs = {ln: f for ln, f in ctx.out_fseqs.items()
                      if ln not in self.exec_links}
         rp = ctx.plan.get("replay") or {}
+        sp = ctx.plan.get("snapshot") or {}
         funk = fanout = None
         if self.exec_links:
             fk = ctx.plan.get("funk") or {}
@@ -1999,6 +2024,13 @@ class ReplayAdapter:
                 "verify_poh", rp.get("verify_poh", True))),
             slots_per_epoch=int(args.get("slots_per_epoch", 432_000)),
             funk=funk, fanout=fanout, expected=expected,
+            wait_restore=bool(args.get("wait_restore", False)),
+            snapshot_path=str(args.get("snapshot_path",
+                                       sp.get("path", ""))),
+            snapshot_every=int(args.get("snapshot_every",
+                                        sp.get("every_slots", 0))),
+            snapshot_compress=bool(args.get(
+                "snapshot_compress", sp.get("compress", True))),
             device=self.device, cnc=getattr(ctx, "cnc", None),
             on_span=lambda kind, ns: self.tpu_hist.add(ns))
         if fanout is not None:
@@ -2027,6 +2059,10 @@ class ReplayAdapter:
                          self._cuda[1].launches["lthash"])
 
     def poll_once(self) -> int:
+        if self.core.waiting:
+            # cold-start: keep polling for snapin's restore marker;
+            # slices gathered below buffer until it lands
+            self.core.check_restore()
         n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
             self.seq, 8, self.mtu)
         self._ovr += ovr
@@ -2039,9 +2075,12 @@ class ReplayAdapter:
 
     def on_chaos(self, ev: dict):
         """diverge_block: perturb the next replayed slot's state delta;
-        its divergence verdict must name that slot."""
+        its divergence verdict must name that slot. crash_mid_snapshot:
+        the next snapshot write exits the process between rows."""
         if ev["action"] == "diverge_block":
             self.core.diverge(int(ev.get("seed", 1)))
+        elif ev["action"] == "crash_mid_snapshot":
+            self.core._crash_snap = True
 
     def on_halt(self):
         if self.core.fanout is not None and self.core.fanout.busy:
@@ -2059,7 +2098,193 @@ class ReplayAdapter:
             "poh_launches": (self._cuda[0].launches["poh_verify"]
                              - self._launch0[0]),
             "lthash_launches": (self._cuda[1].launches["lthash"]
-                                - self._launch0[1])}
+                                - self._launch0[1])} | {
+            f"restore_{k}_us": int(self.core.restore_timing.get(
+                f"{k}_s", 0) * 1e6) for k in ("read", "fold", "gate")}
+
+
+@register("archiver")
+class ArchiverAdapter:
+    """Frag-stream recorder (ref: src/disco/archiver/ writer tile).
+    args: path. Consumes its in link (unreliable by convention — the
+    recorder must never backpressure production, matching the
+    reference's observer stance)."""
+
+    METRICS = ["frags", "bytes", "overruns"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.archiver import ArchiveWriter
+        self.ctx = ctx
+        self.in_link = next(iter(ctx.in_rings))
+        self.tile = ArchiveWriter(ctx.in_rings[self.in_link],
+                                  args["path"])
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def in_seqs(self):
+        return {self.in_link: self.tile.seq}
+
+    def on_halt(self):
+        self.tile.close()
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
+
+
+@register("playback")
+class PlaybackAdapter:
+    """Frag-stream replayer (ref: src/disco/archiver/ playback tile).
+    args: path."""
+
+    METRICS = ["frags", "bytes", "done", "backpressure"]
+    GAUGES = ["done"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.archiver import ArchivePlayback
+        self.tile = ArchivePlayback(
+            args["path"],
+            _single(ctx.out_rings, "out link", ctx.tile_name),
+            _single(ctx.out_fseqs, "out link", ctx.tile_name))
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
+
+
+@register("snapld")
+class SnapLdAdapter:
+    """Snapshot loader tile (ref: src/discof/restore/fd_snapct_tile.c
+    download/read orchestration, simplified to local file streaming).
+
+    Chaos seams: corrupt_checkpt_frame flips one seeded byte in the
+    next fragment (downstream verify MUST reject the stream);
+    crash_mid_snapshot hard-kills this process mid-file (restart
+    re-streams from byte 0 — the snapshot protocol is resumable by
+    restart, not by offset); stale_snapshot_offer re-offers
+    `stale_path`, whose older slot the inserter's min_slot gate must
+    refuse. args: path, chunk (both default from the plan's [snapshot]
+    section), stale_path."""
+
+    METRICS = ["bytes", "frags", "done", "total_bytes", "corrupted",
+               "offers"]
+    GAUGES = ["done", "total_bytes"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.snapshot import SnapLoader
+        sp = ctx.plan.get("snapshot") or {}
+        self.stale_path = args.get("stale_path", "")
+        self.tile = SnapLoader(
+            args.get("path") or sp.get("path"),
+            _single(ctx.out_rings, "out link", ctx.tile_name),
+            _single(ctx.out_fseqs, "out link", ctx.tile_name),
+            chunk=int(args.get("chunk", sp.get("chunk", 1024))))
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def on_chaos(self, ev: dict):
+        if ev["action"] == "corrupt_checkpt_frame":
+            self.tile._corrupt_seed = int(ev.get("seed", 1))
+        elif ev["action"] == "crash_mid_snapshot":
+            # die halfway through the file, between publishes
+            self.tile._crash_at = max(1, self.tile.size // 2)
+        elif ev["action"] == "stale_snapshot_offer" and self.stale_path:
+            self.tile.offer(self.stale_path)
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
+
+
+@register("snapdc")
+class SnapDcAdapter:
+    """Snapshot decompress tile (ref: src/discof/restore/ snapdc —
+    streaming zstd between two frag links). Without the `zstandard`
+    package the constructor raises, naming it."""
+
+    METRICS = ["in_bytes", "out_bytes", "frags", "done", "stream_err",
+               "backpressure"]
+    GAUGES = ["done"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.snapshot import SnapDecompress
+        self.ctx = ctx
+        self.in_link = next(iter(ctx.in_rings))
+        self.tile = SnapDecompress(
+            ctx.in_rings[self.in_link],
+            _single(ctx.out_rings, "out link", ctx.tile_name),
+            _single(ctx.out_fseqs, "out link", ctx.tile_name))
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def in_seqs(self):
+        return {self.in_link: self.tile.seq}
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
+
+
+@register("snapin")
+class SnapInAdapter:
+    """Snapshot inserter tile (ref: src/discof/restore/fd_snapin_tile.c
+    — stream -> account DB). format="checkpt" (default): the port's
+    checkpoint frames (integrity trailer inside the reader).
+    format="archive": the real tar+AppendVec layout, fed DECOMPRESSED
+    bytes by an upstream snapdc tile, lattice checksum verified at EOM
+    with the BLAKE3 kernel's `lthash` on `device` (default "cuda"; the
+    constructor raises without the `zstandard` package).
+
+    Follower mode: when the plan carves a shm funk store ([funk]
+    backend="shm"), format="checkpt" restores INTO that shared store
+    through WireFunk.from_plan (install-after-verify: every row
+    validated before any lands) and then writes the restore marker the
+    replay tile gates on — snapshot boot handoff without a control
+    channel. min_slot (arg, or [snapshot] min_slot) refuses stale
+    snapshots loudly instead of silently rolling the state back.
+    `restore_us` (the port's own metric) is the host-clock length of the
+    poll that completed the last restore: the message's last frag, the
+    verify, the install and the fingerprint."""
+
+    METRICS = ["frags", "bytes", "accounts", "restored", "fingerprint",
+               "slot", "lattice_ok", "stream_err", "restore_us"]
+    GAUGES = ["accounts", "fingerprint", "slot", "lattice_ok"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.snapshot import ArchiveInserter, SnapInserter
+        self.ctx = ctx
+        self.in_link = next(iter(ctx.in_rings))
+        if args.get("format") == "archive":
+            self.tile = ArchiveInserter(ctx.in_rings[self.in_link],
+                                        device=args.get("device", "cuda"))
+        else:
+            sp = ctx.plan.get("snapshot") or {}
+            funk = None
+            fk = ctx.plan.get("funk") or {}
+            if fk.get("backend") == "shm" and "off" in fk:
+                from ..funk.shmfunk import WireFunk
+                funk = WireFunk.from_plan(ctx.wksp, fk)
+            self.tile = SnapInserter(
+                ctx.in_rings[self.in_link], funk=funk,
+                min_slot=int(args.get("min_slot",
+                                      sp.get("min_slot", 0))))
+        self.restore_us = 0
+
+    def poll_once(self) -> int:
+        t0 = time.perf_counter()
+        restored = self.tile.metrics["restored"]
+        n = self.tile.poll_once()
+        if self.tile.metrics["restored"] != restored:
+            self.restore_us = int((time.perf_counter() - t0) * 1e6)
+        return n
+
+    def in_seqs(self):
+        return {self.in_link: self.tile.seq}
+
+    def metrics_items(self):
+        return dict(self.tile.metrics) | {"restore_us": self.restore_us}
 
 
 @register("sign")
@@ -2172,8 +2397,7 @@ class MetricAdapter:
 
     def _catchup(self) -> dict | None:
         """Replay progress as a summary block: per replay tile its
-        catch-up slots (a metric the port's replay tile lacks reads 0).
-        None when the topology has no replay tile."""
+        catch-up slots. None when the topology has no replay tile."""
         from . import topo as topo_mod
         out = {}
         for tn, spec in self.ctx.plan["tiles"].items():

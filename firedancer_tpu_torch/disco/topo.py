@@ -16,9 +16,9 @@ waited on and must tolerate overruns.
 Where the copy differs from the reference:
   * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
     topo.py:256), so both packages' topologies can run side by side;
-  * `Topology()` takes the [trace], [slo], [prof], [replay], [shed] and
-    [funk] sections, none of the reference's snapshot, flight and tune
-    (topo.py:85-126); app.config refuses those sections;
+  * `Topology()` takes the [trace], [slo], [prof], [replay], [shed],
+    [funk] and [snapshot] sections, none of the reference's flight and
+    tune (topo.py:85-126); app.config refuses those sections;
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
@@ -94,7 +94,8 @@ class Topology:
     def __init__(self, name: str, wksp_size: int = 1 << 26,
                  trace: dict | None = None, replay: dict | None = None,
                  shed: dict | None = None, funk: dict | None = None,
-                 slo: dict | None = None, prof: dict | None = None):
+                 slo: dict | None = None, prof: dict | None = None,
+                 snapshot: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
         # [trace] flight-recorder config (trace/recorder.py schema);
@@ -116,6 +117,9 @@ class Topology:
         # "shm" makes build() carve the record/txn store into the wksp
         # so bank + the resolv/exec tile family share one fork tree
         self.funk = funk
+        # [snapshot] (tiles/snapshot.py's schema): the path, cadence
+        # and min_slot the snapld/snapin/replay adapters default from
+        self.snapshot = snapshot
         self.links: dict[str, LinkSpec] = {}
         self.tiles: dict[str, TileSpec] = {}
         self.tcaches: dict[str, int] = {}           # name -> depth
@@ -250,6 +254,9 @@ class Topology:
         from ..tiles.replay import normalize_replay
         replay = normalize_replay(self.replay) \
             if self.replay is not None else None
+        from ..tiles.snapshot import normalize_snapshot
+        snapshot = normalize_snapshot(self.snapshot) \
+            if self.snapshot is not None else None
         trace_cfg = normalize_trace(self.trace)
         unknown = set(trace_cfg["tiles"] or ()) - set(self.tiles)
         if unknown:
@@ -280,7 +287,7 @@ class Topology:
             "seed": os.urandom(16).hex(),
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
             "trace": trace_cfg, "replay": replay, "shed": shed,
-            "funk": funk, "prof": prof_cfg,
+            "funk": funk, "prof": prof_cfg, "snapshot": snapshot,
         }
 
         def zeroed(nbytes: int) -> int:

@@ -23,8 +23,12 @@ Where the copy differs from the reference: the `device` argument takes
 the place of its switch on JAX's backend (`_lthash_on_host`, :43-49),
 and the lanes are not padded to a power of two (that padding, :76-83,
 saved XLA a compile per batch shape; a padded lane is sliced off before
-the sum, so the lattice value is the same); a batch is as wide as its
-longest serialized account.
+the sum, so the lattice value is the same); a launch is as wide as its
+longest serialized account. A wide fold (a restore's whole store)
+launches at most `LT_CHUNK` lanes at a time and adds the partial sums
+mod 2^16: lattice sums are homomorphic, so the value is the one launch
+would give, and the card holds one chunk's (N, 1024) lanes, not the
+whole store's.
 """
 from __future__ import annotations
 
@@ -33,9 +37,10 @@ import struct
 
 import numpy as np
 
-from ..ops.blake3 import lthash_batch, lthash_reduce
+from ..ops.blake3 import lthash_add, lthash_batch, lthash_reduce
 
 LT_MSG_MAX = 2048           # lthash_batch input cap per lane
+LT_CHUNK = 1 << 16          # lanes a launch: 256 MiB of int32 lanes
 
 
 def serialize_account(pubkey: bytes, acct) -> bytes:
@@ -51,21 +56,36 @@ def serialize_account(pubkey: bytes, acct) -> bytes:
     return head + data + tail
 
 
-def accounts_lthash(items, device="cuda") -> np.ndarray:
-    """[(pubkey, Account)] -> summed lattice element (1024 u16), all
-    lanes in one lthash launch on `device` and summed there.
-    Zero-lamport accounts skip; an empty delta is zeros and launches
-    nothing."""
+def lane_msgs(raws: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Messages -> their zero-padded (N, longest) uint8 rows and (N,)
+    int32 lengths, gathered from one joined buffer."""
+    lens = np.fromiter(map(len, raws), np.int32, len(raws))
+    flat = np.frombuffer(b"".join(raws), np.uint8)
+    col = np.arange(int(lens.max()))
+    idx = (np.cumsum(lens) - lens)[:, None] + col
+    inside = col < lens[:, None]
+    msgs = np.zeros(idx.shape, np.uint8)
+    msgs[inside] = flat[idx[inside]]
+    return msgs, lens
+
+
+def accounts_lthash(items, device="cuda", chunk: int = LT_CHUNK) \
+        -> np.ndarray:
+    """[(pubkey, Account)] -> summed lattice element (1024 u16): the
+    lanes in lthash launches of at most `chunk` accounts on `device`
+    (one launch for any slot's delta), each summed there, the partial
+    sums added mod 2^16. Zero-lamport accounts skip; an empty delta is
+    zeros and launches nothing."""
     raws = [serialize_account(pk, a) for pk, a in items
             if a is not None and a.lamports != 0]
     if not raws:
         return np.zeros(1024, np.uint16)
-    msgs = np.zeros((len(raws), max(map(len, raws))), np.uint8)
-    for i, m in enumerate(raws):
-        msgs[i, :len(m)] = np.frombuffer(m, np.uint8)
-    lanes = lthash_batch(msgs, np.fromiter(map(len, raws), np.int32),
-                         device=device)
-    return lthash_reduce(lanes).cpu().numpy().astype(np.uint16)
+    acc = None
+    for i in range(0, len(raws), chunk):
+        lanes = lthash_batch(*lane_msgs(raws[i:i + chunk]), device=device)
+        part = lthash_reduce(lanes)
+        acc = part if acc is None else lthash_add(acc, part)
+    return acc.cpu().numpy().astype(np.uint16)
 
 
 class BankHasher:

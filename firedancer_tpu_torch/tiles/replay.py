@@ -3,8 +3,10 @@
 `normalize_replay`, `ReplayCore` with `on_slice`, `_release`,
 `_gauge_pending`, `_replay_slot`, `_verify_entries`, `_execute`, the
 exec fan-out's `_extract_transfers`, `_execute_fanout` and
-`_fanout_commit`, the `expected` divergence verdict and the
-`diverge_block` chaos seam; and `InlineFanout`).
+`_fanout_commit`, the `expected` divergence verdict, the follower's
+cold-start gate `check_restore` and snapshot writer `write_snapshot`,
+the `diverge_block` and `crash_mid_snapshot` chaos seams; and
+`InlineFanout`).
 
 The reference's replay tile (ref: src/discof/replay/fd_replay_tile.c:77-95)
 consumes ordered slices from reasm, schedules their transactions
@@ -27,7 +29,14 @@ attempt, timeout cancel and whole-wave redispatch on an exec-shard
 crash: exactly-once commits) against the shm funk store; each exec
 shard runs them on the wave-scan kernel. `InlineFanout` is its
 synchronous stand-in, the oracle a fan-out follower's bank hashes are
-held to.
+held to. With `wait_restore` the core buffers slices until snapin's
+restore marker appears in the store root (utils/checkpt.
+RESTORE_MARKER_KEY), then seeds the bank-hash lattice by folding the
+whole restored store on `device` (every account a lane of `lthash`)
+and replays the tail from the snapshot slot. `snapshot_every` /
+`snapshot_path` make the follower a snapshot WRITER too
+(utils/checkpt.snapshot_write_atomic: tmp + fsync + rename, so a
+writer crash leaves the previous file intact).
 
 Out-of-order slots (repair back-fill) buffer until their parent
 replays: slices are per-slot complete, but execution must follow the
@@ -45,25 +54,25 @@ verifies a slot at a time; the verdicts are the same, and one launch
 serves them all. A release runs only slots whose final slice has come
 (the reference would also run a slot whose first slices are pending
 when a repaired parent completes). `InlineFanout` takes a `device`
-for its WaveExecutor. The snapshot restore gate and writer
-(`wait_restore`, `snapshot_*`: ROADMAP.md queue A item 5f) and with
-it the `crash_mid_snapshot` chaos seam are not here; the adapter and
-`Topology.tile` refuse them. A v0
-transaction with address lookup tables is refused (item 15) where the
-reference resolves its tables. `on_span(kind, ns)`, when given, gets
-a host-clock span for each PoH check ("poh": one a release) and each
-bank-hash fold ("bank_hash": one a slot with transactions).
+for its WaveExecutor. A v0 transaction with address lookup tables is
+refused (item 15) where the reference resolves its tables.
+`on_span(kind, ns)`, when given, gets a host-clock span for each PoH
+check ("poh": one a release) and each bank-hash fold ("bank_hash": one
+a slot with transactions). The restore gate's fold is the reference's
+lthash_of_root in two timed halves, its host read of the store root and
+the lthash fold, kept in `restore_timing` (seconds).
 """
 from __future__ import annotations
 
 import difflib
 import hashlib
+import os
 import time
 
 import numpy as np
 
 from ..disco.unported import refuse
-from ..flamenco.bank_hash import BankHasher, lthash_of_root
+from ..flamenco.bank_hash import BankHasher, accounts_lthash, lthash_of_root
 from ..funk.funk import Funk, key32
 from ..ops.poh import poh_verify_entries
 from ..protocol.txn import parse_txn
@@ -121,6 +130,8 @@ class ReplayCore:
                  hashes_per_tick: int = 16, verify_poh: bool = True,
                  slots_per_epoch: int = 432_000, funk=None,
                  fanout=None, expected: dict[int, bytes] | None = None,
+                 wait_restore: bool = False, snapshot_path: str = "",
+                 snapshot_every: int = 0, snapshot_compress: bool = True,
                  device="cuda", cnc=None, on_span=None):
         self.funk = funk if funk is not None else Funk()
         self.fanout = fanout
@@ -130,6 +141,10 @@ class ReplayCore:
         self.device = device
         self.on_span = on_span
         self.expected = dict(expected or {})
+        self.wait_restore = bool(wait_restore)
+        self.snapshot_path = snapshot_path
+        self.snapshot_every = int(snapshot_every)
+        self.snapshot_compress = bool(snapshot_compress)
         self.db = AccDb(self.funk)
         for key, bal in (genesis or {}).items():
             self.funk.rec_write(None, key32(key),
@@ -150,17 +165,20 @@ class ReplayCore:
         self.hash_of: dict[int, bytes] = {}   # slot -> final PoH hash
         self.bank_hash_of: dict[int, bytes] = {}
         # seed the accounts lattice from the boot state (the reference
-        # initializes accounts_lt_hash from the snapshot)
+        # initializes accounts_lt_hash from the snapshot); a follower
+        # waiting on restore re-seeds in check_restore instead
         self.hasher = BankHasher(lthash_of_root(self.funk, device), device)
-        # the diverge_block chaos seam (armed by the adapter's on_chaos)
+        self.restore_timing: dict[str, float] = {}
+        # chaos seams (armed by the adapter's on_chaos)
         self._diverge_seed: int | None = None
+        self._crash_snap = False
         self.metrics = {"slices": 0, "slots_replayed": 0, "entries": 0,
                         "txns": 0, "exec_ok": 0, "exec_fail": 0,
                         "poh_fail": 0, "buffered": 0, "waves": 0,
                         "parse_fail": 0, "exec_skip": 0,
                         "exec_waves": 0, "exec_redispatch": 0,
                         "overruns": 0, "divergent_slot": 0,
-                        "behind": 0}
+                        "snapshots": 0, "restore_slot": 0, "behind": 0}
 
     def diverge(self, seed: int):
         """Fold a rogue account into the next replayed slot's delta, so
@@ -171,6 +189,45 @@ class ReplayCore:
     def _span(self, kind: str, t0: int):
         if self.on_span is not None:
             self.on_span(kind, time.perf_counter_ns() - t0)
+
+    # -- follower cold-start gate -------------------------------------------
+
+    @property
+    def waiting(self) -> bool:
+        return self.wait_restore
+
+    def check_restore(self) -> bool:
+        """Poll the store root for snapin's restore marker; on arrival
+        seed the replay chain from the snapshot (lattice from the
+        restored state, parent bank hash + next slot from the marker)
+        and release any slices buffered while waiting. True once the
+        core is live."""
+        if not self.wait_restore:
+            return True
+        from ..utils.checkpt import RESTORE_MARKER_KEY
+        val = self.funk.rec_query(None, RESTORE_MARKER_KEY)
+        if val is None:
+            return False
+        slot, bank_hash = int(val[0]), bytes(val[1])
+        # lthash_of_root over the restored store, in its two halves
+        t0 = time.perf_counter_ns()
+        items = [(k, v) for k, v in self.funk.root_items().items()
+                 if isinstance(v, Account)]
+        t1 = time.perf_counter_ns()
+        acc = accounts_lthash(items, self.device)
+        t2 = time.perf_counter_ns()
+        self.hasher = BankHasher(acc, self.device)
+        self.restore_timing = {"accounts": len(items),
+                               "read_s": (t1 - t0) / 1e9,
+                               "fold_s": (t2 - t1) / 1e9,
+                               "gate_s": (t2 - t0) / 1e9}
+        self._span("restore", t0)
+        self.next_slot = slot + 1
+        self.bank_hash_of[slot] = bank_hash
+        self.metrics["restore_slot"] = slot
+        self.wait_restore = False
+        self._release()
+        return True
 
     # -- slice ingest -------------------------------------------------------
 
@@ -189,8 +246,13 @@ class ReplayCore:
             if fin:
                 done = True
                 self.complete.add(slot)
-                if self.next_slot is None:
+                if self.next_slot is None and not self.wait_restore:
                     self.next_slot = slot
+        if self.wait_restore:
+            # cold-start: the tail buffers until the snapshot installs
+            # (check_restore seeds next_slot, then releases)
+            self._gauge_pending()
+            return 0
         return self._release() if done else 0
 
     def _release(self) -> int:
@@ -287,6 +349,9 @@ class ReplayCore:
             self._publish(pack_block(slot, max(0, slot - 1), bank_hash,
                                      parent_bank), slot)
         self.metrics["slots_replayed"] += 1
+        if self.snapshot_every and self.snapshot_path \
+                and slot % self.snapshot_every == 0:
+            self.write_snapshot(slot)
         # prune old hashes (tower roots upstream; keep a window)
         if len(self.hash_of) > 1024:
             cut = slot - 512
@@ -294,6 +359,23 @@ class ReplayCore:
                             if s >= cut}
             self.bank_hash_of = {
                 s: h for s, h in self.bank_hash_of.items() if s >= cut}
+
+    def write_snapshot(self, slot: int):
+        """Periodic store snapshot (tmp + fsync + atomic rename — a
+        writer crash mid-checkpoint leaves the previous file intact).
+        The crash_mid_snapshot chaos seam dies between rows, proving
+        exactly that."""
+        from ..utils.checkpt import snapshot_write_atomic
+        hook = None
+        if self._crash_snap:
+            def hook(i):
+                if i >= 1:
+                    os._exit(72)
+        snapshot_write_atomic(
+            self.snapshot_path, self.funk, slot=slot,
+            bank_hash=self.bank_hash_of[slot],
+            compress=self.snapshot_compress, _frame_hook=hook)
+        self.metrics["snapshots"] += 1
 
     def _publish(self, frame: bytes, slot: int):
         """Credit-gated publish; a tile that leaves RUN while

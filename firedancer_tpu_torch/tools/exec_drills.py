@@ -20,6 +20,10 @@ own harness (tests/test_exec_tile.py, tests/test_follower.py).
   replay_fanout       ReplayCore over ExecFanout and two shards (polled
                       on threads) against ReplayCore over InlineFanout:
                       the same bank hash every slot
+  genesis_ckpt_boot   the in-process bank booted from a `genesis_ckpt`
+                      of its genesis against the genesis-dict boot: the
+                      same poh frames, done frags and balances, both on
+                      `device`
 
 Each returns a record of what it checked and raises AssertionError on a
 mismatch.
@@ -125,9 +129,10 @@ def family(wksp, n_exec: int = 2, redispatch_s: float = 5.0,
     return bank, execs, rings
 
 
-def in_process_bank(wksp, genesis):
-    """The exec="svm" bank without the fan-out, on the CPU (the plain
-    wave scan: the fan-out's kernel is held to it, not to itself).
+def in_process_bank(wksp, genesis, device="cpu", genesis_ckpt=None):
+    """The exec="svm" bank without the fan-out, by default on the CPU
+    (the plain wave scan: the fan-out's kernel is held to it, not to
+    itself), booted from `genesis` or a `genesis_ckpt` file.
     -> (bank, rings)."""
     links = {"pb": {"mtu": 1 << 15}, "dn": {"mtu": 64},
              "ph": {"mtu": 1 << 16}}
@@ -140,8 +145,44 @@ def in_process_bank(wksp, genesis):
         out_fseqs={"dn": [], "ph": []}, in_seq0={})
     bank = BankAdapter(ctx, {"exec": "svm", "wave": 8, "poh_link": "ph",
                              "genesis": genesis, "forward_payloads": True,
-                             "device": "cpu"})
+                             "genesis_ckpt": genesis_ckpt,
+                             "device": device})
     return bank, rings
+
+
+def genesis_ckpt_boot(wksp, txns, path: str, device="cuda") -> dict:
+    """Write the synth genesis as a funk checkpoint at `path` (the
+    balances the bank's genesis dict would write), boot one bank from
+    it and one from the dict, run the same microblocks through both on
+    `device`: every poh frame, done frag and balance equal."""
+    from ..funk.funk import Funk, key32
+    from ..utils.checkpt import funk_checkpt
+    genesis = synth_genesis()
+    funk = Funk()
+    for k, bal in genesis.items():
+        funk.rec_write(None, key32(bytes.fromhex(k)), int(bal))
+    with open(path, "wb") as f:
+        funk_checkpt(funk, f)
+    frames = microblocks(txns)
+    out = []
+    for kw in ({"genesis": genesis}, {"genesis": {}, "genesis_ckpt": path}):
+        bank, rings = in_process_bank(wksp, device=device, **kw)
+        for i, f in enumerate(frames):
+            rings["pb"].publish(f, sig=i)
+        bank.poll_once()
+        bank.poll_once()          # drain-on-idle retires the wave
+        out.append({"poh": drain(rings["ph"])[0],
+                    "done": drain(rings["dn"])[0],
+                    "balances": bank.funk.root_items(),
+                    "m": bank.metrics_items()})
+    a, b = out
+    assert a["m"]["transfers"] > 0
+    for key in ("poh", "done", "balances"):
+        assert a[key] == b[key], key
+    assert a["m"] == b["m"]
+    return {"transfers": a["m"]["transfers"], "poh_frames": len(a["poh"]),
+            "done_frags": len(a["done"]), "accounts": len(a["balances"]),
+            "wave_launches": [o["m"]["wave_launches"] for o in out]}
 
 
 def byte_identity(wksp, txns, device="cuda") -> dict:

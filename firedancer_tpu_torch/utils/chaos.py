@@ -34,10 +34,12 @@ gives the same firing points and attack bytes as the reference.
 
 The floods pre-render a small pool of hostile payloads (the host crypto
 runs once) that attack_frames replays to the requested count, byte-equal
-to the reference's. The actions whose tile kind or door is not ported
-(the QUIC flood, ROADMAP.md queue A item 3b; the snapshot drills, item
-5f) are refused when a topology is built (disco/unported.py);
-attack_frames refuses the QUIC flood too.
+to the reference's. The snapshot drills go to snapld's adapter
+(crash_mid_snapshot, corrupt_checkpt_frame, stale_snapshot_offer) and
+the replay's (crash_mid_snapshot on its snapshot writer, diverge_block).
+The action whose door is not ported (the QUIC flood, ROADMAP.md queue A
+item 3b) is refused when a topology is built (disco/unported.py);
+attack_frames refuses it too.
 """
 from __future__ import annotations
 

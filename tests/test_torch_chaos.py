@@ -100,15 +100,34 @@ def test_chaos_plan_rejects_as_the_reference():
     assert issubclass(tchaos.ChaosDeviceError, RuntimeError)
 
 
-@pytest.mark.parametrize("action", sorted(UNPORTED_CHAOS_ACTIONS))
+# the snapshot drills queue A item 5f ported: refused before it,
+# accepted since on the tiles that take them (snapld; the replay's
+# writer takes crash_mid_snapshot too)
+PORTED_5F_ACTIONS = ("corrupt_checkpt_frame", "crash_mid_snapshot",
+                     "stale_snapshot_offer")
+
+
+@pytest.mark.parametrize("action", sorted(UNPORTED_CHAOS_ACTIONS)
+                         + list(PORTED_5F_ACTIONS))
 def test_unported_chaos_action_is_refused_with_its_item(action):
     """Refused when the topology is built, from code, from the config
-    gate and on one shard of a sharded tile."""
+    gate and on one shard of a sharded tile; a snapshot drill is
+    accepted on snapld from code and through the config gate."""
     from firedancer_tpu_torch.app import config as tconfig
     from firedancer_tpu_torch.disco import Topology
-    match = f"queue A item {UNPORTED_CHAOS_ACTIONS[action]}$"
     plan = {"events": [{"action": "crash", "at_rx": 9},
                        {"action": action}]}
+    if action in PORTED_5F_ACTIONS:
+        assert action not in UNPORTED_CHAOS_ACTIONS
+        assert Topology("tc").tile("a", "snapld", chaos=plan) \
+            .tiles["a"].args["chaos"] == plan
+        topo = tconfig.build_topology({"tile": [
+            {"name": "l", "kind": "snapld", "chaos": plan},
+            {"name": "r", "kind": "replay", "chaos": plan}]})
+        assert topo.tiles["r"].args["chaos"] == plan
+        assert tchaos.ChaosPlan(plan).events[1]["action"] == action
+        return
+    match = f"queue A item {UNPORTED_CHAOS_ACTIONS[action]}$"
     with pytest.raises(NotImplementedError, match=match):
         Topology("tc").tile("a", "synth", chaos=plan)
     with pytest.raises(NotImplementedError, match=match):

@@ -176,7 +176,9 @@ def test_shard_death_redispatch_matches_reference(wksps):
 def test_exec_and_bank_refusals(wksps):
     """An exec tile without a shm store, a bank whose exec_links do not
     pair up or run without exec="svm": the reference's ValueErrors. The
-    bank's genesis_ckpt stays refused, naming item 5f."""
+    bank's genesis_ckpt is refused with exec links only, as the
+    reference's (its ValueError); without them the bank boots from the
+    checkpoint (tools/exec_drills.genesis_ckpt_boot)."""
     from types import SimpleNamespace
     _, tw = wksps
     ring = Ring.create(tw, depth=16, mtu=4096)
@@ -200,8 +202,10 @@ def test_exec_and_bank_refusals(wksps):
     with pytest.raises(ValueError, match="need exec=\"svm\""):
         ttiles.BankAdapter(bctx, {"exec": "stub", "exec_links": ["x"],
                                   "exec_done": ["y"]})
-    with pytest.raises(NotImplementedError, match="queue A item 5f$"):
+    with pytest.raises(ValueError, match="genesis_ckpt is process-funk "
+                                         "only"):
         ttiles.BankAdapter(bctx, {"exec": "svm", "genesis_ckpt": "g.bin",
+                                  "exec_links": ["x"], "exec_done": ["y"],
                                   "device": "cpu"})
 
 

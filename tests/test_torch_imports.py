@@ -54,7 +54,9 @@ def test_importing_every_module_loads_no_jax():
         "'tools.gossvf_bench', 'funk.shmfunk', 'svm.alut', "
         "'tools.exec_drills', 'disco.slo', 'disco.httpd', 'prof', "
         "'prof.recorder', 'prof.device', 'prof.export', 'prof.cli', "
-        "'prof.__main__'}\n"
+        "'prof.__main__', 'utils.checkpt', 'tiles.snapshot', "
+        "'flamenco.snapshot', 'tiles.archiver', 'app.backtest', "
+        "'tools.catchup'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -301,8 +301,17 @@ def test_poh_wave_backpressure_resumes_exact(wksps):
     ("pack", {"bundle_in": "bundles"}, 13)])
 def test_unported_adapter_arg_is_refused_with_its_item(wksps, kind, arg,
                                                        item):
+    """Each refused arg names its queue-A item. The bank's genesis_ckpt
+    (item 5f) is ported: the adapter opens the checkpoint, so a missing
+    file raises the reference's FileNotFoundError
+    (tests/test_torch_exec_tile.py boots from a real one)."""
     links = BANK_LINKS if kind == "bank" else PACK_LINKS
     args = {**({"exec": "svm"} if kind == "bank" else PACK_ARGS), **arg}
+    if item == "5f":
+        with pytest.raises(FileNotFoundError, match="g.bin"):
+            Rig(trt, ttiles, wksps[1], kind, {**args, "device": "cpu",
+                                              "poh_link": "poh"}, **links)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"queue A item {item}$"):
         Rig(trt, ttiles, wksps[1], kind, args, **links)

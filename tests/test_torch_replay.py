@@ -329,10 +329,11 @@ def test_adapters_recover_and_replay_over_rings(wksp, run):
     {"snapshot_every": 4}, {"snapshot_compress": True}])
 def test_replay_adapter_refuses_fanout_and_snapshots_with_item_5(wksp,
                                                                  arg):
-    """The snapshot restore and writer stay refused, naming item 5f. The
-    fan-out's args are the reference's: `exec_links` without a shm store
-    is the reference's ValueError, and `exec_done` or `redispatch_s`
-    alone change nothing."""
+    """The fan-out's args are the reference's: `exec_links` without a shm
+    store is the reference's ValueError, and `exec_done` or
+    `redispatch_s` alone change nothing. The snapshot restore and writer
+    (item 5f) are ported: each arg reaches the core as the reference's
+    adapter passes it (tests/test_torch_catchup.py drives them)."""
     def make():
         return ttiles.REGISTRY["replay"](
             _ctx(wksp, {"slices": (16, 1 << 16)}, {"tower": (16, 128)}),
@@ -343,8 +344,10 @@ def test_replay_adapter_refuses_fanout_and_snapshots_with_item_5(wksp,
     elif "exec_done" in arg or "redispatch_s" in arg:
         assert make().core.fanout is None
     else:
-        with pytest.raises(NotImplementedError, match="queue A item 5f$"):
-            make()
+        core = make().core
+        key, val = next(iter(arg.items()))
+        assert getattr(core, key) == val
+        assert core.waiting == (key == "wait_restore")
 
 
 def test_replay_adapter_on_the_card_without_one_fails_its_boot(wksp):

@@ -117,16 +117,43 @@ def test_toml_builds_the_same_topology_under_both_loaders(overrides):
 
 # -- refusals -----------------------------------------------------------
 
-@pytest.mark.parametrize("section", sorted(UNPORTED_SECTIONS))
+# what queue A item 5f ported (the cold-start follower): refused before
+# it, accepted since, so these cases now pin the acceptance
+PORTED_5F_SECTIONS = ("snapshot",)
+PORTED_5F_KINDS = ("archiver", "playback", "snapdc", "snapin", "snapld")
+
+
+@pytest.mark.parametrize("section", sorted(UNPORTED_SECTIONS)
+                         + list(PORTED_5F_SECTIONS))
 def test_unported_section_is_refused_with_its_item(section):
-    item = f"queue A item {UNPORTED_SECTIONS[section]}"
     cfg = tconfig.load_config(TOML, overrides={section: {}})
+    if section in PORTED_5F_SECTIONS:
+        # accepted, validated (an unknown key raises the reference's
+        # did-you-mean) and carried on the plan with its defaults
+        assert section not in UNPORTED_SECTIONS
+        assert tconfig.build_topology(cfg).snapshot == {}
+        bad = tconfig.load_config(TOML, overrides={section: {"pth": ""}})
+        with pytest.raises(ValueError, match="did you mean 'path'"):
+            tconfig.build_topology(bad)
+        return
+    item = f"queue A item {UNPORTED_SECTIONS[section]}"
     with pytest.raises(NotImplementedError, match=item):
         tconfig.build_topology(cfg)
 
 
-@pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS))
+@pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS)
+                         + list(PORTED_5F_KINDS))
 def test_unported_kind_is_refused_with_its_item(kind):
+    if kind in PORTED_5F_KINDS:
+        # accepted from code and through the config gate, with the
+        # reference's keys (lint/registry.py) and no other
+        assert kind not in UNPORTED_KINDS and kind in ttiles.REGISTRY
+        assert Topology("tk").tile("t", kind).tiles["t"].kind == kind
+        tconfig.build_topology({"tile": [{"name": "t", "kind": kind}]})
+        with pytest.raises(ValueError, match="unknown key"):
+            tconfig.build_topology(
+                {"tile": [{"name": "t", "kind": kind, "nosuch": 1}]})
+        return
     item = f"queue A item {UNPORTED_KINDS[kind]}"
     with pytest.raises(NotImplementedError, match=item):
         Topology("tk").tile("t", kind)
@@ -139,7 +166,8 @@ def test_every_reference_kind_is_ported_or_refused():
     assert set(ttiles.REGISTRY) == {"synth", "verify", "dedup", "sink",
                                     "pack", "bank", "poh", "shred",
                                     "sign", "replay", "sock", "gossip",
-                                    "exec", "resolv", "metric"}
+                                    "exec", "resolv", "metric",
+                                    *PORTED_5F_KINDS}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
@@ -170,7 +198,8 @@ def test_config_gate_accepts_the_reference_keys_plus_device():
         ref = jregistry.known_keys(kind)
         port = {"name", "kind", "ins", "outs", *tconfig.COMMON_KEYS,
                 *keys}
-        on_card = kind in ("verify", "bank", "replay", "gossip", "exec")
+        on_card = kind in ("verify", "bank", "replay", "gossip", "exec",
+                           "snapin")
         assert port - ref == ({"device"} if on_card else set())
         assert ref <= port
 
