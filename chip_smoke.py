@@ -209,6 +209,22 @@ and read just after:
             restored) and on the replay's writer (the previous file
             intact, the .tmp refused), and the bank booted from a
             genesis_ckpt == booted from its dict.
+  general   phase 23: general execution (tools/general_exec.py). 23a
+            boots firedancer_tpu_torch/cfg/general.toml (sock -> verify
+            x2 -> dedup -> pack -> bank0 exec="general" -> poh -> shred
+            <-> sign -> shredsink) over a genesis of 512 validators
+            (vote and stake accounts), 16 lookup tables and 256 users,
+            and sends 4,544 signed txns (4,096 votes, transfers, stake,
+            ALUT and precompile txns, 16 designed failures) to the sock
+            door: door rx = sent, every txn executed, failed or a
+            counted drop, exec_fail = the CPU oracle's = 16, rewards
+            paid, bank0's store == the plain general path over the
+            microblocks it took, no verify fallback, every tile exits
+            0. 23b replays the whole workload, v0 through the tables
+            included, in process on the card and on the CPU: every
+            slot's bank hash and every account equal, poh_verify and
+            lthash launched. 23c holds those launches to their plain
+            versions and times lthash at a vote-heavy slot delta.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -224,7 +240,9 @@ wave scans of phase 20's exec shards; the topology phases' verify
 batches, and the launches phase 21's capture recorded), error against
 its plain version, time, plain time and bound (poh_verify and lthash
 also at the replay's own shapes, lthash at phase 22's restore shapes;
-phase 22's wave scans and lthash launches are counted in).
+phase 22's wave scans and lthash launches are counted in, and phase
+23's poh_verify and lthash; lthash also at phase 23c's vote-heavy slot
+delta).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -3099,6 +3117,131 @@ def run_cold_start(root, card, counts, reset_counts):
     log(f"22: {rec['wall_s']:.1f} s; launches on its paths {launches} {card}")
     return launches, rec
 
+
+def run_general_exec(root, card, counts, reset_counts):
+    """Phase 23: general execution. 23a: firedancer_tpu_torch/cfg/
+    general.toml booted on the card (sock -> verify x2 -> dedup -> pack
+    -> bank0 exec="general" -> poh -> shred <-> sign -> shredsink) over
+    tools/general_exec.py's genesis (512 validators with vote and stake
+    accounts, 16 lookup tables, 256 users), its 4,544 signed txns (4,096
+    votes, transfers, stake, ALUT and precompile txns, 16 designed
+    failures) sent to the sock door by a WindowSender; the checks of
+    general_exec.run_general (door rx = sent, every txn executed, failed
+    or a counted drop, exec_fail = the oracle's = the 16 designed,
+    rewards paid, bank0's store == PlainBank's over the microblocks it
+    took, no verify fallback, every tile exits 0). 23b: ReplayCore on
+    the card over the same genesis replays the whole workload, v0
+    included, as slices with a real PoH chain across an epoch boundary,
+    each poh_verify and lthash launch recorded; the same on the CPU:
+    every slot's bank hash and every account equal, both kernels
+    launched. 23c: every recorded launch held to its plain version, and
+    lthash at the largest slot delta's shape (a vote-heavy slot) timed
+    by a CUDA graph of ITERS launches beside its bound and its plain
+    version; the host's us a txn by program family from 23a's oracle.
+    -> ({kernel: launches on the in-process path}, record)."""
+    from firedancer_tpu_torch.app.config import load_config
+    from firedancer_tpu_torch.ops import blake3 as b3, cuda_blake3, \
+        cuda_sha256
+    from firedancer_tpu_torch.tools import blake3_bench, wave_bench
+    from firedancer_tpu_torch.tools import general_exec as gx
+    cfg_path = os.path.join(root, "firedancer_tpu_torch", "cfg",
+                            "general.toml")
+    build_dir = os.path.join(root, "firedancer_tpu_torch", "build",
+                             "general")
+    t0 = time.perf_counter()
+    wl = gx.build()
+    genesis = gx.write_genesis(wl, os.path.join(build_dir, "genesis.ckpt"))
+    build_s = time.perf_counter() - t0
+    log(f"== 23a. cfg/general.toml on the card: {len(wl.traffic)} txns "
+        f"{wl.counts} from {gx.VALIDATORS} validators to the sock door, "
+        f"bank0 exec=\"general\" over {len(wl.genesis)} genesis accounts "
+        f"(signed in {build_s:.1f} s) {card}")
+    t0 = time.perf_counter()
+    rec_a = gx.run_general(cfg_path, wl, genesis, DEVICE,
+                           f"smoke23{os.getpid()}",
+                           os.path.join(build_dir, "final.ckpt"))
+    a_s = time.perf_counter() - t0
+    log(f"23a: {json.dumps(rec_a)} in {a_s:.1f} s {card}")
+
+    # cfg/general.toml's epoch and PoH settings, as 23a ran them; the
+    # slots start two before the first epoch boundary, so the replay
+    # crosses it
+    spe, hpt = gx.chain_settings(load_config(cfg_path))
+    slices = gx.workload_slices(wl, spe - 2, hpt)
+    log(f"== 23b. ReplayCore on the card and on the CPU: {len(slices)} "
+        f"slots ({len(wl.traffic)} txns and {len(wl.v0)} v0 transfers "
+        f"through the tables), slots_per_epoch {spe} {card}")
+    launches = {"poh_verify": [], "lthash": []}
+    k_poh, k_lt = cuda_sha256.poh_verify, cuda_blake3.lthash
+
+    def rec_poh(*a):
+        out = k_poh(*a)
+        launches["poh_verify"].append((a, out))
+        return out
+
+    def rec_lt(*a):
+        out = k_lt(*a)
+        launches["lthash"].append((a, out))
+        return out
+    cuda_sha256.poh_verify, cuda_blake3.lthash = rec_poh, rec_lt
+    try:
+        reset_counts()
+        on_card = gx.replay_workload(slices, genesis, DEVICE, hpt, spe)
+        torch.cuda.synchronize()
+        path = counts()
+    finally:
+        cuda_sha256.poh_verify, cuda_blake3.lthash = k_poh, k_lt
+    on_cpu = gx.replay_workload(slices, genesis, "cpu", hpt, spe)
+    assert on_card["bank_hashes"] == on_cpu["bank_hashes"], \
+        "23b: bank hashes on the card != on the CPU"
+    assert on_card["state"] == on_cpu["state"], \
+        "23b: accounts on the card != on the CPU"
+    cm = on_card["metrics"]
+    assert cm == on_cpu["metrics"], (cm, on_cpu["metrics"])
+    assert cm["poh_fail"] == 0 and cm["exec_fail"] == wl.designed_fail \
+        and cm["txns"] == len(wl.traffic) + len(wl.v0), cm
+    assert path["poh_verify"] == len(launches["poh_verify"]) > 0 and \
+        path["lthash"] == len(launches["lthash"]) > 0, path
+    log(f"23b: {len(slices)} slots, every bank hash and all "
+        f"{len(on_card['state'])} accounts equal; card {on_card['seconds']:.2f}"
+        f" s, CPU {on_cpu['seconds']:.2f} s; launches poh_verify "
+        f"{path['poh_verify']}, lthash {path['lthash']}; {cm} {card}")
+
+    log(f"== 23c. the replay's launches held to their plain versions; "
+        f"lthash at the vote-heavy slot delta's shape, CUDA graph of "
+        f"{ITERS} {card}")
+    errs, _ = follower_kernel_times(launches, hpt, blake3_bench.work)
+    assert errs == {"poh_verify": 0, "lthash": 0}, errs
+    # launch 0 folds the genesis store (the boot's lthash_of_root); the
+    # largest after it is a slot delta's side
+    a, _ = max(launches["lthash"][1:], key=lambda x: x[0][0].shape[0])
+    w = blake3_bench.work(a[1].cpu().numpy(), "lthash")
+    delta = stats_of(
+        wave_bench.graph_ms(lambda: cuda_blake3.lthash(*a), ITERS),
+        cuda_ms(lambda: b3.lthash_plain(*a), 1), w["ops"], w["bytes"])
+    delta["max_abs_err"] = int((k_lt(*a) - b3.lthash_plain(*a))
+                               .abs().max())
+    assert delta["max_abs_err"] == 0
+    lens = a[1].cpu().numpy()
+    delta["shape"] = (f"{a[0].shape[0]} lanes x {a[0].shape[1]} B "
+                      f"(mean {float(lens.mean()):.1f} B)")
+    log(f"23c: lthash at {delta['shape']}: kernel {delta['ms']:.4f} ms, "
+        f"plain {delta['plain_ms']:.2f} ms, bound {delta['bound_ms']:.6f} "
+        f"ms by {delta['bound_by']}, {delta['ms'] / delta['bound_ms']:.1f}x "
+        f"the bound, max_abs_err 0 {card}")
+    log(f"23c: host us a txn by program family (23a's plain general "
+        f"path): {json.dumps(rec_a['host_us_per_txn'])} {card}")
+    rec = {"23a": rec_a, "23a_s": a_s, "workload_s": build_s,
+           "23b": {"slots": len(slices), "accounts": len(on_card["state"]),
+                   "card_s": on_card["seconds"],
+                   "cpu_s": on_cpu["seconds"], "launches": path,
+                   "metrics": cm},
+           "23c": {"lthash_vote_delta": {k: delta[k] for k in (
+               "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+               "max_abs_err")}, "host_us_per_txn": rec_a["host_us_per_txn"]}}
+    return {"poh_verify": path["poh_verify"], "lthash": path["lthash"]}, rec
+
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -3791,6 +3934,14 @@ def main() -> int:
     cold_launches, rec22 = run_cold_start(root, card, counts, reset_counts)
     log(f"22 record {json.dumps(rec22, default=str)}")
 
+    # 23. general execution: cfg/general.toml's vote-heavy leader with
+    # bank0 exec="general" (23a), the in-process follower on the card and
+    # the CPU with v0 through the lookup tables (23b), the replay's
+    # launches and lthash at a vote-heavy slot delta (23c)
+    general_launches, rec23 = run_general_exec(root, card, counts,
+                                               reset_counts)
+    log(f"23 record {json.dumps(rec23)}")
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
     for name, src, rep, err in (
@@ -3823,9 +3974,10 @@ def main() -> int:
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
     # the follower's replay tile counts its own launches in the topology
-    tile_launches = {"poh_verify": rec17["poh_launches"],
+    tile_launches = {"poh_verify": rec17["poh_launches"]
+                     + general_launches["poh_verify"],
                      "lthash": rec17["lthash_launches"]
-                     + cold_launches["lthash"]}
+                     + cold_launches["lthash"] + general_launches["lthash"]}
     for name, src, rep in (
             ("sha256", "sha256.cu", "firedancer_tpu/ops/sha2.py:211"),
             ("poh_verify", "sha256.cu", "firedancer_tpu/ops/poh.py:41"),
@@ -3884,6 +4036,10 @@ def main() -> int:
             kernels[-1]["max_abs_err"] = max(
                 [kernels[-1]["max_abs_err"]]
                 + [f["max_abs_err"] for f in kernels[-1]["restore_ms"]])
+            # phase 23c: a vote-heavy slot's delta, CUDA graph
+            kernels[-1]["vote_delta_ms"] = rec23["23c"]["lthash_vote_delta"]
+        if name in general_launches:
+            kernels[-1]["general_launches"] = general_launches[name]
     # the verify tiles of the topology phases launch in their own
     # processes: their batches a phase (each strict batch one sha512_ram
     # and one ed25519_verify launch, each RLC batch one of each stage),
@@ -3891,7 +4047,8 @@ def main() -> int:
     strict_b = {"10c": rec10c["verify_batches"],
                 "12": sum(rec["verify_batches"].values()),
                 "19c": rec19["flood"]["verify"]["batches"],
-                "21": rec21["verify_batches"]}
+                "21": rec21["verify_batches"],
+                "23a": sum(rec23["23a"]["verify_batches"].values())}
     rlc_b = {"19c": rec19["flood"]["verify"]["rlc_batches"]}
     glob = {"sha512": "sha512_kernel", "sha512_ram": "sha512_kernel",
             "ed25519_verify": "ed25519_verify_kernel",

@@ -41,18 +41,24 @@ Where the copy differs from the reference:
   * PackAdapter refuses `bundle_in` (the bundle tile, item 13);
   * BankAdapter runs exec="svm" (the wave executor, svm/executor.py, on
     the card unless its `device` arg says "cpu"; or, with `exec_links`,
-    the exec tile family over the shm store) and exec="stub"; it
-    refuses exec="general" (the full host SVM, item 15) and the RPC
-    and WebSocket surfaces (`rpc_port`, `ws_port`, item 16); its
+    the exec tile family over the shm store), exec="general" (the full
+    host SVM of svm/programs.py a microblock, with the epoch boundary's
+    stake history and partitioned rewards) and exec="stub"; it refuses
+    the RPC and WebSocket surfaces (`rpc_port`, `ws_port`, item 16); its
     `genesis_ckpt` restores a process funk (utils/checkpt.funk_restore)
-    and, as in the reference, is refused with exec links. It boots by
-    running one
-    one-transfer wave through the kernel, so a kernel that does not
-    build or launch fails the tile's boot, and it counts the kernel
-    launches it makes after that in its `wave_launches` metric; its
-    tpu histogram holds two host-clock spans a wave: staging plus
-    dispatch, and finalize (the wait on the wave's CUDA event, the copy
-    back and the commit);
+    and, as in the reference, is refused with exec links. With
+    exec="svm" it boots by running one one-transfer wave through the
+    kernel, so a kernel that does not build or launch fails the tile's
+    boot, and it counts the kernel launches it makes after that in its
+    `wave_launches` metric; its tpu histogram holds two host-clock spans
+    a wave: staging plus dispatch, and finalize (the wait on the wave's
+    CUDA event, the copy back and the commit). With exec="general" it
+    builds the WaveExecutor on its `device` as the reference does and
+    launches nothing: its tpu histogram holds one host-clock span a
+    microblock's execution. A process-funk bank (svm or general) takes
+    the port's own `final_ckpt` arg: at its halt it writes its store's
+    root there (utils/checkpt.funk_checkpt, uncompressed, by a rename),
+    so a drill can hold the store to an oracle after the tile is gone;
   * the knob reads of pack's and bank's housekeeping (item 11) find no
     knobs: the port's TileCtx has none;
   * ShredAdapter runs mode="leader" and mode="recover" (the follower's
@@ -955,6 +961,14 @@ class BankAdapter:
     on the optional poh link. Use one bank tile with exec="svm":
     multi-bank topologies share no account state.
 
+    exec="general": the FULL host SVM a microblock (svm/programs.py
+    TxnExecutor: every ported program, v0 through lookup tables), in the
+    conflict-DAG wave order the replay uses, one funk fork a microblock;
+    at the first microblock of a new epoch the bank appends each crossed
+    epoch's stake history and pays its partitioned rewards
+    (flamenco/stakes.py, flamenco/rewards.py), persisting the
+    paid-through marker in the store.
+
     exec="stub": count txns and ack (ring-plumbing tests).
 
     Exec tile fan-out: with `exec_links`/`exec_done` the bank keeps only
@@ -981,23 +995,23 @@ class BankAdapter:
 
     args: exec, wave (microblocks per device wave), poh_link (optional
     out link name), forward_payloads, genesis ({pubkey hex: lamports}),
-    genesis_synth (fund the first N synth signers), device ("cuda" |
-    "cpu"), exec_links/exec_done (ordered per-exec-shard dispatch and
-    completion links), redispatch_s; the done link is the remaining
-    out link."""
+    genesis_synth (fund the first N synth signers), genesis_ckpt,
+    slots_per_epoch (exec="general": MUST match the follower's),
+    final_ckpt (the store's root at the halt, for drills), device
+    ("cuda" | "cpu"), exec_links/exec_done (ordered per-exec-shard
+    dispatch and completion links), redispatch_s; the done link is the
+    remaining out link."""
 
     METRICS = ["microblocks", "txns", "transfers", "exec_skip",
                "exec_fail", "overruns", "wave_launches", "exec_waves",
-               "exec_redispatch"]
+               "exec_redispatch", "rewards_paid"]
 
     def __init__(self, ctx, args):
         for key, item in (("rpc_port", 16), ("ws_port", 16)):
             if args.get(key) is not None:
                 refuse(f"bank arg {key!r}", item)
         self.exec_mode = args.get("exec", "stub")
-        if self.exec_mode == "general":
-            refuse("bank exec=\"general\" (the full host SVM)", 15)
-        if self.exec_mode not in ("svm", "stub"):
+        if self.exec_mode not in ("svm", "general", "stub"):
             raise ValueError(f"bank {ctx.tile_name}: unknown exec "
                              f"{self.exec_mode!r}")
         self.ctx = ctx
@@ -1031,7 +1045,15 @@ class BankAdapter:
             self.poh_out = None
         self.m = {k: 0 for k in self.METRICS}
         self.slot = 0                  # highest slot seen in microblocks
+        self._rewards_epoch = None     # lazily read from the marker
+        self.slots_per_epoch = int(args.get("slots_per_epoch", 432_000))
         self.fwd_payloads = bool(args.get("forward_payloads", False))
+        self.final_ckpt = args.get("final_ckpt")
+        if self.final_ckpt and (self.exec_mode == "stub"
+                                or self.exec_links):
+            raise ValueError(f"bank {ctx.tile_name}: final_ckpt needs a "
+                             f"process funk (exec \"svm\" or "
+                             f"\"general\", no exec_links)")
         if self.fwd_payloads and self.poh_out is not None:
             # fail at BOOT, not mid-flight: the poh frame re-wraps the
             # microblock txn section (micro hdr 20 -> poh hdr 42), so
@@ -1044,12 +1066,14 @@ class BankAdapter:
                     f"poh link mtu >= {need}, got {have}")
         self.wave = max(1, int(args.get("wave", 8)))
         self._pending = None           # svm: dispatched, uncommitted wave
-        if self.exec_mode == "svm":
+        if self.exec_mode in ("svm", "general"):
             from .metrics import HistAccum
             from ..funk.funk import Funk, key32
             from ..ops import cuda_wave
             from ..svm.executor import WaveExecutor
             self._cuda_wave = cuda_wave
+            # built for "general" too, as the reference does; only
+            # exec="svm" launches it
             self._wx = WaveExecutor(args.get("device", "cuda"))
             # genesis checkpoint: restore the WHOLE boot state
             # (utils/checkpt.funk_restore) into a process funk; the
@@ -1085,7 +1109,18 @@ class BankAdapter:
                 for pub, bal in _synth_genesis(
                         int(args["genesis_synth"])).items():
                     self.funk.rec_write(None, key32(pub), bal)
-            self._warmup()
+            if self.exec_mode == "general":
+                from ..svm.accdb import AccDb, Account
+                from ..svm.programs import TxnExecutor
+                # the general executor needs TYPED genesis accounts
+                for key, val in list(self.funk.root_items().items()):
+                    if isinstance(val, int):
+                        self.funk.rec_write(None, key32(key),
+                                            Account(lamports=val))
+                self.db = AccDb(self.funk)
+                self.executor = TxnExecutor(self.db)
+            else:
+                self._warmup()
             self.tpu_hist = HistAccum()
         self.seq = ctx.in_seq0.get(self.in_link, 0)
         self.mtu = ctx.plan["links"][self.in_link]["mtu"]
@@ -1109,6 +1144,120 @@ class BankAdapter:
             bytes(31) + b"\x01", bytes(31) + b"\x02", 1, 1)]))
         wx.finalize(scratch, disp)
         self._launch0 = self._cuda_wave.launches["wave_scan"]
+
+    def _parse_payloads(self, frame, txn_cnt):
+        """THE microblock frame walker (header 20, u16-framed
+        payloads): -> (payloads, parsed ParsedTxns, sha256 mixin over
+        first signatures)."""
+        from ..protocol.txn import parse_txn
+        payloads, parsed, sigs = [], [], []
+        off = 20
+        for _ in range(txn_cnt):
+            (ln,) = struct.unpack_from("<H", frame, off)
+            off += 2
+            p = bytes(frame[off:off + ln])
+            off += ln
+            try:
+                t = parse_txn(p)
+                sigs.append(t.signatures(p)[0])
+                payloads.append(p)
+                parsed.append(t)
+            except Exception:
+                self.m["exec_skip"] += 1
+        return payloads, parsed, hashlib.sha256(b"".join(sigs)).digest()
+
+    def _wave_order(self, payloads, parsed, xid):
+        """Conflict-DAG wave order over the microblock (pack already
+        guarantees intra-microblock non-conflict, but the DAG is the
+        execution contract: the replay uses the identical staging).
+        Resolution runs at the SAME slot the executor will use, so the
+        two call sites can never disagree on table activeness."""
+        from ..replay.rdisp import ConflictDag
+        from ..svm.alut import AlutResolveError, resolve_loaded_keys
+        dag = ConflictDag()
+        for p, t in zip(payloads, parsed):
+            keys = t.account_keys(p)
+            flags = [t.is_writable(i) for i in range(t.acct_cnt)]
+            if t.version == 0 and t.aluts:
+                try:
+                    lk, lw = resolve_loaded_keys(
+                        self.db, xid, t, slot=self.executor.slot)
+                    keys, flags = keys + lk, flags + lw
+                except AlutResolveError:
+                    pass              # executor fails it cleanly
+            dag.add_txn([k for k, w in zip(keys, flags) if w],
+                        [k for k, w in zip(keys, flags) if not w])
+        for wave in dag.waves():
+            for i in wave:
+                yield payloads[i], parsed[i]
+
+    def _epoch_boundary(self, xid):
+        """Pay EVERY epoch crossed since the persisted paid-through
+        marker (quiet epochs with no microblocks included; a restart
+        from a snapshot resumes from the marker instead of re-paying):
+        first append epoch e's cluster totals to the StakeHistory
+        sysvar, so rate-limited warmup and cooldown engage from the
+        bank's own state, then pay e's rewards under the parent
+        blockhash sha256(b"epoch-%d" % (e + 1))."""
+        ep = self.slot // self.slots_per_epoch
+        if ep <= 0:
+            return
+        from ..flamenco import rewards, stakes
+        start = self._rewards_epoch
+        if start is None:
+            start = rewards.paid_through(self.funk, xid)
+        if ep > start:
+            for e in range(start, ep):
+                stakes.update_stake_history(self.funk, xid, e)
+                s = rewards.distribute_epoch_rewards(
+                    self.funk, xid, e, None, self.slots_per_epoch,
+                    hashlib.sha256(b"epoch-%d" % (e + 1)).digest())
+                self.m["rewards_paid"] += s["paid"]
+            rewards.mark_paid_through(self.funk, xid, ep)
+        self._rewards_epoch = ep
+
+    def _wave_general(self, frames):
+        """The FULL host SVM a microblock (inherently host-serial per
+        txn), with the wave's poh frames + completions flushed as batch
+        publishes after the execution loop."""
+        poh_frames = []
+        for frame, txn_cnt, mb_id in frames:
+            if not txn_cnt:
+                continue
+            payloads, parsed, mixin = self._parse_payloads(frame, txn_cnt)
+            if payloads:
+                t0 = time.perf_counter_ns()
+                new_xid = self._next_xid
+                self._next_xid += 1
+                self.funk.txn_prepare(None, new_xid)
+                ok = fail = 0
+                try:
+                    # the Clock view executes at the microblock's slot;
+                    # sysvar accounts materialize into this fork
+                    self.executor.begin_slot(
+                        new_xid, self.slot,
+                        slots_per_epoch=self.slots_per_epoch)
+                    self._epoch_boundary(new_xid)
+                    for p, _ in self._wave_order(payloads, parsed,
+                                                 new_xid):
+                        if self.executor.execute(new_xid, p).status \
+                                == "ok":
+                            ok += 1
+                        else:
+                            fail += 1
+                    self.funk.txn_publish(new_xid)
+                except Exception:
+                    self.funk.txn_cancel(new_xid)
+                    raise
+                self.m["transfers"] += ok
+                self.m["exec_fail"] += fail
+                self.tpu_hist.add(time.perf_counter_ns() - t0)
+            if self.poh_out is not None:
+                blob = frame[20:] if self.fwd_payloads else b""
+                poh_frames.append(
+                    (mb_id, struct.pack("<QH", mb_id, txn_cnt)
+                     + mixin + blob))
+        self._flush_wave(poh_frames, [mb_id for _, _, mb_id in frames])
 
     def _parse_transfers(self, frame, txn_cnt):
         """Microblock frame -> (SystemTxn list — one per system-program
@@ -1178,6 +1327,8 @@ class BankAdapter:
             frames.append((frame, txn_cnt, mb_id))
         if self.exec_mode == "svm":
             self._wave_svm(frames)
+        elif self.exec_mode == "general":
+            self._wave_general(frames)
         else:
             self._flush_wave([], [mb_id for _, _, mb_id in frames])
         return n
@@ -1323,6 +1474,14 @@ class BankAdapter:
             # rather than wedging the halt — no poh frame for a wave
             # that never completed, no partial commits in the store
             self.fanout.halt()
+        if self.final_ckpt:
+            import os
+
+            from ..utils.checkpt import funk_checkpt
+            tmp = f"{self.final_ckpt}.tmp{os.getpid()}"
+            with open(tmp, "wb") as f:
+                funk_checkpt(self.funk, f, compress=False)
+            os.replace(tmp, self.final_ckpt)
 
     def housekeeping(self):
         knobs = getattr(self.ctx, "knobs", None)

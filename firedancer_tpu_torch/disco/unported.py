@@ -6,12 +6,10 @@ ROADMAP.md queue-A item that ports it.
 kinds, the args (and `device_fail_limit`, which no item ports: the
 port's verify tile does not degrade to the CPU) and the chaos actions;
 the adapters refuse their own args (pack's `bundle_in`, item 13; the
-bank's exec="general", item 15, and `rpc_port` and `ws_port`, item 16;
-the sign tile's keyswitch region, item 13). The host
-executor refuses every program but the system program and
-ComputeBudget, and v0 transactions with address lookup tables
-(svm/programs.py, item 15; the resolv tile resolves such tables with
-svm/alut.py's read half). Nothing refused is silently ignored.
+bank's `rpc_port` and `ws_port`, item 16; the sign tile's keyswitch
+region, item 13). The host executor refuses the upgradeable loader and
+deployed sBPF programs (svm/programs.py, item 15b). Nothing refused is
+silently ignored.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Host-side transaction executor + the native system program (copy of
-the JAX package's svm/programs.py: `TxnExecutor` (:967-1074),
-`TxnContext`, `InstrCtx`, `LogCollector`, `TxnResult`, `_exec_system`
-(:284) with its nonce and seed accounts, `create_with_seed`, and the
-PDA derivation `create_program_address` / `find_program_address` that
-svm/alut.py's `derive_table_address` uses).
+the JAX package's svm/programs.py: `TxnExecutor` (:967-1074) with v0
+transactions through their lookup tables, `TxnContext`, `InstrCtx`,
+`LogCollector`, `TxnResult`, `_exec_system` (:284) with its nonce and
+seed accounts, `create_with_seed`, the PDA derivation
+`create_program_address` / `find_program_address` that svm/alut.py's
+`derive_table_address` uses, and `dispatch_instr` (:919-950) to the
+vote, stake, lookup-table and precompile programs of svm/vote.py,
+svm/stake.py, svm/alut.py and svm/precompiles.py).
 
 The reference's per-txn execution (load accounts, charge fees, dispatch
 instructions sequentially through native program handlers, commit or
@@ -13,18 +16,15 @@ program/fd_system_program.c:59-330). The wave executor (executor.py)
 covers the batched pure-transfer fast path on the device; THIS module
 is the host path the follower's replay runs.
 
-Where the copy differs from the reference: `dispatch_instr` (:919) runs
-two programs, the system program and ComputeBudget (whose requests
-`execute` pre-scans on pack/cost.py). Every other program the
-reference runs raises `disco.unported.refuse(..., 15)`: vote, stake,
-the address lookup table program, the ed25519 / secp256k1 / secp256r1
-precompiles, the upgradeable loader, and a deployed sBPF program (an
-executable account owned by a BPF loader). So does a v0 transaction
-with address lookup tables, before its fee is charged (the reference
-resolves the tables at :1024-1029). A program id that no program
-answers to fails the transaction with `unknown_program`, as in the
-reference. Without CPI an instruction's privileges are always the
-transaction message's.
+Where the copy differs from the reference: `dispatch_instr` has no
+`depth` or `budget` (CPI's), and the upgradeable loader and a deployed
+sBPF program (an executable account owned by a BPF loader) raise
+`disco.unported.refuse(..., "15b")` where the reference runs them. A
+program id that no program answers to fails the transaction with
+`unknown_program`, as in the reference. Without CPI an instruction's
+privileges are always the transaction message's, and `TxnResult` and
+`TxnContext` carry none of the sBPF path's compute meter, heap size or
+return data.
 
 Semantics mirrored from the reference per instruction:
   Transfer        from must SIGN, be writable, system-owned, no data;
@@ -49,28 +49,11 @@ from dataclasses import dataclass
 
 from ..disco.unported import refuse
 from ..funk.funk import key32
-from ..pack.cost import (
-    BPF_UPGRADEABLE_LOADER_ID, COMPUTE_BUDGET_PROGRAM_ID,
-    ED25519_SV_PROGRAM_ID, KECCAK_SECP_PROGRAM_ID, SECP256R1_PROGRAM_ID,
-)
+from ..pack.cost import BPF_UPGRADEABLE_LOADER_ID, COMPUTE_BUDGET_PROGRAM_ID
 from ..protocol.txn import ParsedTxn, parse_txn
 from .accdb import AccDb, Account, SYSTEM_PROGRAM_ID
 
 BPF_LOADER_ID = b"BPFLoader" + bytes(23)
-# the reference's ids of the programs that come with item 15
-# (svm/vote.py:28, svm/stake.py:30, svm/alut.py:24, svm/precompiles.py)
-VOTE_PROGRAM_ID = b"Vote" + bytes(28)
-STAKE_PROGRAM_ID = b"Stake" + bytes(27)
-ALUT_PROGRAM_ID = b"AddressLookupTab" + bytes(16)
-_UNPORTED_PROGRAMS = {
-    VOTE_PROGRAM_ID: "the vote program",
-    STAKE_PROGRAM_ID: "the stake program",
-    ALUT_PROGRAM_ID: "the address lookup table program",
-    ED25519_SV_PROGRAM_ID: "the ed25519 precompile",
-    KECCAK_SECP_PROGRAM_ID: "the secp256k1 precompile",
-    SECP256R1_PROGRAM_ID: "the secp256r1 precompile",
-    BPF_UPGRADEABLE_LOADER_ID: "the upgradeable BPF loader",
-}
 MAX_PERMITTED_DATA_LENGTH = 10 * 1024 * 1024
 
 # system instruction discriminants (u32 LE bincode, the Agave enum)
@@ -171,7 +154,9 @@ ERR_SPACE = "invalid_space"
 ERR_UNKNOWN_IX = "unknown_instruction"
 ERR_UNKNOWN_PROGRAM = "unknown_program"
 ERR_BAD_IX_DATA = "bad_instruction_data"
+ERR_VM = "program_failed"
 ERR_RENT = "insufficient_funds_for_rent"
+ERR_ALUT = "alut_resolution_failed"
 
 
 class LogCollector(list):
@@ -212,12 +197,18 @@ class TxnContext:
     """Per-txn view: copy-on-write accounts over one accdb fork."""
 
     def __init__(self, db: AccDb, xid, txn: ParsedTxn, payload: bytes,
-                 slot: int = 0):
+                 epoch: int = 0, slot: int = 0, loaded_keys=(),
+                 loaded_writable=()):
         self.db = db
         self.xid = xid
         self.txn = txn
+        self.payload = payload
+        self.epoch = epoch            # Clock-sysvar stand-in
         self.slot = slot
-        self.keys = txn.account_keys(payload)
+        # v0: table-loaded addresses extend the static list (writables
+        # first — the resolv contract, svm/alut.py)
+        self.keys = txn.account_keys(payload) + list(loaded_keys)
+        self._loaded_writable = list(loaded_writable)
         self._work: dict[bytes, Account] = {}
         self._pre: dict[bytes, tuple] = {}   # (lamports, data_len) at load
         self.logs = LogCollector()
@@ -226,6 +217,8 @@ class TxnContext:
         return idx < self.txn.sig_cnt
 
     def is_writable(self, idx: int) -> bool:
+        if idx >= self.txn.acct_cnt:
+            return self._loaded_writable[idx - self.txn.acct_cnt]
         return self.txn.is_writable(idx)
 
     def account(self, idx: int) -> Account:
@@ -584,20 +577,39 @@ def _exec_system(ic: InstrCtx) -> str:
 
 def dispatch_instr(ctx: TxnContext, ic: InstrCtx) -> str:
     """Route one instruction to its program (the fd_executor
-    native-program dispatch switch): the system program and
-    ComputeBudget run; every other program of the reference is refused
-    (item 15)."""
+    native-program dispatch switch); the upgradeable loader and deployed
+    sBPF programs are refused (item 15b)."""
+    from .alut import ALUT_PROGRAM_ID, exec_alut
+    from .precompiles import (
+        ED25519_PROGRAM_ID, SECP256K1_PROGRAM_ID, SECP256R1_PROGRAM_ID,
+        exec_ed25519_precompile, exec_secp256k1_precompile,
+        exec_secp256r1_precompile,
+    )
+    from .stake import STAKE_PROGRAM_ID, exec_stake
+    from .vote import VOTE_PROGRAM_ID, exec_vote
     pid = ic.program_id
     if pid == SYSTEM_PROGRAM_ID:
         return _exec_system(ic)
+    if pid == VOTE_PROGRAM_ID:
+        return exec_vote(ic)
+    if pid == STAKE_PROGRAM_ID:
+        return exec_stake(ic)
+    if pid == ALUT_PROGRAM_ID:
+        return exec_alut(ic)
+    if pid == ED25519_PROGRAM_ID:
+        return exec_ed25519_precompile(ic)
+    if pid == SECP256K1_PROGRAM_ID:
+        return exec_secp256k1_precompile(ic)
+    if pid == SECP256R1_PROGRAM_ID:
+        return exec_secp256r1_precompile(ic)
+    if pid == BPF_UPGRADEABLE_LOADER_ID:
+        refuse("the upgradeable BPF loader", "15b")
     if pid == COMPUTE_BUDGET_PROGRAM_ID:
         return OK                    # requests pre-scanned by execute()
-    if pid in _UNPORTED_PROGRAMS:
-        refuse(_UNPORTED_PROGRAMS[pid], 15)
     pa = ctx.db.peek(ctx.xid, pid)
     if pa is not None and pa.executable \
             and pa.owner in (BPF_LOADER_ID, BPF_UPGRADEABLE_LOADER_ID):
-        refuse("a deployed sBPF program", 15)
+        refuse("a deployed sBPF program", "15b")
     return ERR_UNKNOWN_PROGRAM
 
 
@@ -633,8 +645,6 @@ class TxnExecutor:
             txn = parse_txn(payload)
         except Exception:
             return TxnResult(ERR_PARSE, 0, [])
-        if txn.version == 0 and txn.aluts:
-            refuse("a v0 transaction with address lookup tables", 15)
         keys = txn.account_keys(payload)
         fee = self.fee_per_signature * txn.sig_cnt
 
@@ -660,17 +670,28 @@ class TxnExecutor:
         payer.account.lamports -= fee
         self.db.close_rw(payer)
 
-        ctx = TxnContext(self.db, xid, txn, payload, slot=self.slot)
+        loaded_keys, loaded_writable = (), ()
+        if txn.version == 0 and txn.aluts:
+            from .alut import AlutResolveError, resolve_loaded_keys
+            try:
+                loaded_keys, loaded_writable = resolve_loaded_keys(
+                    self.db, xid, txn, slot=self.slot)
+            except AlutResolveError:
+                return TxnResult(ERR_ALUT, fee, [])
+        ctx = TxnContext(self.db, xid, txn, payload, epoch=self.epoch,
+                         slot=self.slot, loaded_keys=loaded_keys,
+                         loaded_writable=loaded_writable)
         if self.enforce_rent:
             # force the payer into the working set under its pre-fee
             # baseline so the rent-state check always covers it
             ctx.account(0)
             ctx._pre[keys[0]] = payer_pre
+        keys = ctx.keys                # static + table-loaded
         total = len(keys)
         # pre-scan ComputeBudget requests (the reference resolves the
         # whole budget before dispatch, fd_compute_budget_program.h): a
         # malformed one fails the txn. The limits it sets meter sBPF
-        # execution only (item 15), so nothing here reads them.
+        # execution only (item 15b), so nothing here reads them.
         from ..pack.cost import ComputeBudgetState, CostError
         cb = ComputeBudgetState()
         for instr in txn.instrs:
@@ -683,6 +704,7 @@ class TxnExecutor:
                 except CostError:
                     return TxnResult(ERR_BAD_IX_DATA, fee, [])
         for instr in txn.instrs:
+            # v0 defers the index bound to post-resolution
             if instr.prog_idx >= total or \
                     any(i >= total for i in instr.acct_idxs):
                 return TxnResult(ERR_PARSE, fee, ctx.logs)

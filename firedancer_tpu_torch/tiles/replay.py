@@ -54,8 +54,10 @@ verifies a slot at a time; the verdicts are the same, and one launch
 serves them all. A release runs only slots whose final slice has come
 (the reference would also run a slot whose first slices are pending
 when a repaired parent completes). `InlineFanout` takes a `device`
-for its WaveExecutor. A v0 transaction with address lookup tables is
-refused (item 15) where the reference resolves its tables.
+for its WaveExecutor. As in the reference, the replay resolves a v0
+transaction's lookup tables ahead of its conflict DAG, executes every
+ported program through TxnExecutor, and pays no epoch rewards (the
+leader's general bank does).
 `on_span(kind, ns)`, when given, gets a host-clock span for each PoH
 check ("poh": one a release) and each bank-hash fold ("bank_hash": one
 a slot with transactions). The restore gate's fold is the reference's
@@ -71,7 +73,6 @@ import time
 
 import numpy as np
 
-from ..disco.unported import refuse
 from ..flamenco.bank_hash import BankHasher, accounts_lthash, lthash_of_root
 from ..funk.funk import Funk, key32
 from ..ops.poh import poh_verify_entries
@@ -79,6 +80,7 @@ from ..protocol.txn import parse_txn
 from ..replay.rdisp import ConflictDag
 from ..runtime import CNC_RUN
 from ..svm.accdb import AccDb, Account
+from ..svm.alut import AlutResolveError, resolve_loaded_keys
 from ..svm.programs import OK, TxnExecutor
 from .shred import parse_entry_batch, parse_slice
 from .tower import pack_block
@@ -439,10 +441,19 @@ class ReplayCore:
                 parsed.append(None)
                 dag.add_txn((), ())
                 continue
-            if p.version == 0 and p.aluts:
-                refuse("a v0 transaction with address lookup tables", 15)
             keys = p.account_keys(t)
             flags = [p.is_writable(i) for i in range(p.acct_cnt)]
+            if p.version == 0 and p.aluts:
+                # table-loaded accounts MUST be in the conflict graph
+                # (the serial-fiction invariant): resolve before
+                # scheduling, like the reference's resolv-before-exec
+                try:
+                    lk, lw = resolve_loaded_keys(self.db, None, p,
+                                                 slot=slot)
+                    keys = keys + lk
+                    flags = flags + lw
+                except AlutResolveError:
+                    pass             # executor fails it; no state touch
             writes = [k for k, w in zip(keys, flags) if w]
             reads = [k for k, w in zip(keys, flags) if not w]
             parsed.append(p)

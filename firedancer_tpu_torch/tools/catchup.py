@@ -45,7 +45,6 @@ lattice checked on `device`).
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import multiprocessing as mp
 import os
@@ -57,6 +56,8 @@ import time
 from types import SimpleNamespace
 
 import numpy as np
+
+from .slices import slot_slices, split
 
 # bench.py's defaults (FDTPU_BENCH_CATCHUP_*, bench.py:946-953)
 COUNT = 192
@@ -88,23 +89,13 @@ def funded_accounts(n: int, unique: int = UNIQUE, seed: int = 0) -> dict:
     return gen
 
 
-def slot_slices(count: int, n_slots: int) -> dict:
+def fixture_slices(count: int, n_slots: int) -> dict:
     """slot -> one complete slice of bench.py's fixture: one entry of the
     slot's share of `make_signed_txns(count, seed=23)` behind a
     hand-built tip (PoH verify is off in the stage)."""
-    from ..tiles.shred import pack_slice
     from ..tiles.synth import make_signed_txns
-    txns = make_signed_txns(count, seed=TXN_SEED)
-    per = max(1, count // n_slots)
-    slices = {}
-    for s in range(1, n_slots + 1):
-        chunk = txns[(s - 1) * per:s * per]
-        tip = hashlib.sha256(b"cu-tip-%d" % s).digest()
-        batch = struct.pack("<I", 1) + tip + struct.pack("<I", len(chunk))
-        for t in chunk:
-            batch += struct.pack("<H", len(t)) + t
-        slices[s] = pack_slice(s, 0, True, batch)
-    return slices
+    return slot_slices(split(make_signed_txns(count, seed=TXN_SEED),
+                             n_slots), b"cu-tip-")
 
 
 def catchup_fixture(tmp: str, count: int = COUNT, unique: int = UNIQUE,
@@ -129,7 +120,7 @@ def catchup_fixture(tmp: str, count: int = COUNT, unique: int = UNIQUE,
     oracle = ReplayCore(genesis=gen, verify_poh=False, funk=funk,
                         fanout=InlineFanout(funk, device="cpu"),
                         device="cpu")
-    slices = slot_slices(count, n_slots)
+    slices = fixture_slices(count, n_slots)
     snap_path = os.path.join(tmp, "snap.ckpt")
     for s in range(1, n_slots + 1):
         oracle.on_slice(slices[s])

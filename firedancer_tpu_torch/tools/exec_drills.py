@@ -44,6 +44,7 @@ from ..runtime import Ring, Store
 from ..svm.executor import SystemTxn, execute_block_serial
 from ..tiles.synth import synth_signer_seed
 from ..utils.ed25519_ref import keypair
+from .slices import slot_slices, split
 
 
 def synth_genesis(n: int = 16) -> dict:
@@ -322,22 +323,6 @@ def shard_death(wksp, txns, device="cuda") -> dict:
 
 # -- the follower's fan-out -------------------------------------------------
 
-def slot_slices(txns, n_slots: int) -> dict:
-    """slot -> one complete slice of one entry batch (a hand-built tip:
-    PoH verification off, the bank-hash chain is what is held)."""
-    from ..tiles.shred import pack_slice
-    per = max(1, len(txns) // n_slots)
-    out = {}
-    for s in range(1, n_slots + 1):
-        chunk = txns[(s - 1) * per:s * per]
-        tip = hashlib.sha256(b"fo-tip-%d" % s).digest()
-        batch = struct.pack("<I", 1) + tip + struct.pack("<I", len(chunk))
-        for t in chunk:
-            batch += struct.pack("<H", len(t)) + t
-        out[s] = pack_slice(s, 0, True, batch)
-    return out
-
-
 def inline_oracle(genesis: dict):
     """ReplayCore over InlineFanout on an in-process funk, on the CPU."""
     from ..funk.funk import Funk
@@ -424,7 +409,7 @@ def replay_fanout(wksp, txns, n_slots: int, device="cuda",
     rejoins). -> the per-slot bank hashes, the fan-out's counts and the
     wave-scan launches the shards made (the oracle's are not counted)."""
     genesis = {bytes.fromhex(k): v for k, v in synth_genesis(8).items()}
-    slices = slot_slices(txns, n_slots)
+    slices = slot_slices(split(txns, n_slots), b"fo-tip-")
     oracle = inline_oracle(genesis)
     for s in range(1, n_slots + 1):
         oracle.on_slice(slices[s])

@@ -42,7 +42,7 @@ def fixture(tmp_path_factory):
     jcore = ReplayCore(genesis=_synth_genesis(catchup.UNIQUE),
                        verify_poh=False, funk=funk,
                        fanout=InlineFanout(funk))
-    slices = catchup.slot_slices(catchup.COUNT, catchup.SLOTS)
+    slices = catchup.fixture_slices(catchup.COUNT, catchup.SLOTS)
     for s in range(1, catchup.SLOTS + 1):
         jcore.on_slice(slices[s])
     return {**fx, "tmp": tmp, "stale": stale, "ref": jcore}

@@ -294,7 +294,6 @@ def test_poh_wave_backpressure_resumes_exact(wksps):
 # -- refusals -----------------------------------------------------------
 
 @pytest.mark.parametrize("kind,arg,item", [
-    ("bank", {"exec": "general"}, 15),
     ("bank", {"genesis_ckpt": "g.bin"}, "5f"),
     ("bank", {"rpc_port": 0}, 16),
     ("bank", {"ws_port": 0}, 16),

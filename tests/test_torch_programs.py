@@ -3,9 +3,10 @@ system program with its seed and nonce accounts, ComputeBudget, the fee
 and rent discipline) and sysvar accounts (svm/sysvars.py) against the
 JAX package's, on the same accounts and transactions: statuses, fees,
 logs and every account of the fork equal (exact). The programs the port
-does not run (vote, stake, the lookup-table program, the precompiles, the
-loaders and deployed sBPF) and v0 transactions with lookup tables raise
-naming ROADMAP.md queue A item 15."""
+does not run (the upgradeable loader and deployed sBPF) raise naming
+ROADMAP.md queue A item 15b; the vote, stake, lookup-table and precompile
+programs and v0 transactions have parity files of their own
+(test_torch_conformance.py, test_torch_vote_program.py, ...)."""
 import struct
 
 import numpy as np
@@ -18,8 +19,7 @@ from firedancer_tpu.svm import programs as jprog
 from firedancer_tpu.svm import sysvars as jsys
 from firedancer_tpu_torch.funk import funk as tfunk
 from firedancer_tpu_torch.pack.cost import (
-    BPF_UPGRADEABLE_LOADER_ID, COMPUTE_BUDGET_PROGRAM_ID,
-    ED25519_SV_PROGRAM_ID, KECCAK_SECP_PROGRAM_ID, SECP256R1_PROGRAM_ID)
+    BPF_UPGRADEABLE_LOADER_ID, COMPUTE_BUDGET_PROGRAM_ID)
 from firedancer_tpu_torch.svm import accdb as taccdb
 from firedancer_tpu_torch.svm import programs as tprog
 from firedancer_tpu_torch.svm import sysvars as tsys
@@ -86,7 +86,7 @@ class Both:
                            v.executable, v.rent_epoch)
                      for key, v in funk.items_at("blk").items()
                      if isinstance(v, ad.Account)}
-            # return data comes from sBPF programs only (item 15)
+            # return data comes from sBPF programs only (item 15b)
             assert getattr(r, "return_data", b"") == b""
             got.append(((r.status, r.fee, list(r.logs)), accts))
         assert got[1] == got[0]
@@ -258,45 +258,33 @@ def test_begin_slot_sysvar_bytes_match_reference(slot, spe):
         jsys.enc_stake_history([(3, (1, 2, 3))])
 
 
-UNPORTED = {
-    "vote": tprog.VOTE_PROGRAM_ID, "stake": tprog.STAKE_PROGRAM_ID,
-    "alut": tprog.ALUT_PROGRAM_ID, "ed25519": ED25519_SV_PROGRAM_ID,
-    "secp256k1": KECCAK_SECP_PROGRAM_ID,
-    "secp256r1": SECP256R1_PROGRAM_ID,
-    "upgradeable_loader": BPF_UPGRADEABLE_LOADER_ID}
+UNPORTED = {"upgradeable_loader": BPF_UPGRADEABLE_LOADER_ID}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_other_programs_are_refused_with_item_15(name):
-    """Where the reference runs another program, the port raises naming
-    item 15 (never a silent skip); the ids are the reference's."""
-    from firedancer_tpu.svm import alut, stake, vote
-    assert (tprog.VOTE_PROGRAM_ID, tprog.STAKE_PROGRAM_ID,
-            tprog.ALUT_PROGRAM_ID) == (vote.VOTE_PROGRAM_ID,
-                                       stake.STAKE_PROGRAM_ID,
-                                       alut.ALUT_PROGRAM_ID)
+    """Where the reference runs the upgradeable loader, the port raises
+    naming item 15b (never a silent skip); the id is the reference's."""
     funk = tfunk.Funk()
     funk.rec_write(None, k(1), taccdb.Account(lamports=10**9))
     ex = tprog.TxnExecutor(taccdb.AccDb(funk))
-    with pytest.raises(NotImplementedError, match="queue A item 15$"):
+    with pytest.raises(NotImplementedError, match="queue A item 15b$"):
         ex.execute(None, txn([k(1)], [UNPORTED[name]], [(1, [0], b"\0")],
                              n_ro_unsigned=1))
 
 
 def test_deployed_program_and_lookup_tables_are_refused_with_item_15():
+    """A deployed sBPF program raises naming item 15b; v0 transactions
+    with lookup tables run (tests/test_torch_alut.py)."""
     funk = tfunk.Funk()
     funk.rec_write(None, k(1), taccdb.Account(lamports=10**9))
     funk.rec_write(None, k(7), taccdb.Account(
         lamports=1, data=b"\x95" + bytes(7), owner=tprog.BPF_LOADER_ID,
         executable=True))
     ex = tprog.TxnExecutor(taccdb.AccDb(funk))
-    with pytest.raises(NotImplementedError, match="sBPF.*item 15$"):
+    with pytest.raises(NotImplementedError, match="sBPF.*item 15b$"):
         ex.execute(None, txn([k(1)], [k(7)], [(1, [], b"")],
                              n_ro_unsigned=1))
-    v0 = txn([k(1)], [k(2), SYS], [ix(2, [0, 1], 2, 1)], version=0,
-             aluts=[(k(20), [0], [])])
-    with pytest.raises(NotImplementedError, match="lookup tables.*15$"):
-        ex.execute(None, v0)
 
 
 def test_accdb_handles_match_reference():

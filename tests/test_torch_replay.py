@@ -30,6 +30,7 @@ from firedancer_tpu_torch.tiles import replay as treplay
 from firedancer_tpu_torch.tiles import shred as tshred
 from firedancer_tpu_torch.tiles.tower import pack_block, parse_block
 from firedancer_tpu_torch.tools import exec_drills
+from firedancer_tpu_torch.tools.slices import slot_slices, split
 from firedancer_tpu_torch.utils.ed25519_ref import keypair, sign
 
 SEED = bytes(range(32))
@@ -374,7 +375,7 @@ def test_replay_fanout_bank_hashes_match_reference(wksp):
     oracle = _mk_oracle({k: v for k, v in GENESIS.items()
                          if k in _genesis8()})
     slices = _slot_slices(txns, 8)
-    assert slices == exec_drills.slot_slices(txns, 8)
+    assert slices == slot_slices(split(txns, 8), b"fo-tip-")
     for s in range(1, 9):
         oracle.on_slice(slices[s])
     assert got["bank_hashes"] == {s: oracle.bank_hash_of[s]
@@ -451,3 +452,41 @@ def test_replay_adapter_fanout_over_rings_matches_reference(wksp, run):
     assert m["exec_ok"] == ref.metrics["exec_ok"] == 80
     assert m["exec_waves"] == 4 and m["exec_redispatch"] == 0
     assert rp.in_seqs()["exec_done0"] + rp.in_seqs()["exec_done1"] >= 4
+
+
+def test_v0_slices_replay_to_reference_bank_hashes(tmp_path):
+    """The general workload (tools/general_exec.py, small) as slices with
+    a real PoH chain: votes, TowerSync, stake, lookup-table and
+    precompile txns, the designed failures, and v0 transfers that load
+    their destinations through the genesis tables, replayed by both
+    packages from one genesis checkpoint across an epoch boundary: equal
+    bank hashes a slot, equal metrics and equal stores (exact)."""
+    from firedancer_tpu.funk.funk import Funk as JFunk
+    from firedancer_tpu.svm.accdb import Account as JAccount
+    from firedancer_tpu.utils import checkpt as jcheckpt
+    from firedancer_tpu_torch.funk.funk import Funk as TFunk
+    from firedancer_tpu_torch.svm.accdb import Account as TAccount
+    from firedancer_tpu_torch.tools import general_exec as gx
+    from firedancer_tpu_torch.utils import checkpt as tcheckpt
+    wl = gx.build(8, 8, tables=2, table_addrs=8, scale=0.1)
+    genesis = gx.write_genesis(wl, str(tmp_path / "genesis.ckpt"))
+    slices = gx.workload_slices(wl, 62, HPT)
+    got = []
+    for mod, ck, fk, acct, kw in (
+            (jreplay, jcheckpt, JFunk, JAccount, {}),
+            (treplay, tcheckpt, TFunk, TAccount, {"device": "cpu"})):
+        with open(genesis, "rb") as f:
+            funk = ck.funk_restore(fk, f)
+        core = mod.ReplayCore(funk=funk, hashes_per_tick=HPT,
+                              slots_per_epoch=64, verify_poh=False, **kw)
+        for s in sorted(slices):
+            core.on_slice(slices[s])
+        got.append((dict(core.bank_hash_of),
+                    {k: core.metrics[k] for k in COMMON},
+                    {bytes(k): (v.lamports, bytes(v.data), v.owner)
+                     for k, v in funk.root_items().items()
+                     if isinstance(v, acct)}))
+    assert got[1] == got[0]
+    m = got[1][1]
+    assert m["slots_replayed"] == 8 and m["exec_fail"] == wl.designed_fail
+    assert m["txns"] == len(wl.traffic) + len(wl.v0)
