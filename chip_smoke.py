@@ -213,16 +213,25 @@ and read just after:
             boots firedancer_tpu_torch/cfg/general.toml (sock -> verify
             x2 -> dedup -> pack -> bank0 exec="general" -> poh -> shred
             <-> sign -> shredsink) over a genesis of 512 validators
-            (vote and stake accounts), 16 lookup tables and 256 users,
-            and sends 4,544 signed txns (4,096 votes, transfers, stake,
-            ALUT and precompile txns, 16 designed failures) to the sock
-            door: door rx = sent, every txn executed, failed or a
-            counted drop, exec_fail = the CPU oracle's = 16, rewards
-            paid, bank0's store == the plain general path over the
-            microblocks it took, no verify fallback, every tile exits
-            0. 23b replays the whole workload, v0 through the tables
-            included, in process on the card and on the CPU: every
-            slot's bank hash and every account equal, poh_verify and
+            (vote and stake accounts), 16 lookup tables, 256 users and
+            four deployed sBPF programs (tools/sbpf_family.py), and
+            sends 4,942 signed txns (4,104 votes, transfers, stake, ALUT
+            and precompile txns, 11 loader v3 txns: a deploy sequence,
+            an Upgrade, a SetAuthority and a Close; 384 sBPF invocations
+            and three failing ones; 22 designed failures) to the
+            sock door, draining after each slot of the deploy sequence:
+            door rx = sent, every txn executed, failed or a counted
+            drop, exec_fail = the CPU oracle's = 22, rewards paid,
+            bank0's store == the plain general path over the microblocks
+            it took, the sBPF family's own arithmetic on bank0's store
+            (vault PDAs' and recipients' lamports, the programdata of
+            the deployed and upgraded programs byte for byte, the
+            consumed buffers) and on each of its txns' status, return
+            data and log, no verify fallback, every tile exits 0; the
+            host's us a txn and a CU by program. 23b replays the whole
+            workload, v0 through the tables included, in process on the
+            card and on the CPU: every slot's bank hash and every
+            account equal, the sBPF arithmetic on both, poh_verify and
             lthash launched. 23c holds those launches to their plain
             versions and times lthash at a vote-heavy slot delta.
 
@@ -3123,22 +3132,27 @@ def run_general_exec(root, card, counts, reset_counts):
     general.toml booted on the card (sock -> verify x2 -> dedup -> pack
     -> bank0 exec="general" -> poh -> shred <-> sign -> shredsink) over
     tools/general_exec.py's genesis (512 validators with vote and stake
-    accounts, 16 lookup tables, 256 users), its 4,544 signed txns (4,096
-    votes, transfers, stake, ALUT and precompile txns, 16 designed
-    failures) sent to the sock door by a WindowSender; the checks of
-    general_exec.run_general (door rx = sent, every txn executed, failed
-    or a counted drop, exec_fail = the oracle's = the 16 designed,
-    rewards paid, bank0's store == PlainBank's over the microblocks it
-    took, no verify fallback, every tile exits 0). 23b: ReplayCore on
-    the card over the same genesis replays the whole workload, v0
-    included, as slices with a real PoH chain across an epoch boundary,
-    each poh_verify and lthash launch recorded; the same on the CPU:
-    every slot's bank hash and every account equal, both kernels
-    launched. 23c: every recorded launch held to its plain version, and
-    lthash at the largest slot delta's shape (a vote-heavy slot) timed
-    by a CUDA graph of ITERS launches beside its bound and its plain
-    version; the host's us a txn by program family from 23a's oracle.
-    -> ({kernel: launches on the in-process path}, record)."""
+    accounts, 16 lookup tables, 256 users, the sBPF family's programs),
+    its 4,942 signed txns (4,104 votes, transfers, stake, ALUT and
+    precompile txns, the sBPF family's 11 loader txns and 384
+    invocations, the 22 designed failures) sent to the sock door by a
+    WindowSender in the groups the deploy sequence's slots cut; the
+    checks of general_exec.run_general (door rx = sent, every txn
+    executed, failed or a counted drop, exec_fail = the oracle's = the
+    designed, rewards paid, bank0's store == PlainBank's over the
+    microblocks it took, the sBPF family's arithmetic on bank0's store
+    and on PlainBank's results, no verify fallback, every tile exits 0).
+    23b: ReplayCore on the card over the same genesis replays the whole
+    workload, v0 included, as slices with a real PoH chain across an
+    epoch boundary, each poh_verify and lthash launch recorded; the same
+    on the CPU: every slot's bank hash and every account equal, the sBPF
+    arithmetic on both stores, both kernels launched. 23c: every
+    recorded launch held to its plain version, and lthash at the largest
+    slot delta's shape (a vote-heavy slot) timed by a CUDA graph of
+    ITERS launches beside its bound and its plain version; the host's us
+    a txn by program family, and a txn and a CU by sBPF program, from
+    23a's oracle. -> ({kernel: launches on the in-process path},
+    record)."""
     from firedancer_tpu_torch.app.config import load_config
     from firedancer_tpu_torch.ops import blake3 as b3, cuda_blake3, \
         cuda_sha256
@@ -3200,10 +3214,13 @@ def run_general_exec(root, card, counts, reset_counts):
     assert cm == on_cpu["metrics"], (cm, on_cpu["metrics"])
     assert cm["poh_fail"] == 0 and cm["exec_fail"] == wl.designed_fail \
         and cm["txns"] == len(wl.traffic) + len(wl.v0), cm
+    sbpf_b = wl.sbpf.check(on_card["state"])
     assert path["poh_verify"] == len(launches["poh_verify"]) > 0 and \
         path["lthash"] == len(launches["lthash"]) > 0, path
     log(f"23b: {len(slices)} slots, every bank hash and all "
-        f"{len(on_card['state'])} accounts equal; card {on_card['seconds']:.2f}"
+        f"{len(on_card['state'])} accounts equal, the sBPF arithmetic "
+        f"holds ({sbpf_b['lamports_checked']} balances, hash2 deployed at "
+        f"slot {sbpf_b['hash2_slot']}); card {on_card['seconds']:.2f}"
         f" s, CPU {on_cpu['seconds']:.2f} s; launches poh_verify "
         f"{path['poh_verify']}, lthash {path['lthash']}; {cm} {card}")
 
@@ -3231,6 +3248,9 @@ def run_general_exec(root, card, counts, reset_counts):
         f"the bound, max_abs_err 0 {card}")
     log(f"23c: host us a txn by program family (23a's plain general "
         f"path): {json.dumps(rec_a['host_us_per_txn'])} {card}")
+    log(f"23c: sBPF host cost by program (23a's oracle: txns, CU, us a "
+        f"txn, us a CU; a coverage mix, no rate): "
+        f"{json.dumps(rec_a['sbpf_host'])} {card}")
     rec = {"23a": rec_a, "23a_s": a_s, "workload_s": build_s,
            "23b": {"slots": len(slices), "accounts": len(on_card["state"]),
                    "card_s": on_card["seconds"],
@@ -3238,7 +3258,8 @@ def run_general_exec(root, card, counts, reset_counts):
                    "metrics": cm},
            "23c": {"lthash_vote_delta": {k: delta[k] for k in (
                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-               "max_abs_err")}, "host_us_per_txn": rec_a["host_us_per_txn"]}}
+               "max_abs_err")}, "host_us_per_txn": rec_a["host_us_per_txn"],
+               "sbpf_host": rec_a["sbpf_host"]}}
     return {"poh_verify": path["poh_verify"], "lthash": path["lthash"]}, rec
 
 

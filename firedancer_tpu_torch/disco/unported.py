@@ -7,9 +7,7 @@ kinds, the args (and `device_fail_limit`, which no item ports: the
 port's verify tile does not degrade to the CPU) and the chaos actions;
 the adapters refuse their own args (pack's `bundle_in`, item 13; the
 bank's `rpc_port` and `ws_port`, item 16; the sign tile's keyswitch
-region, item 13). The host executor refuses the upgradeable loader and
-deployed sBPF programs (svm/programs.py, item 15b). Nothing refused is
-silently ignored.
+region, item 13). Nothing refused is silently ignored.
 """
 from __future__ import annotations
 

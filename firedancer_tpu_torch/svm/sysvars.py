@@ -12,9 +12,9 @@ views must agree byte-for-byte.
 This module owns the account layouts (Agave bincode encodings, pinned
 by tests) and `update_sysvars`, which the replay stage calls at each
 slot start: their bytes are bank-hash lattice inputs. The VM's syscall
-cache (`read_sysvar_cache`; its caller, the sBPF path, is ROADMAP.md
-queue A item 15b) reads the same encodings from accdb when the accounts
-exist, so the two views cannot drift.
+cache (`read_sysvar_cache`, which svm/programs.py `_exec_bpf` calls)
+reads the same encodings from accdb when the accounts exist, so the two
+views cannot drift.
 """
 from __future__ import annotations
 

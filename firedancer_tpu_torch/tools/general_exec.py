@@ -29,6 +29,12 @@ the workload's counts. `build()` returns the whole workload:
             txns with a bad signature (program_failed) and 8 votes
             signed by a user who is not the authorized voter
             (missing_required_signature)
+  sBPF      tools/sbpf_family.py: four deployed programs in genesis, a
+            loader v3 deploy sequence, an Upgrade, a SetAuthority and a
+            Close, 384 invocations (vault by CPI and directly, hash,
+            spin, curve) and four designed failures, each txn asking
+            for a compute-unit limit; a door run drains after each of
+            the sequence's slots (`Workload.barriers`)
   v0        256 v0 transfers whose destinations load through the tables
             (in-process runs only: pack refuses unresolved v0)
 
@@ -55,6 +61,7 @@ from ..svm.accdb import Account
 from ..svm.precompiles import (ED25519_PROGRAM_ID, SECP256K1_PROGRAM_ID,
                                SECP256R1_PROGRAM_ID, THIS_IX, THIS_IX_U8)
 from ..svm.sysvars import rent_exempt_minimum
+from . import sbpf_family
 from .paced_sender import comb_signer
 from .slices import slot_slices
 
@@ -150,6 +157,10 @@ class Workload:
     designed_fail: int
     counts: dict = field(default_factory=dict)
     seconds: float = 0.0
+    # slot indexes after which a door run drains before sending more
+    # (the sBPF deploy sequence's order); empty: one stream
+    barriers: tuple = ()
+    sbpf: "SbpfOracle | None" = None
 
     def family(self) -> dict:
         """payload -> program family."""
@@ -367,12 +378,16 @@ def build(validators: int = VALIDATORS, users: int = USERS,
             [(1, [0, 2], struct.pack("<IQ", 2, 1_000_000 + i))], bh(i),
             n_ro_unsigned=1, version=0,
             aluts=[(table_keys[j][0], bytes([a]), b"")])))
+    sb_gen, sb_traffic, oracle = sbpf_family.build(keys, users, bh, scale)
+    gen.update(sb_gen)
+    traffic = sorted(traffic + sb_traffic, key=lambda t: t[0])
     counts = {}
     for _, _, fam in traffic:
         counts[fam] = counts.get(fam, 0) + 1
     counts["v0"] = len(v0)
-    return Workload(gen, traffic, v0, BAD_PRECOMPILES + BAD_VOTES,
-                    counts, time.perf_counter() - t0)
+    return Workload(gen, traffic, v0, BAD_PRECOMPILES + BAD_VOTES
+                    + oracle.designed_failures(), counts,
+                    time.perf_counter() - t0, sbpf_family.BARRIERS, oracle)
 
 
 def write_genesis(wl: Workload, path: str = DEFAULT_OUT) -> str:
@@ -438,8 +453,10 @@ class PlainBank:
     took (pack -> bank), in order, each at its slot. It runs the same
     `_wave_general` and `TxnExecutor` as bank0, so it is no independent
     oracle of what the programs compute (the CPU parity tests hold that
-    to the JAX package). `timing` collects the host's ns a transaction
-    by program family."""
+    to the JAX package, and the sBPF family's own arithmetic,
+    `SbpfOracle.check`, holds its results). `ns` and `results` hold each
+    payload's host ns and (status, return data, logs, sBPF compute
+    units)."""
 
     def __init__(self, genesis_ckpt: str, slots_per_epoch: int,
                  family: dict | None = None):
@@ -457,31 +474,56 @@ class PlainBank:
             "slots_per_epoch": slots_per_epoch})
         self.bank._flush_wave = lambda *a: None
         self.family = family or {}
-        self.timing: dict = {}
+        self.ns: dict = {}
+        self.results: dict = {}
+        self._ctx = None
         ex = self.bank.executor
         run = ex.execute
 
         def timed(xid, payload):
+            self._ctx = None
             t0 = time.perf_counter_ns()
             r = run(xid, payload)
-            fam = self.family.get(payload, "other")
-            tot, cnt = self.timing.get(fam, (0, 0))
-            self.timing[fam] = (tot + time.perf_counter_ns() - t0, cnt + 1)
+            self.ns[payload] = time.perf_counter_ns() - t0
+            self.results[payload] = (
+                r.status, r.return_data, tuple(r.logs),
+                0 if self._ctx is None else self._ctx.cu_used)
             return r
         ex.execute = timed
 
     def feed(self, frames):
-        for frame in frames:
-            _b, cnt, mb, slot = struct.unpack_from("<HHQQ", frame, 0)
-            self.bank.slot = max(self.bank.slot, slot)
-            self.bank.m["txns"] += cnt
-            self.bank.m["microblocks"] += 1
-            self.bank._wave_general([(frame, cnt, mb)])
+        """The frames through bank0's path; each transaction's context
+        is kept for its compute units (the executor's TxnContext, seen
+        through a subclass for the feed's length: TxnResult carries no
+        compute units, in the JAX package neither)."""
+        from ..svm import programs
+        base = programs.TxnContext
+        bank = self
+
+        class Seen(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                bank._ctx = self
+        programs.TxnContext = Seen
+        try:
+            for frame in frames:
+                _b, cnt, mb, slot = struct.unpack_from("<HHQQ", frame, 0)
+                self.bank.slot = max(self.bank.slot, slot)
+                self.bank.m["txns"] += cnt
+                self.bank.m["microblocks"] += 1
+                self.bank._wave_general([(frame, cnt, mb)])
+        finally:
+            programs.TxnContext = base
         return self.bank.m
 
     def us_per_txn(self) -> dict:
-        return {f: tot / cnt / 1e3 for f, (tot, cnt) in
-                sorted(self.timing.items())}
+        """The host's mean us a transaction by program family."""
+        acc: dict = {}
+        for p, ns in self.ns.items():
+            fam = self.family.get(p, "other")
+            tot, cnt = acc.get(fam, (0, 0))
+            acc[fam] = (tot + ns, cnt + 1)
+        return {f: tot / cnt / 1e3 for f, (tot, cnt) in sorted(acc.items())}
 
 
 def root_state(funk) -> dict:
@@ -506,15 +548,17 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
     `genesis_path`, writing its store's root to `final_ckpt` at its
     halt), send the workload's traffic to the sock door with a
     WindowSender (at most `window` datagrams between what it sent and
-    what the door read, so the door reads every one), wait until every
-    transaction is executed, failed or dropped at a named hop, and halt.
-    Then PlainBank over the microblocks bank0 took (a LinkTap on pack ->
-    bank0), in order. Its store check holds bank0 to its own code run in
-    process: it shows that the run is deterministic and that the rings,
-    the halt and the checkpoint lose nothing, not that the programs are
-    right; tests/test_torch_general_bank.py and
-    tests/test_torch_conformance.py hold what they compute to the JAX
-    package on the CPU. Raises AssertionError on any check of
+    what the door read, so the door reads every one), in the groups of
+    `_groups` (the loop drains after each: the sBPF deploy sequence's
+    order), wait until every transaction is executed, failed or dropped
+    at a named hop, and halt. Then PlainBank over the microblocks bank0
+    took (a LinkTap on pack -> bank0), in order. Its store check holds
+    bank0 to its own code run in process: it shows that the run is
+    deterministic and that the rings, the halt and the checkpoint lose
+    nothing, not that the programs are right; tests/test_torch_*.py hold
+    what they compute to the JAX package on the CPU, and the sBPF
+    family's own arithmetic (`SbpfOracle.check`) holds bank0's store and
+    each of its txns' results. Raises AssertionError on any check of
     chip_smoke.py 23a. -> the record."""
     from ..app.config import build_topology, load_config
     from ..disco.launch import TopologyRunner
@@ -540,19 +584,23 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
         tap = leader_drain.LinkTap(runner, "pack_bank0")
         port = int(runner.metrics("sock")["port"])
         t0 = time.perf_counter()
-        sender = WindowSender(frames, port,
-                              lambda: runner.metrics("sock")["rx"],
-                              window).start()
-        deadline = time.monotonic() + timeout_s
-        while not sender.dry or runner.metrics("sock")["rx"] < len(frames):
-            runner.check_failures()
-            assert time.monotonic() < deadline, \
-                f"the door read {runner.metrics('sock')['rx']} of " \
-                f"{len(frames)} (sent {sender.sent})"
-            time.sleep(0.01)
-        sent = sender.stop()
-        dropped = leader_drain.wait_drained(runner, len(frames),
-                                            timeout_s=timeout_s)
+        sent = 0
+        for group in _groups(wl):
+            base = sent
+            sender = WindowSender(
+                group, port, lambda: runner.metrics("sock")["rx"] - base,
+                window).start()
+            deadline = time.monotonic() + timeout_s
+            while not sender.dry or \
+                    runner.metrics("sock")["rx"] < base + len(group):
+                runner.check_failures()
+                assert time.monotonic() < deadline, \
+                    f"the door read {runner.metrics('sock')['rx']} of " \
+                    f"{base + len(group)} (sent {base + sender.sent})"
+                time.sleep(0.01)
+            sent += sender.stop()
+            dropped = leader_drain.wait_drained(runner, sent,
+                                                timeout_s=timeout_s)
         wall = time.perf_counter() - t0
         # the shred leg is not drained: its pure-Python Reed-Solomon
         # lags the bank, and a poh backpressured at its halt drops the
@@ -597,6 +645,9 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
     for tn, v in verify.items():
         assert v["cpu_fallback"] == 0 and v["device_errors"] == 0, \
             f"{tn}: {v}"
+    # the sBPF family against its own arithmetic: bank0's store, and
+    # each txn's status, return data and log as bank0's path gave them
+    sbpf = wl.sbpf.check(got, oracle.results)
     return {"sent": sent, "door_rx": sock["rx"], "dropped": dropped,
             "bank_txns": b["txns"], "executed": b["transfers"],
             "exec_fail": b["exec_fail"], "oracle_exec_fail":
@@ -609,7 +660,22 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
             {tn: v["batches"] for tn, v in verify.items()},
             "slots": m["poh"]["slots"], "epochs":
             oracle.bank._rewards_epoch,
-            "host_us_per_txn": oracle.us_per_txn()}
+            "host_us_per_txn": oracle.us_per_txn(), "sbpf": sbpf,
+            "sbpf_host": wl.sbpf.host_costs(oracle.results, oracle.ns)}
+
+
+def _groups(wl: Workload) -> list:
+    """The traffic's payloads in the groups a door run sends, draining
+    after each: cut after each slot index of `wl.barriers`."""
+    groups, cur = [], []
+    for i, (slot, p, _) in enumerate(wl.traffic):
+        cur.append(p)
+        last = i + 1 == len(wl.traffic)
+        if last or (slot in wl.barriers
+                    and wl.traffic[i + 1][0] != slot):
+            groups.append(cur)
+            cur = []
+    return groups
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,11 @@
 """The conformance corpus through both packages' TxnExecutor: every
-fixture of tests/vectors/conformance/ but bpf.json (its fixtures deploy
-sBPF programs, ROADMAP.md queue A item 15b) and every hand vector of
-tests/test_conformance.py's VECTORS run through the JAX package's
-executor and the port's (firedancer_tpu_torch/svm/programs.py) on the
-same pre-state. Status, fee and logs, and every account of the fork
-(lamports, data, owner, executable), must be equal (exact), and the
-fixture's own expected effects must hold on the port."""
+fixture of tests/vectors/conformance/ (bpf.json's deployed sBPF programs
+included) and every hand vector of tests/test_conformance.py's VECTORS
+run through the JAX package's executor and the port's
+(firedancer_tpu_torch/svm/programs.py) on the same pre-state. Status,
+fee, logs and return data, and every account of the fork (lamports,
+data, owner, executable), must be equal (exact), and the fixture's own
+expected effects must hold on the port."""
 import json
 import os
 
@@ -22,13 +22,12 @@ from firedancer_tpu_torch.svm import programs as tprog
 
 PKGS = ((jfunk, jaccdb, jprog), (tfunk, taccdb, tprog))
 FIX_DIR = os.path.join(os.path.dirname(__file__), "vectors", "conformance")
-SBPF_FILES = {"bpf.json"}
 
 
 def _fixtures():
     out = []
     for fn in sorted(os.listdir(FIX_DIR)):
-        if fn.endswith(".json") and fn not in SBPF_FILES:
+        if fn.endswith(".json"):
             with open(os.path.join(FIX_DIR, fn)) as f:
                 out.extend(json.load(f))
     return out
@@ -53,16 +52,19 @@ def run_both(accounts, payload, enforce_rent, epoch=0, slot=0):
         accts = {key: (v.lamports, bytes(v.data), v.owner, v.executable)
                  for key, v in funk.items_at("blk").items()
                  if isinstance(v, ad.Account)}
-        got.append(((r.status, r.fee, list(r.logs)), accts))
+        got.append(((r.status, r.fee, list(r.logs), r.return_data), accts))
     assert got[1] == got[0]
     return got[1]
 
 
 def test_corpus_is_the_non_sbpf_fixtures():
+    """The whole corpus: the 178 fixtures of the native programs and
+    bpf.json's 4, whose deployed programs are executable accounts."""
     names = [f["name"] for f in FIXTURES]
-    assert len(names) == len(set(names)) == 178
-    assert not any(a.get("executable") for f in FIXTURES
-                   for a in f["context"]["accounts"])
+    assert len(names) == len(set(names)) == 182
+    sbpf = [f["name"] for f in FIXTURES
+            if any(a.get("executable") for a in f["context"]["accounts"])]
+    assert len(sbpf) == 4, sbpf
 
 
 @pytest.mark.parametrize("fx", FIXTURES, ids=[f["name"] for f in FIXTURES])
@@ -80,7 +82,7 @@ def test_fixture_matches_reference(fx):
           bytes.fromhex(i["data"])) for i in tx["instructions"]],
         n_ro_signed=tx.get("n_ro_signed", 0),
         n_ro_unsigned=tx.get("n_ro_unsigned", 0))
-    (status, fee, _), accts = run_both(
+    (status, fee, _, _), accts = run_both(
         accounts, build_txn([bytes(64)] * len(signers), msg),
         ctx.get("enforce_rent", True), ctx.get("epoch", 0),
         ctx.get("slot", 0))
@@ -110,7 +112,7 @@ def test_hand_vector_matches_reference(vec):
         [(p, bytes(ai), d) for p, ai, d in vec["instrs"]],
         n_ro_signed=vec.get("n_ro_signed", 0),
         n_ro_unsigned=vec.get("n_ro_unsigned", 0))
-    (status, fee, _), accts = run_both(
+    (status, fee, _, _), accts = run_both(
         accounts, build_txn([bytes(64)] * len(vec["signers"]), msg),
         vec.get("enforce_rent", False))
     assert (status, fee) == (vec["expect"], vec["fee"])

@@ -23,8 +23,11 @@ CPU's plain versions:
 Exact: frames are bytes, balances integers."""
 import os
 import random
+import signal
 import subprocess
 import sys
+import threading
+import time
 
 import pytest
 
@@ -517,19 +520,49 @@ def test_app_run_exec_toml_with_a_supervised_kill_on_the_cpu(tmp_path):
     """`app.run` on cfg/exec.toml with a layer that crashes exec0 at its
     first frames under a restart policy, --device cpu: every tile boots
     and runs, the table shows exec0 restarted, and the command exits 0
-    (the drain after the restart is held by the test above, which waits
-    for it; a fixed --duration cannot)."""
+    once stopped by SIGINT (its clean stop). The run lasts until exec0's
+    row shows the restart, under a deadline of its own: on a loaded host
+    the CPU verify tile may pass no frame for many seconds, so a fixed
+    --duration can end the run before exec0 ever crashes (the drain
+    after the restart is held by the test above)."""
     layer = tmp_path / "kill.toml"
     layer.write_text(KILL_LAYER)
-    r = _run(str(layer), "--device", "cpu", "--duration", "10",
-             "--interval", "1", "--name", f"texk{os.getpid()}")
-    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "firedancer_tpu_torch.app.run", EXEC_TOML,
+         str(layer), "--device", "cpu", "--interval", "1",
+         "--boot-timeout", "120", "--name", f"texk{os.getpid()}"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+    lines: list[str] = []
+    restarted = threading.Event()
+
+    def read():
+        for ln in proc.stdout:
+            lines.append(ln)
+            if ln.startswith("exec0 ") and "sup_restarts=1" in ln:
+                restarted.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.monotonic() + 240      # boot (120 s at most) + 120 s
+    while not restarted.is_set() and proc.poll() is None \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    out, err = "".join(lines), proc.stderr.read()
+    assert rc == 0, out[-2000:] + err[-2000:]
     for tn in ("synth", "verify", "dedup", "resolv", "pack", "bank0",
                "exec0", "exec1", "poh", "shred", "sign", "shredsink"):
-        assert f"\n{tn} " in r.stdout, tn
-    rows = r.stdout.splitlines()
-    assert any(ln.startswith("exec0 ") and "sup_restarts=1" in ln
-               for ln in rows), r.stdout[-3000:]
+        assert f"\n{tn} " in out, tn
+    assert restarted.is_set(), out[-3000:]
 
 
 def test_app_run_exec_toml_without_a_card_exits_1():

@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax():
         "'prof.recorder', 'prof.device', 'prof.export', 'prof.cli', "
         "'prof.__main__', 'utils.checkpt', 'tiles.snapshot', "
         "'flamenco.snapshot', 'tiles.archiver', 'app.backtest', "
-        "'tools.catchup'}\n"
+        "'tools.catchup', 'vm', 'vm.interp', 'vm.asm', 'vm.syscalls', "
+        "'vm.elf', 'vm.trace', 'svm.loader', 'svm.accdb_cold', "
+        "'svm.txncache', 'groove', 'groove.groove', 'utils.ristretto', "
+        "'utils.bn254', 'tools.sbpf_elf', 'tools.sbpf_family'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -2,11 +2,11 @@
 system program with its seed and nonce accounts, ComputeBudget, the fee
 and rent discipline) and sysvar accounts (svm/sysvars.py) against the
 JAX package's, on the same accounts and transactions: statuses, fees,
-logs and every account of the fork equal (exact). The programs the port
-does not run (the upgradeable loader and deployed sBPF) raise naming
-ROADMAP.md queue A item 15b; the vote, stake, lookup-table and precompile
-programs and v0 transactions have parity files of their own
-(test_torch_conformance.py, test_torch_vote_program.py, ...)."""
+logs, return data and every account of the fork equal (exact). The vote,
+stake, lookup-table and precompile programs, v0 transactions, the
+upgradeable loader and deployed sBPF programs have parity files of their
+own (test_torch_conformance.py, test_torch_vote_program.py,
+test_torch_loader.py, test_torch_bpf_programs.py, ...)."""
 import struct
 
 import numpy as np
@@ -18,8 +18,7 @@ from firedancer_tpu.svm import accdb as jaccdb
 from firedancer_tpu.svm import programs as jprog
 from firedancer_tpu.svm import sysvars as jsys
 from firedancer_tpu_torch.funk import funk as tfunk
-from firedancer_tpu_torch.pack.cost import (
-    BPF_UPGRADEABLE_LOADER_ID, COMPUTE_BUDGET_PROGRAM_ID)
+from firedancer_tpu_torch.pack.cost import COMPUTE_BUDGET_PROGRAM_ID
 from firedancer_tpu_torch.svm import accdb as taccdb
 from firedancer_tpu_torch.svm import programs as tprog
 from firedancer_tpu_torch.svm import sysvars as tsys
@@ -86,9 +85,8 @@ class Both:
                            v.executable, v.rent_epoch)
                      for key, v in funk.items_at("blk").items()
                      if isinstance(v, ad.Account)}
-            # return data comes from sBPF programs only (item 15b)
-            assert getattr(r, "return_data", b"") == b""
-            got.append(((r.status, r.fee, list(r.logs)), accts))
+            got.append(((r.status, r.fee, list(r.logs), r.return_data),
+                         accts))
         assert got[1] == got[0]
         return got[1][0][0]
 
@@ -256,35 +254,6 @@ def test_begin_slot_sysvar_bytes_match_reference(slot, spe):
     assert tsys.dec_clock(states[1][tsys.CLOCK_ID][1])["slot"] == slot + 1
     assert tsys.enc_stake_history([(3, (1, 2, 3))]) == \
         jsys.enc_stake_history([(3, (1, 2, 3))])
-
-
-UNPORTED = {"upgradeable_loader": BPF_UPGRADEABLE_LOADER_ID}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_other_programs_are_refused_with_item_15(name):
-    """Where the reference runs the upgradeable loader, the port raises
-    naming item 15b (never a silent skip); the id is the reference's."""
-    funk = tfunk.Funk()
-    funk.rec_write(None, k(1), taccdb.Account(lamports=10**9))
-    ex = tprog.TxnExecutor(taccdb.AccDb(funk))
-    with pytest.raises(NotImplementedError, match="queue A item 15b$"):
-        ex.execute(None, txn([k(1)], [UNPORTED[name]], [(1, [0], b"\0")],
-                             n_ro_unsigned=1))
-
-
-def test_deployed_program_and_lookup_tables_are_refused_with_item_15():
-    """A deployed sBPF program raises naming item 15b; v0 transactions
-    with lookup tables run (tests/test_torch_alut.py)."""
-    funk = tfunk.Funk()
-    funk.rec_write(None, k(1), taccdb.Account(lamports=10**9))
-    funk.rec_write(None, k(7), taccdb.Account(
-        lamports=1, data=b"\x95" + bytes(7), owner=tprog.BPF_LOADER_ID,
-        executable=True))
-    ex = tprog.TxnExecutor(taccdb.AccDb(funk))
-    with pytest.raises(NotImplementedError, match="sBPF.*item 15b$"):
-        ex.execute(None, txn([k(1)], [k(7)], [(1, [], b"")],
-                             n_ro_unsigned=1))
 
 
 def test_accdb_handles_match_reference():

@@ -1,18 +1,20 @@
 """Both packages' host executors side by side, for the parity files of the
-vote, stake, lookup-table, precompile and rewards programs
+vote, stake, lookup-table, precompile and rewards programs, the
+upgradeable loader and deployed sBPF programs
 (tests/test_torch_vote_program.py, test_torch_stake.py, test_torch_alut.py,
-test_torch_precompiles.py, test_torch_rewards.py). `Both` holds the JAX
+test_torch_precompiles.py, test_torch_rewards.py, test_torch_loader.py,
+test_torch_elf_cpi.py, test_torch_bpf_programs.py). `Both` holds the JAX
 package's and the port's TxnExecutor, each over its own Funk with the same
 root accounts and one prepared fork "blk"; every step runs on both and
-asserts equal results and equal forks, so a test reads as the reference's
-own test does."""
+asserts equal results (status, fee, logs, return data) and equal forks,
+so a test reads as the reference's own test does."""
 import importlib
 
 from firedancer_tpu.protocol.txn import build_message, build_txn
 
 MODS = ("funk.funk", "svm.accdb", "svm.programs", "svm.vote", "svm.stake",
         "svm.alut", "svm.precompiles", "svm.sysvars", "flamenco.stakes",
-        "flamenco.rewards")
+        "flamenco.rewards", "svm.loader", "vm.elf", "vm.asm")
 
 
 class Pkg:
@@ -73,13 +75,18 @@ class Both:
 
     def run(self, payload) -> str:
         """Execute on both; results and forks must be equal. -> status."""
+        return self.result(payload)[0]
+
+    def result(self, payload) -> tuple:
+        """Execute on both; results and forks must be equal. -> the
+        port's (status, fee, logs, return data)."""
         got = []
         for pkg, funk, ex in self.envs:
             r = ex.execute("blk", payload)
-            got.append(((r.status, r.fee, list(r.logs)),
+            got.append(((r.status, r.fee, list(r.logs), r.return_data),
                         fork_state(funk, pkg)))
         assert got[1] == got[0]
-        return got[1][0][0]
+        return got[1][0]
 
     def call(self, fn):
         """fn(pkg, funk) on both; the results and forks must be equal.
