@@ -83,16 +83,11 @@ and read just after:
             and on the CPU: every slot's bank hash and PoH tip equal, no
             PoH failure; a flipped entry hash is a PoH failure; FEC sets
             that lost as many data shreds as they have parity shreds
-            recover into the same slices. 17b boots
-            firedancer_tpu_torch/cfg/leader_follower.toml (cfg/leader.toml
-            with shredr -> replay -> towersink on its shred mirror; verify,
-            bank0 and replay on the card; 2048 synth frames, half the
-            file's, for the script's time), drains the leader, then the
-            follower: every slot poh completed is replayed without a PoH
-            failure, the replay tile launched both kernels in its own
-            process, and every block frame it published carries the bank
-            hash of a CPU replay of the run's own mirrored wires (both
-            links tapped from their first frame). 17c prints the record.
+            recover into the same slices. 17c prints the record. (17b,
+            cfg/leader_follower.toml booted on the card, was cut for the
+            script's time: phase 24's leader -> shred -> recover ->
+            replay tile path holds it, the replay's block frames to a
+            CPU replay of the leader's mirrored wires.)
   faults    phase 18: the main path's fault drills and flight recorder.
             18a drives VerifyTile(batch=2048) in process on phase 7's
             frames with a chaos plan: two injected dispatch failures
@@ -234,6 +229,18 @@ and read just after:
             account equal, the sBPF arithmetic on both, poh_verify and
             lthash launched. 23c holds those launches to their plain
             versions and times lthash at a vote-heavy slot delta.
+  voting    phase 24: the two-node cluster (tools/cluster.py). The
+  non-      leader, firedancer_tpu_torch/cfg/leader.toml +
+  leader    cfg/cluster.toml at full width, sends its turbine over UDP
+            to cfg/nonleader.toml and withholds every fourth slot; the
+            non-leader repairs each from the leader's serve-only repair
+            tile, replays on the card (poh_verify, lthash) and its tower
+            -> send -> sign tiles emit TowerSync votes to this process.
+            Waits on metrics only; every block frame's bank hash ==
+            a CPU replay of the leader's mirrored slices, every executed
+            txn replayed, every vote signed by the non-leader (the
+            strict verify on the card and ed25519_ref) for a replayed
+            slot's bank hash.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -249,9 +256,10 @@ wave scans of phase 20's exec shards; the topology phases' verify
 batches, and the launches phase 21's capture recorded), error against
 its plain version, time, plain time and bound (poh_verify and lthash
 also at the replay's own shapes, lthash at phase 22's restore shapes;
-phase 22's wave scans and lthash launches are counted in, and phase
-23's poh_verify and lthash; lthash also at phase 23c's vote-heavy slot
-delta).
+phase 22's wave scans and lthash launches are counted in, phase 23's
+poh_verify and lthash, and phase 24's leader's verify batches and wave
+scans and its non-leader's poh_verify and lthash; lthash also at phase
+23c's vote-heavy slot delta).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -1451,9 +1459,6 @@ def run_hash_phases(dev, card, counts, reset_counts):
 
 
 FOLLOWER_LOSSY_SETS = 6   # phase 17a: FEC sets recovered from their parity
-# phase 17b: the synth count of cfg/leader_follower.toml (4096) halved to
-# keep the script near its time budget with phase 20 (PERF.md §4)
-FOLLOWER_FRAMES = 2048
 
 
 class _Capture:
@@ -1470,21 +1475,16 @@ class _Capture:
         return 1 << 30
 
 
-def follower_cfg(root, device):
-    """firedancer_tpu_torch/cfg/leader_follower.toml with verify, bank0
-    and replay on `device` and FOLLOWER_FRAMES synth frames; -> (config,
-    the leader's pubkey, replay's genesis_synth and hashes_per_tick)."""
+def follower_cfg(root):
+    """firedancer_tpu_torch/cfg/leader_follower.toml's follower leg: ->
+    (the leader's pubkey, replay's genesis_synth and hashes_per_tick)."""
     from firedancer_tpu_torch.app.config import load_config
-    cfg = load_config(
-        os.path.join(root, "firedancer_tpu_torch", "cfg",
-                     "leader_follower.toml"),
-        overrides={"tile": [{"name": tn, "device": device}
-                            for tn in ("verify", "bank0", "replay")]
-                   + [{"name": "synth", "count": FOLLOWER_FRAMES}]})
+    cfg = load_config(os.path.join(root, "firedancer_tpu_torch", "cfg",
+                                   "leader_follower.toml"))
     tiles = {t["name"]: t for t in cfg["tile"]}
     pub = bytes.fromhex(tiles["shredr"]["leader_pubkey_hex"])
     assert pub == bytes.fromhex(tiles["shred"]["identity_hex"])
-    return (cfg, pub, tiles["replay"]["genesis_synth"],
+    return (pub, tiles["replay"]["genesis_synth"],
             tiles["replay"]["hashes_per_tick"])
 
 
@@ -1599,8 +1599,7 @@ def follower_kernel_times(launches, hashes_per_tick, b3_work):
     return errs, timed
 
 
-def run_follower(root, dev, card, counts, reset_counts, wires12,
-                 shred_drain12):
+def run_follower(root, dev, card, counts, reset_counts, wires12):
     """Phase 17: the follower's check. 17a in process on phase 12's
     mirrored wires: the port's ShredRecoverCore, then ReplayCore on the
     card (a slice at a time, each launch of poh_verify and lthash
@@ -1608,22 +1607,15 @@ def run_follower(root, dev, card, counts, reset_counts, wires12,
     release): every slot's bank hash and PoH tip equal, no PoH failure,
     the same executions; a flipped entry hash counted as a PoH failure;
     FEC sets that lost as many data shreds as they have parity shreds
-    recovered into the same slices. 17b: cfg/leader_follower.toml booted
-    on the card at phase 12's shape, the leader's drain, then the
-    follower's: replay has replayed every slot poh completed, with no
-    PoH failure and no dead tile, its kernel launches counted in its own
-    process, and every block frame it published (tapped from the tower
-    link) carries the bank hash a CPU replay of this run's own mirrored
-    wires (tapped from the first) gives. -> (record, the in-process
-    path's launch counts, {kernel: max_abs_err}, {kernel: [stats]})."""
-    from firedancer_tpu_torch.app.config import build_topology
-    from firedancer_tpu_torch.disco.launch import TopologyRunner
-    from firedancer_tpu_torch.disco.metrics import quantile_ns, read_hists
+    recovered into the same slices. (The topology's follower, booted by
+    17b until it was cut for the script's time, runs in phase 24.)
+    -> (record, the in-process path's launch counts, {kernel:
+    max_abs_err}, {kernel: [stats]})."""
     from firedancer_tpu_torch.disco.tiles import _synth_genesis
     from firedancer_tpu_torch.ops import cuda_blake3, cuda_sha256
     from firedancer_tpu_torch.tiles.shred import parse_slice
-    from firedancer_tpu_torch.tools import blake3_bench, leader_drain
-    cfg, pub, gen_n, hpt = follower_cfg(root, DEVICE)
+    from firedancer_tpu_torch.tools import blake3_bench
+    pub, gen_n, hpt = follower_cfg(root)
     genesis = _synth_genesis(gen_n)
 
     # 17a. in process, on phase 12's mirrored wires
@@ -1717,85 +1709,12 @@ def run_follower(root, dev, card, counts, reset_counts, wires12,
                 f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.6f} ms by "
                 f"{st['bound_by']}, {st['ms'] / st['bound_ms']:.0f}x {card}")
 
-    # 17b. the topology: the leader with the follower leg on its mirror
-    count = next(t["count"] for t in cfg["tile"] if t["name"] == "synth")
-    assert count == FOLLOWER_FRAMES
-    log(f"== 17b. topology: cfg/leader_follower.toml, {count} frames, "
-        f"verify x2, bank0 and replay on the card {card}")
-    runner = TopologyRunner(build_topology(
-        cfg, name=f"smoke17{os.getpid()}").build())
-    try:
-        t_boot = time.perf_counter()
-        runner.start()
-        taps = {ln: leader_drain.LinkTap(runner, ln, batch=b) for ln, b in (
-            ("shreds_mirror", 256), ("shred_slices", 4),
-            ("replay_tower", 256))}
-        runner.wait_running(timeout_s=300)
-        t0 = time.perf_counter()
-        runner.wait_idle("synth", "tx", count, timeout_s=300, poll_s=0.002)
-        dropped = leader_drain.wait_drained(runner, count, timeout_s=300)
-        wall = time.perf_counter() - t0
-        leader_drain.close_slot(runner, timeout_s=120)
-        t1 = time.perf_counter()
-        m = leader_drain.drain_shred_leg(runner, timeout_s=600,
-                                         keep=leader_drain.FOLLOWER_LEG)
-        shred_drain_s = time.perf_counter() - t1
-        slots = m["poh"]["slots"]
-        t1 = time.perf_counter()
-        m = leader_drain.drain_follower(runner, slots, timeout_s=900)
-        follower_drain_s = time.perf_counter() - t1
-        for tn, proc in runner.procs.items():
-            assert proc.exitcode == 0, f"tile {tn} exit code {proc.exitcode}"
-        got = {ln: tap.stop() for ln, tap in taps.items()}
-        rh = read_hists(runner.wksp, runner.plan, "replay")
-        r, b, sh, snk = m["replay"], m["bank0"], m["shred"], m["shredsink"]
-        parsed = b["txns"] - b["exec_skip"]
-        for key, v, want in (
-                ("bank0.txns + drops", b["txns"] + dropped, count),
-                ("replay.slots_replayed", r["slots_replayed"], slots),
-                ("replay.poh_fail", r["poh_fail"], 0),
-                ("replay.txns", r["txns"], parsed),
-                ("replay.exec_ok", r["exec_ok"], b["transfers"]),
-                ("shredr.shreds", m["shredr"]["shreds"], snk["rx"]),
-                ("shredr.slots_done", m["shredr"]["slots_done"], slots),
-                ("shredsink.rx", snk["rx"],
-                 sh["data_shreds"] + sh["parity_shreds"]),
-                ("mirror tap", len(got["shreds_mirror"]), snk["rx"]),
-                ("tower tap", len(got["replay_tower"]), slots),
-                ("towersink.rx", m["towersink"]["rx"], slots)):
-            assert v == want, f"17b: {key} = {v}, expected {want}"
-        assert r["poh_launches"] > 0 and r["lthash_launches"] > 0, r
-        for tn, spec in runner.plan["tiles"].items():
-            if spec["kind"] == "verify":
-                no_fallback(f"17b {tn}", runner.metrics(tn))
-    finally:
-        runner.halt()
-        runner.close()
-    t1 = time.perf_counter()
-    slices_b, _ = recover_slices(pub, got["shreds_mirror"])
-    cpu_b, _ = replay_slices(slices_b, genesis, hpt, "cpu", False)
-    cpu_check_s = time.perf_counter() - t1
-    from firedancer_tpu_torch.tiles.tower import parse_block
-    blocks = [parse_block(f) for f in got["replay_tower"]]
-    for slot, parent, bid, pid in blocks:
-        assert cpu_b.bank_hash_of[slot] == bid, f"17b: slot {slot} block id"
-        assert cpu_b.bank_hash_of[slot - 1] == pid, f"17b: slot {slot} parent"
-    assert blocks[-1][0] == max(cpu_b.bank_hash_of) and \
-        cpu_b.metrics["slots_replayed"] == slots, cpu_b.metrics
-    replay_wall = got["replay_tower"] and (
-        taps["replay_tower"].times[-1] - taps["shred_slices"].times[0])
     rec17 = {
-        "slots_replayed": r["slots_replayed"], "txns_replayed": r["txns"],
-        "exec_ok": r["exec_ok"], "exec_fail": r["exec_fail"],
-        "entries": r["entries"], "poh_launches": r["poh_launches"],
-        "lthash_launches": r["lthash_launches"],
-        "replay_wall_s": replay_wall,
-        "replay_work_p50_ms": quantile_ns(rh["work"], 0.50) / 1e6,
-        "replay_work_p99_ms": quantile_ns(rh["work"], 0.99) / 1e6,
-        "replay_work_polls": rh["work"]["count"],
-        "replay_spans": rh["tpu"]["count"],
-        "replay_span_p50_ms": quantile_ns(rh["tpu"], 0.50) / 1e6,
-        "replay_span_p99_ms": quantile_ns(rh["tpu"], 0.99) / 1e6,
+        "slots_replayed": cm["slots_replayed"], "txns_replayed": cm["txns"],
+        "exec_ok": cm["exec_ok"], "exec_fail": cm["exec_fail"],
+        "entries": cm["entries"], "card_replay_s": card_s,
+        "cpu_replay_s": cpu_s, "recover_s": recover_s,
+        "lossy_recover_s": lossy_s,
         "inproc_poh_span_p50_ms": np.percentile(spans["poh"], 50) / 1e6,
         "inproc_poh_span_p99_ms": np.percentile(spans["poh"], 99) / 1e6,
         "inproc_hash_span_p50_ms":
@@ -1804,20 +1723,7 @@ def run_follower(root, dev, card, counts, reset_counts, wires12,
             np.percentile(spans["bank_hash"], 99) / 1e6,
         "kernel_ms": {name: [(st["shape"], st["ms"], st["bound_ms"])
                              for st in sts] for name, sts in timed.items()},
-        "e2e_leader_tps": b["txns"] / wall, "boot_s": t0 - t_boot,
-        "shred_drain_s": shred_drain_s, "shred_drain_s_phase12":
-            shred_drain12, "follower_drain_s": follower_drain_s,
-        "mirror_wires": len(got["shreds_mirror"]),
-        "blocks_checked": len(blocks), "cpu_check_s": cpu_check_s,
         "card": nvidia_smi()}
-    log(f"17b: {r['slots_replayed']} slots replayed (poh's {slots}), "
-        f"{r['txns']} txns, poh_fail 0, every tile exited 0; the "
-        f"{len(blocks)} block frames == a CPU replay of the run's "
-        f"{len(got['shreds_mirror'])} mirrored wires ({cpu_check_s:.1f} s); "
-        f"replay launches poh_verify {r['poh_launches']}, lthash "
-        f"{r['lthash_launches']}; shred drain {shred_drain_s:.2f} s "
-        f"(phase 12: {shred_drain12:.2f} s), follower drain "
-        f"{follower_drain_s:.2f} s {card}")
     return rec17, path, errs, timed
 
 
@@ -3263,6 +3169,177 @@ def run_general_exec(root, card, counts, reset_counts):
     return {"poh_verify": path["poh_verify"], "lthash": path["lthash"]}, rec
 
 
+def run_nonleader(root, card) -> dict:
+    """Phase 24: the two-node cluster (tools/cluster.py). The leader,
+    firedancer_tpu_torch/cfg/leader.toml + cfg/cluster.toml at full width
+    (LEADER_FRAMES over 768 transfers, 64 hashes a tick, 8 ticks a slot)
+    with verify x2 and bank0 on the card, its turbine over UDP to the
+    non-leader and every fourth slot dropped; the non-leader,
+    cfg/nonleader.toml (sock -> repair -> shred recover -> replay on the
+    card -> tower -> send -> sign), its votes sent to a socket of this
+    process. Waits on metrics only: the leader drops a slot, the
+    non-leader requests repair, the leader's serve-only repair tile
+    serves, responses come in; the leader's loop drains and closes the
+    slot of its last microblock; the non-leader replays every slot up to
+    it and votes; both halt with every tile's exit code 0. Then: the
+    non-leader replayed every executed txn with
+    no PoH failure, no divergence and both kernels launched in its
+    replay tile; every block frame's bank hash equals a CPU replay of the
+    leader's complete slices (its shred mirror, tapped, recovered on the
+    host as 17a does), every dropped slot below the drain's among
+    them; every vote datagram is a TowerSync signed by the non-leader
+    (the strict verify on the card and utils/ed25519_ref) for a replayed
+    slot's bank hash, its lockout slots ascending and replayed.
+    -> record, with the leader's verify batches and wave scans and the
+    replay tile's launches, work per poll and `tpu` spans."""
+    from firedancer_tpu_torch.disco.metrics import quantile_ns, read_hists
+    from firedancer_tpu_torch.disco.tiles import _synth_genesis
+    from firedancer_tpu_torch.ops import cuda_ed
+    from firedancer_tpu_torch.tiles.tower import parse_block
+    from firedancer_tpu_torch.tools import cluster as tcluster
+    log(f"== 24. the voting non-leader: cfg/leader.toml + cfg/cluster.toml "
+        f"({LEADER_FRAMES} frames, every {tcluster.DROP_SLOT_EVERY}th slot "
+        f"dropped from turbine) and cfg/nonleader.toml; verify x2, bank0 "
+        f"and the non-leader's replay on the card {card}")
+    t_phase = time.perf_counter()
+    c = tcluster.Cluster("smoke24", DEVICE)
+    waits = {}
+    try:
+        c.start(boot_timeout_s=300)
+        boot_s = time.perf_counter() - t_phase
+        a, b = c.a, c.b
+        for what, cond in (
+                ("dropped", lambda: a.metrics("shred")["dropped"] > 0),
+                ("reqs_sent", lambda: b.metrics("repair")["reqs_sent"] >= 1),
+                ("reqs_served",
+                 lambda: a.metrics("arepair")["reqs_served"] >= 1),
+                ("resps_in", lambda: b.metrics("repair")["resps_in"] >= 1)):
+            t0 = time.perf_counter()
+            c.wait(cond, 300, what)
+            waits[what] = time.perf_counter() - t0
+        d = c.drain(LEADER_FRAMES, 600)
+        slots = d["slots"]
+        t0 = time.perf_counter()
+        c.wait(lambda: b.metrics("tower")["votes_out"] >= 1
+               and len(c.votes()) >= 1, 300, "a vote datagram")
+        waits["vote"] = time.perf_counter() - t0
+        # every tile of both nodes exits 0 (Cluster.stop asserts it)
+        got = c.stop()
+        rh = read_hists(c.b.wksp, c.b.plan, "replay")
+    finally:
+        c.close()
+    run_s = time.perf_counter() - t_phase
+    la, nb = got["metrics"]["leader"], got["metrics"]["nonleader"]
+    bk, r, rp, sh = la["bank0"], nb["replay"], nb["repair"], la["shred"]
+    tw, sd, ar = nb["tower"], nb["send"], la["arepair"]
+    for key, v, want in (
+            ("bank0.txns + drops", bk["txns"] + d["dropped"], LEADER_FRAMES),
+            ("bank0.exec_fail", bk["exec_fail"], 0),
+            ("replay.poh_fail", r["poh_fail"], 0),
+            ("replay.divergent_slot", r["divergent_slot"], 0),
+            ("replay.parse_fail", r["parse_fail"], 0),
+            ("replay.txns", r["txns"], bk["txns"]),
+            ("replay.exec_ok", r["exec_ok"], bk["transfers"]),
+            ("repair.sign_fail", rp["sign_fail"], 0),
+            ("send.sign_fail", sd["sign_fail"], 0),
+            ("sign.refused", nb["sign"]["refused"], 0)):
+        assert v == want, f"24: {key} = {v}, expected {want}"
+    assert r["slots_replayed"] >= slots and sh["dropped"] > 0, (r, sh)
+    assert rp["reqs_sent"] >= 1 and ar["reqs_served"] >= 1 \
+        and rp["resps_in"] >= 1, (rp, ar)
+    assert r["poh_launches"] > 0 and r["lthash_launches"] > 0, r
+    assert bk["wave_launches"] > 0, bk
+    assert 1 <= sd["sent"] <= tw["votes_out"], (sd, tw)
+    shards = [tn for tn in la if tn.startswith("verify")]
+    for tn in shards:
+        assert la[tn]["batches"] > 0 and la[tn]["verify_fail"] == 0, la[tn]
+        no_fallback(f"24 {tn}", la[tn])
+    # the leader's complete slices, recovered and replayed on the CPU
+    t0 = time.perf_counter()
+    rcfg = next(t for t in c.b_cfg["tile"] if t["name"] == "replay")
+    slices, _ = recover_slices(c.leader_identity(), got["shreds_mirror"])
+    cpu, _ = replay_slices(slices, _synth_genesis(rcfg["genesis_synth"]),
+                           rcfg["hashes_per_tick"], "cpu", False)
+    cpu_check_s = time.perf_counter() - t0
+    blocks = [parse_block(f) for f in got["replay_tower"]]
+    replayed = {slot for slot, *_ in blocks}
+    assert set(range(1, slots)) <= replayed, "24: a slot was not replayed"
+    dropped_slots = tcluster.dropped_slots(slots)
+    for slot, parent, bid, pid in blocks:
+        assert cpu.bank_hash_of[slot] == bid, f"24: slot {slot} bank hash"
+        assert cpu.bank_hash_of[parent if slot else -1] == pid, \
+            f"24: slot {slot} parent"
+    # every vote: the non-leader's signature, held by the strict verify on
+    # the card too, over a TowerSync for a replayed slot's bank hash
+    votes = c.vote_log
+    checked = tcluster.check_votes(votes, c.nonleader_identity(),
+                                   {s: cpu.bank_hash_of[s] for s in replayed})
+    parsed = [tcluster.parse_vote(v) for v in votes]
+    width = max(len(m) for _, _, m, _ in parsed)
+    vsig = np.stack([np.frombuffer(sg, np.uint8) for _, sg, _, _ in parsed])
+    vpub = np.stack([np.frombuffer(k, np.uint8) for k, _, _, _ in parsed])
+    vmsg = np.zeros((len(parsed), width), np.uint8)
+    for i, (_, _, m, _) in enumerate(parsed):
+        vmsg[i, :len(m)] = np.frombuffer(m, np.uint8)
+    vlen = np.array([len(m) for _, _, m, _ in parsed], np.int32)
+    on_card = cuda_ed.verify_batch(vsig, vpub, vmsg, vlen, device=DEVICE)
+    assert bool(on_card.all()), "24: a vote fails the strict verify"
+    assert len(votes) <= sd["sent"], (len(votes), sd)
+    rec = {"slots": slots, "slots_replayed": r["slots_replayed"],
+           "txns": bk["txns"], "replay_txns": r["txns"],
+           "dropped_shreds": sh["dropped"],
+           "dropped_slots_below_drain": len(dropped_slots),
+           "turbine_sent": sh["sent"], "sock_rx": nb["sock"]["rx"],
+           "repair": {"reqs_sent": rp["reqs_sent"],
+                      "resps_in": rp["resps_in"],
+                      "reqs_served": ar["reqs_served"],
+                      "reqs_refused": ar["reqs_refused"],
+                      "incomplete": rp["incomplete"]},
+           "tower": {k: tw[k] for k in ("blocks", "votes_out", "roots",
+                                        "root_slot", "threshold_skips",
+                                        "lockout_skips", "switch_skips",
+                                        "bad_frames")},
+           "send": dict(sd), "votes_received": len(votes),
+           "last_vote": checked[-1][0], "vote_lockouts_max": max(
+               len(lo) for _, lo, _ in checked),
+           "poh_launches": r["poh_launches"],
+           "lthash_launches": r["lthash_launches"],
+           "replay_work_p50_ms": quantile_ns(rh["work"], 0.50) / 1e6,
+           "replay_work_p99_ms": quantile_ns(rh["work"], 0.99) / 1e6,
+           "replay_work_polls": rh["work"]["count"],
+           "replay_spans": rh["tpu"]["count"],
+           "replay_span_p50_ms": quantile_ns(rh["tpu"], 0.50) / 1e6,
+           "replay_span_p99_ms": quantile_ns(rh["tpu"], 0.99) / 1e6,
+           "bank_wave_launches": bk["wave_launches"],
+           "verify_batches": {tn: la[tn]["batches"] for tn in shards},
+           "boot_s": boot_s, "waits_s": waits, "drain_s": d["wall_s"],
+           "cpu_check_s": cpu_check_s, "mirror_wires":
+           len(got["shreds_mirror"]), "blocks_checked": len(blocks),
+           "run_s": run_s, "phase_s": time.perf_counter() - t_phase,
+           "card": nvidia_smi()}
+    log(f"24: leader {bk['txns']} txns, {sh['dropped']} shreds of "
+        f"{len(dropped_slots)} slots below slot {slots} dropped from "
+        f"turbine; repair: {rp['reqs_sent']} requests, {ar['reqs_served']} "
+        f"served ({ar['reqs_refused']} refused), {rp['resps_in']} responses; "
+        f"the non-leader replayed {r['slots_replayed']} slots and "
+        f"{r['txns']} txns on the card (poh_verify {r['poh_launches']}, "
+        f"lthash {r['lthash_launches']} launches), poh_fail 0, divergent 0; "
+        f"{len(blocks)} block frames == a CPU replay of the leader's "
+        f"{len(got['shreds_mirror'])} mirrored wires ({cpu_check_s:.1f} s); "
+        f"tower votes_out {tw['votes_out']}, roots {tw['roots']}; "
+        f"{len(votes)} vote datagrams, each a TowerSync signed by the "
+        f"non-leader (strict verify on the card and ed25519_ref) for its "
+        f"last lockout slot's bank hash, the last for slot {checked[-1][0]}; "
+        f"replay work p50/p99 {rec['replay_work_p50_ms']:.3f}/"
+        f"{rec['replay_work_p99_ms']:.3f} ms over {rh['work']['count']} "
+        f"polls, tpu spans p50/p99 {rec['replay_span_p50_ms']:.3f}/"
+        f"{rec['replay_span_p99_ms']:.3f} ms over {rh['tpu']['count']}; "
+        f"every tile of both nodes exited 0; "
+        f"boot {boot_s:.1f} s, drain {d['wall_s']:.1f} s, phase "
+        f"{rec['phase_s']:.1f} s {card}")
+    return rec
+
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -3920,11 +3997,10 @@ def main() -> int:
                                                          reset_counts)
     stats.update(hash_stats)
 
-    # 17. the follower's check: in process on phase 12's wires (17a), then
-    # cfg/leader_follower.toml on the card (17b), and its record (17c)
+    # 17. the follower's check: in process on phase 12's wires (17a), and
+    # its record (17c)
     rec17, follower_path, follower_errs, follower_timed = run_follower(
-        root, dev, card, counts, reset_counts, wires12,
-        rec["shred_drain_s"])
+        root, dev, card, counts, reset_counts, wires12)
     log(f"17 record {json.dumps(rec17)}")
 
     # 18. the main path's fault drills and flight recorder
@@ -3963,6 +4039,12 @@ def main() -> int:
                                                reset_counts)
     log(f"23 record {json.dumps(rec23)}")
 
+    # 24. the voting non-leader: the leader's turbine over UDP to
+    # cfg/nonleader.toml, which repairs the dropped slots, replays them on
+    # the card and signs TowerSync votes; the tiles count their launches
+    rec24 = run_nonleader(root, card)
+    log(f"24 record {json.dumps(rec24)}")
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
     for name, src, rep, err in (
@@ -3985,28 +4067,32 @@ def main() -> int:
                         "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": None})
     st = stats["wave_scan"]
+    # phase 24's bank0 counts its wave scans in its own process
     kernels.append({"name": "wave_scan", "route": "cuda",
                     "source": "firedancer_tpu_torch/csrc/wave_scan.cu",
                     "replaces": "firedancer_tpu/svm/executor.py:111",
                     "launches": exec_path["wave_scan"]
                     + rec["bank_wave_launches"] + exec_launches
-                    + cold_launches["wave_scan"],
+                    + cold_launches["wave_scan"]
+                    + rec24["bank_wave_launches"],
                     "max_abs_err": wave_err, "ms": st["ms"],
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
-    # the follower's replay tile counts its own launches in the topology
-    tile_launches = {"poh_verify": rec17["poh_launches"]
-                     + general_launches["poh_verify"],
-                     "lthash": rec17["lthash_launches"]
-                     + cold_launches["lthash"] + general_launches["lthash"]}
+    # the replay tiles (23's in process, 24's in their topology) count
+    # their own launches
+    tile_launches = {"poh_verify": general_launches["poh_verify"]
+                     + rec24["poh_launches"],
+                     "lthash": cold_launches["lthash"]
+                     + general_launches["lthash"]
+                     + rec24["lthash_launches"]}
     for name, src, rep in (
             ("sha256", "sha256.cu", "firedancer_tpu/ops/sha2.py:211"),
             ("poh_verify", "sha256.cu", "firedancer_tpu/ops/poh.py:41"),
             ("blake3", "blake3.cu", "firedancer_tpu/ops/blake3.py:139"),
             ("lthash", "blake3.cu", "firedancer_tpu/ops/blake3.py:150")):
         st = stats[name]
-        # the follower's replay: its in-process path (17a) and the
-        # topology's replay tile (17b)
+        # the followers' replays: 17a's in-process path and the replay
+        # tiles of 22 (lthash), 23 and 24
         follower = follower_path[name] + tile_launches.get(name, 0)
         kernels.append({"name": name, "route": "cuda",
                         "source": f"firedancer_tpu_torch/csrc/{src}",
@@ -4061,6 +4147,11 @@ def main() -> int:
             kernels[-1]["vote_delta_ms"] = rec23["23c"]["lthash_vote_delta"]
         if name in general_launches:
             kernels[-1]["general_launches"] = general_launches[name]
+        if name in ("poh_verify", "lthash"):
+            # phase 24's non-leader replay tile
+            kernels[-1]["nonleader_launches"] = rec24[
+                "poh_launches" if name == "poh_verify" else
+                "lthash_launches"]
     # the verify tiles of the topology phases launch in their own
     # processes: their batches a phase (each strict batch one sha512_ram
     # and one ed25519_verify launch, each RLC batch one of each stage),
@@ -4069,7 +4160,8 @@ def main() -> int:
                 "12": sum(rec["verify_batches"].values()),
                 "19c": rec19["flood"]["verify"]["batches"],
                 "21": rec21["verify_batches"],
-                "23a": sum(rec23["23a"]["verify_batches"].values())}
+                "23a": sum(rec23["23a"]["verify_batches"].values()),
+                "24": sum(rec24["verify_batches"].values())}
     rlc_b = {"19c": rec19["flood"]["verify"]["rlc_batches"]}
     glob = {"sha512": "sha512_kernel", "sha512_ram": "sha512_kernel",
             "ed25519_verify": "ed25519_verify_kernel",

@@ -111,9 +111,9 @@ Schema (the reference's, cut to the kinds the port has):
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
-    verify, dedup, sink, pack, bank, poh, shred, sign, replay, sock,
-    gossip, exec, resolv, metric, archiver, playback, snapld, snapdc and
-    snapin, plus `device` on verify, bank, replay, gossip, exec and
+    verify, dedup, sink, pack, bank, poh, shred, sign, tower, repair,
+    send, replay, sock, gossip, exec, resolv, metric, archiver, playback,
+    snapld, snapdc and snapin, plus `device` on verify, bank, replay, gossip, exec and
     snapin (the card, "cuda", unless "cpu"); a gated key the port has
     not ported (pack's `bundle_in`, the bank's `rpc_port` and
     `ws_port`) passes the gate and is refused by its adapter;
@@ -179,6 +179,10 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
               "shred_version", "drop_slot_every", "leader_pubkey_hex",
               "turbine_in"),
     "sign": ("seed", "clients"),
+    "tower": ("total_stake",),
+    "repair": ("req", "resp", "identity_hex", "port", "bind_addr", "peers",
+               "root_slot"),
+    "send": ("req", "resp", "identity_hex", "vote_account_hex", "dest"),
     "replay": ("genesis", "genesis_synth", "hashes_per_tick", "verify_poh",
                "slots_per_epoch", "exec_links", "exec_done",
                "redispatch_s", "expected", "wait_restore", "snapshot_path",

@@ -3,20 +3,21 @@ the adapters of the JAX package's disco/tiles.py that the port's paths
 run: synth, verify, dedup and sink on the sigverify path; pack, bank,
 poh, shred and sign on the leader's loop, with resolv ahead of pack and
 the exec tile family behind the bank when execution is scaled out;
-shred in recover mode and replay on the follower's; sock and gossip at
-the front door; the cold-start follower's snapld, snapdc and snapin with
-the replay's restore gate, and the archiver and playback tiles), and the
-exec fan-out engine (ExecFanout) the bank and the replay share.
+shred in recover mode and replay on the follower's, with repair, tower
+and send on the voting non-leader's; sock and gossip at the front door;
+the cold-start follower's snapld, snapdc and snapin with the replay's
+restore gate, and the archiver and playback tiles), and the exec fan-out
+engine (ExecFanout) the bank and the replay share.
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these twenty kinds only (the nineteen above and
-    the metric tile); `Topology.tile` refuses every other kind of the
-    reference's registry (disco/unported.py), and `adapter_class` raises
-    ValueError for a name without an adapter;
+  * the registry holds these twenty-three kinds only (the twenty-two
+    above and the metric tile); `Topology.tile` refuses every other kind
+    of the reference's registry (disco/unported.py), and `adapter_class`
+    raises ValueError for a name without an adapter;
   * VerifyAdapter wraps the port's VerifyTile, which runs on the card
     unless its `device` arg (default "cuda") says "cpu"; that arg is the
     port's counterpart of the reference's FDTPU_JAX_PLATFORM override
@@ -85,6 +86,12 @@ Where the copy differs from the reference:
     "cuda") for format="archive"'s lattice check, and snapdc and
     format="archive" raise at construction without the `zstandard`
     package, naming it;
+  * RepairAdapter and SendAdapter give their keyguard clients the
+    tile's cnc, so a sign wait ends at a halt (SignHalted, as the shred
+    tile's), and close their sockets on halt; TowerAdapter publishes its
+    vote through `publish_wave`, which a halt ends while backpressured;
+    the tower and send tiles build and parse the vote frame with
+    tiles/tower.py's `pack_tower_vote` and `parse_tower_vote`;
   * SignAdapter refuses a `keyswitch_off` in its plan entry: the port's
     plan carves no keyswitch region for the live identity hot-swap
     (topo.py:460-465 in the reference, item 13);
@@ -1937,7 +1944,9 @@ class ShredAdapter:
     over UDP. args: cluster = [{pubkey_hex, stake, addr "host:port"}],
     identity_hex, req/resp (keyguard links), optional out link
     "shreds" mirror + "batches" witness link, flush_bytes, fanout,
-    shred_version.
+    shred_version, drop_slot_every (the fault seam: every Nth slot's
+    shreds are withheld from turbine and counted in `dropped`, still
+    mirrored, so a non-leader must repair them).
 
     mode="recover": in links = raw shred wires (turbine ingest and
     repair responses feed the same resolver); FEC-resolves, stores,
@@ -1949,7 +1958,7 @@ class ShredAdapter:
     METRICS = ["entries", "batches", "fec_sets", "data_shreds",
                "parity_shreds", "sent", "no_dest", "sign_fail",
                "slots", "shreds", "fecs", "slices", "slots_done",
-               "parse_fail", "retransmitted", "overruns"]
+               "parse_fail", "retransmitted", "dropped", "overruns"]
 
     def __init__(self, ctx, args):
         self.ctx = ctx
@@ -2012,6 +2021,7 @@ class ShredAdapter:
             shred_version=int(args.get("shred_version", 0)),
             fanout=int(args.get("fanout", 200)),
             flush_bytes=int(args.get("flush_bytes", 31840)),
+            drop_slot_every=int(args.get("drop_slot_every", 0)),
             cnc=getattr(ctx, "cnc", None))
         self.ring = ctx.in_rings[self.in_link]
         self.mtu = ctx.plan["links"][self.in_link]["mtu"]
@@ -2485,6 +2495,231 @@ class SignAdapter:
 
     def metrics_items(self):
         return dict(self.tile.metrics)
+
+
+@register("tower")
+class TowerAdapter:
+    """Consensus tile (ref: src/discof/tower/fd_tower_tile.c): consumes
+    block/vote frames, runs ghost + tower checks at housekeeping, emits
+    own votes. args: total_stake, in links = the replay fan-in (replay
+    blocks and gossip or injected votes on separate links), out link =
+    votes. The vote frame carries the FULL tower, lockouts and root
+    (tiles/tower.pack_tower_vote), so the send tile can build a real
+    TowerSync instruction."""
+
+    METRICS = ["blocks", "votes_in", "votes_out", "lockout_skips",
+               "switch_skips", "threshold_skips", "roots", "root_slot",
+               "bad_frames", "overruns"]
+    GAUGES = ["root_slot"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.tower import TowerCore
+        self.ctx = ctx
+        self.core = TowerCore(int(args["total_stake"]))
+        self.seqs = ctx.in_seqs0()
+        self.out = _single(ctx.out_rings, "out link", ctx.tile_name)
+        self.out_fseqs = _single(ctx.out_fseqs, "out link",
+                                 ctx.tile_name)
+        self._ovr = 0
+        self.mtus = {ln: ctx.plan["links"][ln]["mtu"]
+                     for ln in ctx.in_rings}
+
+    def poll_once(self) -> int:
+        total = 0
+        for ln, ring in self.ctx.in_rings.items():
+            n, self.seqs[ln], buf, sizes, sigs, ovr = ring.gather(
+                self.seqs[ln], 32, self.mtus[ln])
+            self._ovr += ovr
+            _trace_consume(self.ctx, ln, sigs, n)
+            for i in range(n):
+                self.core.handle(bytes(buf[i, :sizes[i]]))
+            total += n
+        return total
+
+    def housekeeping(self):
+        from ..tiles.tower import pack_tower_vote
+        decision = self.core.decide()
+        if decision is not None:
+            slot, block_id = decision
+            publish_wave(self.out, self.out_fseqs,
+                         [(slot, pack_tower_vote(slot, block_id,
+                                                 self.core.tower))],
+                         cnc=getattr(self.ctx, "cnc", None))
+
+    def in_seqs(self):
+        return dict(self.seqs)
+
+    def metrics_items(self):
+        return {**self.core.metrics, "overruns": self._ovr}
+
+
+@register("repair")
+class RepairAdapter:
+    """Repair tile (ref: src/discof/repair/fd_repair_tile.c:1-15):
+    watches the data-shred stream for gaps (forest), sends signed
+    repair requests (keyguard REPAIR role) to peers over UDP, serves
+    peers' requests from its own shred cache, and forwards repair
+    responses onto the out link toward the FEC resolver.
+
+    args: identity_hex, port (0 = ephemeral, published as metric),
+    bind_addr, peers = [{pubkey_hex, addr "host:port"}], root_slot,
+    req/resp = keyguard links (none: a serve-only tile); shred in link =
+    the remaining in link; out link toward the shred tile (optional for
+    pure servers); shed (per-tile policing override, disco/shed.py,
+    merged over the topology [shed] section: the repair port is
+    internet-facing). A sign wait raises SignHalted once the tile leaves
+    RUN, so a halt never waits out the keyguard client's timeout."""
+
+    METRICS = ["shreds_seen", "reqs_sent", "sign_fail", "reqs_served",
+               "reqs_refused", "resps_in", "cache_slots", "incomplete",
+               "overruns", "port", "shed", "shed_unstaked", "peers",
+               "overload"]
+    GAUGES = ["cache_slots", "incomplete", "port", "peers", "overload"]
+
+    def __init__(self, ctx, args):
+        import socket
+
+        from ..keyguard import KeyguardClient
+        from ..tiles.repair import RepairCore
+        self.ctx = ctx
+        resp_ln = args.get("resp")
+        ins = [ln for ln in ctx.in_rings if ln != resp_ln]
+        self.in_link = _single({ln: ln for ln in ins}, "shred in link",
+                               ctx.tile_name)
+        self.ring = ctx.in_rings[self.in_link]
+        if resp_ln:
+            self._kg = KeyguardClient(ctx.out_rings[args["req"]],
+                                      ctx.in_rings[resp_ln],
+                                      req_fseqs=ctx.out_fseqs[args["req"]],
+                                      cnc=getattr(ctx, "cnc", None))
+            sign_fn = self._kg.sign
+        else:
+            self._kg = None
+            sign_fn = lambda payload: None        # serve-only tile
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sock.bind((args.get("bind_addr", "127.0.0.1"),
+                   int(args.get("port", 0))))
+        sock.setblocking(False)
+        self.port = sock.getsockname()[1]
+        peers = []
+        for p in args.get("peers", []):
+            host, port = p["addr"].rsplit(":", 1)
+            peers.append((bytes.fromhex(p["pubkey_hex"]),
+                          (host, int(port))))
+        outs = [ln for ln in ctx.out_rings if ln != args.get("req")]
+        # a serve-only tile has no out link
+        out_ln = _single({ln: ln for ln in outs}, "shred out link",
+                         ctx.tile_name) if outs else None
+        self.core = RepairCore(
+            bytes.fromhex(args["identity_hex"]), sign_fn, sock,
+            peers=peers,
+            root_slot=(int(args["root_slot"])
+                       if "root_slot" in args else None),
+            out_ring=ctx.out_rings.get(out_ln),
+            out_fseqs=ctx.out_fseqs.get(out_ln),
+            shed=_shed_for(ctx, args))
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+        self._ovr = 0
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+
+    def poll_once(self) -> int:
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, 32, self.mtu)
+        self._ovr += ovr
+        _trace_consume(self.ctx, self.in_link, sigs, n)
+        for i in range(n):
+            self.core.on_shred(bytes(buf[i, :sizes[i]]))
+        return n + self.core.poll_socket()
+
+    def housekeeping(self):
+        if self._kg is not None:
+            try:
+                self.core.plan_and_send()
+            except SignHalted:
+                pass    # halting: the plan's other requests are dropped
+        _shed_slo_poll(self.ctx, self.core.shed)
+
+    def on_halt(self):
+        self.core.sock.close()
+
+    def in_seqs(self):
+        seqs = {self.in_link: self.seq}
+        if self._kg is not None:
+            for ln in self.ctx.in_rings:
+                if ln != self.in_link:
+                    seqs[ln] = self._kg.resp_seq
+        return seqs
+
+    def metrics_items(self):
+        gate = (self.core.shed.counters() if self.core.shed is not None
+                else {"shed": 0, "shed_unstaked": 0, "peers": 0,
+                      "overload": 0})
+        return {**self.core.metrics, **gate, "overruns": self._ovr,
+                "port": self.port}
+
+
+@register("send")
+class SendAdapter:
+    """Vote egress tile (ref: src/discof/send/): consumes vote frames,
+    builds the VoteInstruction::TowerSync txn, signs it through the
+    keyguard rings and sends it over UDP. args: identity_hex (node
+    pubkey; the SEED stays in the sign tile), vote_account_hex, dest
+    ("host:port"), req/resp = keyguard links. A sign wait raises
+    SignHalted once the tile leaves RUN, as the repair tile's does."""
+
+    METRICS = ["votes", "sent", "sign_fail", "overruns"]
+
+    def __init__(self, ctx, args):
+        import socket
+
+        from ..keyguard import KeyguardClient
+        from ..tiles.tower import SendCore
+        self.ctx = ctx
+        vote_in = [ln for ln in ctx.in_rings if ln != args["resp"]]
+        self.in_link = _single({ln: ln for ln in vote_in},
+                               "vote in link", ctx.tile_name)
+        self.ring = ctx.in_rings[self.in_link]
+        host, port = args["dest"].rsplit(":", 1)
+        kg = KeyguardClient(ctx.out_rings[args["req"]],
+                            ctx.in_rings[args["resp"]],
+                            req_fseqs=ctx.out_fseqs[args["req"]],
+                            cnc=getattr(ctx, "cnc", None))
+        self.core = SendCore(
+            bytes.fromhex(args["identity_hex"]),
+            bytes.fromhex(args["vote_account_hex"]), kg,
+            (host, int(port)),
+            socket.socket(socket.AF_INET, socket.SOCK_DGRAM))
+        self.seq = ctx.in_seq0.get(self.in_link, 0)
+        self._ovr = 0
+        self.mtu = ctx.plan["links"][self.in_link]["mtu"]
+
+    def poll_once(self) -> int:
+        from ..tiles.tower import parse_tower_vote
+        n, self.seq, buf, sizes, sigs, ovr = self.ring.gather(
+            self.seq, 8, self.mtu)
+        self._ovr += ovr
+        _trace_consume(self.ctx, self.in_link, sigs, n)
+        for i in range(n):
+            slot, block_id, lockouts, root = parse_tower_vote(
+                bytes(buf[i, :sizes[i]]))
+            try:
+                self.core.send_vote(slot, block_id, lockouts=lockouts,
+                                    root=root)
+            except SignHalted:
+                break   # halting: what is left of the poll is dropped
+        return n
+
+    def on_halt(self):
+        self.core.sock.close()
+
+    def in_seqs(self):
+        # the keyguard resp link is consumed inside KeyguardClient
+        return {self.in_link: self.seq,
+                **{ln: self.core.kg.resp_seq
+                   for ln in self.ctx.in_rings if ln != self.in_link}}
+
+    def metrics_items(self):
+        return {**self.core.metrics, "overruns": self._ovr}
 
 
 @register("metric")

@@ -22,8 +22,8 @@ Where the copy differs from the reference:
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
-    :460-465, with it), the per-tile args the port lacks and a chaos
-    plan naming an action whose tile kind or seam is not ported (the
+    :460-465, with it) and a chaos plan naming an action whose tile
+    kind or seam is not ported (the
     reference ignores such an action); it refuses the verify tile's
     `device_fail_limit` by design (ROADMAP.md C: the port does not
     degrade to the CPU); a name that is no kind at all is left to fail
@@ -60,8 +60,7 @@ from .shed import normalize_shed
 from .slo import normalize_slo, resolve_slo
 from .supervise import SUP_SLOT_MIN, normalize_policy
 from .unported import (REFUSED_TILE_ARGS, UNPORTED_CHAOS_ACTIONS,
-                       UNPORTED_KINDS, UNPORTED_TILE_ARGS, refuse,
-                       refuse_by_design)
+                       UNPORTED_KINDS, refuse, refuse_by_design)
 
 METRICS_SLOTS = 64          # u64 counters per tile
 
@@ -137,9 +136,6 @@ class Topology:
             raise ValueError(f"duplicate tile {name}")
         if kind in UNPORTED_KINDS:
             refuse(f"tile kind {kind!r}", UNPORTED_KINDS[kind])
-        for key, item in UNPORTED_TILE_ARGS.items():
-            if key in args:
-                refuse(f"the tile arg {key!r}", item)
         for key, why in REFUSED_TILE_ARGS.items():
             if key in args:
                 refuse_by_design(f"the tile arg {key!r}", why)

@@ -3,8 +3,8 @@ args and tile kinds that have no counterpart here yet, each with the
 ROADMAP.md queue-A item that ports it.
 
 `app.config.build_topology` refuses the sections, `Topology.tile` the
-kinds, the args (and `device_fail_limit`, which no item ports: the
-port's verify tile does not degrade to the CPU) and the chaos actions;
+kinds, `device_fail_limit` (which no item ports: the port's verify tile
+does not degrade to the CPU) and the chaos actions;
 the adapters refuse their own args (pack's `bundle_in`, item 13; the
 bank's `rpc_port` and `ws_port`, item 16; the sign tile's keyswitch
 region, item 13). Nothing refused is silently ignored.
@@ -15,11 +15,6 @@ from __future__ import annotations
 # disco/topo.py:85-126 and app/config.py's top-level tables); [witness]
 # is the device probe of witness/ (item 6's other half, 6b)
 UNPORTED_SECTIONS = {"flight": 10, "tune": 11, "witness": "6b"}
-
-# per-tile args of the reference that the port has not ported: the
-# shred tile's fault seam for the repair tile's tests
-# (tiles/shred.py:87)
-UNPORTED_TILE_ARGS = {"drop_slot_every": 13}
 
 # per-tile args of the reference that the port refuses by design (a
 # deliberate difference, ROADMAP.md C, not a queue-A item): the verify
@@ -42,8 +37,7 @@ UNPORTED_KINDS = {
     "quic": "3b",
     "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,
-    **dict.fromkeys(("tower", "repair", "send", "bundle", "plugin",
-                     "vinyl", "ipecho", "pcap"), 13),
+    **dict.fromkeys(("bundle", "plugin", "vinyl", "ipecho", "pcap"), 13),
 }
 
 

@@ -1,3 +1,3 @@
-"""flamenco: the runtime's state commitments and the gossip wire codec
-(copies of the bank hash and gossip_wire of the JAX package's
-flamenco/)."""
+"""flamenco: the runtime's state commitments, the gossip wire codec and
+the epoch leader schedule (copies of the bank hash, gossip_wire and
+leaders of the JAX package's flamenco/)."""

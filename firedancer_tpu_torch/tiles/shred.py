@@ -7,9 +7,8 @@ helpers `pack_slice`, `parse_slice` and `parse_entry_batch`).
 
 The reference's shred tile serves both directions of turbine
 (ref: src/disco/shred/fd_shred_tile.c:6-60). Its `drop_slot_every`
-fault seam, which withholds a slot's shreds from turbine for the repair
-tile's tests, comes with the repair tile (item 13; `Topology.tile`
-refuses the arg).
+fault seam withholds every Nth slot's shreds from turbine, so that a
+non-leader's repair tile must recover the slot (tiles/repair.py).
 Signing rides the keyguard LEADER role (32-byte merkle roots only,
 src/disco/keyguard/fd_keyguard_authorize.c is_shred_ping).
 
@@ -79,11 +78,16 @@ class ShredLeaderCore:
                  out_ring=None, out_fseqs=None,
                  shred_version: int = 0, fanout: int = 200,
                  flush_bytes: int = 31840, batch_out=None,
-                 batch_fseqs=None, cnc=None):
+                 batch_fseqs=None, drop_slot_every: int = 0,
+                 cnc=None):
         """cluster: [ClusterNode]; sock: bound UDP socket for egress.
         batch_out: optional ring that mirrors every flushed entry batch
         (u64 slot | u8 block_complete | bytes) — the byte-identity
-        witness the two-topology test compares against."""
+        witness the two-topology test compares against.
+        drop_slot_every: fault-injection seam (test-only): every Nth
+        slot's shreds are withheld from turbine (still mirrored on
+        out_ring), simulating total network loss of a block so the
+        repair path must recover it."""
         self.shredder = Shredder(sign_fn, shred_version=shred_version)
         self.identity = identity
         self.dest = ShredDest(cluster, identity, fanout=fanout)
@@ -93,6 +97,7 @@ class ShredLeaderCore:
         self.batch_out = batch_out
         self.batch_fseqs = batch_fseqs
         self.flush_bytes = flush_bytes
+        self.drop_slot_every = drop_slot_every
         self.cur_slot = None
         self.cur_tick = 0
         self.buf = bytearray()
@@ -108,7 +113,7 @@ class ShredLeaderCore:
         self.metrics = {"entries": 0, "batches": 0, "fec_sets": 0,
                         "data_shreds": 0, "parity_shreds": 0,
                         "sent": 0, "no_dest": 0, "sign_fail": 0,
-                        "slots": 0}
+                        "slots": 0, "dropped": 0}
 
     def on_entry(self, frame: bytes) -> int:
         """One poh entry frame; returns shreds transmitted."""
@@ -173,7 +178,11 @@ class ShredLeaderCore:
         node = self.dest.first_hop(slot, idx, 1 if is_data else 0,
                                    self.identity)
         n = 0
-        if node is not None and node.addr[1]:
+        dropped = self.drop_slot_every \
+            and slot % self.drop_slot_every == self.drop_slot_every - 1
+        if dropped:
+            self.metrics["dropped"] += 1
+        elif node is not None and node.addr[1]:
             self.sock.sendto(wire, node.addr)
             self.metrics["sent"] += 1
             n = 1

@@ -550,8 +550,10 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
     WindowSender (at most `window` datagrams between what it sent and
     what the door read, so the door reads every one), in the groups of
     `_groups` (the loop drains after each: the sBPF deploy sequence's
-    order), wait until every transaction is executed, failed or dropped
-    at a named hop, and halt. Then PlainBank over the microblocks bank0
+    order; the last goes once poh is in a later epoch, so the votes
+    before it earn rewards, a wait left out of the wall), wait until
+    every transaction is executed, failed or dropped at a named hop, and
+    poh has mixed in every microblock, and halt. Then PlainBank over the microblocks bank0
     took (a LinkTap on pack -> bank0), in order. Its store check holds
     bank0 to its own code run in process: it shows that the run is
     deterministic and that the rings, the halt and the checkpoint lose
@@ -584,8 +586,15 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
         tap = leader_drain.LinkTap(runner, "pack_bank0")
         port = int(runner.metrics("sock")["port"])
         t0 = time.perf_counter()
-        sent = 0
-        for group in _groups(wl):
+        sent, idle = 0, 0.0
+        groups = _groups(wl)
+        for k, group in enumerate(groups):
+            if k and k + 1 == len(groups):
+                # the last group executes in a later epoch than the
+                # groups before it, so the votes they landed earn
+                # rewards at its first microblock's epoch boundary
+                # (a quick run can otherwise fit in one epoch)
+                idle += _next_epoch(runner, spe, timeout_s)
             base = sent
             sender = WindowSender(
                 group, port, lambda: runner.metrics("sock")["rx"] - base,
@@ -601,7 +610,8 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
             sent += sender.stop()
             dropped = leader_drain.wait_drained(runner, sent,
                                                 timeout_s=timeout_s)
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - idle
+        leader_drain.wait_mixed(runner, timeout_s)
         # the shred leg is not drained: its pure-Python Reed-Solomon
         # lags the bank, and a poh backpressured at its halt drops the
         # entries it staged (the shreds are not what this run checks)
@@ -662,6 +672,19 @@ def run_general(cfg_path: str, wl: Workload, genesis_path: str,
             oracle.bank._rewards_epoch,
             "host_us_per_txn": oracle.us_per_txn(), "sbpf": sbpf,
             "sbpf_host": wl.sbpf.host_costs(oracle.results, oracle.ns)}
+
+
+def _next_epoch(runner, spe: int, timeout_s: float) -> float:
+    """Wait until poh is two slots into the epoch after its current one
+    (pack's slot follows poh's a frame behind). -> seconds waited."""
+    t0 = time.perf_counter()
+    target = (runner.metrics("poh")["slots"] // spe + 1) * spe + 2
+    deadline = time.monotonic() + timeout_s
+    while runner.metrics("poh")["slots"] < target:
+        runner.check_failures()
+        assert time.monotonic() < deadline, f"poh never reached {target}"
+        time.sleep(0.01)
+    return time.perf_counter() - t0
 
 
 def _groups(wl: Workload) -> list:

@@ -1,7 +1,8 @@
 """Drains of the leader topology (firedancer_tpu_torch/cfg/leader.toml,
 cfg/leader_follower.toml with its follower leg, and cfg/exec.toml's
 exec tile family) booted by a TopologyRunner, and the checks of what it
-mirrored; used by chip_smoke.py phases 12, 17 and 20 and
+mirrored; used by chip_smoke.py phases 12, 17 and 20, by
+tools/general_exec.py and tools/cluster.py (phases 23 and 24), and by
 tests/test_torch_leader.py, test_torch_follower.py and
 test_torch_exec_tile.py.
 
@@ -15,10 +16,11 @@ goes quiet (poh ticks on), so `drain_shred_leg` then halts every tile
 upstream of the shred tile, whose stems flush what they staged, waits
 until the shred tile has taken every entry poh published and shredsink
 every wire the shred tile mirrored, and halts the rest but the tiles it
-is told to keep. With a follower, `close_slot` first lets poh complete
-the slot that holds the last executed microblock, and `drain_follower`
-then waits until the replay tile has
-replayed every slot poh completed, and halts them. `check_mirror` reads
+is told to keep. `wait_mixed` waits until poh has mixed in every
+microblock bank0 executed. With a follower, `close_slot` first lets poh
+complete the slot that holds the last executed microblock, and
+`drain_follower` then waits until the replay tile has replayed every
+slot poh completed, and halts them. `check_mirror` reads
 the shreds still in the mirror ring and holds each to its FEC set's
 merkle root (its proof) and the root to the set's signature;
 `tower_blocks` reads the replay tile's block frames still in its ring;
@@ -95,12 +97,10 @@ def wait_restarted(runner, tile: str, timeout_s: float,
         time.sleep(poll_s)
 
 
-def close_slot(runner, timeout_s: float, poll_s: float = 0.002) -> int:
+def wait_mixed(runner, timeout_s: float, poll_s: float = 0.002):
     """After wait_drained: wait until poh has mixed in every microblock
-    bank0 executed and then completed the slot the last of them went
-    into, so a follower replays every executed transaction (halting poh
-    at once would leave them in a slot that never completes).
-    -> poh's completed slots."""
+    bank0 executed (the tiles halt together, and the last microblock may
+    still be in the bank0 -> poh link)."""
     deadline = time.monotonic() + timeout_s
     while runner.metrics("poh")["mixins"] < \
             runner.metrics("bank0")["microblocks"]:
@@ -108,6 +108,16 @@ def close_slot(runner, timeout_s: float, poll_s: float = 0.002) -> int:
         if time.monotonic() > deadline:
             raise TimeoutError("poh never mixed in every microblock")
         time.sleep(poll_s)
+
+
+def close_slot(runner, timeout_s: float, poll_s: float = 0.002) -> int:
+    """After wait_drained: wait until poh has mixed in every microblock
+    bank0 executed and then completed the slot the last of them went
+    into, so a follower replays every executed transaction (halting poh
+    at once would leave them in a slot that never completes).
+    -> poh's completed slots."""
+    deadline = time.monotonic() + timeout_s
+    wait_mixed(runner, timeout_s, poll_s)
     target = runner.metrics("poh")["slots"] + 1
     while (slots := runner.metrics("poh")["slots"]) < target:
         runner.check_failures()

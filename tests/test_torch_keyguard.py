@@ -2,8 +2,9 @@
 protocol/txn.py's parse_message_shape) against the JAX package's: the
 policy cases of tests/test_keyguard.py:30-91 on the port's `authorize`, the
 whole (payload class x role x sign type) matrix equal to the reference's,
-a SignTile / KeyguardClient round trip over the port's rings, and the
-shred and sign adapters' refusals of what the port has not ported."""
+a SignTile / KeyguardClient round trip over the port's rings, the shred
+tile's drop_slot_every seam beside the reference's, and the shred and
+sign adapters' refusals of what the port has not ported."""
 import os
 import threading
 from types import SimpleNamespace
@@ -206,18 +207,58 @@ def test_shred_adapter_stops_a_sign_wait_when_its_tile_halts():
 
 
 def test_shred_drop_slot_every_is_refused_with_its_item():
-    """The reference's fault seam for the repair tile's tests is
-    accepted by the config gate and refused by Topology.tile."""
+    """The reference's fault seam, refused until the repair tile was
+    ported, is accepted by the config gate and Topology.tile and drops
+    the slots it names: with drop_slot_every = 4, slots 3 and 7 reach no
+    turbine peer (counted in `dropped`) and are still mirrored, the
+    other slots are sent, and every count, send and mirrored wire is the
+    reference ShredLeaderCore's."""
+    import struct
+
+    from firedancer_tpu.tiles import shred as jshred
+    from firedancer_tpu.shred import shred_dest as jdest
+    from firedancer_tpu.utils import ed25519_ref as jed
     from firedancer_tpu_torch.app import config as tconfig
     from firedancer_tpu_torch.disco.topo import Topology
-    with pytest.raises(NotImplementedError, match="queue A item 13$"):
-        Topology("kgd").tile("shred", "shred", drop_slot_every=4)
+    from firedancer_tpu_torch.shred import format as fmt
+    from firedancer_tpu_torch.shred import shred_dest as tdest
+    from firedancer_tpu_torch.tiles import shred as tshred
+    from firedancer_tpu_torch.utils import ed25519_ref as ted
+    topo = Topology("kgd").tile("shred", "shred", drop_slot_every=4)
+    assert topo.tiles["shred"].args["drop_slot_every"] == 4
     toml = os.path.join(os.path.dirname(tconfig.__file__), os.pardir,
                         "cfg", "leader.toml")
     cfg = tconfig.load_config(toml, overrides={
         "tile": [{"name": "shred", "drop_slot_every": 4}]})
-    with pytest.raises(NotImplementedError, match="queue A item 13$"):
-        tconfig.build_topology(cfg)
+    assert tconfig.build_topology(cfg).tiles["shred"].args[
+        "drop_slot_every"] == 4
+
+    class Sock:
+        def __init__(self):
+            self.sent = []
+
+        def sendto(self, wire, addr):
+            self.sent.append(bytes(wire))
+
+    frames = [struct.pack("<QIIB", slot, 0, 8, 0) + bytes(96) + bytes([1])
+              + struct.pack("<H", 0) for slot in range(9)]
+    out = {}
+    for name, mod, dest, ed in (("ref", jshred, jdest, jed),
+                                ("port", tshred, tdest, ted)):
+        sock = Sock()
+        core = mod.ShredLeaderCore(
+            lambda r, ed=ed: ed.sign(SEED, r), IDENTITY,
+            [dest.ClusterNode(b"\x55" * 32, 100, ("127.0.0.1", 9))], sock,
+            drop_slot_every=4)
+        for f in frames:
+            core.on_entry(f)
+        out[name] = (sock.sent, dict(core.metrics))
+    assert out["port"] == out["ref"]
+    sent, m = out["port"]
+    sent_slots = {fmt.parse_shred(w).slot for w in sent}
+    assert sent_slots == set(range(9)) - {3, 7}
+    assert m["slots"] == 9 and m["dropped"] > 0
+    assert m["dropped"] + m["sent"] == m["data_shreds"] + m["parity_shreds"]
 
 
 def test_sign_adapter_refuses_a_keyswitch_region():

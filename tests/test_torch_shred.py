@@ -240,10 +240,8 @@ def test_leader_core_matches_reference(leader_run):
     assert port["per_entry"] == ref["per_entry"]
     assert port["mirror"] == ref["mirror"]
     assert port["batches"] == ref["batches"]
-    # the port has no drop_slot_every seam, so no "dropped" count
-    ref_metrics = dict(ref["metrics"])
-    assert ref_metrics.pop("dropped") == 0
-    assert port["metrics"] == ref_metrics
+    assert port["metrics"] == ref["metrics"]
+    assert port["metrics"]["dropped"] == 0
     m = port["metrics"]
     assert m["slots"] == 3 and m["fec_sets"] > 3 and m["sign_fail"] == 0
     assert m["sent"] == m["data_shreds"] + m["parity_shreds"] \

@@ -30,7 +30,7 @@ from firedancer_tpu_torch.disco import tiles as ttiles
 from firedancer_tpu_torch.disco.monitor import attach, format_table, snapshot
 from firedancer_tpu_torch.disco.stem import Stem
 from firedancer_tpu_torch.disco.unported import (
-    UNPORTED_KINDS, UNPORTED_SECTIONS, UNPORTED_TILE_ARGS)
+    UNPORTED_KINDS, UNPORTED_SECTIONS)
 from firedancer_tpu_torch.tiles import synth as tsynth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,6 +121,10 @@ def test_toml_builds_the_same_topology_under_both_loaders(overrides):
 # it, accepted since, so these cases now pin the acceptance
 PORTED_5F_SECTIONS = ("snapshot",)
 PORTED_5F_KINDS = ("archiver", "playback", "snapdc", "snapin", "snapld")
+# what item 13's first half ported (the voting non-leader): its tiles and
+# the shred tile's fault seam, by the item that refused them
+PORTED_13_KINDS = ("repair", "send", "tower")
+PORTED_13_TILE_ARGS = {"drop_slot_every": 13}
 
 
 @pytest.mark.parametrize("section", sorted(UNPORTED_SECTIONS)
@@ -142,9 +146,9 @@ def test_unported_section_is_refused_with_its_item(section):
 
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS)
-                         + list(PORTED_5F_KINDS))
+                         + list(PORTED_5F_KINDS) + list(PORTED_13_KINDS))
 def test_unported_kind_is_refused_with_its_item(kind):
-    if kind in PORTED_5F_KINDS:
+    if kind in PORTED_5F_KINDS + PORTED_13_KINDS:
         # accepted from code and through the config gate, with the
         # reference's keys (lint/registry.py) and no other
         assert kind not in UNPORTED_KINDS and kind in ttiles.REGISTRY
@@ -167,7 +171,7 @@ def test_every_reference_kind_is_ported_or_refused():
                                     "pack", "bank", "poh", "shred",
                                     "sign", "replay", "sock", "gossip",
                                     "exec", "resolv", "metric",
-                                    *PORTED_5F_KINDS}
+                                    *PORTED_5F_KINDS, *PORTED_13_KINDS}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
@@ -175,22 +179,24 @@ def test_every_reference_kind_is_ported_or_refused():
         tconfig._validate_tile_keys({"name": "t", "kind": "nosuch_kind"})
 
 
-@pytest.mark.parametrize("arg,item", sorted(UNPORTED_TILE_ARGS.items()))
+@pytest.mark.parametrize("arg,item", sorted(PORTED_13_TILE_ARGS.items()))
 def test_unported_tile_arg_is_refused_with_its_item(arg, item):
-    """Refused in Topology.tile, whether the arg comes from code, from
-    the config gate (which accepts it on the shred tile, as the
-    reference's does) or through sharded_tile. Core pinning, the lazy
-    cadence and the prof override are ported
-    (tests/test_torch_placement.py, tests/test_torch_prof.py)."""
-    match = f"queue A item {item}"
-    with pytest.raises(NotImplementedError, match=match):
-        Topology("ta").tile("a", "shred", **{arg: 1})
-    with pytest.raises(NotImplementedError, match=match):
-        tconfig.build_topology(
-            {"tile": [{"name": "s", "kind": "shred", arg: 1}]})
-    with pytest.raises(NotImplementedError, match=match):
-        Topology("ta").sharded_tile("s", "shred", 2, outs=["a", "b"],
-                                    **{arg: 1})
+    """The per-tile args the port once refused in Topology.tile, each
+    with its item, are accepted since that item, whether the arg comes
+    from code, from the config gate or through sharded_tile, and reach
+    the tile's args (tests/test_torch_keyguard.py drops the slots
+    drop_slot_every names). Core pinning, the lazy cadence and the prof
+    override are ported (tests/test_torch_placement.py,
+    tests/test_torch_prof.py)."""
+    assert item == 13
+    topo = Topology("ta").tile("a", "shred", **{arg: 1})
+    assert topo.tiles["a"].args[arg] == 1
+    topo = tconfig.build_topology(
+        {"tile": [{"name": "s", "kind": "shred", arg: 1}]})
+    assert topo.tiles["s"].args[arg] == 1
+    topo = Topology("ta").sharded_tile("s", "shred", 2, outs=["a", "b"],
+                                       **{arg: 1})
+    assert all(t.args[arg] == 1 for t in topo.tiles.values())
 
 
 def test_config_gate_accepts_the_reference_keys_plus_device():
