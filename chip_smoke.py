@@ -195,7 +195,7 @@ and read just after:
             two exec shards): restore slot 4, no divergent slot, every
             replayed bank hash and every store account == the CPU
             oracle's, wave scans in both shards and lthash in the
-            replay. 22c: the same with 2^18 funded accounts in the
+            replay. 22c: the same with 2^17 funded accounts in the
             snapshot, the restore split (snapin's restore, the gate's
             store read and fold) and the gate's fold timed. 22d: the
             drills: corrupt_checkpt_frame and stale_snapshot_offer
@@ -241,6 +241,23 @@ and read just after:
             txn replayed, every vote signed by the non-leader (the
             strict verify on the card and ed25519_ref) for a replayed
             slot's bank hash.
+  cluster   phase 25: a cluster from nothing (tools/cluster.py with a
+  from      genesis). The port's app.genesis CLI writes the demo's
+  nothing   genesis (1 validator, 16 users); firedancer_tpu_torch/cfg/
+            follower.toml restores it (snapld -> snapin into the shm
+            store as slot 0; the replay's restore gate folds it on
+            lthash) and app.dev's leader (cfg/leader.toml with the
+            genesis in bank0) + cfg/cluster.toml at full width, no slot
+            dropped, sends it turbine; the follower replays on the card
+            over two exec shards (wave scan), snapshots every 64 slots
+            and votes. Waits on metrics only; snapin restored slot 0;
+            every txn the leader executed after slot 0 replayed ok (the
+            restore slot is never replayed, as in the reference); every
+            block frame's bank hash == the port's CPU replay of the
+            leader's mirrored slices from the same checkpoint; every vote
+            signed by the follower for a replayed slot's bank hash; the
+            replay's last snapshot (a multiple of 64) == that CPU
+            replay's store at its slot, under its block frame's hash.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -257,9 +274,10 @@ batches, and the launches phase 21's capture recorded), error against
 its plain version, time, plain time and bound (poh_verify and lthash
 also at the replay's own shapes, lthash at phase 22's restore shapes;
 phase 22's wave scans and lthash launches are counted in, phase 23's
-poh_verify and lthash, and phase 24's leader's verify batches and wave
-scans and its non-leader's poh_verify and lthash; lthash also at phase
-23c's vote-heavy slot delta).
+poh_verify and lthash, phase 24's leader's verify batches and wave
+scans and its non-leader's poh_verify and lthash, and phase 25's, each
+node's also in `follower_launches`; lthash also at phase 23c's
+vote-heavy slot delta).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -272,7 +290,11 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# torch is imported by main(), not here: every tile process the script
+# spawns imports this file first, and a tile that runs no kernel boots
+# without torch
+torch = None
 
 B = 8192                 # bench.py kernel batch
 MSG_LEN = 1232           # protocol MTU: bench.py msg_len
@@ -423,11 +445,12 @@ CAPTURE_TCACHE = max(16, 1 << (CAPTURE_UNIQUE.bit_length() - 4))
 CAPTURE_TRACE_DEPTH = 1 << 18
 # phase 22: the real-format restore's accounts (22a) and the tamper
 # drill's smaller archive, the snapshot of 22c (a mainnet snapshot's
-# order of 10^9 accounts cut to 2^18, PERF.md section 4), the lanes held
-# one by one to the plain version, and the seed
+# order of 10^9 accounts cut to 2^17 for the script's time: 2^18 until
+# phase 25 came; PERF.md section 4), the lanes held one by one to the
+# plain version, and the seed
 COLD_ARCHIVE_ACCOUNTS = 1 << 20
 COLD_TAMPER_ACCOUNTS = 2048
-COLD_STATE_ACCOUNTS = 1 << 18
+COLD_STATE_ACCOUNTS = 1 << 17
 COLD_SAMPLE = 4096
 COLD_SEED = 22
 
@@ -1502,15 +1525,18 @@ def recover_slices(pub, wires, drop=frozenset()):
 
 
 def replay_slices(slices, genesis, hashes_per_tick, device, per_slice,
-                  on_span=None):
+                  on_span=None, verify_poh=True):
     """The port's ReplayCore over slice frames on `device`: one slice at
     a time (per_slice, as the replay tile releases slots when it keeps
-    up) or all in one release. -> (core, wall seconds)."""
+    up) or all in one release; `verify_poh` False for an oracle of bank
+    hashes alone (the PoH check takes most of a CPU replay's time, and a
+    bank hash takes the entries' tips as given). -> (core, wall
+    seconds)."""
     from firedancer_tpu_torch.tiles.replay import ReplayCore
     t0 = time.perf_counter()
     core = ReplayCore(out_ring=_Capture(), genesis=genesis,
                       hashes_per_tick=hashes_per_tick, device=device,
-                      on_span=on_span)
+                      verify_poh=verify_poh, on_span=on_span)
     if per_slice:
         for f in slices:
             core.on_slice(f)
@@ -2925,8 +2951,8 @@ def run_archive_restore(w, tmp, card, counts, reset_counts) -> dict:
 
 def run_cold_start(root, card, counts, reset_counts):
     """Phase 22: the cold-start follower on the card (tools/catchup.py).
-    22c's fixture (its CPU oracle folds 2^18 accounts on the plain
-    lthash) builds in a worker process while 22a and 22b run.
+    22c's fixture (its CPU oracle folds COLD_STATE_ACCOUNTS on the
+    plain lthash) builds in a worker process while 22a and 22b run.
     -> ({"wave_scan": n, "lthash": n} launches on its paths, record)."""
     import multiprocessing as mp
     import shutil
@@ -3258,8 +3284,10 @@ def run_nonleader(root, card) -> dict:
     t0 = time.perf_counter()
     rcfg = next(t for t in c.b_cfg["tile"] if t["name"] == "replay")
     slices, _ = recover_slices(c.leader_identity(), got["shreds_mirror"])
+    # bank hashes only: the replay tile's own PoH check is asserted above
     cpu, _ = replay_slices(slices, _synth_genesis(rcfg["genesis_synth"]),
-                           rcfg["hashes_per_tick"], "cpu", False)
+                           rcfg["hashes_per_tick"], "cpu", False,
+                           verify_poh=False)
     cpu_check_s = time.perf_counter() - t0
     blocks = [parse_block(f) for f in got["replay_tower"]]
     replayed = {slot for slot, *_ in blocks}
@@ -3284,7 +3312,8 @@ def run_nonleader(root, card) -> dict:
     vlen = np.array([len(m) for _, _, m, _ in parsed], np.int32)
     on_card = cuda_ed.verify_batch(vsig, vpub, vmsg, vlen, device=DEVICE)
     assert bool(on_card.all()), "24: a vote fails the strict verify"
-    assert len(votes) <= sd["sent"], (len(votes), sd)
+    # Cluster.stop read the socket after the halt: every vote sent
+    assert len(votes) == sd["sent"], (len(votes), sd)
     rec = {"slots": slots, "slots_replayed": r["slots_replayed"],
            "txns": bk["txns"], "replay_txns": r["txns"],
            "dropped_shreds": sh["dropped"],
@@ -3313,6 +3342,7 @@ def run_nonleader(root, card) -> dict:
            "bank_wave_launches": bk["wave_launches"],
            "verify_batches": {tn: la[tn]["batches"] for tn in shards},
            "boot_s": boot_s, "waits_s": waits, "drain_s": d["wall_s"],
+           "drain_steps_s": d["steps_s"],
            "cpu_check_s": cpu_check_s, "mirror_wires":
            len(got["shreds_mirror"]), "blocks_checked": len(blocks),
            "run_s": run_s, "phase_s": time.perf_counter() - t_phase,
@@ -3337,6 +3367,262 @@ def run_nonleader(root, card) -> dict:
         f"every tile of both nodes exited 0; "
         f"boot {boot_s:.1f} s, drain {d['wall_s']:.1f} s, phase "
         f"{rec['phase_s']:.1f} s {card}")
+    return rec
+
+
+def run_follower_demo(root, card, counts, reset_counts) -> dict:
+    """Phase 25: a cluster from nothing (tools/cluster.py with a genesis).
+    The port's `app.genesis` CLI writes the demo's genesis (`--validators
+    1 --user-accounts 16`: a vote, a stake and an identity account, and
+    the 16 synth payers); cfg/follower.toml boots on it (snapld -> snapin
+    restore the checkpoint into the shm store as slot 0; sock -> shred
+    recover -> replay behind its restore gate on the card, over two exec
+    shards on the card; tower -> send -> sign), then app.dev's leader
+    (cfg/leader.toml with the genesis in bank0) + cfg/cluster.toml at full
+    width (LEADER_FRAMES over 768 transfers), no slot dropped, its turbine
+    to the follower, whose votes go to a socket of this process. Waits on
+    metrics only, then halts both with every tile's exit code 0. Then:
+    snapin restored slot 0 and the replay's gate folded it on the card
+    (lthash launched; the genesis's lanes on the card == the plain
+    version's, max_abs_err 0); every txn the leader executed after slot 0
+    replayed ok (the replay never runs its restore slot, as the
+    reference's), no PoH failure, no divergence; both exec shards carried
+    txns and launched the wave scan; every block frame's bank hash == the
+    port's CPU replay of the leader's mirrored slices (recovered on the
+    host, as 17a) from the same checkpoint; every vote a TowerSync signed
+    by the follower (the strict verify on the card and ed25519_ref) for a
+    replayed slot's bank hash; the snapshot the replay wrote restores
+    into a fresh store at a slot that is a multiple of 64, equal to the
+    CPU replay's store at that slot under that slot's block frame's bank
+    hash; no verify fallback. -> record, with each kernel's launches on
+    both nodes (counts reset before the phase; in process only the
+    checks' launches)."""
+    import io
+    import shutil
+    import tempfile
+    from firedancer_tpu_torch.app.genesis import main as genesis_main
+    from firedancer_tpu_torch.flamenco.bank_hash import (lane_msgs,
+                                                         serialize_account)
+    from firedancer_tpu_torch.funk.funk import Funk
+    from firedancer_tpu_torch.ops import cuda_ed
+    from firedancer_tpu_torch.ops.blake3 import lthash_batch
+    from firedancer_tpu_torch.svm.accdb import Account
+    from firedancer_tpu_torch.tiles.shred import (parse_entry_batch,
+                                                  parse_slice)
+    from firedancer_tpu_torch.tiles.tower import parse_block
+    from firedancer_tpu_torch.tools import cluster as tcluster
+    from firedancer_tpu_torch.utils.checkpt import snapshot_restore_into
+    log(f"== 25. a cluster from nothing: app.genesis, cfg/follower.toml "
+        f"restoring it, and app.dev's leader + cfg/cluster.toml "
+        f"({LEADER_FRAMES} frames, no slot dropped); verify x2 and bank0 "
+        f"on the card, the follower's replay and exec x2 on the card "
+        f"{card}")
+    t_phase = time.perf_counter()
+    reset_counts()
+    tmp = tempfile.mkdtemp(prefix="fdtt_smoke25_")
+    try:
+        ckpt = os.path.join(tmp, "genesis.ckpt")
+        t0 = time.perf_counter()
+        assert genesis_main([ckpt, "--validators", "1",
+                             "--user-accounts", "16"]) == 0
+        genesis_s = time.perf_counter() - t0
+        c = tcluster.Cluster("smoke25", DEVICE, genesis_ckpt=ckpt)
+        try:
+            c.start(boot_timeout_s=300)
+            boot_s = time.perf_counter() - t_phase - genesis_s
+            a, b = c.a, c.b
+            # poh runs on to the follower's first snapshot slot at least
+            d = c.drain(LEADER_FRAMES, 600)
+            slots = d["slots"]
+            t0 = time.perf_counter()
+            c.wait(lambda: b.metrics("tower")["votes_out"] >= 1
+                   and len(c.votes()) >= 1, 300, "a vote datagram")
+            c.wait(lambda: b.metrics("replay")["snapshots"] >= 1, 60,
+                   f"a snapshot of the replay (slots {slots})")
+            vote_wait_s = time.perf_counter() - t0
+            # every tile of both nodes exits 0 (Cluster.stop asserts it)
+            got = c.stop()
+            with open(c.snapshot_path, "rb") as f:
+                snap = f.read()
+        finally:
+            c.close()
+        run_s = time.perf_counter() - t_phase
+        path_launches = counts()     # in process: none on the path
+        la, fo = got["metrics"]["leader"], got["metrics"]["follower"]
+        bk, r, sn, sh = la["bank0"], fo["replay"], fo["snapin"], la["shred"]
+        tw, sd = fo["tower"], fo["send"]
+        execs = sorted(tn for tn in fo if tn.startswith("exec"))
+        assert len(execs) == 2, sorted(fo)
+        # the leader's complete slices, recovered and replayed on the CPU
+        # from the same checkpoint, as the follower restored it
+        t0 = time.perf_counter()
+        slices, _ = recover_slices(c.leader_identity(), got["shreds_mirror"])
+        snap_store = Funk()
+        snap_slot, snap_hash, snap_cnt = snapshot_restore_into(
+            snap_store, io.BytesIO(snap))
+        rt = next(t for t in c.b_cfg["tile"] if t["name"] == "replay")
+        hpt = rt.get("hashes_per_tick", c.b_cfg["replay"]["hashes_per_tick"])
+        cpu, cpu_store = tcluster.follower_oracle(
+            slices, ckpt, hpt, store_slot=snap_slot)
+        cpu_check_s = time.perf_counter() - t0
+        acc, slot0_txns = {}, 0
+        for f in slices:
+            s, _, fin, payload = parse_slice(f)
+            acc[s] = acc.get(s, b"") + payload
+            if fin and s == 0:
+                slot0_txns = sum(len(ts) for _, _, ts in
+                                 parse_entry_batch(acc.pop(s)))
+        for key, v, want in (
+                ("bank0.txns + drops", bk["txns"] + d["dropped"],
+                 LEADER_FRAMES),
+                ("bank0.exec_fail", bk["exec_fail"], 0),
+                ("shred.dropped", sh["dropped"], 0),
+                ("snapin.restored", sn["restored"], 1),
+                ("snapin.slot", sn["slot"], 0),
+                ("snapin.stream_err", sn["stream_err"], 0),
+                ("snapin.accounts", sn["accounts"], 19),
+                ("replay.restore_slot", r["restore_slot"], 0),
+                ("replay.poh_fail", r["poh_fail"], 0),
+                ("replay.divergent_slot", r["divergent_slot"], 0),
+                ("replay.parse_fail", r["parse_fail"], 0),
+                ("replay.exec_fail", r["exec_fail"], 0),
+                ("replay.txns", r["txns"], bk["txns"] - slot0_txns),
+                ("replay.exec_ok", r["exec_ok"], bk["txns"] - slot0_txns),
+                ("exec shards' txns", sum(fo[e]["txns"] for e in execs),
+                 r["txns"]),
+                ("the CPU replay's txns", cpu.metrics["txns"], r["txns"]),
+                ("send.sign_fail", sd["sign_fail"], 0),
+                ("sign.refused", fo["sign"]["refused"], 0)):
+            assert v == want, f"25: {key} = {v}, expected {want}"
+        assert r["slots_replayed"] >= d["replayed"], (r, d)
+        assert r["poh_launches"] > 0 and r["lthash_launches"] > 0 \
+            and r["restore_fold_us"] > 0, r
+        for e in execs:
+            assert fo[e]["txns"] > 0 and fo[e]["wave_launches"] > 0, \
+                (e, fo[e])
+        assert bk["wave_launches"] > 0, bk
+        assert 1 <= sd["sent"] <= tw["votes_out"], (sd, tw)
+        shards = [tn for tn in la if tn.startswith("verify")]
+        for tn in shards:
+            assert la[tn]["batches"] > 0 and la[tn]["verify_fail"] == 0, \
+                la[tn]
+            no_fallback(f"25 {tn}", la[tn])
+        blocks = [parse_block(f) for f in got["replay_tower"]]
+        replayed = [s for s, *_ in blocks]
+        assert replayed == list(range(1, len(blocks) + 1)), \
+            f"25: block frames of slots {replayed[:8]}..."
+        assert len(blocks) >= d["replayed"], (len(blocks), d)
+        bank_hash_of = {}
+        for slot, parent, bid, pid in blocks:
+            assert cpu.bank_hash_of[slot] == bid, f"25: slot {slot} bank hash"
+            assert cpu.bank_hash_of[parent] == pid, f"25: slot {slot} parent"
+            bank_hash_of[slot] = bid
+        assert cpu.bank_hash_of[0] == bytes(32)
+        # the snapshot the replay wrote: a multiple of 64, the CPU
+        # replay's store at that slot, that slot's block frame's hash
+        assert snap_slot > 0 and snap_slot % 64 == 0, snap_slot
+        assert snap_hash == bank_hash_of[snap_slot], snap_slot
+        restored = snap_store.root_items()
+        assert restored == cpu_store and snap_cnt == len(cpu_store), \
+            f"25: the snapshot at slot {snap_slot} != the CPU replay's store"
+        # the restore gate's fold: the genesis's lanes on the card == the
+        # plain version's
+        reset_counts()
+        gen = Funk()
+        with open(ckpt, "rb") as f:
+            snapshot_restore_into(gen, f)
+        raws = [serialize_account(k, v) for k, v in gen.root_items().items()
+                if isinstance(v, Account) and v.lamports]
+        lanes = lane_msgs(raws)
+        fold_k = lthash_batch(*lanes, device=DEVICE)
+        fold_p = lthash_batch(*lanes, device="cpu")
+        fold_err = int((fold_k.cpu().long() - fold_p.long()).abs().max())
+        assert fold_err == 0, f"25: the restore fold's lthash err {fold_err}"
+        # every vote: the follower's signature, held by the strict verify
+        # on the card too, over a TowerSync for a replayed slot's hash
+        votes = c.vote_log
+        checked = tcluster.check_votes(votes, c.follower_identity(),
+                                       bank_hash_of)
+        parsed = [tcluster.parse_vote(v) for v in votes]
+        width = max(len(m) for _, _, m, _ in parsed)
+        vsig = np.stack([np.frombuffer(sg, np.uint8) for _, sg, _, _ in parsed])
+        vpub = np.stack([np.frombuffer(k, np.uint8) for k, _, _, _ in parsed])
+        vmsg = np.zeros((len(parsed), width), np.uint8)
+        for i, (_, _, m, _) in enumerate(parsed):
+            vmsg[i, :len(m)] = np.frombuffer(m, np.uint8)
+        vlen = np.array([len(m) for _, _, m, _ in parsed], np.int32)
+        on_card = cuda_ed.verify_batch(vsig, vpub, vmsg, vlen, device=DEVICE)
+        assert bool(on_card.all()), "25: a vote fails the strict verify"
+        # Cluster.stop read the socket after the halt: every vote sent
+        assert len(votes) == sd["sent"], (len(votes), sd)
+        check_launches = counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    strict = sum(la[tn]["batches"] for tn in shards)
+    exec_waves = sum(fo[e]["wave_launches"] for e in execs)
+    launches = {
+        "leader": {"sha512_ram": strict, "ed25519_verify": strict,
+                   "wave_scan": bk["wave_launches"]},
+        "follower": {"poh_verify": r["poh_launches"],
+                     "lthash": r["lthash_launches"],
+                     "wave_scan": exec_waves},
+        "in_process_path": {k: v for k, v in path_launches.items() if v},
+        "in_process_checks": {k: v for k, v in check_launches.items()
+                              if v}}
+    rec = {"slots": slots, "slots_replayed": r["slots_replayed"],
+           "leader_txns": bk["txns"], "slot0_txns": slot0_txns,
+           "replay_txns": r["txns"],
+           "exec_txns": {e: fo[e]["txns"] for e in execs},
+           "exec_waves": r["exec_waves"],
+           "exec_redispatch": r["exec_redispatch"],
+           "restore": {"accounts": sn["accounts"],
+                       "snapin_restore_s": sn["restore_us"] / 1e6,
+                       "read_s": r["restore_read_us"] / 1e6,
+                       "fold_s": r["restore_fold_us"] / 1e6,
+                       "gate_s": r["restore_gate_us"] / 1e6,
+                       "fold_lanes": len(raws), "fold_max_abs_err":
+                       fold_err},
+           "snapshots": r["snapshots"], "snapshot_slot": snap_slot,
+           "snapshot_accounts": snap_cnt,
+           "turbine_sent": sh["sent"], "sock": {
+               k: fo["sock"][k] for k in ("rx", "oversz", "backpressure",
+                                           "shed")},
+           "tower": {k: tw[k] for k in ("blocks", "votes_out", "roots",
+                                        "root_slot", "threshold_skips",
+                                        "lockout_skips", "switch_skips",
+                                        "bad_frames")},
+           "send": dict(sd), "votes_received": len(votes),
+           "last_vote": checked[-1][0], "vote_lockouts_max": max(
+               len(lo) for _, lo, _ in checked),
+           "launches": launches,
+           "verify_batches": {tn: la[tn]["batches"] for tn in shards},
+           "genesis_s": genesis_s, "boot_s": boot_s,
+           "drain_s": d["wall_s"], "drain_steps_s": d["steps_s"],
+           "vote_wait_s": vote_wait_s,
+           "cpu_check_s": cpu_check_s, "run_s": run_s,
+           "mirror_wires": len(got["shreds_mirror"]),
+           "blocks_checked": len(blocks),
+           "phase_s": time.perf_counter() - t_phase, "card": nvidia_smi()}
+    log(f"25: genesis {rec['restore']['accounts']} accounts; snapin restored "
+        f"slot 0, the gate's fold {rec['restore']['fold_s']:.4f} s on the "
+        f"card (read {rec['restore']['read_s']:.4f} s; the genesis's "
+        f"{len(raws)} lanes == plain); leader {bk['txns']} txns "
+        f"({slot0_txns} in slot 0, which the follower restores, not "
+        f"replays), {slots} slots, none dropped; turbine {sh['sent']} "
+        f"shreds, the follower's sock read {fo['sock']['rx']}; the follower "
+        f"replayed {r['slots_replayed']} slots and {r['txns']} txns "
+        f"(exec shards {rec['exec_txns']}, wave scans {exec_waves}; "
+        f"poh_verify {r['poh_launches']}, lthash {r['lthash_launches']} "
+        f"launches), poh_fail 0, divergent 0; {len(blocks)} block frames == "
+        f"the CPU replay from the genesis ({cpu_check_s:.1f} s); snapshot "
+        f"at slot {snap_slot} ({r['snapshots']} written) == the CPU "
+        f"replay's store of {snap_cnt} accounts; tower votes_out "
+        f"{tw['votes_out']}, threshold_skips {tw['threshold_skips']}, roots "
+        f"{tw['roots']}; {len(votes)} vote datagrams, each a TowerSync "
+        f"signed by the follower (strict verify on the card and "
+        f"ed25519_ref), the last for slot {checked[-1][0]}; every tile of "
+        f"both nodes exited 0; boot {boot_s:.1f} s, drain "
+        f"{d['wall_s']:.1f} s, phase {rec['phase_s']:.1f} s {card}")
     return rec
 
 
@@ -3370,6 +3656,8 @@ def load_vectors(root):
 
 
 def main() -> int:
+    global torch
+    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
@@ -4013,7 +4301,7 @@ def main() -> int:
     log(f"19 record {json.dumps(rec19)}")
 
     # 20. the exec tile family: in process (20a), bench.py's exec-scale
-    # stage at 1, 2 and 4 shards (20b) and the supervised kill (20c); the
+    # stage at 1 and 2 shards (20b) and the supervised kill (20c); the
     # shards count their own wave-scan launches
     exec_launches, rec20 = run_exec_family(root, card, counts, reset_counts)
     log(f"20 record {json.dumps(rec20)}")
@@ -4026,7 +4314,7 @@ def main() -> int:
     rec21 = run_capture_drill(root, card)
 
     # 22. the cold-start follower: the real-format restore (22a),
-    # bench.py's catch-up stage (22b), at 2^18 accounts (22c), the drills
+    # bench.py's catch-up stage (22b), at 2^17 accounts (22c), the drills
     # (22d); the exec shards and the replay tile count their own launches
     cold_launches, rec22 = run_cold_start(root, card, counts, reset_counts)
     log(f"22 record {json.dumps(rec22, default=str)}")
@@ -4044,6 +4332,13 @@ def main() -> int:
     # the card and signs TowerSync votes; the tiles count their launches
     rec24 = run_nonleader(root, card)
     log(f"24 record {json.dumps(rec24)}")
+
+    # 25. a cluster from nothing: app.genesis, cfg/follower.toml restoring
+    # it behind the card's leader from app.dev's layers; the follower
+    # replays over two exec shards on the card, snapshots and votes; the
+    # tiles count their launches
+    rec25 = run_follower_demo(root, card, counts, reset_counts)
+    log(f"25 record {json.dumps(rec25)}")
 
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
@@ -4067,24 +4362,28 @@ def main() -> int:
                         "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": None})
     st = stats["wave_scan"]
-    # phase 24's bank0 counts its wave scans in its own process
+    # the banks of phases 24 and 25 and phase 25's exec shards count
+    # their wave scans in their own processes
     kernels.append({"name": "wave_scan", "route": "cuda",
                     "source": "firedancer_tpu_torch/csrc/wave_scan.cu",
                     "replaces": "firedancer_tpu/svm/executor.py:111",
                     "launches": exec_path["wave_scan"]
                     + rec["bank_wave_launches"] + exec_launches
                     + cold_launches["wave_scan"]
-                    + rec24["bank_wave_launches"],
+                    + rec24["bank_wave_launches"]
+                    + rec25["launches"]["leader"]["wave_scan"]
+                    + rec25["launches"]["follower"]["wave_scan"],
                     "max_abs_err": wave_err, "ms": st["ms"],
                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                     "bound_by": st["bound_by"], "library_ms": None})
     # the replay tiles (23's in process, 24's in their topology) count
     # their own launches
+    f25 = rec25["launches"]["follower"]
     tile_launches = {"poh_verify": general_launches["poh_verify"]
-                     + rec24["poh_launches"],
+                     + rec24["poh_launches"] + f25["poh_verify"],
                      "lthash": cold_launches["lthash"]
                      + general_launches["lthash"]
-                     + rec24["lthash_launches"]}
+                     + rec24["lthash_launches"] + f25["lthash"]}
     for name, src, rep in (
             ("sha256", "sha256.cu", "firedancer_tpu/ops/sha2.py:211"),
             ("poh_verify", "sha256.cu", "firedancer_tpu/ops/poh.py:41"),
@@ -4092,7 +4391,7 @@ def main() -> int:
             ("lthash", "blake3.cu", "firedancer_tpu/ops/blake3.py:150")):
         st = stats[name]
         # the followers' replays: 17a's in-process path and the replay
-        # tiles of 22 (lthash), 23 and 24
+        # tiles of 22 (lthash), 23, 24 and 25
         follower = follower_path[name] + tile_launches.get(name, 0)
         kernels.append({"name": name, "route": "cuda",
                         "source": f"firedancer_tpu_torch/csrc/{src}",
@@ -4161,7 +4460,8 @@ def main() -> int:
                 "19c": rec19["flood"]["verify"]["batches"],
                 "21": rec21["verify_batches"],
                 "23a": sum(rec23["23a"]["verify_batches"].values()),
-                "24": sum(rec24["verify_batches"].values())}
+                "24": sum(rec24["verify_batches"].values()),
+                "25": sum(rec25["verify_batches"].values())}
     rlc_b = {"19c": rec19["flood"]["verify"]["rlc_batches"]}
     glob = {"sha512": "sha512_kernel", "sha512_ram": "sha512_kernel",
             "ed25519_verify": "ed25519_verify_kernel",
@@ -4177,6 +4477,13 @@ def main() -> int:
             k["tile_batches"] = rlc_b
         k["capture_launches_21"] = rec21["kernels"].get(
             glob[k["name"]], {}).get("launches", 0)
+        # phase 25's launches on each node (the leader's verify batches,
+        # one launch of each strict kernel a batch)
+        mine = {node: rec25["launches"][node][k["name"]]
+                for node in ("leader", "follower")
+                if k["name"] in rec25["launches"][node]}
+        if mine:
+            k["follower_launches"] = mine
     log(smi)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - T_START:.1f} s {card}")

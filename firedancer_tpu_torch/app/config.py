@@ -146,7 +146,6 @@ from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
 from ..funk.shmfunk import normalize_funk
 from ..prof import normalize_prof
-from ..tiles.replay import normalize_replay
 from ..tiles.snapshot import normalize_snapshot
 from ..trace import normalize_trace
 
@@ -303,6 +302,8 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
         normalize_trace(trace_cfg)
     replay_cfg = cfg.get("replay")
     if replay_cfg is not None:
+        # tiles.replay imports torch: only a config with [replay] pays
+        from ..tiles.replay import normalize_replay
         normalize_replay(replay_cfg)
     funk_cfg = cfg.get("funk")
     if funk_cfg is not None:

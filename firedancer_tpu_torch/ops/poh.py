@@ -22,10 +22,8 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
-import torch
 
 from .. import device as _device
-from .sha2 import sha256
 
 __all__ = ["poh_verify_entries", "poh_verify_plain", "host_poh_append",
            "host_poh_mixin", "host_poh_mixin_chain", "PohChain"]
@@ -40,6 +38,9 @@ def poh_verify_plain(prev, num_hashes, mixin, has_mixin, expected,
     hashes than max_hashes gets max_hashes of them; then the mixin hash.
     prev, mixin, expected (N, 32) uint8, num_hashes (N,) int32, has_mixin
     (N,) bool -> (N,) bool, false wherever num_hashes < 1."""
+    import torch
+
+    from .sha2 import sha256
     state = prev
     n32 = torch.full(prev.shape[:-1], 32, dtype=torch.int32,
                      device=prev.device)
@@ -65,6 +66,8 @@ def poh_verify_entries(prev_hash, num_hashes, mixin, has_mixin, expected,
     max_hashes — the bound on plain hashes an entry is given (consensus:
     hashes per tick). numpy arrays or tensors -> (N,) bool on `device`:
     num_hashes applications in all, the last absorbing the mixin."""
+    import torch
+
     from .cuda_sha256 import poh_verify
     dev = _device.resolve(device)
     u8 = dict(dtype=torch.uint8, device=dev)

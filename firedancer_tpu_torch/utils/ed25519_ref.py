@@ -9,6 +9,7 @@ Deliberately independent of ops/: bigints + hashlib only.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 
 P = (1 << 255) - 19
@@ -76,6 +77,13 @@ BASEPOINT = _basepoint()
 
 def keypair(seed: bytes):
     """seed (32B) -> (secret scalar, prefix, public key bytes)."""
+    return _keypair(bytes(seed))
+
+
+# synthetic load signs thousands of messages with a pool of 16 keys:
+# cached, a signature pays one scalar multiplication, not three
+@functools.lru_cache(maxsize=256)
+def _keypair(seed: bytes):
     h = hashlib.sha512(seed).digest()
     a = int.from_bytes(h[:32], "little")
     a &= (1 << 254) - 8

@@ -79,3 +79,25 @@ def test_encode_without_a_card_raises():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
         reedsol.encode(np.zeros((4, 8), np.uint8), 2)
+
+
+@pytest.mark.parametrize("d,p", PAIRS[:3] + [(1, 17), (3, 2)])
+def test_gf256_table_path_matches_reference(d, p):
+    """The table lookups of the port's oracle (mat_mul, mat_inv, encode,
+    recover) against the reference's one product a call, on random data
+    and every shred position erased once."""
+    rng = np.random.default_rng(7 * d + p)
+    a = rng.integers(0, 256, (d, d), np.uint8)
+    b = rng.integers(0, 256, (d, 5), np.uint8)
+    np.testing.assert_array_equal(gf256.mat_mul(a, b), jgf.mat_mul(a, b))
+    data = rng.integers(0, 256, (d, 33), np.uint8)
+    par = gf256.encode(data, p)
+    np.testing.assert_array_equal(par, jgf.encode(data, p))
+    words = np.concatenate([data, par])
+    for gone in range(d + p):
+        kept = {i: words[i] for i in range(d + p) if i != gone}
+        present = sorted(kept)[:d]
+        np.testing.assert_array_equal(
+            gf256.recovery_matrix(d, p, present),
+            jgf.recovery_matrix(d, p, present))
+        np.testing.assert_array_equal(gf256.recover(kept, d, p), data)
