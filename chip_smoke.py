@@ -98,8 +98,9 @@ and read just after:
             published (the port has no CPU path on the card's behalf:
             the stem marks such a tile FAIL and the supervisor restarts
             it, as 18c shows for the sink). 18b boots
-            cfg/sigverify.toml at full width (65,536 frames) with [trace]
-            on, reports its e2e_tps beside 10a's, and exports the rings
+            cfg/sigverify.toml at full width (16,384 frames: 10a's
+            65,536 cut for the script's time) with [trace] on, reports
+            its e2e_tps beside 10a's, and exports the rings
             with `python -m firedancer_tpu_torch.trace`: tpu_dispatch
             spans on verify, each unique frame's lineage verify -> dedup
             -> sink, the per-link summary. 18c boots
@@ -258,6 +259,26 @@ and read just after:
             signed by the follower for a replayed slot's bank hash; the
             replay's last snapshot (a multiple of 64) == that CPU
             replay's store at its slot, under its block frame's hash.
+  QUIC      phase 26: the QUIC door. firedancer_tpu_torch/cfg/quic.toml
+  door      (quic -> verify -> dedup -> sink, verify on the card) with the
+            door's per-peer buckets raised as 19c's capacity boot and a
+            flood_malformed_quic plan on the quic tile; four worker
+            processes (tools/quic_load.py, no torch) open 256 QUIC
+            connections (TLS 1.3, each handshake until the server's
+            HANDSHAKE_DONE) and send phase 19's signed txns, distinct
+            within the phase: 26a 16,384 unpaced (each worker keeps 16
+            datagrams unacknowledged), whose rate at the sink is the
+            door's capacity, with the door's and verify's busy shares
+            over its window, every txn at the sink or a counted drop;
+            26b 8,192 valid and 1,024 forged at 0.5x that capacity: the
+            sink's 8,192 and verify_fail 1,024 exact, no drop at the
+            door, 256 connections; 26c one datagram the server took sent
+            again (replayed, not delivered), then 1-RTT PINGs until the
+            door has read the datagrams of 26a, 26b, the replay, the
+            handshakes (at most 4 a connection) and one block of PINGs,
+            when the plan's 4,096 malformed datagrams fire: all
+            bad packets or shed, none a txn, the peer table bounded, and
+            one more txn through to the sink.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -277,7 +298,8 @@ phase 22's wave scans and lthash launches are counted in, phase 23's
 poh_verify and lthash, phase 24's leader's verify batches and wave
 scans and its non-leader's poh_verify and lthash, and phase 25's, each
 node's also in `follower_launches`; lthash also at phase 23c's
-vote-heavy slot delta).
+vote-heavy slot delta; phase 26's verify batches in `quic_launches` on
+sha512_ram and ed25519_verify).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -307,7 +329,8 @@ FLOOD_MIX_FORGED = 248    # forged frames after the 256 valid ones
 TOPO_FRAMES = 65536       # phase 10a: cfg/sigverify.toml's synth count
 TOPO_PREFILTER_FRAMES = 16384   # phase 10b, bulk_prefilter
 E2E_PROF_HZ = 29.0        # phase 10c: bench.py's default FDTPU_BENCH_PROF_HZ
-TRACE_DEPTH = 1 << 17     # phase 18b: records a tile ring (a 65,536-frame run)
+TRACE_FRAMES = 16384      # phase 18b: cfg/sigverify.toml's synth count, traced
+TRACE_DEPTH = 1 << 17     # phase 18b: records a tile ring
 PERSISTENT = {"events": [{"action": "fail_dispatch", "count": -1}]}
 LEADER_FRAMES = 4096      # phase 12: cfg/leader.toml's synth count
 PIPE_WAVES = 4            # phase 11: bank waves through the pipeline
@@ -453,6 +476,31 @@ COLD_TAMPER_ACCOUNTS = 2048
 COLD_STATE_ACCOUNTS = 1 << 17
 COLD_SAMPLE = 4096
 COLD_SEED = 22
+# phase 26: the QUIC door (cfg/quic.toml); a leader on mainnet holds
+# hundreds of client connections (the server's table holds 4,096)
+QUIC_CONNS = 256
+QUIC_WORKERS = 4          # client processes, QUIC_CONNS / 4 connections each
+QUIC_CAP_TXNS = 16384     # 26a, unpaced
+QUIC_CAP_WINDOW = 16      # 26a: a worker's stream datagrams unacknowledged
+QUIC_FILL_S = 0.25        # 26a: the capacity window starts this late
+QUIC_CAP_MIN_S = 0.5      # 26a: and lasts at least this long
+QUIC_PACED_TXNS = 8192    # 26b, valid
+QUIC_FORGED = 1024        # 26b, one signature byte flipped
+QUIC_PACE = 0.5           # 26b's rate, a share of 26a's capacity
+QUIC_PACED_WINDOW = 8
+QUIC_FLOOD = 4096         # 26c: flood_malformed_quic frames
+QUIC_HS_DGRAMS = 4        # a handshake's datagrams at most: Initial, Finished
+                          # and one resend of each
+QUIC_PING_BLOCK = 512     # 26c: 1-RTT PINGs sent at a time, at 4,000/s
+
+
+def quic_flood_at() -> int:
+    """26c's trigger: the datagrams the door has read when the malformed
+    flood fires. The handshakes (QUIC_HS_DGRAMS a connection at most),
+    26a's and 26b's txns (one datagram each) and the replay come first;
+    1-RTT PINGs fill the rest, at least one block of them."""
+    return (QUIC_HS_DGRAMS * QUIC_CONNS + QUIC_CAP_TXNS + QUIC_PACED_TXNS
+            + QUIC_FORGED + 1 + QUIC_PING_BLOCK)
 
 
 T_START = time.perf_counter()
@@ -1782,15 +1830,15 @@ def run_fault_drills(root, card, frames7, out7, m7, rec10a) -> dict:
         "the 3 attempts (no CPU path)")
 
     # 18b. cfg/sigverify.toml at full width with [trace] on
-    log(f"== 18b. topology traced: cfg/sigverify.toml, {TOPO_FRAMES} "
+    log(f"== 18b. topology traced: cfg/sigverify.toml, {TRACE_FRAMES} "
         f"frames, [trace] depth {TRACE_DEPTH}, four tile processes {card}")
     unique = TILE_UNIQUE
     rec18b, v = run_topology(
-        root, "18b", TOPO_FRAMES, trace={"enable": True,
+        root, "18b", TRACE_FRAMES, trace={"enable": True,
                                          "depth": TRACE_DEPTH},
         on_halted=lambda runner: trace_report(root, runner, unique))
     tr = rec18b["trace"]
-    log(f"18b: traced e2e {rec18b['e2e_tps']:.0f} frames/s ({TOPO_FRAMES} "
+    log(f"18b: traced e2e {rec18b['e2e_tps']:.0f} frames/s ({TRACE_FRAMES} "
         f"in {rec18b['e2e_wall_s']:.4f} s), untraced 10a "
         f"{rec10a['e2e_tps']:.0f} ({rec10a['e2e_wall_s']:.4f} s) in this "
         f"call; verify work p99 {rec18b['verify_work_p99_ms']:.3f} ms "
@@ -2365,7 +2413,8 @@ def run_front_door(root, card, counts, reset_counts):
     pool of worker processes (one torch thread each) signs 19c's staked
     txns (the capacity probe's and the staked sender's) and runs 19a's
     plain versions meanwhile; 19a's times and 19c run after it has
-    stopped. -> (launches of 19a and 19b, record)."""
+    stopped. -> (launches of 19a and 19b, record, the signed txns: phase
+    26 sends them again over QUIC)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     from firedancer_tpu_torch.tools import gossvf_bench as gb
@@ -2428,7 +2477,8 @@ def run_front_door(root, card, counts, reset_counts):
     path = {k: path_a[k] + path_b[k] for k in path_a}
     return path, {"gossvf_ms": times, "gossip": rec_b,
                   "flood_capacity": rec_cap, "flood": rec_c,
-                  "launches_19a": path_a, "launches_19b": path_b}
+                  "launches_19a": path_a, "launches_19b": path_b}, \
+        cap_txns + txns
 
 
 _PROM_SAMPLE = None
@@ -3626,6 +3676,303 @@ def run_follower_demo(root, card, counts, reset_counts) -> dict:
     return rec
 
 
+def _quic_snap(runner) -> dict:
+    runner.check_failures()
+    return {tn: runner.metrics(tn)
+            for tn in ("quic", "verify", "dedup", "sink")}
+
+
+def _quic_drained(runner, tag, timeout_s=60) -> dict:
+    """Wait until every txn the door published is decided and at the
+    sink or counted, and nothing moves for a fifth of a second."""
+    deadline, last, since = time.time() + timeout_s, None, time.time()
+    while True:
+        m = _quic_snap(runner)
+        q, v, d, s = (m[k] for k in ("quic", "verify", "dedup", "sink"))
+        now = (q["rx"], q["txns"], v["rx"], s["rx"])
+        if now != last:
+            last, since = now, time.time()
+        elif v["rx"] == q["txns"] - q["oversz"] - q["dropped"] \
+                and v["tx"] + v["verify_fail"] + v["dedup_drop"] \
+                + v["parse_fail"] == v["rx"] and d["rx"] == v["tx"] \
+                and s["rx"] == d["tx"] and time.time() - since >= 0.2:
+            return m
+        assert time.time() < deadline, f"26 {tag}: not drained: {m}"
+        time.sleep(0.05)
+
+
+def _cpu_s(pid: int) -> float:
+    """A process's user + system CPU seconds, from /proc/<pid>/stat."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _quic_delta(a: dict, b: dict) -> dict:
+    return {tn: {k: b[tn][k] - a[tn][k] for k in b[tn]} for tn in b}
+
+
+def run_quic_door(root, card, pool) -> dict:
+    """Phase 26: the QUIC door (cfg/quic.toml: quic -> verify -> dedup ->
+    sink, verify on DEVICE), booted once with the door's per-peer buckets
+    raised as 19c's capacity boot (the table bound and the overload
+    stay armed) and a chaos plan on the quic tile: flood_malformed_quic
+    at QUIC_FLOOD frames once the door has read `quic_flood_at()`
+    datagrams.
+    QUIC_WORKERS spawned processes (tools/quic_load.py, no torch) open
+    QUIC_CONNS connections, each handshake waiting for the server's
+    HANDSHAKE_DONE. Txns come from `pool` (phase 19's signed txns),
+    distinct within the phase. 26a: QUIC_CAP_TXNS valid txns over every
+    connection, unpaced (each worker keeps QUIC_CAP_WINDOW stream
+    datagrams unacknowledged); the sink's rate from QUIC_FILL_S on to the
+    last sample while every worker still sends is the door's capacity,
+    the share of that window the door's and verify's stems spent in
+    productive polls their busy shares, and the door process's CPU
+    seconds over it its CPU share (below its busy share: it waited for a
+    core).
+    Conservation: every txn sent is at the sink or a counted drop (the
+    door's dropped, oversz and shed, and the datagrams sent that the
+    door never read, which the host dropped at its socket); no bad
+    packet, no verify failure. 26b: QUIC_PACED_TXNS further valid txns
+    and QUIC_FORGED with one signature byte flipped, interleaved, at
+    QUIC_PACE x the capacity (QUIC_PACED_WINDOW a worker): the sink's rx
+    exactly QUIC_PACED_TXNS, verify_fail exactly QUIC_FORGED, parse_fail
+    0, the door's dropped, oversz and shed 0, every datagram read; then
+    conns == QUIC_CONNS. 26c: one 1-RTT datagram the server took, sent
+    again: replayed + 1, txns unchanged; 1-RTT PINGs, a block at a time
+    once the door has read the last, until it has read `quic_flood_at()`
+    datagrams, when the plan's flood fires: bad_pkts
+    + shed == QUIC_FLOOD, no txn from it, peers <= max_peers; one more
+    valid txn reaches the sink (the door still polls). No verify
+    fallback; every tile exits 0. -> record (the verify tile's strict
+    batches in `verify_batches`: one sha512_ram and one ed25519_verify
+    launch each)."""
+    t_phase = time.perf_counter()
+    try:
+        import cryptography
+    except ImportError:
+        log(f"== 26. the `cryptography` package does not import: the quic "
+            f"tile must refuse to boot {card}")
+        from firedancer_tpu_torch.runtime import Ring, Workspace
+        from firedancer_tpu_torch.tiles.quic import QuicTile
+        w = Workspace(f"/fdtt_smoke26_{os.getpid()}", 1 << 22)
+        try:
+            QuicTile(Ring.create(w, depth=8, mtu=1280), [])
+        except ModuleNotFoundError as e:
+            assert "cryptography" in str(e), e
+        else:
+            raise AssertionError("the quic tile booted without cryptography")
+        finally:
+            w.close()
+            w.unlink()
+        log("26: the quic tile raised ModuleNotFoundError naming "
+            "cryptography")
+        return {"cryptography": None, "verify_batches": 0}
+    log(f"== 26. the QUIC door: cfg/quic.toml (quic -> verify -> dedup -> "
+        f"sink), verify on the card; cryptography {cryptography.__version__}; "
+        f"{QUIC_CONNS} QUIC connections from {QUIC_WORKERS} worker "
+        f"processes {card}")
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    from firedancer_tpu_torch.disco.metrics import read_hists
+    from firedancer_tpu_torch.tools.quic_load import QuicLoad
+    need = QUIC_CAP_TXNS + QUIC_PACED_TXNS + QUIC_FORGED + 1
+    txns = list(dict.fromkeys(pool))[:need]
+    assert len(txns) == need, f"26: {len(txns)} distinct txns of {need}"
+    cap_txns = txns[:QUIC_CAP_TXNS]
+    valid_b = txns[QUIC_CAP_TXNS:QUIC_CAP_TXNS + QUIC_PACED_TXNS]
+    forged = [t[:1 + i % 64] + bytes([t[1 + i % 64] ^ 0x10])
+              + t[2 + i % 64:] for i, t in enumerate(
+                  txns[QUIC_CAP_TXNS + QUIC_PACED_TXNS:need - 1])]
+    paced = list(valid_b)
+    for i, f in enumerate(forged):       # one forged among every nine
+        paced.insert(9 * i + 4, f)
+    last_txn = txns[-1]
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "quic.toml"),
+        overrides={"shed": {"rate_pps": 1e9, "burst": 1e9},
+                   "tile": [{"name": "verify", "device": DEVICE},
+                            {"name": "quic", "chaos": {"events": [
+                                {"action": "flood_malformed_quic",
+                                 "frames": QUIC_FLOOD, "seed": 26,
+                                 "at_rx": quic_flood_at()}]}}]})
+    max_peers = cfg["shed"]["max_peers"]
+    runner = TopologyRunner(build_topology(
+        cfg, name=f"smoke26{os.getpid()}").build())
+    load = QuicLoad(QUIC_WORKERS, QUIC_CONNS).start()
+    try:
+        t0 = time.perf_counter()
+        runner.start()
+        runner.wait_running(timeout_s=300)
+        boot_s = time.perf_counter() - t0
+        port = int(runner.metrics("quic")["port"])
+        assert port, "26: the quic tile published no port"
+        t0 = time.perf_counter()
+        hs = sorted(load.connect(("127.0.0.1", port)))
+        connect_s = time.perf_counter() - t0
+        m_hs = _quic_drained(runner, "handshakes")
+        assert m_hs["quic"]["bad_pkts"] == 0, m_hs["quic"]
+        assert m_hs["quic"]["rx"] <= QUIC_HS_DGRAMS * QUIC_CONNS, \
+            f"26: the handshakes took {m_hs['quic']['rx']} datagrams, " \
+            f"more than quic_flood_at() allows"
+        # 26a: the door's capacity
+        samples = []
+        door_pid = runner.procs["quic"].pid
+
+        def sample():
+            samples.append((time.perf_counter(),
+                            runner.metrics("sink")["rx"],
+                            *(read_hists(runner.wksp, runner.plan, tn)
+                              ["work"]["sum_ns"]
+                              for tn in ("quic", "verify")),
+                            _cpu_s(door_pid)))
+            time.sleep(0.02)
+        t_a = time.perf_counter()
+        load.send_async(cap_txns, None, QUIC_CAP_WINDOW)
+        leg_a = load.wait_sent(sample)
+        m_a = _quic_drained(runner, "26a")
+        win = [s for s in samples if s[0] >= t_a + QUIC_FILL_S]
+        assert len(win) >= 2 and win[-1][0] - win[0][0] >= QUIC_CAP_MIN_S, \
+            f"26a: a window of {len(win)} samples"
+        win_s = win[-1][0] - win[0][0]
+        cap = (win[-1][1] - win[0][1]) / win_s
+        assert cap > 0, "26a: nothing reached the sink in the window"
+        # each stem's productive polls over the window, in wall seconds
+        busy = {tn: (win[-1][k] - win[0][k]) / 1e9 / win_s
+                for k, tn in ((2, "quic"), (3, "verify"))}
+        door_cpu = (win[-1][4] - win[0][4]) / win_s
+        da = _quic_delta(m_hs, m_a)
+        q, v = da["quic"], da["verify"]
+        host_drop = QUIC_CAP_TXNS - q["rx"] - q["shed"]
+        assert host_drop >= 0 and q["bad_pkts"] == q["replayed"] == 0 \
+            and q["txns"] == q["rx"], f"26a: door {q}"
+        assert da["sink"]["rx"] + q["dropped"] + q["oversz"] + q["shed"] \
+            + host_drop == QUIC_CAP_TXNS, f"26a: not conserved: {da}"
+        assert v["verify_fail"] == v["parse_fail"] == v["dedup_drop"] == 0 \
+            and da["dedup"]["dup"] == 0, f"26a: verify {v}"
+        log(f"26a: capacity {cap:.1f} txns/s at the sink over "
+            f"{win_s:.3f} s, the door busy {busy['quic']:.4f} (its CPU "
+            f"{door_cpu:.4f}) and verify {busy['verify']:.4f} of it; "
+            f"{QUIC_CAP_TXNS} sent in "
+            f"{leg_a['s']:.3f} s, {da['sink']['rx']} at the sink, door "
+            f"dropped {q['dropped']}, oversz {q['oversz']}, shed "
+            f"{q['shed']}, lost at its socket {host_drop} (acked "
+            f"{leg_a['acked']}, unacked {leg_a['unacked']}) {card}")
+        # 26b: paced at QUIC_PACE x the capacity, exact
+        rate = QUIC_PACE * cap
+        t_b = time.perf_counter()
+        load.send_async(paced, rate, QUIC_PACED_WINDOW)
+        leg_b = load.wait_sent(lambda: time.sleep(0.02))
+        sink_b = m_a["sink"]["rx"] + QUIC_PACED_TXNS
+        runner.wait_idle("sink", "rx", sink_b, timeout_s=60, poll_s=0.005)
+        e2e_s = time.perf_counter() - t_b
+        m_b = _quic_drained(runner, "26b")
+        db = _quic_delta(m_a, m_b)
+        q, v = db["quic"], db["verify"]
+        for key, got, want in (
+                ("sink.rx", db["sink"]["rx"], QUIC_PACED_TXNS),
+                ("verify.verify_fail", v["verify_fail"], QUIC_FORGED),
+                ("verify.parse_fail", v["parse_fail"], 0),
+                ("quic.dropped", q["dropped"], 0),
+                ("quic.oversz", q["oversz"], 0),
+                ("quic.shed", q["shed"], 0),
+                ("quic.rx", q["rx"], len(paced)),
+                ("quic.txns", q["txns"], len(paced)),
+                ("quic.bad_pkts", q["bad_pkts"], 0)):
+            assert got == want, f"26b: {key} = {got}, expected {want}"
+        conns = m_b["quic"]["conns"]
+        assert conns == QUIC_CONNS, f"26b: conns {conns}"
+        log(f"26b: {len(paced)} txns ({QUIC_FORGED} forged) at "
+            f"{rate:.1f}/s offered: sink {db['sink']['rx']}, verify_fail "
+            f"{v['verify_fail']}, e2e {QUIC_PACED_TXNS / e2e_s:.1f} valid "
+            f"txns/s, every datagram read; conns {conns} {card}")
+        # 26c: a replay, then the chaos plan's malformed flood
+        m0 = _quic_snap(runner)
+        load.replay()
+        deadline = time.time() + 10
+        while runner.metrics("quic")["replayed"] == m0["quic"]["replayed"]:
+            assert time.time() < deadline, "26c: the replay not counted"
+            time.sleep(0.01)
+        m1 = _quic_drained(runner, "26c replay")
+        dr = _quic_delta(m0, m1)["quic"]
+        assert dr["replayed"] == 1 and dr["txns"] == 0 and dr["rx"] == 1, \
+            f"26c replay: {dr}"
+        pings = 0
+        flood_at = quic_flood_at()
+        deadline = time.time() + 30
+        while True:
+            q = runner.metrics("quic")
+            if q["bad_pkts"] + q["shed"] - m1["quic"]["bad_pkts"] \
+                    - m1["quic"]["shed"] >= QUIC_FLOOD:
+                break
+            assert time.time() < deadline, f"26c: no flood: {q}"
+            if q["rx"] >= flood_at:
+                time.sleep(0.02)
+                continue
+            n = min(flood_at - q["rx"], QUIC_PING_BLOCK)
+            load.ping(n, 4000.0)
+            pings += n
+            # the next block only once the door has read this one, or
+            # has read nothing more for a second (a PING lost at its
+            # socket)
+            want, last, still = q["rx"] + n, q["rx"], time.time()
+            while (rx := runner.metrics("quic")["rx"]) < want:
+                if rx != last:
+                    last, still = rx, time.time()
+                elif time.time() - still > 1.0:
+                    break
+                time.sleep(0.005)
+        m2 = _quic_drained(runner, "26c flood")
+        df = _quic_delta(m1, m2)
+        q = df["quic"]
+        assert q["bad_pkts"] + q["shed"] == QUIC_FLOOD and q["txns"] == 0 \
+            and df["verify"]["rx"] == 0 and m2["quic"]["peers"] <= max_peers, \
+            f"26c flood: {df['quic']}, peers {m2['quic']['peers']}"
+        load.send_async([last_txn], None, 1)
+        load.wait_sent()
+        runner.wait_idle("sink", "rx", m2["sink"]["rx"] + 1, timeout_s=30,
+                         poll_s=0.01)
+        runner.halt()
+        for tn, p in runner.procs.items():
+            assert p.exitcode == 0, f"26: tile {tn} exit code {p.exitcode}"
+        m = {tn: runner.metrics(tn) for tn in runner.procs}
+    finally:
+        load.close()
+        runner.halt()
+        runner.close()
+    no_fallback("26 verify", m["verify"])
+    qm = m["quic"]
+    rec = {"cryptography": cryptography.__version__,
+           "connections": QUIC_CONNS, "workers": QUIC_WORKERS,
+           "handshake_s": {"p50": hs[len(hs) // 2], "max": hs[-1]},
+           "connect_s": connect_s, "boot_s": boot_s,
+           "capacity_tps": cap, "busy_share": busy,
+           "door_cpu_share": door_cpu,
+           "26a": {**leg_a, "sink": da["sink"]["rx"],
+                                        "host_drop": host_drop},
+           "paced_rate": rate, "paced_e2e_tps": QUIC_PACED_TXNS / e2e_s,
+           "26b": leg_b, "bad_pkts": qm["bad_pkts"],
+           "replayed": qm["replayed"], "conns_after_flood": qm["conns"],
+           "peers": qm["peers"], "pings": pings,
+           "drops": {k: qm[k] for k in ("dropped", "oversz", "shed")},
+           "door": {k: qm[k] for k in ("rx", "txns", "backpressure",
+                                       "overload")},
+           "verify_batches": m["verify"]["batches"],
+           "verify": {k: m["verify"][k] for k in (
+               "rx", "tx", "verify_fail", "parse_fail", "batches")},
+           "sink": m["sink"]["rx"],
+           "phase_s": time.perf_counter() - t_phase, "card": nvidia_smi()}
+    log(f"26: {QUIC_CONNS} connections, handshakes p50 "
+        f"{rec['handshake_s']['p50']:.4f} s, max "
+        f"{rec['handshake_s']['max']:.4f} s (all {connect_s:.2f} s); "
+        f"capacity {cap:.1f} txns/s; paced e2e "
+        f"{rec['paced_e2e_tps']:.1f} txns/s; bad_pkts {qm['bad_pkts']}, "
+        f"replayed {qm['replayed']}, drops {rec['drops']}; verify batches "
+        f"{m['verify']['batches']}; boot {boot_s:.1f} s, phase "
+        f"{rec['phase_s']:.1f} s {card}")
+    return rec
+
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -4297,7 +4644,8 @@ def main() -> int:
 
     # 19. the front door: gossvf on the card (19a), three gossip tiles
     # (19b) and cfg/flood.toml under a Sybil flood (19c)
-    front_path, rec19 = run_front_door(root, card, counts, reset_counts)
+    front_path, rec19, signed19 = run_front_door(root, card, counts,
+                                                 reset_counts)
     log(f"19 record {json.dumps(rec19)}")
 
     # 20. the exec tile family: in process (20a), bench.py's exec-scale
@@ -4339,6 +4687,12 @@ def main() -> int:
     # tiles count their launches
     rec25 = run_follower_demo(root, card, counts, reset_counts)
     log(f"25 record {json.dumps(rec25)}")
+
+    # 26. the QUIC door: clients' txns over QUIC into the card's verify
+    # tile, which counts its strict batches
+    rec26 = run_quic_door(root, card, signed19)
+    del signed19
+    log(f"26 record {json.dumps(rec26)}")
 
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
@@ -4461,7 +4815,8 @@ def main() -> int:
                 "21": rec21["verify_batches"],
                 "23a": sum(rec23["23a"]["verify_batches"].values()),
                 "24": sum(rec24["verify_batches"].values()),
-                "25": sum(rec25["verify_batches"].values())}
+                "25": sum(rec25["verify_batches"].values()),
+                "26": rec26["verify_batches"]}
     rlc_b = {"19c": rec19["flood"]["verify"]["rlc_batches"]}
     glob = {"sha512": "sha512_kernel", "sha512_ram": "sha512_kernel",
             "ed25519_verify": "ed25519_verify_kernel",
@@ -4484,6 +4839,13 @@ def main() -> int:
                 if k["name"] in rec25["launches"][node]}
         if mine:
             k["follower_launches"] = mine
+        if k["name"] in ("sha512_ram", "ed25519_verify"):
+            # phase 26's verify tile behind the QUIC door: one launch of
+            # each strict kernel a batch
+            k["quic_launches"] = rec26["verify_batches"]
+            k["launches"] += rec26["verify_batches"]
+            assert rec26.get("cryptography") is None \
+                or k["quic_launches"] > 0, f"26: no {k['name']} launch"
     log(smi)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - T_START:.1f} s {card}")

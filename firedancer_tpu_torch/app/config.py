@@ -112,8 +112,8 @@ Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
     verify, dedup, sink, pack, bank, poh, shred, sign, tower, repair,
-    send, replay, sock, gossip, exec, resolv, metric, archiver, playback,
-    snapld, snapdc and snapin, plus `device` on verify, bank, replay, gossip, exec and
+    send, replay, sock, quic, gossip, exec, resolv, metric, archiver,
+    playback, snapld, snapdc and snapin, plus `device` on verify, bank, replay, gossip, exec and
     snapin (the card, "cuda", unless "cpu"); a gated key the port has
     not ported (pack's `bundle_in`, the bank's `rpc_port` and
     `ws_port`) passes the gate and is refused by its adapter;
@@ -187,6 +187,7 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
                "redispatch_s", "expected", "wait_restore", "snapshot_path",
                "snapshot_every", "snapshot_compress", "device"),
     "sock": ("port", "bind_addr", "batch", "mtu"),
+    "quic": ("port", "bind_addr", "batch", "mtu"),
     "gossip": ("seed", "port", "bind_addr", "entrypoints", "publish",
                "device_verify", "gossvf_bulk", "device"),
     "exec": ("batch", "rr_cnt", "rr_idx", "tile_cnt", "cpu0", "device"),

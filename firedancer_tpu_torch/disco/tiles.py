@@ -4,7 +4,8 @@ run: synth, verify, dedup and sink on the sigverify path; pack, bank,
 poh, shred and sign on the leader's loop, with resolv ahead of pack and
 the exec tile family behind the bank when execution is scaled out;
 shred in recover mode and replay on the follower's, with repair, tower
-and send on the voting non-leader's; sock and gossip at the front door;
+and send on the voting non-leader's; sock, quic and gossip at the front
+door;
 the cold-start follower's snapld, snapdc and snapin with the replay's
 restore gate, and the archiver and playback tiles), and the exec fan-out
 engine (ExecFanout) the bank and the replay share.
@@ -14,7 +15,7 @@ and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these twenty-three kinds only (the twenty-two
+  * the registry holds these twenty-four kinds only (the twenty-three
     above and the metric tile); `Topology.tile` refuses every other kind
     of the reference's registry (disco/unported.py), and `adapter_class`
     raises ValueError for a name without an adapter;
@@ -95,14 +96,16 @@ Where the copy differs from the reference:
   * SignAdapter refuses a `keyswitch_off` in its plan entry: the port's
     plan carves no keyswitch region for the live identity hot-swap
     (topo.py:460-465 in the reference, item 13);
-  * SockAdapter and GossipAdapter police their doors with the plan's
-    [shed] section and their own `shed` override (disco/shed.py); their
-    housekeeping reads the topology's pressure (`_shed_slo_poll`: a
-    breach on the metric tile trips the door) but no fdtune knob (item
-    11). GossipAdapter takes a `device` arg (default "cuda") for gossvf
-    and raises at construction when `device_verify` is set and that
-    device is not usable; the QUIC door is item 3b; gossvf is not
-    profiled (no capture doorbell on the gossip tile);
+  * SockAdapter, QuicAdapter and GossipAdapter police their doors with
+    the plan's [shed] section and their own `shed` override
+    (disco/shed.py); their housekeeping reads the topology's pressure
+    (`_shed_slo_poll`: a breach on the metric tile trips the door) but no
+    fdtune knob (item 11). QuicAdapter raises at construction without
+    the `cryptography` package, naming it (waltz/quic.py). GossipAdapter
+    takes a `device` arg (default "cuda") for gossvf and raises at
+    construction when `device_verify` is set and that device is not
+    usable; gossvf is not profiled (no capture doorbell on the gossip
+    tile);
   * MetricAdapter is the reference's (tiles.py:2844-2985): /metrics,
     /summary.json and /healthz from shm, and the SLO engine at its
     housekeeping, which rings each [prof] breach_capture tile's
@@ -2928,6 +2931,64 @@ class SockAdapter:
         return {**self.tile.metrics,
                 "rx_staked": gate.staked_rx if gate else 0,
                 "shed_staked": gate.staked_shed if gate else 0}
+
+
+@register("quic")
+class QuicAdapter:
+    """QUIC TPU ingest tile (ref: src/disco/quic/fd_quic_tile.c): the
+    production txn ingest transport; each completed unidirectional
+    stream publishes one txn frag. args: port (0 = ephemeral, bound
+    port in metrics), bind_addr, batch, mtu (clamped to the out link's),
+    shed (per-tile policing override, merged over the topology [shed]
+    section)."""
+
+    METRICS = ["rx", "txns", "conns", "bad_pkts", "oversz",
+               "backpressure", "dropped", "replayed", "shed",
+               "shed_unstaked", "peers", "overload", "port"]
+    GAUGES = ["peers", "overload", "port"]
+
+    def __init__(self, ctx, args):
+        from ..tiles.quic import QuicTile
+        self.ctx = ctx
+        out_ln = next(iter(ctx.out_rings))
+        # never exceed the out link's mtu: an oversize txn must be
+        # DROPPED (oversz), not crash Ring.publish on hostile input
+        link_mtu = ctx.plan["links"][out_ln]["mtu"]
+        self.tile = QuicTile(
+            _single(ctx.out_rings, "out link", ctx.tile_name),
+            _single(ctx.out_fseqs, "out link", ctx.tile_name),
+            port=int(args.get("port", 0)),
+            bind_addr=args.get("bind_addr", "127.0.0.1"),
+            batch=int(args.get("batch", 64)),
+            mtu=min(int(args.get("mtu", 1500)), link_mtu),
+            shed=_shed_for(ctx, args))
+        self._attack_peer = 0
+
+    def poll_once(self) -> int:
+        return self.tile.poll_once()
+
+    def housekeeping(self):
+        _shed_slo_poll(self.ctx, self.tile.shed)
+
+    def on_chaos(self, ev: dict):
+        """flood_malformed_quic traffic plan: push the hostile
+        datagrams straight through the policed rx path, each from a
+        fresh fake source address (TEST-NET-3): they must die in the
+        QUIC parser as bad_pkts, never crash, never publish a txn."""
+        if ev["action"] != "flood_malformed_quic":
+            return
+        for f in attack_frames(ev["action"], ev["frames"],
+                               seed=ev["seed"]):
+            self._attack_peer += 1
+            self.tile.inject(
+                f, (f"203.0.113.{self._attack_peer % 254 + 1}",
+                    1024 + self._attack_peer % 60000))
+
+    def on_halt(self):
+        self.tile.close()
+
+    def metrics_items(self):
+        return dict(self.tile.metrics)
 
 
 @register("gossip")

@@ -27,14 +27,12 @@ REFUSED_TILE_ARGS = {
 }
 
 # chaos actions (utils/chaos.ACTIONS) whose tile kind or seam is not
-# ported: the QUIC door's flood (item 3b: the door needs AES-GCM from
-# the `cryptography` package; the reference ignores an action no tile
-# takes, the port refuses it)
-UNPORTED_CHAOS_ACTIONS = {"flood_malformed_quic": "3b"}
+# ported, each with its item (the reference ignores an action no tile
+# takes, the port refuses it); every action has its tile now
+UNPORTED_CHAOS_ACTIONS: dict[str, object] = {}
 
 # every kind of the reference's tile registry without an adapter here
 UNPORTED_KINDS = {
-    "quic": "3b",
     "gui": 9, "flight": 10, "controller": 11,
     "cswtch": 12, "netlnk": 12,
     **dict.fromkeys(("bundle", "plugin", "vinyl", "ipecho", "pcap"), 13),

@@ -38,8 +38,8 @@ deterministic:
     the ring must not take the staked trickle down with it.
 
 QUIC TPU ingest (src/waltz/quic/) terminates streams above this layer;
-this tile is the dgram transport it and the bench harness share (the
-port's QUIC door is ROADMAP.md queue A item 3b).
+this tile is the plain datagram door the bench harness uses, and the
+port's QUIC door is tiles/quic.py, which binds its own socket.
 """
 from __future__ import annotations
 

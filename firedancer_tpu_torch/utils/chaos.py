@@ -2,8 +2,8 @@
 and adversarial traffic for the verify tile's and the gossip tile's front
 doors (copy of the JAX package's utils/chaos.py: ChaosPlan,
 ChaosDeviceError, the ACTIONS tuples, attack_frames, _txn_pool,
-crds_spam_datagrams, torsion_sign and its torsion point, plus an
-undecodable point encoding).
+malformed_quic_datagrams, crds_spam_datagrams, torsion_sign and its
+torsion point, plus an undecodable point encoding).
 
 A fault plan is plain data in a tile's args (`chaos = {...}`), flows
 through the topology plan like any other arg, and fires inside the tile
@@ -29,17 +29,14 @@ at most once per process. The stem runs crash, freeze_hb, wedge and
 stall_fseq (STEM_ACTIONS) itself and hands every other action to the
 tile adapter's `on_chaos` after recording it (disco/stem.py); the
 verify tile consumes `fail_dispatch` (tiles/verify.py), the gossip tile
-`flood_crds_spam` (disco/tiles.GossipAdapter). The same spec
-gives the same firing points and attack bytes as the reference.
+`flood_crds_spam` (disco/tiles.GossipAdapter), the quic tile
+`flood_malformed_quic` (disco/tiles.QuicAdapter). The same spec gives the same firing points and attack bytes as the reference.
 
 The floods pre-render a small pool of hostile payloads (the host crypto
 runs once) that attack_frames replays to the requested count, byte-equal
 to the reference's. The snapshot drills go to snapld's adapter
 (crash_mid_snapshot, corrupt_checkpt_frame, stale_snapshot_offer) and
 the replay's (crash_mid_snapshot on its snapshot writer, diverge_block).
-The action whose door is not ported (the QUIC flood, ROADMAP.md queue A
-item 3b) is refused when a topology is built (disco/unported.py);
-attack_frames refuses it too.
 """
 from __future__ import annotations
 
@@ -56,7 +53,6 @@ SNAPSHOT_ACTIONS = ("crash_mid_snapshot", "corrupt_checkpt_frame",
                     "stale_snapshot_offer", "diverge_block")
 ACTIONS = STEM_ACTIONS + ("fail_dispatch",) + TRAFFIC_ACTIONS \
     + SNAPSHOT_ACTIONS
-_PORTED = ("flood_forged", "flood_torsion", "flood_dup", "flood_crds_spam")
 
 _POOL = 8           # distinct payloads per action pool
 
@@ -246,17 +242,31 @@ def crds_spam_datagrams(n_peers: int, per_peer: int = 2,
     return out
 
 
+def malformed_quic_datagrams(n: int, seed: int = 0,
+                             size: int = 512) -> list[bytes]:
+    """Garbage datagrams wearing a QUIC long header (version +
+    Initial-ish type bits, then noise): cheap to generate at line
+    rate, must die in the QUIC parser as bad_pkts, never a crash,
+    never a txn."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        body = bytes(rng.getrandbits(8) for _ in range(size - 5))
+        out.append(bytes([0xC0 | (i & 0x3F)])
+                   + b"\x00\x00\x00\x01" + body)
+    return out
+
+
 def attack_frames(action: str, frames: int, seed: int = 0) -> list[bytes]:
-    """`frames` hostile payloads for a transaction or CRDS flood,
+    """`frames` hostile payloads for a transaction, QUIC or CRDS flood,
     replayed from a pool of at most 8 distinct ones."""
     if action not in TRAFFIC_ACTIONS:
         raise ValueError(f"unknown traffic action {action!r}")
-    if action not in _PORTED:
-        raise NotImplementedError(f"{action}: its door is not ported "
-                                  f"(ROADMAP.md queue A item 3b)")
     if frames <= 0:
         return []
-    if action == "flood_crds_spam":
+    if action == "flood_malformed_quic":
+        pool = malformed_quic_datagrams(min(frames, _POOL), seed=seed)
+    elif action == "flood_crds_spam":
         pool = crds_spam_datagrams(min(frames, _POOL), seed=seed)
     else:
         pool = _txn_pool(action, min(frames, _POOL), seed)

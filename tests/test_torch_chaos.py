@@ -105,14 +105,31 @@ def test_chaos_plan_rejects_as_the_reference():
 # writer takes crash_mid_snapshot too)
 PORTED_5F_ACTIONS = ("corrupt_checkpt_frame", "crash_mid_snapshot",
                      "stale_snapshot_offer")
+# the QUIC door's flood, refused until queue A item 3b, accepted since on
+# the quic tile that takes it
+PORTED_3B_ACTIONS = ("flood_malformed_quic",)
 
 
 @pytest.mark.parametrize("action", sorted(UNPORTED_CHAOS_ACTIONS)
-                         + list(PORTED_5F_ACTIONS))
+                         + list(PORTED_5F_ACTIONS) + list(PORTED_3B_ACTIONS))
 def test_unported_chaos_action_is_refused_with_its_item(action):
     """Refused when the topology is built, from code, from the config
     gate and on one shard of a sharded tile; a snapshot drill is
-    accepted on snapld from code and through the config gate."""
+    accepted on snapld from code and through the config gate, and the
+    QUIC flood on a quic tile."""
+    if action in PORTED_3B_ACTIONS:
+        from firedancer_tpu_torch.app import config as tconfig
+        from firedancer_tpu_torch.disco import Topology
+        plan = {"events": [{"action": action, "frames": 64, "at_rx": 9}]}
+        assert action not in UNPORTED_CHAOS_ACTIONS
+        assert Topology("tc").tile("q", "quic", chaos=plan) \
+            .tiles["q"].args["chaos"] == plan
+        topo = tconfig.build_topology({"tile": [
+            {"name": "q", "kind": "quic", "chaos": plan}]})
+        assert topo.tiles["q"].args["chaos"] == plan
+        ev = tchaos.ChaosPlan(plan).events[0]
+        assert (ev["action"], ev["frames"], ev["at_rx"]) == (action, 64, 9)
+        return
     from firedancer_tpu_torch.app import config as tconfig
     from firedancer_tpu_torch.disco import Topology
     plan = {"events": [{"action": "crash", "at_rx": 9},

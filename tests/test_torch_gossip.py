@@ -16,8 +16,9 @@
     its window;
   * cfg/flood.toml loads, and boots as four tile processes (verify on
     the CPU) that pass a staked sender's txns and drop forged ones; and
-    app.run boots it; a quic tile and the flood_malformed_quic action are
-    refused naming ROADMAP.md queue A item 3b.
+    app.run boots it; a quic tile and the flood_malformed_quic action,
+    refused until ROADMAP.md queue A item 3b ported them, are accepted
+    in its place, and the action's frames are the reference's.
 
 Every address a tile can answer is on 127.0.0.1."""
 import os
@@ -281,19 +282,30 @@ def test_flood_toml_loads_with_the_door_policy():
 
 @pytest.mark.parametrize("what", ["quic_tile", "quic_chaos", "quic_frames"])
 def test_quic_is_refused_naming_item_3b(what):
+    """Refused until item 3b ported the QUIC door; now the door of
+    cfg/flood.toml can be a quic tile (with the reference's keys, no
+    other), the flood_malformed_quic action rides a quic tile's chaos
+    plan, and its frames are the reference's."""
     from firedancer_tpu_torch.app.config import build_topology, load_config
     cfg = load_config(FLOOD_TOML)
-    if what == "quic_tile":
-        cfg["tile"][0] = dict(cfg["tile"][0], kind="quic")
-        cfg["tile"][0].pop("batch")
-    elif what == "quic_chaos":
-        cfg["tile"][0]["chaos"] = {"events": [
-            {"action": "flood_malformed_quic", "frames": 8}]}
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        if what == "quic_frames":
-            tchaos.attack_frames("flood_malformed_quic", 8)
-        else:
-            build_topology(cfg)
+    cfg["tile"][0] = dict(cfg["tile"][0], kind="quic")
+    if what == "quic_frames":
+        for seed in (0, 11):
+            assert tchaos.attack_frames("flood_malformed_quic", 20,
+                                        seed=seed) == \
+                rchaos.attack_frames("flood_malformed_quic", 20, seed=seed)
+        return
+    if what == "quic_chaos":
+        plan = {"events": [{"action": "flood_malformed_quic",
+                            "frames": 8, "at_rx": 4}]}
+        cfg["tile"][0]["chaos"] = plan
+        assert build_topology(cfg).tiles["sock"].args["chaos"] == plan
+        return
+    t = build_topology(cfg).tiles["sock"]
+    assert t.kind == "quic" and t.args["batch"] == 32
+    cfg["tile"][0]["nosuch"] = 1
+    with pytest.raises(ValueError, match="unknown key"):
+        build_topology(cfg)
 
 
 def test_flood_toml_boots_and_polices_on_the_cpu():

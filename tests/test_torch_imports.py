@@ -59,7 +59,9 @@ def test_importing_every_module_loads_no_jax():
         "'tools.catchup', 'vm', 'vm.interp', 'vm.asm', 'vm.syscalls', "
         "'vm.elf', 'vm.trace', 'svm.loader', 'svm.accdb_cold', "
         "'svm.txncache', 'groove', 'groove.groove', 'utils.ristretto', "
-        "'utils.bn254', 'tools.sbpf_elf', 'tools.sbpf_family'}\n"
+        "'utils.bn254', 'tools.sbpf_elf', 'tools.sbpf_family', "
+        "'waltz', 'waltz.quic', 'waltz.tls', 'utils.x25519', "
+        "'tiles.quic', 'tools.quic_load'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -125,6 +125,8 @@ PORTED_5F_KINDS = ("archiver", "playback", "snapdc", "snapin", "snapld")
 # the shred tile's fault seam, by the item that refused them
 PORTED_13_KINDS = ("repair", "send", "tower")
 PORTED_13_TILE_ARGS = {"drop_slot_every": 13}
+# the QUIC door, refused until queue A item 3b
+PORTED_3B_KINDS = ("quic",)
 
 
 @pytest.mark.parametrize("section", sorted(UNPORTED_SECTIONS)
@@ -146,9 +148,10 @@ def test_unported_section_is_refused_with_its_item(section):
 
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS)
-                         + list(PORTED_5F_KINDS) + list(PORTED_13_KINDS))
+                         + list(PORTED_5F_KINDS) + list(PORTED_13_KINDS)
+                         + list(PORTED_3B_KINDS))
 def test_unported_kind_is_refused_with_its_item(kind):
-    if kind in PORTED_5F_KINDS + PORTED_13_KINDS:
+    if kind in PORTED_5F_KINDS + PORTED_13_KINDS + PORTED_3B_KINDS:
         # accepted from code and through the config gate, with the
         # reference's keys (lint/registry.py) and no other
         assert kind not in UNPORTED_KINDS and kind in ttiles.REGISTRY
@@ -171,7 +174,8 @@ def test_every_reference_kind_is_ported_or_refused():
                                     "pack", "bank", "poh", "shred",
                                     "sign", "replay", "sock", "gossip",
                                     "exec", "resolv", "metric",
-                                    *PORTED_5F_KINDS, *PORTED_13_KINDS}
+                                    *PORTED_5F_KINDS, *PORTED_13_KINDS,
+                                    *PORTED_3B_KINDS}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")

@@ -206,9 +206,12 @@ def test_attack_frames_match_reference(action):
 
 @pytest.mark.parametrize("action", ["flood_malformed_quic"])
 def test_unported_floods_raise(action):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A "
-                                                  "item 3b"):
-        chaos.attack_frames(action, 4)
+    """Raised until ROADMAP.md queue A item 3b ported the QUIC door;
+    now the flood's frames are the reference's."""
+    from firedancer_tpu.utils.chaos import attack_frames
+    assert chaos.attack_frames(action, 12, seed=4) == \
+        attack_frames(action, 12, seed=4)
+    assert chaos.attack_frames(action, 0) == []
 
 
 @pytest.mark.parametrize("kw", [{"devices": 2}])

@@ -16,9 +16,16 @@ their fields, package objects by their attributes (a cycle stops at its
 first repeat), sets as sets; any other object by its type's name."""
 import dataclasses
 import importlib
+import random
 import types
 
 ROOTS = ("firedancer_tpu", "firedancer_tpu_torch")
+
+
+def seeded_urandom(seed: int):
+    """A seeded stand-in for os.urandom (n -> n bytes): patched into
+    `os` before each package's run, it gives both the same draws."""
+    return random.Random(seed).randbytes
 
 
 def _resolve(root: str, path: str):
