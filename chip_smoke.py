@@ -279,6 +279,22 @@ and read just after:
             when the plan's 4,096 malformed datagrams fire: all
             bad packets or shed, none a txn, the peer table bounded, and
             one more txn through to the sink.
+  tune      phase 27: the controller and the flight recorder. 27b runs
+            `python -m firedancer_tpu_torch.tune sweep --axes coalesce_us
+            --points 2` at the reference's sweep defaults (16,384 frames,
+            256 unique, verify batch 32): three or four boots of
+            cfg/sigverify.toml on the card (tools/e2e.py), each point's
+            run exact, the default point first, tuned_vs_default_tps >=
+            1, and the same command on its state file measuring nothing;
+            27a boots cfg/tune.toml under FDTPU_TUNED_PROFILE (the verify
+            tile's coalesce_us from the profile), the synth once every
+            other tile runs (verify last if that raises no pressure): the
+            controller relieves while the synth runs, one EV_TUNE a
+            decision in its ring, at most max_moves in any window_s, every
+            knob at its default within 30 s of calm, the pipeline exact;
+            27c reads the flight archive alone: `tune watch DIR` prints
+            the ring's decisions, `flight summary DIR` drops nothing, boot
+            and halt marks, and the archive's sink.rx the live one.
 
 Phase 3 holds both SHA-512 entries to their plain versions (3b: every
 precheck class, at two row widths: the kernel's two copy paths);
@@ -299,7 +315,8 @@ poh_verify and lthash, phase 24's leader's verify batches and wave
 scans and its non-leader's poh_verify and lthash, and phase 25's, each
 node's also in `follower_launches`; lthash also at phase 23c's
 vote-heavy slot delta; phase 26's verify batches in `quic_launches` on
-sha512_ram and ed25519_verify).
+sha512_ram and ed25519_verify, and phase 27's in `tune_launches` on
+sha512, sha512_ram and ed25519_verify).
 Without a CUDA card it exits 2 and prints no result. No JAX is used.
 """
 from __future__ import annotations
@@ -494,6 +511,18 @@ QUIC_HS_DGRAMS = 4        # a handshake's datagrams at most: Initial, Finished
 QUIC_PING_BLOCK = 512     # 26c: 1-RTT PINGs sent at a time, at 4,000/s
 
 
+# phase 27: the sweep's point size (the reference's sweep defaults), the
+# time the knobs have to come back after calm, and 27a's other waits
+TUNE_SWEEP_FRAMES = 16384
+TUNE_SWEEP_UNIQUE = 256
+TUNE_CALM_S = 30.0
+TUNE_TIMEOUT_S = 120.0
+# 27a: the controller's trace ring, records (the TOML's 1,024 hold some
+# 10 s of its stem's housekeeping spans, 100 a second; the drill checks
+# one EV_TUNE a decision in the ring over the whole run)
+TUNE_RING = 1 << 15
+
+
 def quic_flood_at() -> int:
     """26c's trigger: the datagrams the door has read when the malformed
     flood fires. The handshakes (QUIC_HS_DGRAMS a connection at most),
@@ -660,11 +689,10 @@ def run_tile(waves, depth, trace=False, **kw):
 
 
 def no_fallback(where: str, m: dict):
-    """The gate of every verify tile outside phase 18a's drills: no device
-    error and no CPU fallback."""
-    assert m["cpu_fallback"] == 0 and m["device_errors"] == 0, \
-        f"{where}: cpu_fallback {m['cpu_fallback']}, device_errors " \
-        f"{m['device_errors']}"
+    """The gate of every verify tile outside phase 18a's drills
+    (tools/e2e.py's): no device error and no CPU fallback."""
+    from firedancer_tpu_torch.tools.e2e import no_fallback as gate
+    gate(where, m)
 
 
 def trace_report(root, runner, unique: int) -> dict:
@@ -807,133 +835,20 @@ def run_topology(root, tag, count, verify_last=False, trace=None,
                  on_halted=None, prof=None, **verify):
     """Phase 10: boot the port's main path as four tile processes,
     firedancer_tpu_torch/cfg/sigverify.toml with `count` frames and the
-    verify args `verify`, through app.config and TopologyRunner, with
-    FDTPU_VERIFY_INFLIGHT=3. verify_last boots the verify tile only once
-    the synth has filled the ingest ring (ingest saturation: its first
-    gather is full, which opens the bulk prefilter's window). Waits
-    until every tile runs, then until the sink has the unique frames and
-    verify has taken all `count`, and every frame is accounted for;
-    then halts the tiles and reads their flushed telemetry, each link's
-    producer and consumer counts held to the frames that crossed it.
+    verify args `verify`, through tools/e2e.py's e2e_run (bench.py's
+    _e2e_run on the port: app.config and TopologyRunner, every frame
+    accounted for, every link's producer and consumer counts held to the
+    frames that crossed it, no fallback, every tile exiting 0).
     -> (record as bench.py's _e2e_run prints it, verify metrics). Raises
     on a count mismatch, a dead tile or a timeout. `trace` and `prof` are
     [trace] and [prof] sections to run with; `on_halted(runner)` reads
     the halted topology before its workspace goes, and its result joins
     the record as "trace"."""
-    from firedancer_tpu_torch.app.config import build_topology, load_config
-    from firedancer_tpu_torch.disco.launch import TopologyRunner
-    from firedancer_tpu_torch.disco.metrics import (
-        link_lag, merge_hists, quantile_ns, read_hists, read_link_metrics)
-    over = {"tile": [{"name": "synth", "count": count},
-                     {"name": "verify", "device": DEVICE, **verify}]}
-    if trace is not None:
-        over["trace"] = trace
-    if prof is not None:
-        over["prof"] = prof
-    cfg = load_config(
-        os.path.join(root, "firedancer_tpu_torch", "cfg", "sigverify.toml"),
-        overrides=over)
-    unique = next(t["unique"] for t in cfg["tile"] if t["name"] == "synth")
-    env0 = os.environ.get("FDTPU_VERIFY_INFLIGHT")
-    os.environ["FDTPU_VERIFY_INFLIGHT"] = "3"
-    runner = TopologyRunner(build_topology(
-        cfg, name=f"smoke{tag}{os.getpid()}").build())
-    try:
-        t_boot = time.perf_counter()
-        if verify_last:
-            runner.start([tn for tn in runner.plan["tiles"]
-                          if tn != "verify"])
-            runner.wait_idle("synth", "tx", min(
-                count, runner.plan["links"]["ingest"]["depth"]),
-                timeout_s=300, poll_s=0.002)
-            runner.start(["verify"])
-        else:
-            runner.start()
-        runner.wait_running(timeout_s=300)
-        t0 = time.perf_counter()
-        runner.wait_idle("sink", "rx", unique, timeout_s=300, poll_s=0.002)
-        runner.wait_idle("verify", "rx", count, timeout_s=300, poll_s=0.002)
-        wall = time.perf_counter() - t0
-        deadline = time.time() + 60
-        while True:
-            runner.check_failures()
-            v, d = runner.metrics("verify"), runner.metrics("dedup")
-            if d["tx"] + v["dedup_drop"] + d["dup"] == count:
-                break
-            assert time.time() < deadline, \
-                f"frames unaccounted for: verify {v}, dedup {d}"
-            time.sleep(0.01)
-        snk = runner.metrics("sink")
-        for key, got, want in (("sink.rx", snk["rx"], unique),
-                               ("verify.rx", v["rx"], count),
-                               ("verify.verify_fail", v["verify_fail"], 0),
-                               ("verify.parse_fail", v["parse_fail"], 0),
-                               ("dedup.tx", d["tx"], unique)):
-            assert got == want, f"{key} = {got}, expected {want}"
-        no_fallback(f"{tag} verify", v)
-        assert v["batches"] > 0, "no strict dispatch in the verify tile"
-        # every stem flushes its histograms and link counters on a clean
-        # exit; the workspace stays until close(), so what is read below
-        # is what the run did
-        runner.halt()
-        for tn, p in runner.procs.items():
-            assert p.exitcode == 0, f"tile {tn} exit code {p.exitcode}"
-        traced = on_halted(runner) if on_halted is not None else None
-        budget = {}
-        for tn in ("synth", "verify", "dedup", "sink"):
-            h = read_hists(runner.wksp, runner.plan, tn)
-            work, wait = h["work"], h["wait"]
-            busy = work["sum_ns"] + wait["sum_ns"]
-            budget[tn] = {
-                "work_p50_us": quantile_ns(work, 0.50) / 1e3,
-                "work_p99_us": quantile_ns(work, 0.99) / 1e3,
-                "occupancy": work["sum_ns"] / busy if busy else 0.0}
-        links = {}
-        for ln, rec in read_link_metrics(runner.wksp, runner.plan).items():
-            cons = rec["consumers"]
-            h = merge_hists(c["hist"] for c in cons.values())
-            links[ln] = {
-                "pub": rec["pub"],
-                "consumed": sum(c["consumed"] for c in cons.values()),
-                "lost": sum(link_lag(rec, tn) for tn in cons),
-                "backpressure": rec["backpressure"],
-                "consume_p99_us": quantile_ns(h, 0.99) / 1e3 if h else 0}
-        for ln, want in (("ingest", count),
-                         ("verify_dedup", count - v["dedup_drop"]),
-                         ("dedup_sink", unique)):
-            got = (links[ln]["pub"], links[ln]["consumed"],
-                   links[ln]["lost"])
-            assert got == (want, want, 0), \
-                f"link {ln} pub/consumed/lost {got}, expected {want}"
-        vh = read_hists(runner.wksp, runner.plan, "verify")
-        rec = {
-            "e2e_tps": count / wall, "e2e_count": count,
-            "e2e_wall_s": wall, "boot_s": t0 - t_boot,
-            "verify_work_p50_ms": quantile_ns(vh["work"], 0.50) / 1e6,
-            "verify_work_p99_ms": quantile_ns(vh["work"], 0.99) / 1e6,
-            "tpu_p50_ms": quantile_ns(vh["tpu"], 0.50) / 1e6,
-            "tpu_p99_ms": quantile_ns(vh["tpu"], 0.99) / 1e6,
-            "tpu_count": vh["tpu"]["count"],
-            # verify's productive polls by log2 bucket upper bound
-            "verify_work_polls_by_ms": {
-                f"{2 ** (i + 1) / 1e6:g}": c
-                for i, c in enumerate(vh["work"]["buckets"]) if c},
-            # the device seam's share of the verify tile's productive
-            # polls; dispatch and readback may also fall in idle polls
-            "device_seam_share": vh["tpu"]["sum_ns"] / vh["work"]["sum_ns"],
-            "device_seam_share_of_busy": vh["tpu"]["sum_ns"] / (
-                vh["work"]["sum_ns"] + vh["wait"]["sum_ns"]),
-            "stage_budget": budget, "link_budget": links}
-        if traced is not None:
-            rec["trace"] = traced
-        return rec, v
-    finally:
-        runner.halt()
-        runner.close()
-        if env0 is None:
-            os.environ.pop("FDTPU_VERIFY_INFLIGHT", None)
-        else:
-            os.environ["FDTPU_VERIFY_INFLIGHT"] = env0
+    from firedancer_tpu_torch.tools.e2e import e2e_run
+    rec = e2e_run(count, device=DEVICE, name=f"smoke{tag}{os.getpid()}",
+                  verify_last=verify_last, trace=trace, prof=prof,
+                  on_halted=on_halted, **verify)
+    return rec, rec.pop("verify")
 
 
 def run_profiled_e2e(root, card, rec10a) -> dict:
@@ -3973,6 +3888,280 @@ def run_quic_door(root, card, pool) -> dict:
     return rec
 
 
+def _tune_cli(root, *args, timeout=900):
+    """One `python -m firedancer_tpu_torch.tune ...` in a subprocess
+    from the checkout's root. -> (rc, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch.tune",
+                        *args], cwd=root, capture_output=True, text=True,
+                       timeout=timeout,
+                       env=dict(os.environ, PYTHONPATH=root))
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def run_tune_sweep(root, card, work) -> dict:
+    """27b: the offline sweep over coalesce_us at the reference's bench
+    defaults, one boot of cfg/sigverify.toml on the card a point
+    (tools/e2e.py), then the same command on its own state file, which
+    must measure nothing and return the same knobs, and `profile show`."""
+    from firedancer_tpu_torch.tune.search import load_state, point_key
+    profile = os.path.join(work, "tuned_profile.json")
+    state = os.path.join(work, "sweep_state.json")
+    args = ("sweep", "--axes", "coalesce_us", "--points", "2",
+            "--count", str(TUNE_SWEEP_FRAMES), "--unique",
+            str(TUNE_SWEEP_UNIQUE), "--out", profile, "--state", state,
+            "--device", DEVICE)
+    rc, out, err, sec = _tune_cli(root, *args)
+    assert rc == 0, f"27b sweep rc {rc}: {err[-4000:]}"
+    points = [json.loads(ln.split("fdtune: e2e ", 1)[1])
+              for ln in err.splitlines() if ln.startswith("fdtune: e2e ")]
+    doc = json.loads(out)
+    st = load_state(state)
+    assert len(points) == doc["sweep"]["measured"] == len(st["points"]) \
+        and 3 <= len(points) <= 4, \
+        f"27b: {len(points)} e2e runs, state {st}"
+    for pt in points:
+        log(f"27b point {json.dumps(pt, sort_keys=True)}")
+        for key, want in (("sink_rx", TUNE_SWEEP_UNIQUE),
+                          ("rx", TUNE_SWEEP_FRAMES), ("verify_fail", 0),
+                          ("parse_fail", 0), ("cpu_fallback", 0),
+                          ("device_errors", 0)):
+            assert pt[key] == want, f"27b {pt['point']}: {key} {pt[key]}"
+        assert pt["batches"] > 0, f"27b {pt['point']}: no strict batch"
+    default = point_key({"coalesce_us": 200})
+    assert points[0]["point"] == {"coalesce_us": 200} \
+        and default in st["points"], f"27b: default point not first: {st}"
+    m = doc["measured"]
+    assert m["tuned_vs_default_tps"] >= 1.0, f"27b: {m}"
+    rc2, out2, err2, sec2 = _tune_cli(root, *args)
+    assert rc2 == 0, f"27b rerun rc {rc2}: {err2[-4000:]}"
+    doc2 = json.loads(out2)
+    assert doc2["sweep"]["measured"] == 0 and \
+        doc2["knobs"] == doc["knobs"] and \
+        "fdtune: e2e " not in err2, f"27b rerun measured: {err2[-2000:]}"
+    rc3, show, err3, _ = _tune_cli(root, "profile", "show", profile,
+                                   timeout=120)
+    assert rc3 == 0 and "knobs:" in show, f"27b profile show: {err3}"
+    log(f"27b profile show:\n{show.rstrip()}")
+    rec = {"profile": profile, "knobs": doc["knobs"], "measured": m,
+           "host": doc["host"], "points": points,
+           "verify_batches": sum(pt["batches"] for pt in points),
+           "boot_s": [pt["boot_s"] for pt in points],
+           "sweep_s": sec, "rerun_s": sec2, "card": nvidia_smi()}
+    log(f"27b: {len(points)} points, tuned {doc['knobs']} at "
+        f"{m['tuned_tps']:.1f} frames/s against the default's "
+        f"{m['default_tps']:.1f} ({m['tuned_vs_default_tps']:.4f}x); boots "
+        f"{[round(b, 2) for b in rec['boot_s']]} s; sweep {sec:.1f} s, "
+        f"rerun {sec2:.1f} s (0 measured) {card}")
+    return rec
+
+
+def _tune_boot(root, name, flight_dir, synth_last):
+    """Build cfg/tune.toml under the environment's FDTPU_TUNED_PROFILE,
+    the archive in `flight_dir` and the controller's ring at TUNE_RING
+    records, and start it: every tile but the synth
+    first and the synth once they all run (`synth_last`), or every tile
+    but verify first and verify once the synth has filled synth_verify
+    (phase 10b's verify_last). -> (runner, boot seconds)."""
+    from firedancer_tpu_torch.app.config import build_topology, load_config
+    from firedancer_tpu_torch.disco.launch import TopologyRunner
+    cfg = load_config(
+        os.path.join(root, "firedancer_tpu_torch", "cfg", "tune.toml"),
+        overrides={"flight": {"dir": flight_dir},
+                   "tile": [{"name": "verify", "device": DEVICE},
+                            {"name": "controller",
+                             "trace": {"depth": TUNE_RING}}]})
+    runner = TopologyRunner(build_topology(cfg, name=name).build())
+    t0 = time.perf_counter()
+    first = "synth" if synth_last else "verify"
+    runner.start([tn for tn in runner.plan["tiles"] if tn != first])
+    if synth_last:
+        runner.wait_running(timeout_s=300)
+    else:
+        runner.wait_idle("synth", "tx",
+                         runner.plan["links"]["synth_verify"]["depth"],
+                         timeout_s=300, poll_s=0.002)
+    runner.start([first])
+    runner.wait_running(timeout_s=300)
+    return runner, time.perf_counter() - t0
+
+
+def run_tune_drill(root, card, sweep) -> dict:
+    """27a: cfg/tune.toml on the card under 27b's profile: the controller
+    relieves the synth's pressure, every decision an EV_TUNE in its ring,
+    the budget held, and every knob back at its default after calm; the
+    pipeline exact throughout. 27c: the post-mortem from the flight
+    archive alone: `tune watch DIR` prints the ring's decisions, `flight
+    summary DIR` drops nothing, the boot and halt marks are there and
+    the archive's sink.rx is the live one."""
+    from firedancer_tpu_torch.flight.archive import cumulative, read_frames
+    from firedancer_tpu_torch.flight.archive import series
+    from firedancer_tpu_torch.flight.codec import KIND_MARK
+    from firedancer_tpu_torch.runtime import KnobMailbox
+    from firedancer_tpu_torch.trace.export import read_rings
+    from firedancer_tpu_torch.trace.events import EV_TUNE
+    from firedancer_tpu_torch.tune import knob_space
+    t_phase = time.perf_counter()
+    env0 = os.environ.get("FDTPU_TUNED_PROFILE")
+    os.environ["FDTPU_TUNED_PROFILE"] = sweep["profile"]
+    rec = {}
+    try:
+        for synth_last in (True, False):
+            flight_dir = os.path.join(
+                root, "firedancer_tpu_torch", "build",
+                f"flight27_{int(synth_last)}_{os.getpid()}")
+            subprocess.run(["rm", "-rf", flight_dir], check=True)
+            runner, boot_s = _tune_boot(root, f"smoke27a{os.getpid()}",
+                                        flight_dir, synth_last)
+            try:
+                rec = _tune_drive(runner, boot_s, synth_last, flight_dir,
+                                  sweep, KnobMailbox, knob_space, EV_TUNE,
+                                  read_rings)
+            finally:
+                runner.halt()
+                runner.close()
+            if rec["relief_while_synth"] > 0:
+                break
+            log(f"27a: no relief decision with the synth booted last "
+                f"{card}; again with verify booted last")
+        assert rec["relief_while_synth"] > 0, f"27a: no relief: {rec}"
+    finally:
+        if env0 is None:
+            os.environ.pop("FDTPU_TUNED_PROFILE", None)
+        else:
+            os.environ["FDTPU_TUNED_PROFILE"] = env0
+    log(f"27a: boot {rec['boot_s']:.1f} s ({rec['order']}), "
+        f"{rec['decisions']} decisions ({rec['relief_while_synth']} relief "
+        f"while the synth ran, {rec['reverts']} reverts), hops "
+        f"{rec['hops']}, most in a {rec['window_s']:g} s window "
+        f"{rec['max_in_window']} of {rec['max_moves']}, defaults back "
+        f"{rec['revert_s']:.2f} s after calm; verify batches "
+        f"{rec['verify_batches']} {card}")
+
+    # 27c: the post-mortem, from the archive alone
+    d = rec["flight_dir"]
+    rc, out, err, sec = _tune_cli(root, "watch", d, timeout=120)
+    assert rc == 0, f"27c tune watch rc {rc}: {err}"
+    watched = [tuple(ln.split(": ", 1)[1].split(" -> "))
+               for ln in out.splitlines() if ": " in ln]
+    watched = [(k, int(v)) for k, v in watched]
+    assert watched == rec["ring_decisions"], \
+        f"27c: watch {watched} != ring {rec['ring_decisions']}"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch.flight",
+                        "summary", d], cwd=root, capture_output=True,
+                       text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=root))
+    summary_s = time.perf_counter() - t0
+    assert r.returncode == 0 and " 0 torn/dropped" in r.stdout, \
+        f"27c flight summary: {r.stdout} {r.stderr}"
+    log(f"27c flight summary:\n{r.stdout.rstrip()}")
+    frames, dropped = read_frames(d)
+    marks = [f["name"] for f in frames if f["kind"] == KIND_MARK]
+    assert dropped == 0 and marks[:1] == ["boot"] and marks[-1:] == ["halt"], \
+        f"27c: dropped {dropped}, marks {marks}"
+    arch_rx = cumulative(series(frames, "sink", "rx"))[-1][1]
+    assert arch_rx == rec["live_sink_rx"] == 64, \
+        f"27c: archive sink.rx {arch_rx}, live {rec['live_sink_rx']}"
+    rec.update(watch_s=sec, summary_s=summary_s, archive_frames=len(frames),
+               archive_sink_rx=arch_rx,
+               phase_s=time.perf_counter() - t_phase, card=nvidia_smi())
+    log(f"27c: watch printed the ring's {len(watched)} decisions ({sec:.1f} "
+        f"s); {len(frames)} frames, 0 dropped, marks {marks}, sink.rx "
+        f"{arch_rx} = live; phase 27a-c {rec['phase_s']:.1f} s {card}")
+    return rec
+
+
+def _tune_drive(runner, boot_s, synth_last, flight_dir, sweep, KnobMailbox,
+                knob_space, EV_TUNE, read_rings) -> dict:
+    """27a's run on a booted topology: wait for the synth's drain and
+    the controller's calm, then for every knob's default; halt (the
+    flight tile last) and check the ring, the budget and the pipeline."""
+    plan = runner.plan
+    va = plan["tiles"]["verify"]["args"]
+    want = sweep["knobs"]["coalesce_us"]
+    assert va["coalesce_us"] == want and va["batch"] == 32, \
+        f"27a: verify args {va}, the profile's coalesce_us {want}"
+    count = plan["tiles"]["synth"]["args"]["count"]
+    names = plan["tune_knobs"]
+    mb = KnobMailbox(runner.wksp, plan["tune_mailbox_off"], len(names))
+    space = knob_space(plan["tune"])
+    t0 = time.perf_counter()
+    runner.wait_idle("synth", "tx", count, timeout_s=TUNE_TIMEOUT_S,
+                     poll_s=0.01)
+    runner.wait_idle("sink", "rx", 64, timeout_s=TUNE_TIMEOUT_S)
+    runner.wait_idle("verify", "rx", count, timeout_s=TUNE_TIMEOUT_S)
+    drain_s = time.perf_counter() - t0
+    c = runner.metrics("controller")
+    relief = c["decisions"] - c["reverts"]
+    deadline = time.time() + TUNE_TIMEOUT_S
+    while runner.metrics("controller")["breached"] \
+            or runner.metrics("controller")["pressure_pct"]:
+        runner.check_failures()
+        assert time.time() < deadline, \
+            f"27a: no calm: {runner.metrics('controller')}"
+        time.sleep(0.05)
+    t_calm = time.perf_counter()
+
+    def at_defaults():
+        for i, n in enumerate(names):
+            value, seq = mb.read(i)
+            if seq and value != space[n]["default"]:
+                return False
+        return True
+    while not at_defaults():
+        runner.check_failures()
+        if time.perf_counter() - t_calm > TUNE_CALM_S:
+            break
+        time.sleep(0.05)
+    revert_s = time.perf_counter() - t_calm
+    slots = {n: mb.read(i) for i, n in enumerate(names)}
+    runner.halt(tiles=[tn for tn in plan["tiles"] if tn != "flight"])
+    runner.halt()
+    for tn, p in runner.procs.items():
+        assert p.exitcode == 0, f"27a tile {tn} exit code {p.exitcode}"
+    m = {tn: runner.metrics(tn) for tn in ("verify", "sink", "controller")}
+    evs = [e for e in read_rings(plan, runner.wksp,
+                                 tiles=["controller"])["controller"]
+           if e["etype"] == EV_TUNE]
+    rec = {"order": "synth last" if synth_last else "verify last",
+           "boot_s": boot_s, "drain_s": drain_s, "revert_s": revert_s,
+           "relief_while_synth": relief, "flight_dir": flight_dir,
+           "decisions": m["controller"]["decisions"],
+           "reverts": m["controller"]["reverts"],
+           "verify_batches": m["verify"]["batches"],
+           "live_sink_rx": m["sink"]["rx"],
+           "window_s": plan["tune"]["window_s"],
+           "max_moves": plan["tune"]["max_moves"],
+           "slots": {n: list(v) for n, v in slots.items()},
+           "ring_decisions": [(names[e["count"]], e["arg"]) for e in evs],
+           "hops": sorted({str(e["link"]) for e in evs})}
+    if relief <= 0:
+        return rec
+    assert revert_s <= TUNE_CALM_S and rec["reverts"] > 0, \
+        f"27a: knobs not back {revert_s:.1f} s after calm: {slots}"
+    assert len(evs) == rec["decisions"], \
+        f"27a: {len(evs)} EV_TUNE for {rec['decisions']} decisions"
+    for i, n in enumerate(names):
+        mine = [e["arg"] for e in evs if e["count"] == i]
+        assert len(mine) == slots[n][1] and \
+            (not mine or mine[-1] == slots[n][0]), \
+            f"27a: {n} ring {mine}, slot {slots[n]}"
+        assert all(space[n]["min"] <= v <= space[n]["max"] for v in mine)
+    assert all(e["link"] is None or e["link"] in plan["links"]
+               for e in evs), rec["hops"]
+    ts = [e["ts"] for e in evs]
+    w_ns = rec["window_s"] * 1e9
+    rec["max_in_window"] = max(
+        (sum(1 for u in ts if t - w_ns < u <= t) for t in ts), default=0)
+    assert rec["max_in_window"] <= rec["max_moves"], rec["max_in_window"]
+    v = m["verify"]
+    assert m["sink"]["rx"] == 64 and v["batches"] > 0 and \
+        v["verify_fail"] == 0 and v["parse_fail"] == 0, f"27a verify {v}"
+    no_fallback("27a verify", v)
+    return rec
+
+
 def load_vectors(root):
     """Every Wycheproof EdDSA vector and both malleability corpora
     (96-byte (sig, pub) records over "Zcash")."""
@@ -4694,6 +4883,28 @@ def main() -> int:
     del signed19
     log(f"26 record {json.dumps(rec26)}")
 
+    # 27. the controller and the flight recorder: the offline sweep over
+    # coalesce_us (27b), cfg/tune.toml under its profile with the
+    # controller steering the card's verify tile (27a), and the
+    # post-mortem from the flight archive (27c); the verify tiles count
+    # their strict batches
+    log(f"== 27b. fdtune sweep: coalesce_us, 2 points, {TUNE_SWEEP_FRAMES} "
+        f"frames, {TUNE_SWEEP_UNIQUE} unique, verify batch 32 {card}")
+    t27 = time.perf_counter()
+    work27 = os.path.join(root, "firedancer_tpu_torch", "build",
+                          f"tune27_{os.getpid()}")
+    os.makedirs(work27, exist_ok=True)
+    rec27b = run_tune_sweep(root, card, work27)
+    log(f"27b record {json.dumps(rec27b)}")
+    log(f"== 27a. cfg/tune.toml under the tuned profile, controller, "
+        f"flight tile; 27c. the post-mortem {card}")
+    rec27a = run_tune_drill(root, card, rec27b)
+    log(f"27a record {json.dumps(rec27a)}")
+    tune_launches = rec27b["verify_batches"] + rec27a["verify_batches"]
+    log(f"27: {time.perf_counter() - t27:.1f} s, sweep boots "
+        f"{rec27b['sweep_s']:.1f} s, drill {rec27a['phase_s']:.1f} s, "
+        f"verify batches {tune_launches} {card}")
+
     kernels = []
     paths = (strict_path, rlc_path, flood_path, front_path)
     for name, src, rep, err in (
@@ -4846,6 +5057,12 @@ def main() -> int:
             k["launches"] += rec26["verify_batches"]
             assert rec26.get("cryptography") is None \
                 or k["quic_launches"] > 0, f"26: no {k['name']} launch"
+        if k["name"] in ("sha512", "sha512_ram", "ed25519_verify"):
+            # phase 27's verify tiles (27b's sweep boots and 27a's
+            # drill): one launch of each strict kernel a batch
+            k["tune_launches"] = tune_launches
+            k["launches"] += tune_launches
+            assert tune_launches > 0, f"27: no {k['name']} launch"
     log(smi)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - T_START:.1f} s {card}")

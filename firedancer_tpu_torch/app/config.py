@@ -28,7 +28,8 @@ Schema (the reference's, cut to the kinds the port has):
                              # bank | poh | shred | sign | replay |
                              # sock | gossip | exec | resolv | metric |
                              # archiver | playback | snapld | snapdc |
-                             # snapin
+                             # snapin | quic | repair | tower | send |
+                             # controller | flight
     ins = ["ingest"]
     outs = ["verify_dedup"]
     batch = 2048             # every other key = tile arg, verbatim
@@ -108,23 +109,33 @@ Schema (the reference's, cut to the kinds the port has):
     compress = true          #  frag size
     chunk = 4096
 
+    [flight]                 # fdflight archive (flight/__init__.py): the
+    dir = "/tmp/fdtt-flight/demo"  # flight tile drains the shm plane
+    hz = 4.0                 #  into segments under dir
+
+    [tune]                   # fdtune (tune/__init__.py): enable carves
+    enable = true            #  the knob mailbox the controller tile
+    cooldown_s = 2.0         #  steers through
+    [tune.knob.coalesce_us]
+    max = 1000
+
 Where the copy differs from the reference:
   * the tile-key gate (the reference's lint/registry.py, config.py:215)
     is the port's own table `TILE_ARGS`: the reference's keys for synth,
     verify, dedup, sink, pack, bank, poh, shred, sign, tower, repair,
     send, replay, sock, quic, gossip, exec, resolv, metric, archiver,
-    playback, snapld, snapdc and snapin, plus `device` on verify, bank, replay, gossip, exec and
-    snapin (the card, "cuda", unless "cpu"); a gated key the port has
+    playback, snapld, snapdc, snapin, controller and flight, plus
+    `device` on verify, bank, replay, gossip, exec and snapin (the card,
+    "cuda", unless "cpu"); a gated key the port has
     not ported (pack's `bundle_in`, the bank's `rpc_port` and
     `ws_port`) passes the gate and is refused by its adapter;
   * the [replay] section is validated by `tiles/replay.normalize_replay`,
     the [funk] section by `funk/shmfunk.normalize_funk` and the
     [snapshot] section by `tiles/snapshot.normalize_snapshot`, and all
     three are carried on the plan;
-  * each top-level section the reference accepts but the port has not
-    ported (witness, flight, tune) raises NotImplementedError
-    naming its ROADMAP.md queue-A item, and so does
-    FDTPU_TUNED_PROFILE (item 11); a known kind without an adapter, a
+  * the [witness] section, which the port has not ported, raises
+    NotImplementedError naming its ROADMAP.md queue-A item; a known
+    kind without an adapter, a
     gated key the port lacks (the verify tile's `device_fail_limit`,
     which it refuses by design) and a chaos action of an unported kind
     pass the gate and are refused by `Topology.tile`
@@ -132,7 +143,11 @@ Where the copy differs from the reference:
 
 As in the reference, `cpu0` on a sharded tile pins shard i to core
 cpu0 + i, and on an unsharded tile it becomes that tile's `cpu_idx`
-(config.py:323-335); [[slo.target]] arrays merge by name across layers.
+(config.py:323-335); [[slo.target]] arrays merge by name across layers;
+[flight] and [tune] are validated by flight.normalize_flight and
+tune.normalize_tune; and FDTPU_TUNED_PROFILE names a tuned profile
+(tune/profile.py) whose knob vector `build_topology` applies to the
+declared tiles' args (config.py:338-345).
 """
 from __future__ import annotations
 
@@ -144,14 +159,16 @@ from ..disco.shed import normalize_shed
 from ..disco.slo import normalize_slo
 from ..disco.topo import Topology
 from ..disco.unported import UNPORTED_KINDS, UNPORTED_SECTIONS, refuse
+from ..flight import normalize_flight
 from ..funk.shmfunk import normalize_funk
 from ..prof import normalize_prof
 from ..tiles.snapshot import normalize_snapshot
 from ..trace import normalize_trace
+from ..tune import normalize_tune
 
 _TOP_SECTIONS = {"topology", "link", "tcache", "tile", "trace", "slo",
-                 "prof", "replay", "shed", "funk", "snapshot",
-                 *UNPORTED_SECTIONS}
+                 "prof", "replay", "shed", "funk", "snapshot", "flight",
+                 "tune", *UNPORTED_SECTIONS}
 
 # keys every tile understands (read by Topology.build, the launcher or
 # the stem)
@@ -198,6 +215,8 @@ TILE_ARGS: dict[str, tuple[str, ...]] = {
     "snapld": ("path", "chunk", "stale_path"),
     "snapdc": (),
     "snapin": ("format", "min_slot", "device"),
+    "controller": (),
+    "flight": (),
 }
 
 
@@ -288,11 +307,10 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     for key, item in UNPORTED_SECTIONS.items():
         if key in cfg:
             refuse(f"the [{key}] section", item)
-    if os.environ.get("FDTPU_TUNED_PROFILE"):
-        refuse("FDTPU_TUNED_PROFILE (tuned knob profiles)", 11)
     # fail before launch (trace/recorder.py, tiles/replay.py,
-    # tiles/snapshot.py, funk/shmfunk.py, disco/shed.py, disco/slo.py
-    # and prof/recorder.py are the validators; per-tile `shed` and
+    # tiles/snapshot.py, funk/shmfunk.py, disco/shed.py, disco/slo.py,
+    # prof/recorder.py, flight/__init__.py and tune/__init__.py are the
+    # validators; per-tile `shed` and
     # `prof` overrides validate, and SLO targets resolve, at
     # Topology.build)
     shed_cfg = cfg.get("shed")
@@ -318,12 +336,18 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
     prof_cfg = cfg.get("prof")
     if prof_cfg is not None:
         normalize_prof(prof_cfg)
+    flight_cfg = cfg.get("flight")
+    if flight_cfg is not None:
+        normalize_flight(flight_cfg)
+    tune_cfg = cfg.get("tune")
+    if tune_cfg is not None:
+        normalize_tune(tune_cfg)
     top = cfg.get("topology", {})
     topo = Topology(name or top.get("name", f"cfg{os.getpid()}"),
                     wksp_size=int(top.get("wksp_size", 1 << 26)),
                     trace=trace_cfg, replay=replay_cfg, shed=shed_cfg,
                     funk=funk_cfg, slo=slo_cfg, prof=prof_cfg,
-                    snapshot=snap_cfg)
+                    snapshot=snap_cfg, flight=flight_cfg, tune=tune_cfg)
     for ln in cfg.get("link", []):
         topo.link(ln["name"], depth=int(ln.get("depth", 128)),
                   mtu=int(ln.get("mtu", 1280)))
@@ -353,4 +377,11 @@ def build_topology(cfg: dict, name: str | None = None) -> Topology:
                 args["cpu_idx"] = int(cpu0)
             topo.tile(t["name"], t["kind"], ins=t.get("ins", ()),
                       outs=t.get("outs", ()), **args)
+    # FDTPU_TUNED_PROFILE: a sweep's tuned knob values onto the declared
+    # tiles before build (config keys the profile does not carry stay
+    # authoritative)
+    prof_path = os.environ.get("FDTPU_TUNED_PROFILE")
+    if prof_path:
+        from ..tune.profile import apply_profile, load_profile
+        apply_profile(topo, load_profile(prof_path))
     return topo

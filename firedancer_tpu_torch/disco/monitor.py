@@ -1,7 +1,18 @@
 """Monitor: read every tile's heartbeat + metrics from shared memory
-(copy of the JAX package's disco/monitor.py:43-230, with each traced
-tile's trace cursor and the SLO breach events; without the flight
-archive, ROADMAP.md queue A item 10).
+(copy of the JAX package's disco/monitor.py, with each traced tile's
+trace cursor, the SLO breach events and the flight archive's replay).
+
+Usage:
+  python -m firedancer_tpu_torch.disco.monitor --archive DIR \
+      [--since NS] [--follow]
+
+--archive replays NDJSON snapshots from a flight-data archive
+([flight].dir) instead of shm — the view post-mortem: one document per
+recorder drain pass, counters re-integrated from the archived deltas.
+--since skips documents at or before that monotonic-ns stamp; --follow
+keeps polling the directory for frames the recorder is still appending.
+The live view is `app.run`'s table (or `attach` and `snapshot` from
+code); the reference's live command line is left out.
 
 The reference's `monitor` command attaches to the running validator's
 shm and prints per-tile status snapshots
@@ -12,6 +23,8 @@ drops next to the shm segment.
 from __future__ import annotations
 
 import json
+import sys
+import time
 
 from ..runtime import (Workspace, Cnc, TraceRing, CNC_BOOT, CNC_RUN,
                        CNC_HALT, CNC_FAIL)
@@ -204,3 +217,77 @@ def attach(topology_name: str):
     wksp = Workspace(plan["wksp"]["name"], plan["wksp"]["size"],
                      create=False)
     return plan, wksp
+
+
+def archive_snapshots(dirname: str,
+                      since_ns: int | None = None) -> list[dict]:
+    """Flight-archive frames -> one snapshot document per recorder
+    drain pass (every metric/link frame of a pass shares the pass
+    timestamp). Counters re-integrate from the archived deltas, so a
+    document's values equal what /metrics showed at that instant —
+    the fdflight query-equivalence contract applied to the monitor's
+    --json shape. `since_ns` drops documents stamped at or before it
+    (the --since/--follow replay cursor)."""
+    from ..flight.archive import read_frames
+    from ..flight.codec import KIND_HIST, KIND_LINK, KIND_METRIC
+    frames, _ = read_frames(dirname)
+    tiles: dict = {}
+    links: dict = {}
+    docs: list[dict] = []
+    cur_ts = None
+
+    def emit(ts):
+        if since_ns is not None and ts <= since_ns:
+            return
+        docs.append({
+            "ts": ts, "source": "flight",
+            "tiles": {tn: dict(ms) for tn, ms in tiles.items()},
+            "links": {ln: dict(ms) for ln, ms in links.items()},
+        })
+
+    for fr in frames:
+        if fr["kind"] not in (KIND_METRIC, KIND_HIST, KIND_LINK):
+            continue
+        if cur_ts is None:
+            cur_ts = fr["ts"]
+        elif fr["ts"] != cur_ts:
+            emit(cur_ts)
+            cur_ts = fr["ts"]
+        tgt = links if fr["kind"] == KIND_LINK else tiles
+        rec = tgt.setdefault(fr["source"], {})
+        if fr["aux"] & 1:
+            rec[fr["name"]] = fr["value"]     # gauge/level
+        else:
+            rec[fr["name"]] = rec.get(fr["name"], 0) + fr["value"]
+    if cur_ts is not None:
+        emit(cur_ts)
+    return docs
+
+
+def _archive_main(dirname: str, since_ns: int | None,
+                  follow: bool) -> int:
+    cursor = since_ns
+    while True:
+        docs = archive_snapshots(dirname, since_ns=cursor)
+        for doc in docs:
+            print(json.dumps(doc))
+            cursor = doc["ts"]
+        if not follow:
+            return 0
+        sys.stdout.flush()
+        time.sleep(1.0)
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if "--archive" not in argv:
+        print(__doc__)
+        return 1
+    dirname = argv[argv.index("--archive") + 1]
+    since = int(argv[argv.index("--since") + 1]) \
+        if "--since" in argv else None
+    return _archive_main(dirname, since, "--follow" in argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

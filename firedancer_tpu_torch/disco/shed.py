@@ -51,8 +51,6 @@ shed_overflow / peers / overload), the counters the flood drills
 Where the copy differs from the reference:
   * the did-you-mean hint is a few lines of difflib, not the
     reference's lint/registry.suggest (fdlint is not ported);
-  * PeerGate has no `set_tighten`: the fdtune shed_tighten knob is
-    ROADMAP.md queue A item 11, and the port's TileCtx carries no knobs;
   * PressureProbe, the overload roll-up the ingest doors poll, lives in
     disco/slo.py as in the reference and is imported here for the
     callers that reach it through this module.
@@ -198,11 +196,13 @@ class PeerGate:
     __slots__ = ("rate", "burst", "max_peers", "min_stake", "hold_ns",
                  "stakes", "peers", "overload_until", "shed_total",
                  "shed_rate", "shed_unstaked", "shed_drop", "evicted",
-                 "staked_rx", "staked_shed")
+                 "staked_rx", "staked_shed", "base_rate", "tighten")
 
     def __init__(self, cfg: dict):
         cfg = normalize_shed(cfg)
         self.rate = cfg["rate_pps"]
+        self.base_rate = self.rate     # config value; `rate` is the
+        self.tighten = 0               # tighten-scaled effective rate
         self.burst = cfg["burst"]
         self.max_peers = cfg["max_peers"]
         self.min_stake = cfg["min_stake"]
@@ -259,6 +259,17 @@ class PeerGate:
     def overloaded(self, now: int | None = None) -> bool:
         return (now if now is not None
                 else monotonic_ns()) < self.overload_until
+
+    def set_tighten(self, level: int):
+        """fdtune shed_tighten knob: scale every peer's admit rate to
+        base_rate/(1+level) — level 0 restores the config rate. Burst
+        and the peer table are untouched, so loosening is instant and
+        the knob composes with (does not replace) overload mode."""
+        level = max(0, int(level))
+        if level == self.tighten:
+            return
+        self.tighten = level
+        self.rate = self.base_rate / (1 + level)
 
     # -- admission -----------------------------------------------------------
 

@@ -64,8 +64,8 @@ differs: breach dumps follow the port's shm prefix
 `fdtpu_`), the did-you-mean hint is a few lines of difflib (the
 reference's lint/registry.suggest; fdlint, whose bad-slo rule shares
 check_target, is not ported), and nothing but the metric tile reads
-`SloEngine.pressure` (the fdtune controller is ROADMAP.md queue A item
-11).
+`SloEngine.pressure` (the fdtune controller reads PressureProbe's
+roll-up, as in the reference).
 """
 from __future__ import annotations
 
@@ -557,9 +557,10 @@ class PressureProbe:
     counter delta (did a breach edge land since the last poll — the
     cross-process burn approximation), and the worst per-link producer
     backpressure delta with its link name (WHERE the topology is
-    saturating). The ingest doors poll it (disco/tiles._shed_slo_poll);
-    the reference's fdtune controller reads the same roll-up (item 11),
-    so \"overloaded\" will mean the same thing to both."""
+    saturating). The ingest doors poll it (disco/tiles._shed_slo_poll)
+    and the fdtune controller reads the same roll-up
+    (tune/controller.py), so \"overloaded\" means the same thing to
+    both."""
 
     def __init__(self, plan: dict, wksp):
         self.plan, self.wksp = plan, wksp

@@ -7,15 +7,16 @@ shred in recover mode and replay on the follower's, with repair, tower
 and send on the voting non-leader's; sock, quic and gossip at the front
 door;
 the cold-start follower's snapld, snapdc and snapin with the replay's
-restore gate, and the archiver and playback tiles), and the exec fan-out
-engine (ExecFanout) the bank and the replay share.
+restore gate, the archiver and playback tiles, and the fdtune controller
+and fdflight recorder), and the exec fan-out engine (ExecFanout) the
+bank and the replay share.
 
 An adapter is constructed inside the tile process from (TileCtx, args)
 and supplies the stem callbacks (poll_once / metrics_items / in_seqs /
 on_halt); ref: src/disco/topo/fd_topo.h:664-684.
 
 Where the copy differs from the reference:
-  * the registry holds these twenty-four kinds only (the twenty-three
+  * the registry holds these twenty-six kinds only (the twenty-five
     above and the metric tile); `Topology.tile` refuses every other kind
     of the reference's registry (disco/unported.py), and `adapter_class`
     raises ValueError for a name without an adapter;
@@ -25,7 +26,10 @@ Where the copy differs from the reference:
     (tiles.py:120-133). It takes `device_retries` and
     `device_timeout_s`, never the reference's `device_fail_limit`
     (`Topology.tile` refuses it: the port does not degrade to the CPU,
-    tiles/verify.py), and no fdtune knob hook (item 11). Its device
+    tiles/verify.py). Its housekeeping reads the fdtune knobs as the
+    reference's does (tiles.py:373-386): `coalesce_us` into the tile's
+    coalesce window, `bulk_prefilter` into `prefilter_shed` in
+    bulk_prefilter mode only. Its device
     series are the reference's names (tiles.py:303-314, :355-427):
     `tpu_jit_compiles` counts the kernel entry points the process
     loaded through ops/_build.py (prof/device.kernel_loads),
@@ -61,15 +65,14 @@ Where the copy differs from the reference:
     the port's own `final_ckpt` arg: at its halt it writes its store's
     root there (utils/checkpt.funk_checkpt, uncompressed, by a rename),
     so a drill can hold the store to an oracle after the tile is gone;
-  * the knob reads of pack's and bank's housekeeping (item 11) find no
-    knobs: the port's TileCtx has none;
   * ShredAdapter runs mode="leader" and mode="recover" (the follower's
     FEC resolution, store and reassembly, tiles/shred.py
     ShredRecoverCore);
   * ExecAdapter takes a `device` arg (default "cuda") for its
     WaveExecutor, boots by running one one-transfer wave through the
     wave-scan kernel (as the bank does) and counts later launches in
-    `wave_launches`; it has no fdtune `exec_dispatch` knob (item 11);
+    `wave_launches`; its housekeeping reads the fdtune `exec_dispatch`
+    knob into its gather depth, as the reference's;
   * ReplayAdapter runs the replay (tiles/replay.py), in process or over
     the exec fan-out, with its PoH check and bank hash on the card
     unless its `device` arg says "cpu", and the follower's cold start
@@ -99,8 +102,9 @@ Where the copy differs from the reference:
   * SockAdapter, QuicAdapter and GossipAdapter police their doors with
     the plan's [shed] section and their own `shed` override
     (disco/shed.py); their housekeeping reads the topology's pressure
-    (`_shed_slo_poll`: a breach on the metric tile trips the door) but no
-    fdtune knob (item 11). QuicAdapter raises at construction without
+    (`_shed_slo_poll`: a breach on the metric tile trips the door, and
+    the fdtune `shed_tighten` knob scales the per-peer admit rate), as
+    the repair tile's does. QuicAdapter raises at construction without
     the `cryptography` package, naming it (waltz/quic.py). GossipAdapter
     takes a `device` arg (default "cuda") for gossvf and raises at
     construction when `device_verify` is set and that device is not
@@ -111,7 +115,12 @@ Where the copy differs from the reference:
     housekeeping, which rings each [prof] breach_capture tile's
     doorbell on a breach. It reads only shared memory and touches no
     device; /summary.json's `catchup` block reads the replay tile's
-    metrics as the reference's does.
+    metrics as the reference's does;
+  * ControllerAdapter and FlightAdapter are the reference's
+    (tiles.py:2986-3060): the knob mailbox's single writer
+    (tune/controller.py) and the archive's recorder
+    (flight/recorder.py). Neither runs a kernel, so neither imports
+    torch.
 """
 from __future__ import annotations
 
@@ -441,6 +450,16 @@ class VerifyAdapter:
         self._compile_watch.poll()
         if self._capture is not None:
             self._capture.poll()
+        knobs = getattr(self.ctx, "knobs", None)
+        if knobs is not None:
+            v = knobs.get("coalesce_us")
+            if v is not None:
+                self.tile.set_coalesce_ns(v * 1_000)
+            v = knobs.get("bulk_prefilter")
+            if v is not None and self.tile.mode == "bulk_prefilter":
+                # arming/relaxing the shed path is runtime-safe; the
+                # MODE (the kernel family) never switches live
+                self.tile.prefilter_shed = bool(v)
 
     def on_halt(self):
         if self._capture is not None:
@@ -1533,9 +1552,8 @@ class ExecAdapter:
     Like the bank, the tile boots by running one one-transfer wave
     through the kernel on a scratch in-process funk, so a kernel that
     does not build or launch fails the tile's boot, and it counts the
-    launches it makes after that in its `wave_launches` metric. The
-    reference's housekeeping reads the fdtune `exec_dispatch` knob
-    (ROADMAP.md queue A item 11); this tile has no knobs.
+    launches it makes after that in its `wave_launches` metric. Its
+    housekeeping reads the fdtune `exec_dispatch` knob into `batch`.
 
     args: batch (dispatch frames gathered per poll), device ("cuda" |
     "cpu")."""
@@ -1621,6 +1639,15 @@ class ExecAdapter:
             publish_wave(self.out, self.out_fseqs, comps,
                          cnc=getattr(self.ctx, "cnc", None))
         return n
+
+    def housekeeping(self):
+        knobs = getattr(self.ctx, "knobs", None)
+        if knobs is not None:
+            v = knobs.get("exec_dispatch")
+            if v is not None:
+                # per-poll gather depth only — frames already gathered
+                # this poll finish, so shrinking takes one poll
+                self.batch = max(1, v)
 
     def in_seqs(self):
         return {self.in_link: self.seq}
@@ -2866,6 +2893,81 @@ class MetricAdapter:
                 "slo_evals": self.engine.evals}
 
 
+@register("flight")
+class FlightAdapter:
+    """fdflight recorder tile: drains the shm observability plane —
+    metric slot deltas, link counters + consume-latency quantiles, SLO
+    breach/clear transitions, sampled trace events, prof folded-stack
+    digests — into the durable on-disk archive the `[flight]` section
+    configures (flight/archive.py segments + incident bundles).
+    Reader-side only, so writer tiles pay nothing. The drain cadence
+    (`[flight].hz`) is rate-limited inside the recorder; the stem just
+    calls housekeeping. On halt the recorder takes one final drain and
+    seals any pending incident, so a clean shutdown archives its own
+    tail.
+
+    args: none — all configuration rides the plan's [flight] section
+    (validated at config load and topo.build)."""
+
+    METRICS = ["frames", "drains", "segments", "incidents", "bytes"]
+    GAUGES = ["segments"]
+
+    def __init__(self, ctx, args):
+        from ..flight.recorder import FlightRecorder
+        self.ctx = ctx
+        self.recorder = FlightRecorder(ctx.plan, ctx.wksp,
+                                       ctx.plan.get("flight"))
+
+    def housekeeping(self):
+        self.recorder.maybe_drain()
+
+    def poll_once(self) -> int:
+        return 0
+
+    def on_halt(self):
+        self.recorder.close()
+
+    def metrics_items(self):
+        return dict(self.recorder.metrics)
+
+
+@register("controller")
+class ControllerAdapter:
+    """fdtune adaptive-controller tile: the knob mailbox's single
+    writer. No links — a pure reader of the shm metrics/SLO plane at
+    housekeeping cadence (tune/controller.py Controller), steering the
+    runtime knob subset and leaving an EV_TUNE trace record per
+    decision (which the flight recorder archives). topo.build refuses
+    to boot this kind without an enabled [tune] section, so the
+    Controller constructor's mailbox join cannot fail here.
+
+    args: none — all configuration rides the plan's [tune] section
+    (validated at config load and topo.build)."""
+
+    METRICS = ["decisions", "reverts", "pressure_pct", "breached",
+               "moves_in_window"]
+    GAUGES = ["pressure_pct", "breached", "moves_in_window"]
+
+    def __init__(self, ctx, args):
+        from ..tune.controller import Controller
+        self.ctx = ctx
+        self.controller = Controller(ctx.plan, ctx.wksp,
+                                     cfg=ctx.plan.get("tune"),
+                                     trace=ctx.trace)
+
+    def housekeeping(self):
+        self.controller.poll()
+
+    def poll_once(self) -> int:
+        return 0
+
+    def metrics_items(self):
+        c = self.controller
+        return {"decisions": c.decisions, "reverts": c.reverts,
+                "pressure_pct": int(c.pressure * 100),
+                "breached": int(c.last.get("breached", 0)),
+                "moves_in_window": len(c._moves)}
+
 
 def _shed_for(ctx, args):
     """Resolve one ingest tile's effective shed table from the plan's
@@ -2878,9 +2980,11 @@ def _shed_for(ctx, args):
 def _shed_slo_poll(ctx, gate):
     """Cross-tile overload coupling, polled at housekeeping cadence:
     an [slo] breach anywhere (the metric tile's slo_breach gauge, via
-    the shared PressureProbe roll-up) trips this tile's door into
-    stake-weighted shedding for the hold window. The reference's fdtune
-    shed_tighten knob on the same poll is item 11."""
+    the shared PressureProbe roll-up — the same overload definition
+    the fdtune controller steers by) trips this tile's door into
+    stake-weighted shedding for the hold window. The fdtune
+    shed_tighten knob rides the same poll: the controller's posted
+    level scales this door's per-peer admit rate."""
     if gate is None:
         return
     probe = getattr(ctx, "_pressure_probe", None)
@@ -2889,6 +2993,11 @@ def _shed_slo_poll(ctx, gate):
         probe = ctx._pressure_probe = PressureProbe(ctx.plan, ctx.wksp)
     if probe.overloaded():
         gate.trip_overload()
+    knobs = getattr(ctx, "knobs", None)
+    if knobs is not None:
+        v = knobs.get("shed_tighten")
+        if v is not None:
+            gate.set_tighten(v)
 
 
 @register("sock")

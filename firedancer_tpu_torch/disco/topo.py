@@ -16,9 +16,6 @@ waited on and must tolerate overruns.
 Where the copy differs from the reference:
   * the workspace is named `/fdtt_<name>` (the reference's `/fdtpu_`,
     topo.py:256), so both packages' topologies can run side by side;
-  * `Topology()` takes the [trace], [slo], [prof], [replay], [shed],
-    [funk] and [snapshot] sections, none of the reference's flight and
-    tune (topo.py:85-126); app.config refuses those sections;
   * `tile` refuses, with NotImplementedError naming the ROADMAP.md
     queue-A item that ports it (disco/unported.py), every tile kind
     without an adapter here (the sign tile's keyswitch region,
@@ -28,13 +25,21 @@ Where the copy differs from the reference:
     `device_fail_limit` by design (ROADMAP.md C: the port does not
     degrade to the CPU); a name that is no kind at all is left to fail
     in its tile process, as in the reference;
-  * the plan carries no tune or keyswitch regions, and TileCtx has no
-    knob handle. With [funk] backend "shm" the build carves the account
-    store (runtime.Store) into the workspace and puts its offset and
-    heap size on plan["funk"], as the reference does (topo.py:313-326);
-    adapters join it through TileCtx's `plan` and `wksp`.
+  * the plan carries no keyswitch region (item 13).
 
-As in the reference, `sharded_tile(..., cpu0=)` gives shard i
+As in the reference, `Topology()` takes the [trace], [slo], [prof],
+[replay], [shed], [funk], [snapshot], [flight] and [tune] sections
+(topo.py:85-126). With [funk] backend "shm" the build carves the
+account store (runtime.Store) into the workspace and puts its offset
+and heap size on plan["funk"] (topo.py:313-326); adapters join it
+through TileCtx's `plan` and `wksp`. [flight] is validated onto
+plan["flight"] for the flight tile; an enabled [tune] carves the knob
+mailbox (runtime.KnobMailbox, its offset in plan["tune_mailbox_off"],
+the runtime knob order in plan["tune_knobs"]), a `controller` tile
+without it fails the build, and TileCtx.knobs is the tile's KnobReader
+(tune.reader_for), None when tuning is off or the kind reads no knob.
+
+`sharded_tile(..., cpu0=)` gives shard i
 `cpu_idx = cpu0 + i` (the launcher pins it); the [slo] targets resolve
 against the built plan's tiles, metric slots and links (disco/slo.py);
 the [prof] section is normalized and each profiled tile gets a
@@ -50,10 +55,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..flight import normalize_flight
 from ..funk.shmfunk import normalize_funk
 from ..prof import ProfRegion, effective_prof, normalize_prof, region_for
-from ..runtime import Workspace, Ring, Fseq, Cnc, Store, Tcache, TraceRing
+from ..runtime import (Workspace, Ring, Fseq, Cnc, Store, Tcache, TraceRing,
+                       KnobMailbox)
 from ..trace import effective_trace, normalize_trace, writer_for
+from ..tune import RUNTIME_KNOBS, normalize_tune, reader_for
 from . import tiles as tiles_mod
 from .metrics import HIST_REGION_U64, LINK_CONS_U64, LINK_PROD_U64
 from .shed import normalize_shed
@@ -94,7 +102,8 @@ class Topology:
                  trace: dict | None = None, replay: dict | None = None,
                  shed: dict | None = None, funk: dict | None = None,
                  slo: dict | None = None, prof: dict | None = None,
-                 snapshot: dict | None = None):
+                 snapshot: dict | None = None, flight: dict | None = None,
+                 tune: dict | None = None):
         self.name = name
         self.wksp_size = wksp_size
         # [trace] flight-recorder config (trace/recorder.py schema);
@@ -119,6 +128,13 @@ class Topology:
         # [snapshot] (tiles/snapshot.py's schema): the path, cadence
         # and min_slot the snapld/snapin/replay adapters default from
         self.snapshot = snapshot
+        # [flight] durable telemetry archive (flight/__init__ schema):
+        # the recorder tile reads the normalized section off the plan
+        self.flight = flight
+        # [tune] knob space and controller policy (tune/__init__
+        # schema); enable=true makes build() carve the shm knob mailbox
+        # the controller tile steers through
+        self.tune = tune
         self.links: dict[str, LinkSpec] = {}
         self.tiles: dict[str, TileSpec] = {}
         self.tcaches: dict[str, int] = {}           # name -> depth
@@ -274,6 +290,15 @@ class Topology:
                 raise ValueError(f"prof.{key} names unknown tile(s) "
                                  f"{sorted(unknown)}")
         slo_cfg = normalize_slo(self.slo)
+        flight_cfg = normalize_flight(self.flight) \
+            if self.flight is not None else None
+        tune_cfg = normalize_tune(self.tune) \
+            if self.tune is not None else None
+        if any(t.kind == "controller" for t in self.tiles.values()) \
+                and not (tune_cfg and tune_cfg["enable"]):
+            raise ValueError(
+                "controller tile declared but [tune] is missing or "
+                "disabled — it would have no knob mailbox to steer")
         wksp_name = wksp_name or f"/fdtt_{self.name}"
         w = Workspace(wksp_name, self.wksp_size)
         plan: dict = {
@@ -284,6 +309,7 @@ class Topology:
             "links": {}, "fseqs": {}, "tcaches": {}, "tiles": {},
             "trace": trace_cfg, "replay": replay, "shed": shed,
             "funk": funk, "prof": prof_cfg, "snapshot": snapshot,
+            "flight": flight_cfg, "tune": tune_cfg,
         }
 
         def zeroed(nbytes: int) -> int:
@@ -312,6 +338,13 @@ class Topology:
                 st = Store(w, rec_max=fk["rec_max"], txn_max=fk["txn_max"],
                            heap_sz=heap_sz)
                 fk["off"], fk["heap_sz"] = st.off, heap_sz
+            # [tune]: the knob mailbox (single writer: the controller
+            # tile) and the runtime knob order as plan ABI; a disabled
+            # topology gets neither, so every TileCtx.knobs stays None
+            if tune_cfg is not None and tune_cfg["enable"]:
+                plan["tune_mailbox_off"] = KnobMailbox.create(
+                    w, len(RUNTIME_KNOBS)).off
+                plan["tune_knobs"] = list(RUNTIME_KNOBS)
             for tn, t in self.tiles.items():
                 for i in t.ins:
                     if i["reliable"]:
@@ -401,8 +434,8 @@ class TileCtx:
     fseqs (own consumer fseqs + downstream reliable fseqs for each out
     link), tcaches, cnc, metric and per-link telemetry views, the flight
     recorder's writer (`trace`, None on an untraced tile: the whole
-    disabled path) and the profile region (`prof`, None when
-    unprofiled)."""
+    disabled path), the profile region (`prof`, None when
+    unprofiled) and the knob reader (`knobs`, None without one)."""
 
     def __init__(self, plan: dict, tile_name: str):
         self.plan, self.tile_name = plan, tile_name
@@ -455,6 +488,10 @@ class TileCtx:
         # continuous profiler: None unless build carved a region for
         # this tile (the stem starts a sampler only then)
         self.prof = region_for(plan, self.wksp, tile_name)
+        # fdtune knob mailbox (read side): None unless the plan carved
+        # the mailbox AND this tile's kind reads a runtime knob, so a
+        # steered adapter pays one attribute check a housekeeping pass
+        self.knobs = reader_for(plan, self.wksp, tile_name)
 
         # per-link telemetry views: consumer blocks for the in links,
         # producer blocks for the out links, flushed by the stem

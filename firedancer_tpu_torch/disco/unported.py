@@ -14,7 +14,7 @@ from __future__ import annotations
 # topology sections of the reference (the JAX package's
 # disco/topo.py:85-126 and app/config.py's top-level tables); [witness]
 # is the device probe of witness/ (item 6's other half, 6b)
-UNPORTED_SECTIONS = {"flight": 10, "tune": 11, "witness": "6b"}
+UNPORTED_SECTIONS = {"witness": "6b"}
 
 # per-tile args of the reference that the port refuses by design (a
 # deliberate difference, ROADMAP.md C, not a queue-A item): the verify
@@ -33,8 +33,7 @@ UNPORTED_CHAOS_ACTIONS: dict[str, object] = {}
 
 # every kind of the reference's tile registry without an adapter here
 UNPORTED_KINDS = {
-    "gui": 9, "flight": 10, "controller": 11,
-    "cswtch": 12, "netlnk": 12,
+    "gui": 9, "cswtch": 12, "netlnk": 12,
     **dict.fromkeys(("bundle", "plugin", "vinyl", "ipecho", "pcap"), 13),
 }
 

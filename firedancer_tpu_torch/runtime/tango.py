@@ -3,10 +3,10 @@
 A copy of the JAX package's runtime/tango.py, trimmed to what the
 topology's main path uses: workspaces, frag rings with their per-join
 telemetry counters, fseqs, cncs, tcaches, the funk store (`Store`, the
-exec tile family's shared accounts) and the flight recorder's
-TraceRing (pure numpy; without the reference's `snapshot_since`, which
-serves the flight archive, ROADMAP.md queue A item 10). The library
-is built from `firedancer_tpu_torch/native/` by `make` at first use.
+exec tile family's shared accounts), the flight recorder's
+TraceRing and the fdtune knob mailbox (`KnobMailbox`; both pure numpy,
+byte for byte the reference's). The library is built from
+`firedancer_tpu_torch/native/` by `make` at first use.
 
 Layout convention: a Workspace is a named shm segment; objects (rings,
 fseqs, cncs, tcaches, payload arenas) are carved out of it at 64-byte
@@ -498,6 +498,106 @@ class TraceRing:
             return cur, recs[:0]
         idx = [(cur - n + i) & (self.depth - 1) for i in range(n)]
         return cur, recs[idx]
+
+    def snapshot_since(self, since: int) -> tuple[int, np.ndarray, int]:
+        """Incremental snapshot for periodic drainers (the fdflight
+        recorder): only records appended after a prior cursor value.
+        -> (cursor, records (n, 4) u64 oldest-first, lost) where `lost`
+        counts records overwritten before this pass could read them —
+        the drain cadence was slower than the write rate. Same torn-
+        record caveat as snapshot()."""
+        cur, recs = self.snapshot()
+        new = cur - since
+        if new <= 0:
+            return cur, recs[:0], 0
+        lost = max(0, new - len(recs))
+        return cur, recs[max(0, len(recs) - new):], lost
+
+
+TUNE_HDR_U64 = 8              # [0] generation, [1] knob count, reserved
+TUNE_SLOT_U64 = 4             # value | seq | ts_ns | reserved
+
+
+class KnobMailbox:
+    """Bounded shm knob mailbox (fdtune): the controller tile's ONLY
+    write surface onto the running topology. One fixed slot per knob
+    in the plan's `tune_knobs` order (the inter-process ABI, like
+    metric slot names), single writer per region — the controller tile
+    alone posts, every adapter polls its effective knobs read-side at
+    housekeeping cadence (the reference's fdlint catalogs the region's
+    ownership as "knob-mailbox"; fdlint is ROADMAP.md queue A item 20).
+
+    Slot layout (4 little-endian u64 words):
+
+        [0] value   current knob value (unsigned integer domain —
+                    us for windows, counts for waves/depths/levels)
+        [1] seq     posts to THIS knob (0 = never steered: readers
+                    keep their configured value — the disabled/idle
+                    fast path never overrides config)
+        [2] ts_ns   utils/tempo.monotonic_ns of the last post (the
+                    trace/heartbeat clock, so decisions line up with
+                    EV_TUNE records on one timeline)
+        [3]         reserved
+
+    Write ordering mirrors TraceRing: the slot words land before the
+    slot seq bump, and the header generation bumps last, so a reader
+    that snapshots on a generation change never sees a half-posted
+    knob. Readers poll ~100/s, the writer posts a few times a minute —
+    torn reads are the same one-slot-in-flight caveat as TraceRing."""
+
+    def __init__(self, wksp: Workspace, off: int, n_knobs: int,
+                 init: bool = False):
+        if n_knobs <= 0:
+            raise ValueError(f"knob mailbox needs >= 1 knob, got "
+                             f"{n_knobs}")
+        self.wksp, self.off, self.n_knobs = wksp, off, n_knobs
+        self._v = wksp.view(off, self.footprint(n_knobs)).view(np.uint64)
+        if init:
+            self._v[:] = 0
+            self._v[1] = n_knobs
+
+    @staticmethod
+    def footprint(n_knobs: int) -> int:
+        return (TUNE_HDR_U64 + n_knobs * TUNE_SLOT_U64) * 8
+
+    @classmethod
+    def create(cls, wksp: Workspace, n_knobs: int) -> "KnobMailbox":
+        off = wksp.alloc(cls.footprint(n_knobs))
+        return cls(wksp, off, n_knobs, init=True)
+
+    @property
+    def generation(self) -> int:
+        """Total posts across every knob (readers cheap-check this
+        before rescanning slots)."""
+        return int(self._v[0])
+
+    def post(self, idx: int, value: int, ts_ns: int = 0):
+        """Single-writer post (the controller tile alone): land the
+        slot words, then the slot seq, then the generation."""
+        if not 0 <= idx < self.n_knobs:
+            raise IndexError(f"knob index {idx} out of range "
+                             f"[0, {self.n_knobs})")
+        v = self._v
+        base = TUNE_HDR_U64 + idx * TUNE_SLOT_U64
+        m64 = (1 << 64) - 1
+        v[base] = int(value) & m64
+        v[base + 2] = int(ts_ns) & m64
+        v[base + 1] = int(v[base + 1]) + 1
+        v[0] = int(v[0]) + 1
+
+    def read(self, idx: int) -> tuple[int, int]:
+        """-> (value, seq). seq == 0 means never posted — the reader
+        keeps its configured value."""
+        base = TUNE_HDR_U64 + idx * TUNE_SLOT_U64
+        seq = int(self._v[base + 1])
+        return (int(self._v[base]), seq)
+
+    def snapshot(self):
+        """One-pass copy -> (generation, (n_knobs, 4) u64 slots) —
+        the coherent read for monitors/gui (u64_snapshot contract)."""
+        raw = np.array(self._v, copy=True)
+        return int(raw[0]), raw[TUNE_HDR_U64:].reshape(
+            self.n_knobs, TUNE_SLOT_U64)
 
 
 class Store:

@@ -193,7 +193,8 @@ class VerifyTile:
         self.dev = _device.resolve(device)
         self.mode = mode
         # False: the prefilter counts but never sheds (every chunk goes
-        # to strict); the reference steers it at run time (fdtune)
+        # to strict); the fdtune bulk_prefilter knob steers it at run
+        # time (disco/tiles.py VerifyAdapter.housekeeping)
         self.prefilter_shed = bool(prefilter_shed)
         self.in_ring, self.out_ring, self.tcache = in_ring, out_ring, tcache
         # horizontal sharding: tile rr_idx owns frags with

@@ -61,7 +61,10 @@ def test_importing_every_module_loads_no_jax():
         "'svm.txncache', 'groove', 'groove.groove', 'utils.ristretto', "
         "'utils.bn254', 'tools.sbpf_elf', 'tools.sbpf_family', "
         "'waltz', 'waltz.quic', 'waltz.tls', 'utils.x25519', "
-        "'tiles.quic', 'tools.quic_load'}\n"
+        "'tiles.quic', 'tools.quic_load', 'tune', 'tune.controller', "
+        "'tune.search', 'tune.profile', 'tune.cli', 'tune.__main__', "
+        "'flight', 'flight.codec', 'flight.archive', 'flight.recorder', "
+        "'flight.cli', 'flight.__main__', 'tools.e2e'}\n"
         "assert {'firedancer_tpu_torch.' + m for m in new} <= set(mods)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -298,6 +301,73 @@ def test_trace_and_chaos_module_loads_no_jax(mod):
     """Each module of the flight recorder and the chaos harness, imported
     alone in a fresh interpreter."""
     test_leader_leg_module_loads_no_jax(mod)
+
+
+@pytest.mark.parametrize("mod", [
+    "firedancer_tpu_torch.tune", "firedancer_tpu_torch.tune.controller",
+    "firedancer_tpu_torch.tune.search", "firedancer_tpu_torch.tune.profile",
+    "firedancer_tpu_torch.tune.cli", "firedancer_tpu_torch.flight",
+    "firedancer_tpu_torch.flight.codec",
+    "firedancer_tpu_torch.flight.archive",
+    "firedancer_tpu_torch.flight.recorder",
+    "firedancer_tpu_torch.flight.cli", "firedancer_tpu_torch.tools.e2e"])
+def test_tune_and_flight_module_loads_no_jax(mod):
+    """Each module of fdtune, fdflight and the sweep's measurement,
+    imported alone in a fresh interpreter."""
+    test_leader_leg_module_loads_no_jax(mod)
+
+
+def test_controller_and_flight_tiles_boot_without_torch(tmp_path):
+    """The controller and flight tiles run no kernel: their tile entry
+    point (disco/launch.tile_main), run in a fresh interpreter on a plan
+    built here with a synth -> sink pipeline, reaches RUN and halts with
+    neither torch nor jax loaded."""
+    import json
+    from firedancer_tpu_torch.disco import Topology
+    from firedancer_tpu_torch.runtime import Workspace
+    arch = tmp_path / "arch"
+    plan = (Topology(f"ttimpc{os.getpid()}", wksp_size=1 << 22, tune={},
+                     trace={"enable": True, "depth": 64},
+                     flight={"dir": str(arch), "hz": 50.0})
+            .link("a_b", depth=16, mtu=256)
+            .tile("s", "synth", outs=["a_b"], count=8, unique=4)
+            .tile("k", "sink", ins=["a_b"])
+            .tile("ctl", "controller").tile("flight", "flight").build())
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps(plan))
+    code = (
+        "import json, sys, threading, time\n"
+        "from firedancer_tpu_torch.disco.launch import tile_main\n"
+        "from firedancer_tpu_torch.runtime import (CNC_HALT, CNC_RUN, "
+        "Cnc, Workspace)\n"
+        f"plan = json.load(open({str(path)!r}))\n"
+        "w = Workspace(plan['wksp']['name'], plan['wksp']['size'], "
+        "create=False)\n"
+        "ths = [threading.Thread(target=tile_main, args=(plan, tn)) "
+        "for tn in ('ctl', 'flight')]\n"
+        "for t in ths: t.start()\n"
+        "cncs = [Cnc(w, off=plan['tiles'][tn]['cnc_off']) "
+        "for tn in ('ctl', 'flight')]\n"
+        "deadline = time.time() + 60\n"
+        "while any(c.state != CNC_RUN for c in cncs):\n"
+        "    assert time.time() < deadline, 'never reached RUN'\n"
+        "    time.sleep(0.02)\n"
+        "time.sleep(0.2)\n"
+        "for c in cncs: c.state = CNC_HALT\n"
+        "for t in ths: t.join(30)\n"
+        "assert not any(t.is_alive() for t in ths)\n"
+        "w.close()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'firedancer_tpu'))\n"
+        "assert not bad, bad[:8]\n")
+    try:
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                           env=dict(os.environ, PYTHONPATH=ROOT),
+                           capture_output=True, text=True, timeout=120)
+    finally:
+        Workspace.unlink_name(plan["wksp"]["name"])
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert any(n.startswith("seg-") for n in os.listdir(arch))
 
 
 @pytest.mark.parametrize("mod", [

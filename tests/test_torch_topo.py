@@ -127,12 +127,28 @@ PORTED_13_KINDS = ("repair", "send", "tower")
 PORTED_13_TILE_ARGS = {"drop_slot_every": 13}
 # the QUIC door, refused until queue A item 3b
 PORTED_3B_KINDS = ("quic",)
+# the flight recorder (item 10) and the fdtune controller (item 11): their
+# sections, refused before them, and their tile kinds
+PORTED_10_11_SECTIONS = {"flight": ({"segmnt_mb": 1.0}, "segment_mb"),
+                         "tune": ({"intervals": 1}, "interval_s")}
+PORTED_10_11_KINDS = ("controller", "flight")
 
 
 @pytest.mark.parametrize("section", sorted(UNPORTED_SECTIONS)
-                         + list(PORTED_5F_SECTIONS))
+                         + list(PORTED_5F_SECTIONS)
+                         + sorted(PORTED_10_11_SECTIONS))
 def test_unported_section_is_refused_with_its_item(section):
     cfg = tconfig.load_config(TOML, overrides={section: {}})
+    if section in PORTED_10_11_SECTIONS:
+        # accepted, validated by its normalizer (an unknown key raises
+        # the reference's did-you-mean) and handed to the Topology
+        assert section not in UNPORTED_SECTIONS
+        assert getattr(tconfig.build_topology(cfg), section) == {}
+        bad, hint = PORTED_10_11_SECTIONS[section]
+        cfg = tconfig.load_config(TOML, overrides={section: bad})
+        with pytest.raises(ValueError, match=f"did you mean '{hint}'"):
+            tconfig.build_topology(cfg)
+        return
     if section in PORTED_5F_SECTIONS:
         # accepted, validated (an unknown key raises the reference's
         # did-you-mean) and carried on the plan with its defaults
@@ -149,8 +165,31 @@ def test_unported_section_is_refused_with_its_item(section):
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS)
                          + list(PORTED_5F_KINDS) + list(PORTED_13_KINDS)
-                         + list(PORTED_3B_KINDS))
+                         + list(PORTED_3B_KINDS) + list(PORTED_10_11_KINDS))
 def test_unported_kind_is_refused_with_its_item(kind):
+    if kind in PORTED_10_11_KINDS:
+        # accepted from code and through the config gate, which takes
+        # no arg of its own for either; the controller builds with an
+        # enabled [tune] and only with one
+        assert kind not in UNPORTED_KINDS and kind in ttiles.REGISTRY
+        assert Topology("tk").tile("t", kind).tiles["t"].kind == kind
+        tune = {"tune": {}} if kind == "controller" else {}
+        topo = tconfig.build_topology(
+            {**tune, "tile": [{"name": "t", "kind": kind}]},
+            name=_name(kind))
+        plan = topo.build()
+        trt.Workspace.unlink_name(plan["wksp"]["name"])
+        assert plan["tiles"]["t"]["kind"] == kind
+        assert ("tune_mailbox_off" in plan) == (kind == "controller")
+        if kind == "controller":
+            with pytest.raises(ValueError, match="no knob mailbox"):
+                tconfig.build_topology(
+                    {"tune": {"enable": False},
+                     "tile": [{"name": "t", "kind": kind}]}).build()
+        with pytest.raises(ValueError, match="unknown key"):
+            tconfig.build_topology(
+                {"tile": [{"name": "t", "kind": kind, "nosuch": 1}]})
+        return
     if kind in PORTED_5F_KINDS + PORTED_13_KINDS + PORTED_3B_KINDS:
         # accepted from code and through the config gate, with the
         # reference's keys (lint/registry.py) and no other
@@ -175,7 +214,7 @@ def test_every_reference_kind_is_ported_or_refused():
                                     "sign", "replay", "sock", "gossip",
                                     "exec", "resolv", "metric",
                                     *PORTED_5F_KINDS, *PORTED_13_KINDS,
-                                    *PORTED_3B_KINDS}
+                                    *PORTED_3B_KINDS, *PORTED_10_11_KINDS}
     assert set(jtiles.REGISTRY) == set(ttiles.REGISTRY) | set(UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown tile kind"):
         ttiles.adapter_class("nosuch_kind")
